@@ -1,0 +1,13 @@
+"""PyTorch/CUDA port of the HFL planner (the JAX package ``repro`` is the
+reference).
+
+Same layout and public names as ``repro``: :mod:`repro_torch.core` (scenario
+model, cost model, SROA), :mod:`repro_torch.fleet` (batched SROA, the
+assignment engine, dynamics, the planner and the streaming service),
+:mod:`repro_torch.kernels` (the hand-written Hopper kernels and their plain
+PyTorch versions) and :mod:`repro_torch.launch` (the ``serve`` entry point).
+
+Every entry point takes an explicit ``device=`` (default ``"cuda"``); the CPU
+is used only when asked for, and then every kernel wrapper runs its plain
+PyTorch version.
+"""

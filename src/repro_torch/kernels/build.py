@@ -1,0 +1,116 @@
+"""Build the CUDA kernels with nvcc and load them through ctypes.
+
+Every ``csrc/*.cu`` source compiles to an object (one ``nvcc`` per source,
+all started together), and the objects link into one shared library with a
+plain C interface.  The library lands in ``build/repro_torch_kernels/`` at
+the repository root, named by a hash of the sources and flags so an edited
+source never loads a stale build.  It is built on first use, from the
+sources alone.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+# --fmad=false keeps every multiply and add separately rounded, as the
+# plain PyTorch versions compute them, so kernel and plain version agree to
+# the last bit wherever their reduction orders do.
+NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                     "--fmad=false"]
+
+_lock = threading.Lock()
+_lib = None
+build_log = ""            # compiler output of this process's build
+
+
+def build_dir() -> Path:
+    return Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and Path(cand).exists():
+            return cand
+    raise RuntimeError("nvcc not found: the repro_torch CUDA kernels are "
+                       "built with nvcc from the CUDA toolkit")
+
+
+def _digest(sources: list[Path], flags: list[str]) -> str:
+    h = hashlib.sha1(" ".join(flags).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _compile(sources: list[Path], out: Path, verbose: bool) -> str:
+    """nvcc each source in parallel, then link one shared library."""
+    nvcc = _nvcc()
+    flags = NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else [])
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs, procs = [], []
+        for src in sources:
+            obj = Path(tmp) / (src.stem + ".o")
+            objs.append(obj)
+            procs.append(subprocess.Popen(
+                [nvcc, *flags, "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs = []
+        for src, proc in zip(sources, procs):
+            text, _ = proc.communicate()
+            logs.append(text)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name}:\n{text}")
+        part = Path(tmp) / out.name
+        link = subprocess.run(
+            [nvcc, *ARCH, "-shared", *map(str, objs), "-o", str(part)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        os.replace(part, out)        # atomic: concurrent builds race safely
+    return "".join(logs) + link.stdout
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+        ctypes.c_float
+    lib.sroa_invert_rate.argtypes = [p, p, p, ll, p, ll, i, p]
+    lib.sroa_solve.argtypes = ([p] * 19 + [i] * 6 + [f] * 5 + [p])
+    lib.topk_moves.argtypes = [p] * 10 + [i] * 4 + [p]
+    for fn in (lib.sroa_invert_rate, lib.sroa_solve, lib.topk_moves):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def load(verbose: bool = False) -> ctypes.CDLL:
+    """The kernels' shared library, built from ``csrc/`` on first use.
+
+    ``verbose`` builds anew even when a library is on disk and keeps the
+    compiler's report (``-Xptxas -v``: registers, spills) in ``build_log``.
+    """
+    global _lib, build_log
+    with _lock:
+        if _lib is not None:
+            return _lib
+        sources = sorted(CSRC.glob("*.cu"))
+        out_dir = build_dir()
+        out_dir.mkdir(parents=True, exist_ok=True)
+        so = out_dir / f"libreprotorch_{_digest(sources, NVCC_FLAGS)}.so"
+        if not so.exists() or verbose:
+            build_log = _compile(sources, so, verbose)
+        _lib = _bind(ctypes.CDLL(str(so)))
+        return _lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a launch."""
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed: cudaError_t {err}")

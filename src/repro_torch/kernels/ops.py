@@ -1,0 +1,159 @@
+"""Public wrappers for the kernels: flatten, dispatch by device, count.
+
+Each wrapper flattens every leading axis into its kernel's problem axis
+(one launch per call, as ``repro/kernels/ops.py`` does) and dispatches on
+the device of its tensors: CPU tensors run the plain PyTorch version in
+:mod:`repro_torch.kernels.ref`; CUDA tensors launch the hand-written
+kernel, or raise.  Every tensor operand of a call must lie on one device
+(Python scalars broadcast onto it); a call that mixes devices raises.  ``LAUNCHES`` counts kernel launches (only launches: the
+plain version never counts) under ``sroa_invert`` (K1), ``sroa_solve``
+(K2) and ``topk_moves`` (K3).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import ref
+
+LAUNCHES = {"sroa_invert": 0, "sroa_solve": 0, "topk_moves": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _on_cuda(*operands) -> bool:
+    """The route of a call: True for a kernel launch, False for the plain
+    version.  Raises unless every tensor operand lies on one CPU or CUDA
+    device."""
+    devs = {x.device for x in operands if isinstance(x, torch.Tensor)}
+    if len(devs) != 1:
+        raise ValueError("kernel operands must lie on one device, got "
+                         f"{sorted(str(d) for d in devs)}")
+    (dev,) = devs
+    if dev.type == "cuda":
+        return True
+    if dev.type == "cpu":
+        return False
+    raise ValueError(f"no kernel route for tensors on {dev}")
+
+
+def _f32(x, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.float32, device=like.device)
+
+
+def sroa_invert_rate(G, target, b_max, iters: int = 42) -> torch.Tensor:
+    """(N,) Lemma-1 inversion with one bandwidth cap ``b_max`` (K1)."""
+    cuda = _on_cuda(G, target, b_max)
+    G = _f32(G, G)
+    target = _f32(target, G).contiguous()
+    bm = _f32(b_max, G).reshape(1)
+    if not cuda:
+        return ref.invert_rate_plain(G, target, bm, iters)
+    from repro_torch.kernels import sroa_bisect
+    out = sroa_bisect.invert_rate_cuda(G.contiguous(), target, bm, iters)
+    LAUNCHES["sroa_invert"] += 1
+    return out
+
+
+def sroa_invert_rate_batched(G, target, b_max,
+                             iters: int = 42) -> torch.Tensor:
+    """Fleet-batched inversion: G, target (..., N); b_max (...) or scalar.
+
+    Every leading axis flattens into one launch of K1 with a per-element
+    cap.
+    """
+    cuda = _on_cuda(G, target, b_max)
+    G = _f32(G, G)
+    shape = G.shape
+    target = _f32(target, G)
+    bm = torch.broadcast_to(_f32(b_max, G)[..., None], shape)
+    if not cuda:
+        return ref.invert_rate_plain(G, target, bm, iters)
+    from repro_torch.kernels import sroa_bisect
+    out = sroa_bisect.invert_rate_cuda(
+        G.reshape(-1).contiguous(), target.reshape(-1).contiguous(),
+        bm.reshape(-1).contiguous(), iters)
+    LAUNCHES["sroa_invert"] += 1
+    return out.reshape(shape)
+
+
+def sroa_solve_batched(A, J, H, delta, h, f_max, p_max, B, b_max, N0, lam,
+                       E_cloud_total, *, b_iters: int = 42,
+                       f_iters: int = 40, p_iters: int = 36,
+                       t_iters: int = 48, eps0: float = 1e-4,
+                       eps1: float = 1e-4, eps2: float = 1e-4,
+                       t_low: float = 1.0, t_up: float = 3e7):
+    """Fused full-SROA solve (K2): every (..., N)-leading axis in one launch.
+
+    Per-user operands are (..., N); per-problem operands are (...) or
+    scalar.  Returns (b, f, p) shaped (..., N) and (t, R, b_sum, feasible)
+    shaped (...).
+    """
+    cuda = _on_cuda(A, J, H, delta, h, f_max, p_max, B, b_max, N0, lam,
+                    E_cloud_total)
+    A = _f32(A, A)
+    shape = torch.broadcast_shapes(*(torch.as_tensor(x).shape for x in
+                                     (A, J, H, delta, h, f_max, p_max)))
+    lead, N = shape[:-1], shape[-1]
+    P = math.prod(lead)
+
+    def fu(x):
+        return torch.broadcast_to(_f32(x, A), lead + (N,)).reshape(P, N)
+
+    def fs(x):
+        return torch.broadcast_to(_f32(x, A), lead).reshape(P)
+
+    per_user = tuple(fu(x) for x in (A, J, H, delta, h, f_max, p_max))
+    per_problem = tuple(fs(x) for x in (B, b_max, N0, lam, E_cloud_total))
+    kw = dict(b_iters=b_iters, f_iters=f_iters, p_iters=p_iters,
+              t_iters=t_iters, eps0=eps0, eps1=eps1, eps2=eps2, t_low=t_low,
+              t_up=t_up)
+    if cuda:
+        from repro_torch.kernels import sroa_bisect
+        out = sroa_bisect.solve_cuda(
+            tuple(x.contiguous() for x in per_user),
+            tuple(x.contiguous() for x in per_problem), **kw)
+        LAUNCHES["sroa_solve"] += 1
+    else:
+        out = ref.sroa_solve_plain(*per_user, *per_problem, **kw)
+    b, f, p, t, R, b_sum, feas = out
+    return (b.reshape(lead + (N,)), f.reshape(lead + (N,)),
+            p.reshape(lead + (N,)), t.reshape(lead), R.reshape(lead),
+            b_sum.reshape(lead), feas.reshape(lead))
+
+
+def topk_move_scores(gain, H, p_max, assign, mask, N0, B, *, k: int):
+    """Top-k move pruning (K3): the cheapest k (user, dst) moves per cell.
+
+    gain is (..., N, M); H/p_max/assign/mask are (..., N); N0/B are (...)
+    or scalar.  Returns (user, dst, score), each (..., k); entries with
+    ``score >= 1e29`` are padding (fewer than k valid moves).
+    """
+    cuda = _on_cuda(gain, H, p_max, assign, mask, N0, B)
+    gain = _f32(gain, gain)
+    lead, (N, M) = gain.shape[:-2], gain.shape[-2:]
+    P = math.prod(lead)
+
+    def fu(x, dtype):
+        x = torch.as_tensor(x, dtype=dtype, device=gain.device)
+        return torch.broadcast_to(x, lead + (N,)).reshape(P, N)
+
+    def fs(x):
+        return torch.broadcast_to(_f32(x, gain), lead).reshape(P)
+
+    args = (gain.reshape(P, N, M), fu(H, torch.float32),
+            fu(p_max, torch.float32), fu(assign, torch.int32),
+            fu(mask, torch.bool), fs(N0), fs(B))
+    if cuda:
+        from repro_torch.kernels import topk_moves
+        user, dst, score = topk_moves.topk_moves_cuda(
+            *(x.contiguous() for x in args), k)
+        LAUNCHES["topk_moves"] += 1
+    else:
+        user, dst, score = ref.topk_moves_plain(*args, k=k)
+    return (user.reshape(lead + (k,)), dst.reshape(lead + (k,)),
+            score.reshape(lead + (k,)))

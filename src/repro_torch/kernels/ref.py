@@ -1,0 +1,270 @@
+"""Plain PyTorch versions of the CUDA kernels (the correctness ground truth).
+
+Each function repeats its kernel's arithmetic operation for operation, on
+batched tensors, so the CPU path and the on-card comparison use the same
+numbers:
+
+* :func:`invert_rate_plain` — K1 (``csrc/sroa_bisect.cu::sroa_invert_rate``).
+* :func:`sroa_solve_plain`  — K2 (``csrc/sroa_bisect.cu::sroa_solve``): the
+  fused Algorithm 2-4 nest over a (P, N) batch.  Converged problems freeze
+  (``torch.where``) exactly as the TPU kernel's fixed-trip loops freeze
+  them; once every problem of the batch is frozen the remaining trips are
+  no-ops, so the loop stops there.
+* :func:`topk_moves_plain`  — K3 (``csrc/topk_moves.cu::topk_moves``).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+LN2 = float(np.log(2.0))
+_BIG = 1e30
+
+
+def _const(like: torch.Tensor, value: float) -> torch.Tensor:
+    """A 0-d tensor of ``like``'s type and device.  Dividing by it is a
+    true division on every device: PyTorch's CUDA kernels turn a divide by
+    a Python scalar into a multiply by its reciprocal, which the kernels
+    (and the JAX package) do not do."""
+    return torch.full((), value, dtype=like.dtype, device=like.device)
+
+
+def rate_plain(b: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
+    b_safe = torch.clamp_min(b, 1e-12)
+    return b_safe * torch.log1p(G / b_safe) / _const(b_safe, LN2)
+
+
+def warp_sum_plain(x: torch.Tensor) -> torch.Tensor:
+    """Row sums of (P, N) in the order of K2's warp reduction, (P, 1).
+
+    Lane ``l`` of the warp adds users ``l, l + 32, ...`` in turn, then five
+    butterfly steps add lane ``l ^ off`` for off = 16, 8, 4, 2, 1, so the
+    sum is bitwise the kernel's (``torch.sum`` adds in another order)."""
+    P, N = x.shape
+    K = -(-N // 32)
+    lanes = F.pad(x, (0, K * 32 - N)).reshape(P, K, 32)
+    v = lanes[:, 0]
+    for k in range(1, K):
+        v = v + lanes[:, k]
+    idx = torch.arange(32, device=x.device)
+    for off in (16, 8, 4, 2, 1):
+        v = v + v[:, idx ^ off]
+    return v[:, :1]
+
+
+def bisect_rate_plain(G: torch.Tensor, target: torch.Tensor,
+                      bm: torch.Tensor, iters: int) -> torch.Tensor:
+    """``iters`` bisection steps of rate(b) >= target on [0, bm]; returns
+    the upper end.  Each step is ``mid = 0.5 (lo + hi)``, then ``hi = mid``
+    where the rate reaches the target and ``lo = mid`` elsewhere.
+
+    The steps run in place on preallocated buffers: at the planner's sizes
+    the loop is bound by per-operation overhead, not by arithmetic.
+    """
+    lo = torch.zeros_like(G)
+    hi = bm.clone()
+    mid, b_safe, r = (torch.empty_like(G) for _ in range(3))
+    ok = torch.empty(G.shape, dtype=torch.bool, device=G.device)
+    # 0-d operands of G's type: a Python scalar would be wrapped and cast
+    # on every call (the same float32 values either way).
+    half, ln2 = (torch.full((), v, dtype=G.dtype, device=G.device)
+                 for v in (0.5, LN2))
+    for _ in range(iters):
+        torch.add(lo, hi, out=mid).mul_(half)
+        torch.clamp_min(mid, 1e-12, out=b_safe)
+        torch.div(G, b_safe, out=r).log1p_().mul_(b_safe).div_(ln2)
+        torch.ge(r, target, out=ok)
+        torch.where(ok, lo, mid, out=lo)
+        torch.where(ok, mid, hi, out=hi)
+    return hi
+
+
+def invert_rate_plain(G: torch.Tensor, target: torch.Tensor, b_max,
+                      iters: int = 42) -> torch.Tensor:
+    """Smallest b in [0, b_max] with rate(b) >= target; b_max if infeasible.
+
+    ``b_max`` broadcasts against ``G`` (scalar, per problem or per element).
+    """
+    bm = torch.broadcast_to(torch.as_tensor(b_max, dtype=G.dtype,
+                                            device=G.device), G.shape)
+    hi = bisect_rate_plain(G, target, bm, iters)
+    return torch.where(rate_plain(bm, G) >= target, hi, bm)
+
+
+def sroa_solve_plain(A, J, H, delta, h, f_max, p_max, B, b_max, N0, lam,
+                     E_cloud_total, *, b_iters: int = 42, f_iters: int = 40,
+                     p_iters: int = 36, t_iters: int = 48,
+                     eps0: float = 1e-4, eps1: float = 1e-4,
+                     eps2: float = 1e-4, t_low: float = 1.0,
+                     t_up: float = 3e7, work: dict | None = None):
+    """Fused SROA solve of P problems: per-user (P, N), per-problem (P,).
+
+    Returns (b, f, p) as (P, N) and (t, R, b_sum, feasible) as (P,).
+
+    ``work``, when given, receives the work this data needs on the kernel,
+    whose converged problems stop where this batched version only freezes
+    them: ``inversions`` (N-user Lemma-1 inversions), ``f_steps``,
+    ``p_steps`` and ``t_steps`` (bisection steps), summed over problems.
+    """
+    P = A.shape[0]
+    B, bmax, N0, lam, ect = (x.reshape(P, 1) for x in
+                             (B, b_max, N0, lam, E_cloud_total))
+    tally = {name: torch.zeros((), dtype=torch.int64, device=A.device)
+             for name in ("inversions", "f_steps", "p_steps", "t_steps")}
+
+    def count(name, live):
+        # live: (P, 1) problems that really take this step.
+        if work is not None:
+            tally[name] += live.sum()
+
+    def inv(G, tgt, bm):
+        return invert_rate_plain(G, tgt, bm, b_iters)
+
+    def alg2(p, t, live):
+        """Lockstep f bisection + inner b inversion (paper Alg 2)."""
+        G = p * h / N0
+        denom = t - delta - LN2 * H / torch.clamp_min(G, 1e-30)
+        f_lo = torch.where(denom > 0, J / torch.clamp_min(denom, 1e-30),
+                           f_max)
+        f_lo = torch.minimum(torch.clamp_min(f_lo, 0.0), f_max)
+        f_hi = f_max
+
+        def b_of_f(f):
+            tau = t - delta - J / torch.clamp_min(f, 1.0)
+            tgt = torch.where(tau > 0, H / torch.clamp_min(tau, 1e-30), _BIG)
+            return inv(G, tgt, bmax)
+
+        for _ in range(f_iters):
+            gap = torch.amax((f_hi - f_lo) / torch.clamp_min(f_hi, 1.0),
+                             dim=1, keepdim=True)
+            act = gap > eps0
+            if not bool(act.any()):
+                break
+            count("f_steps", live & act)
+            count("inversions", live & act)
+            f = 0.5 * (f_lo + f_hi)
+            spare = warp_sum_plain(b_of_f(f)) < B
+            f_lo = torch.where(act & ~spare, f, f_lo)
+            f_hi = torch.where(act & spare, f, f_hi)
+        count("inversions", live)
+        b = b_of_f(f_hi)
+        return b, f_hi, warp_sum_plain(b)
+
+    def alg3(t, live):
+        """p bisection (paper Alg 3) with the Lemma-2 lower bound."""
+        gamma = H / bmax
+        eta = t - delta - J / f_max
+        zeta = N0 * bmax / h
+        expo = torch.clamp(gamma / torch.clamp_min(eta, 1e-30), 0.0, 60.0)
+        p_lo = torch.where(eta > 0, zeta * (torch.exp2(expo) - 1.0), p_max)
+        p_lo = torch.minimum(torch.clamp_min(p_lo, 0.0), p_max)
+        p_hi = p_max
+        for _ in range(p_iters):
+            gap = torch.amax((p_hi - p_lo) / torch.clamp_min(p_hi, 1e-12),
+                             dim=1, keepdim=True)
+            act = gap > eps1
+            if not bool(act.any()):
+                break
+            count("p_steps", live & act)
+            p = 0.5 * (p_lo + p_hi)
+            spare = alg2(p, t, live & act)[2] < B
+            p_lo = torch.where(act & ~spare, p, p_lo)
+            p_hi = torch.where(act & spare, p, p_hi)
+        b, f, b_sum = alg2(p_hi, t, live)
+        return b, f, p_hi, b_sum
+
+    def eval_t(t, live):
+        b, f, p, b_sum = alg3(t, live)
+        G = p * h / N0
+        T_com = torch.where(b > 0, H / torch.clamp_min(rate_plain(b, G),
+                                                       1e-30), _BIG)
+        E = warp_sum_plain(p * T_com + A * (f * f)) + ect
+        return b, f, p, b_sum, E + lam * t
+
+    # ---- `_auto_bounds`: bracket t from the scenario itself --------------
+    G_ab = p_max * h / N0
+    lo = torch.full_like(B, t_low)
+    hi = torch.full_like(B, t_up)
+    every = torch.ones_like(B, dtype=torch.bool)
+    for _ in range(t_iters):
+        count("inversions", every)
+        mid = 0.5 * (lo + hi)
+        tau = mid - delta - J / f_max
+        tgt = torch.where(tau > 0, H / torch.clamp_min(tau, 1e-30), _BIG)
+        ok = warp_sum_plain(inv(G_ab, tgt, B)) < B
+        lo = torch.where(ok, lo, mid)
+        hi = torch.where(ok, mid, hi)
+    n_eff = torch.clamp_min(torch.sum((H > 0).to(H.dtype), dim=1,
+                                      keepdim=True), 1.0)
+    T_eq = H / torch.clamp_min(rate_plain(B / n_eff, G_ab), 1e-30)
+    t_naive = torch.amax(T_eq + J / f_max + delta, dim=1, keepdim=True)
+    t_lo = 0.95 * hi
+    factor = torch.clamp(_const(lam, 8.0) / torch.clamp_min(lam, 1e-30),
+                         8.0, 2e4)
+    t_up = torch.maximum(factor * t_naive, 2.0 * t_lo)
+
+    # ---- Algorithm 4: value-guided bisection on t ------------------------
+    b_tol = B * (1.0 + 1e-3)
+    bb, fb, pb, bsb, Rb = eval_t(t_up, every)
+    tb = t_up
+    R_star = torch.where(bsb > b_tol, _BIG, Rb)
+    for _ in range(t_iters):
+        act = (t_up - t_lo) / t_up > eps2
+        if not bool(act.any()):
+            break
+        count("t_steps", act)
+        t = 0.5 * (t_lo + t_up)
+        b, f, p, bs, R = eval_t(t, act)
+        infeasible = bs > b_tol
+        improved = ~infeasible & (R <= R_star)
+        upd = act & improved
+        t_lo = torch.where(act & (infeasible | (R > R_star)), t, t_lo)
+        t_up = torch.where(upd, t, t_up)
+        R_star = torch.where(upd, R, R_star)
+        bb, fb, pb = (torch.where(upd, new, old)
+                      for new, old in ((b, bb), (f, fb), (p, pb)))
+        tb, Rb, bsb = (torch.where(upd, new, old)
+                       for new, old in ((t, tb), (R, Rb), (bs, bsb)))
+    if work is not None:
+        work.update({name: int(v) for name, v in tally.items()})
+    return (bb, fb, pb, tb[:, 0], Rb[:, 0], bsb[:, 0],
+            (bsb <= b_tol)[:, 0])
+
+
+def topk_moves_plain(gain, H, p_max, assign, mask, N0, B, *, k: int):
+    """Top-k single-user moves of P cells: gain (P, N, M); H, p_max,
+    assign, mask (P, N); N0, B (P,).  Returns (user, dst, score), (P, k).
+    """
+    P, N, M = gain.shape
+    mk = mask.to(torch.float32)
+    n_act = torch.clamp_min(torch.sum(mk, dim=1), 1.0)[:, None, None]
+    b_ref = B[:, None, None] / n_act
+    se = torch.log1p(gain * p_max[..., None]
+                     / torch.clamp_min(N0[:, None, None] * b_ref, 1e-30)
+                     ) / _const(gain, LN2)
+    a = H[..., None] / torch.clamp_min(se, 1e-9)                # (P, N, M)
+    cur = F.one_hot(assign.long(), M).to(torch.float32) * mk[..., None]
+    c_m = torch.sum(cur, dim=1, keepdim=True)                    # (P, 1, M)
+    a_src = torch.sum(a * cur, dim=2, keepdim=True)              # a(n, s)
+    c_src = torch.sum(c_m * cur, dim=2, keepdim=True)            # c_s
+    score = (a * (1.0 + (c_m + 1.0) / n_act)
+             - a_src * (1.0 + c_src / n_act))
+    col = torch.arange(M, device=gain.device)
+    valid = (mk[..., None] > 0) & (col != assign[..., None])
+    score = torch.where(valid, score, _BIG).reshape(P, N * M)
+
+    flat = torch.arange(N * M, device=gain.device).expand(P, N * M)
+    rows = torch.arange(P, device=gain.device)
+    idx, val = [], []
+    for _ in range(k):
+        mn = torch.amin(score, dim=1)
+        pos = torch.amin(torch.where(score == mn[:, None], flat, 2 ** 30),
+                         dim=1)
+        idx.append(pos)
+        val.append(mn)
+        score = score.index_put((rows, pos),
+                                torch.full_like(mn, _BIG))
+    idx = torch.stack(idx, dim=1)
+    return ((idx // M).to(torch.int32), (idx % M).to(torch.int32),
+            torch.stack(val, dim=1))

@@ -1,0 +1,291 @@
+"""Port parity: the three planning kernels' plain PyTorch versions against
+the JAX package's Pallas kernels (run in interpret mode, as the JAX tests
+run them), and the public wrappers' flattening and dispatch.
+
+* K1 ``invert_rate_plain``  vs ``ops.sroa_invert_rate(_batched)``:
+  rtol 1e-5, atol 1e-3 (``tests/test_kernels.py:179``).
+* K2 ``sroa_solve_plain``   vs ``sroa_solve_pallas``: the reference's own
+  fused-vs-nest tolerance, rtol 5e-3 (``tests/test_kernels.py:143``).
+  The TPU kernel pads users to 128 lanes and its padded lanes add
+  ~B 2^-b_iters each to the budget sum, so the two are not bitwise.
+* K3 ``topk_moves_plain``   vs ``ops.topk_move_scores``: indices exact,
+  scores rtol 1e-5, padding and cell axis included.
+
+The CUDA kernels themselves are held against these twins on a card by
+``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from _torch_parity import assert_bitwise, host, scenario_to_torch  # noqa: E402
+from repro.core import sroa as jsroa  # noqa: E402
+from repro.core import system_model as jsm  # noqa: E402
+from repro.core import wireless as jw  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import sroa_bisect as jsb  # noqa: E402
+from repro_torch.core import sroa as tsroa  # noqa: E402
+from repro_torch.core import system_model as tsm  # noqa: E402
+from repro_torch.kernels import build, ops, ref  # noqa: E402
+
+CAPS = dict(b_iters=16, f_iters=10, p_iters=8, t_iters=10)
+
+
+def _t(x, dtype=None):
+    return torch.tensor(np.asarray(x), dtype=dtype)
+
+
+@pytest.fixture
+def launches():
+    """Counts before the test; the CPU path must never add to them."""
+    before = dict(ops.LAUNCHES)
+    yield
+    assert ops.LAUNCHES == before
+
+
+# ------------------------------------------------------------------ K1
+@pytest.mark.parametrize("n", [1, 17, 51])
+def test_invert_plain_matches_pallas(n, launches):
+    rng = np.random.default_rng(n)
+    G = np.asarray(rng.uniform(1e3, 1e9, n), np.float32)
+    tgt = np.asarray(rng.uniform(0.0, 1.3, n) * G / np.log(2.0), np.float32)
+    want = jops.sroa_invert_rate(jnp.asarray(G), jnp.asarray(tgt), 1e7,
+                                 iters=42)
+    got = ops.sroa_invert_rate(_t(G), _t(tgt), 1e7, iters=42)
+    np.testing.assert_allclose(host(got), host(want), rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("shape", [(3, 17), (2, 3, 5), (1, 1)])
+def test_invert_batched_odd_shapes_match_pallas(shape, launches):
+    rng = np.random.default_rng(len(shape))
+    G = np.asarray(np.abs(rng.normal(size=shape)) * 1e6 + 1e3, np.float32)
+    tgt = np.asarray(np.abs(rng.normal(size=shape)) * 1e4, np.float32)
+    bm = np.asarray(rng.uniform(1e6, 2e7, shape[:-1]), np.float32)
+    want = jops.sroa_invert_rate_batched(jnp.asarray(G), jnp.asarray(tgt),
+                                         jnp.asarray(bm))
+    got = ops.sroa_invert_rate_batched(_t(G), _t(tgt), _t(bm))
+    assert got.shape == shape
+    np.testing.assert_allclose(host(got), host(want), rtol=1e-5, atol=1e-3)
+    # A scalar cap broadcasts the same way.
+    want1 = jops.sroa_invert_rate_batched(jnp.asarray(G), jnp.asarray(tgt),
+                                          1e7)
+    got1 = ops.sroa_invert_rate_batched(_t(G), _t(tgt), 1e7)
+    np.testing.assert_allclose(host(got1), host(want1), rtol=1e-5,
+                               atol=1e-3)
+
+
+def test_invert_infeasible_pegs_bmax(launches):
+    G = torch.tensor([1e4, 1e4], dtype=torch.float32)
+    tgt = torch.tensor([1e9, 1.0], dtype=torch.float32)
+    out = ops.sroa_invert_rate(G, tgt, 5e5)
+    assert float(out[0]) == 5e5 and float(out[1]) < 5e5
+
+
+# ------------------------------------------------------------------ K2
+def _problem(n, seed, M=2):
+    spec = dataclasses.replace(jw.ScenarioSpec(), N=n, M=M)
+    scn = jw.draw_scenario(seed, spec)
+    return scn, jw.nearest_edge_assignment(scn)
+
+
+def _solve_args(scn, consts):
+    B = scn.B_total
+    return (consts.A, consts.J, consts.H, consts.delta, consts.h, scn.f_max,
+            scn.p_max, B, B, scn.N0, jnp.float32(1.0), consts.E_cloud_total)
+
+
+@pytest.mark.parametrize("n", [1, 7, 10])
+def test_solve_plain_matches_pallas(n, launches):
+    scn, a = _problem(n, n)
+    consts = jsm.sroa_constants(scn, a)
+    args = [jnp.reshape(x, (1, -1)) if jnp.ndim(x) == 1 else
+            jnp.reshape(x, (1,)) for x in _solve_args(scn, consts)]
+    want = jsb.sroa_solve_pallas(*args, **CAPS, interpret=True)
+    got = ref.sroa_solve_plain(*(_t(x) for x in args), **CAPS)
+    wb, wf, wp, wt, wR, ws, wfe = (host(x) for x in want)
+    gb, gf, gp, gt, gR, gs, gfe = (host(x) for x in got)
+    np.testing.assert_array_equal(gfe, wfe)
+    np.testing.assert_allclose(gR, wR, rtol=5e-3)
+    np.testing.assert_allclose(gt, wt, rtol=5e-3)
+    np.testing.assert_allclose(gb, wb, rtol=5e-3, atol=1.0)
+
+
+@pytest.mark.parametrize("n", [1, 7])
+def test_port_fused_matches_port_eager(n, launches):
+    """The reference's ``test_fused_solve_matches_jnp_nest``, inside torch:
+    the K2 route (its plain version here) against the eager nest."""
+    scn, a = _problem(n, n)
+    tscn = scenario_to_torch(scn)
+    cfg = tsroa.SroaConfig(**CAPS)
+    want = tsroa.solve(tscn, _t(a), 1.0, cfg)
+    got = tsroa.solve(tscn, _t(a), 1.0, dataclasses.replace(cfg, fused=True))
+    assert bool(got.feasible) == bool(want.feasible)
+    np.testing.assert_allclose(float(got.R), float(want.R), rtol=5e-3)
+    np.testing.assert_allclose(float(got.t), float(want.t), rtol=5e-3)
+    np.testing.assert_allclose(host(got.b), host(want.b), rtol=5e-3,
+                               atol=1.0)
+
+
+def test_fused_masked_user_is_neutral(launches):
+    """``tests/test_kernels.py``'s masked-user case on the port's K2 route,
+    held against the JAX fused solve of the same masked constants."""
+    scn, a = _problem(6, 11)
+    consts = jsm.sroa_constants(scn, a)
+    mask = np.array([True, True, False, True, True, True])
+    jcfg = jsroa.SroaConfig(**CAPS, fused=True)
+    want = jsroa.solve_constants_impl(
+        jsm.mask_constants(consts, jnp.asarray(mask)), scn.B_total,
+        scn.B_total, scn.f_max, scn.p_max, scn.N0, 1.0, jcfg)
+    tscn = scenario_to_torch(scn)
+    tconsts = tsm.mask_constants(tsm.sroa_constants(tscn, _t(a)), _t(mask))
+    res = tsroa.solve_constants_impl(
+        tconsts, tscn.B_total, tscn.B_total, tscn.f_max, tscn.p_max, tscn.N0,
+        1.0, tsroa.SroaConfig(**CAPS, fused=True))
+    assert np.isfinite(float(res.R))
+    assert float(res.b[2]) < float(res.b[_t(mask)].min())
+    np.testing.assert_allclose(float(res.R), float(want.R), rtol=5e-3)
+
+
+@pytest.mark.parametrize("N", [1, 31, 56, 70])
+def test_warp_sum_plain_adds_in_the_kernels_order(N):
+    """K2 sums users per lane (users l, l+32, ...), then butterflies over
+    lanes l ^ 16, 8, 4, 2, 1; the plain twin must add in that order."""
+    rng = np.random.default_rng(N)
+    x = np.asarray(rng.uniform(0, 1e6, (3, N)) * 10.0 ** rng.integers(
+        -3, 4, (3, N)), np.float32)
+    want = np.empty((3, 1), np.float32)
+    for r in range(3):
+        lane = [np.float32(0.0)] * 32
+        for j in range(N):
+            lane[j % 32] = np.float32(lane[j % 32] + x[r, j])
+        for off in (16, 8, 4, 2, 1):
+            lane = [np.float32(lane[i] + lane[i ^ off]) for i in range(32)]
+        assert len(set(lane)) == 1            # every lane ends equal
+        want[r, 0] = lane[0]
+    assert_bitwise(ref.warp_sum_plain(_t(x)), want)
+
+
+def test_solve_plain_counts_the_work_the_kernel_does(launches):
+    """With every loop at its cap, the count is the nest's worst case:
+    t_iters bracketing inversions plus (t+1)(p+1)(f+1) in Algs 2-4."""
+    scn, a = _problem(4, 2)
+    consts = jsm.sroa_constants(scn, a)
+    args = [_t(x).reshape(1, -1) if np.ndim(x) == 1 else _t(x).reshape(1)
+            for x in _solve_args(scn, consts)]
+    caps = dict(b_iters=8, f_iters=3, p_iters=2, t_iters=2, eps0=0.0,
+                eps1=0.0, eps2=0.0)
+    work = {}
+    ref.sroa_solve_plain(*args, **caps, work=work)
+    t, p, f = caps["t_iters"], caps["p_iters"], caps["f_iters"]
+    assert work == {"inversions": t + (t + 1) * (p + 1) * (f + 1),
+                    "f_steps": (t + 1) * (p + 1) * f,
+                    "p_steps": (t + 1) * p, "t_steps": t}
+
+
+def test_solve_wrapper_flattens_leading_axes(launches):
+    """(2, 3, N) problems in one call == each problem alone, bitwise."""
+    scn, a = _problem(5, 3)
+    tscn = scenario_to_torch(scn)
+    c = tsm.sroa_constants(tscn, _t(a))
+    scale = _t(np.linspace(0.5, 1.5, 6, dtype=np.float32).reshape(2, 3, 1))
+    per_user = [c.A * scale, c.J, c.H, c.delta, c.h, tscn.f_max, tscn.p_max]
+    per_problem = [tscn.B_total, tscn.B_total, tscn.N0, 1.0,
+                   c.E_cloud_total]
+    out = ops.sroa_solve_batched(*per_user, *per_problem, **CAPS)
+    assert out[0].shape == (2, 3, 5) and out[3].shape == (2, 3)
+    one = ops.sroa_solve_batched(per_user[0][1, 2], *per_user[1:],
+                                 *per_problem, **CAPS)
+    for x, y in zip(out, one):
+        assert_bitwise(x[1, 2], y)
+
+
+# ------------------------------------------------------------------ K3
+def _topk_case(P=None, N=9, M=4, seed=5):
+    key = jax.random.PRNGKey(seed)
+    shape = (N, M) if P is None else (P, N, M)
+    gain = jnp.abs(jax.random.normal(key, shape)) * 1e-7 + 1e-9
+    H = jnp.full(shape[:-1], 2.4e5)
+    pm = jnp.full(shape[:-1], 0.2)
+    assign = jax.random.randint(jax.random.PRNGKey(seed + 1), shape[:-1], 0,
+                                M)
+    return gain, H, pm, assign
+
+
+def _compare_topk(args, k):
+    want = jops.topk_move_scores(*args, k=k)
+    got = ops.topk_move_scores(*(_t(x) if not isinstance(x, float) else x
+                                 for x in args), k=k)
+    for name, g, w in zip(("user", "dst"), got[:2], want[:2]):
+        np.testing.assert_array_equal(host(g), host(w), err_msg=name)
+        assert g.dtype == torch.int32
+    np.testing.assert_allclose(host(got[2]), host(want[2]), rtol=1e-5)
+    return got
+
+
+def test_topk_plain_matches_pallas(launches):
+    gain, H, pm, assign = _topk_case()
+    mask = jnp.asarray([True] * 7 + [False, True])
+    user, dst, _ = _compare_topk((gain, H, pm, assign, mask, 1e-17, 1e7), 6)
+    assert (host(dst) != np.asarray(assign)[host(user)]).all()
+    assert np.asarray(mask)[host(user)].all()
+
+
+def test_topk_pads_when_few_valid(launches):
+    gain = jnp.abs(jax.random.normal(jax.random.PRNGKey(7), (2, 2))) * 1e-8
+    args = (gain, jnp.full((2,), 1e5), jnp.full((2,), 0.1),
+            jnp.asarray([0, 1], jnp.int32), jnp.ones(2, bool), 1e-17, 1e7)
+    _, _, score = _compare_topk(args, 5)
+    score = host(score)
+    assert (score[:2] < 1e29).all() and (score[2:] >= 1e29).all()
+
+
+def test_topk_flattens_the_cell_axis(launches):
+    P, k = 3, 4
+    gain, H, pm, assign = _topk_case(P=P, N=6, M=3, seed=8)
+    mask = jnp.ones((P, 6), bool).at[1, 2].set(False)
+    args = (gain, H, pm, assign, mask, jnp.full((P,), 1e-17),
+            jnp.full((P,), 1e7))
+    user, dst, score = _compare_topk(args, k)
+    assert user.shape == (P, k)
+    for i in range(P):
+        one = ops.topk_move_scores(*(_t(x[i]) for x in args), k=k)
+        for x, y in zip((user, dst, score), one):
+            assert_bitwise(x[i], y)
+
+
+# ------------------------------------------------------------- dispatch
+def test_wrappers_refuse_devices_without_a_kernel_route():
+    x = torch.ones(4, device="meta")
+    with pytest.raises(ValueError, match="no kernel route"):
+        ops.sroa_invert_rate(x, x, 1.0)
+    # A call whose operands lie on two devices raises, whichever device
+    # holds the first operand: it never copies them onto one and runs.
+    cpu, other = torch.ones(1, 4), torch.ones(1, 4, device="meta")
+    calls = [
+        lambda a, b: ops.sroa_invert_rate(a[0], b[0], 1.0),
+        lambda a, b: ops.sroa_invert_rate_batched(a, b, 1.0),
+        lambda a, b: ops.sroa_solve_batched(a, a, a, a, b, a, a, 1.0, 1.0,
+                                            1.0, 1.0, 0.0),
+        lambda a, b: ops.topk_move_scores(a[..., None], b, a, a.int(),
+                                          a.bool(), 1.0, 1.0, k=1),
+    ]
+    for call in calls:
+        for a, b in ((cpu, other), (other, cpu)):
+            with pytest.raises(ValueError, match="one device"):
+                call(a, b)
+
+
+def test_build_names_the_library_by_source_and_flags(tmp_path):
+    srcs = sorted(build.CSRC.glob("*.cu"))
+    assert [s.name for s in srcs] == ["sroa_bisect.cu", "topk_moves.cu"]
+    d1 = build._digest(srcs, build.NVCC_FLAGS)
+    assert d1 == build._digest(srcs, list(build.NVCC_FLAGS))
+    assert d1 != build._digest(srcs, build.NVCC_FLAGS + ["-G"])
+    assert build.build_dir().parts[-2:] == ("build", "repro_torch_kernels")
+    assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
