@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's planning path on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's planning and LM serving paths on one
+NVIDIA card.
 
     python3 chip_smoke.py             # every phase (one card)
     python3 chip_smoke.py --kernels   # build and check the kernels only
@@ -9,7 +10,8 @@ Phases, each reported on its own lines:
 0. The card (``nvidia-smi``) and the build of ``src/repro_torch/kernels/
    csrc/*.cu`` with nvcc (one process per source, all at once).
 1. K1 (Lemma-1 inversion) against its plain PyTorch version at the fleet's
-   flattened shape and at odd shapes: rtol 1e-5, atol 1e-3.
+   flattened shape and at odd shapes: rtol 1e-5, atol 1e-3.  K1 with one
+   scalar cap (the TPU's ``_bisect_kernel``) is timed apart at n = 56.
 2. K2 (the fused Algorithm 2-4 solve) against its plain version on one
    engine round of the README fleet (128 cells x 9 candidates, N_max
    users): feasible identical, R and t to rtol 1e-4, b to rtol 1e-3 with
@@ -19,19 +21,41 @@ Phases, each reported on its own lines:
    bitwise.  K2 is also timed at the re-price shape (one problem per cell).
 3. K3 (top-k move nomination) against its plain version at
    (128, N_max, 5), k = 8: indices exact, scores to rtol 1e-5.
-4. The main path: ``PlanningService`` over ``draw_fleet(0, 128)`` with the
-   fused solve and top-8 move pruning, driven by ``run_load`` for 3 ticks.
-5. The ``use_pallas`` route: ``solve_batch`` with the inversion on K1,
+4. K4 (flash attention) against its plain version: at the LM prefill's
+   (B, H, T, hd) = (4, 16, 1024, 64) in bf16 and f32, at hd 128
+   (llama3.2-3b's heads), at the JAX sweep's odd shapes, non-causal, with
+   a window of 16 and at Tq = 1 with q_offset = S - 1: 2e-5 in f32, 2e-2
+   in bf16 (exp and the summation order differ).  Timed beside
+   ``scaled_dot_product_attention(is_causal=True)`` on the same tensors.
+5. K5 (fused RMSNorm) against its plain version at the LM's hidden-state
+   shape (4096, 1024) in bf16 (2e-2) and f32 (1e-6; the twin adds in the
+   kernel's order, so only rsqrt can differ), timed beside
+   ``torch.nn.functional.rms_norm``.  No model calls K5.
+6. The planning path: ``PlanningService`` over ``draw_fleet(0, 128)`` with
+   the fused solve and top-8 move pruning, driven by ``run_load`` for 3
+   ticks.
+7. The ``use_pallas`` route: ``solve_batch`` with the inversion on K1,
    against the same call on the eager inversion (rtol 1e-5 on R) and
-   against phase 4's fused re-price (rtol 5e-3).
-6. Launch counts of the main paths (every count reset to 0 right before
+   against phase 6's fused re-price (rtol 5e-3).
+8. The LM path: ``run_lm`` at qwen1.5-0.5b's full width and depth in bf16,
+   B = 4, 1024-token prompts, 32 greedy tokens, on ``attn_impl="pallas"``
+   (K4: one launch per layer per prefill) and on the default chunked
+   route with the same weights.  The last-position prefill logits of the
+   two routes agree to 5e-2 of max |logit| (bf16 rounds each layer's
+   output; the chunked route rounds its probabilities to bf16 before the
+   PV product, K4 keeps them in f32).  One more prefill on K4 and four
+   decode steps run under ``torch.profiler`` (lines ``[q]``).
+9. Launch counts of the main paths (every count reset to 0 right before
    a path and read right after it), each kernel's time beside its plain
-   version's and its bound, then the card and the result line.
+   version's, its bound and its library call, then the card and the
+   result line.  Each kernel's time is given twice: CUDA events around
+   one call (``ms``: the host's launch overhead included) and the device
+   time ``torch.profiler`` records per call (``device_ms``).
 
-Between phases 5 and 6, two more ticks of phase 4's service run under
+Between phases 7 and 8, two more ticks of phase 6's service run under
 ``torch.profiler`` (lines ``[p]``): device time by kernel, and the
-device's busy share of the traced wall time.  They run after every path's
-launch counts have been read.
+device's busy share of the traced wall time.  Every trace runs after its
+path's launch counts have been read.
 
 Every comparison raises on a mismatch; no phase catches a failure.  The
 script exits non-zero, printing no result, when there is no CUDA device or
@@ -39,6 +63,7 @@ when it is not run from a checkout of the repository.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -52,6 +77,11 @@ SRC = ROOT / "src"
 # Published H100 SXM peaks (NVIDIA data sheet), for the bound of each kernel.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+BF16_TENSOR_FLOPS_PER_S = 989e12
+
+# The LM path: qwen1.5-0.5b at full size, B prompts of T tokens.
+LM_ARCH, LM_B, LM_T, LM_NEW = "qwen1.5-0.5b", 4, 1024, 32
+LM_LOGIT_RTOL = 5e-2
 
 SERVE_CAPS = dict(b_iters=30, f_iters=24, p_iters=20, t_iters=28)
 TOP_K = 8
@@ -87,9 +117,33 @@ def _time_ms(fn, reps: int) -> float:
     return times[len(times) // 2]
 
 
-def _bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def _device_ms(fn, reps: int) -> float:
+    """Device time of one call of ``fn``: the sum of every device event
+    that ``torch.profiler`` records over ``reps`` calls, over ``reps``.
+    Unlike :func:`_time_ms` it leaves out the host's time between launches
+    (Python, ctypes, argument checks), which dominates a microsecond
+    kernel's wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(evt.self_device_time_total for evt in prof.key_averages()
+             if evt.device_type != DeviceType.CPU)
+    return us / 1e3 / reps if us > 0 else None
+
+
+def _bound_ms(nbytes: float, flops: float,
+              peak: float = FP32_FLOPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = flops / peak * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -101,9 +155,10 @@ def _max_abs_err(got, want) -> float:
     return max(errs) if errs else 0.0
 
 
-def _profile_ticks(svc, ticks: int) -> None:
-    """Trace ``ticks`` service ticks with ``torch.profiler``; print device
-    time by kernel and the device's busy share of the traced wall time."""
+def _profile(tag: str, what: str, fn) -> list:
+    """Run ``fn`` once under ``torch.profiler``; print device time by
+    kernel and the device's busy share of the traced wall time.  Returns
+    the (ms, count, name) rows, largest first."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
@@ -113,8 +168,7 @@ def _profile_ticks(svc, ticks: int) -> None:
     with torch_profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(ticks):
-            svc.tick()
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -128,14 +182,210 @@ def _profile_ticks(svc, ticks: int) -> None:
             rows.append((us / 1e3, evt.count, evt.key))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
-    print(f"[p] {ticks} traced ticks: {wall_ms:.2f} ms wall, {busy_ms:.2f} "
+    print(f"{tag} {what}: {wall_ms:.2f} ms wall, {busy_ms:.2f} "
           f"ms device time in {sum(r[1] for r in rows)} device events "
           f"({len(rows)} names); busy share "
           f"{busy_ms / wall_ms if rows else float('nan'):.4f}")
     for ms, n, name in rows[:12]:
-        print(f"[p]   {ms:10.3f} ms  {n:6d} x  {name[:90]}")
+        print(f"{tag}   {ms:10.3f} ms  {n:6d} x  {name[:90]}")
     if not rows:
-        print("[p]   the trace holds no device time: not measured")
+        print(f"{tag}   the trace holds no device time: not measured")
+    return rows
+
+
+def _attn_plain(q, k, v, **kw):
+    """K4's plain version in the model layout (B, T, H, hd)."""
+    from repro_torch.kernels import ref
+
+    t = lambda x: x.transpose(1, 2)  # noqa: E731
+    return t(ref.attention_plain(t(q), t(k), t(v), **kw))
+
+
+def _check_k4(report: dict, dev) -> None:
+    """Phase 4: K4 against its plain version, and its times."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def qkv(Tq, Tk, B, H, hd, dtype):
+        return [torch.randn((B, T, H, hd), generator=gen, device=dev
+                            ).to(dtype) for T in (Tq, Tk, Tk)]
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    tol = {bf16: 2e-2, f32: 2e-5}
+    cases = [((LM_T, LM_T, LM_B, 16, 64), dtype, dict(causal=True))
+             for dtype in (bf16, f32)]
+    cases.append(((LM_T, LM_T, 1, 24, 128), bf16, dict(causal=True)))
+    for B, H, T, hd in ((1, 1, 8, 64), (2, 4, 16, 64), (1, 2, 128, 128),
+                        (2, 2, 96, 80), (1, 4, 256, 112)):
+        for dtype in (bf16, f32):
+            cases.append(((T, T, B, H, hd), dtype, dict(causal=True)))
+    cases += [((64, 64, 1, 2, 64), f32, dict(causal=False)),
+              ((160, 160, 1, 2, 64), f32, dict(causal=True, window=16)),
+              ((1, 64, 1, 2, 64), f32, dict(causal=True, q_offset=63))]
+    errs = []
+    for shape, dtype, kw in cases:
+        q, k, v = qkv(*shape, dtype)
+        got = ops.flash_attention(q, k, v, **kw)
+        want = _attn_plain(q, k, v, **kw)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=tol[dtype], atol=tol[dtype])
+        errs.append(_max_abs_err([got.float()], [want.float()]))
+    torch.cuda.synchronize()
+    print(f"[4] K4 ok on {len(cases)} cases (LM prefill shape in bf16 and "
+          f"f32, hd 128, the JAX sweep, non-causal, window 16, decode "
+          f"offset): max |err| bf16 LM shape {errs[0]:.3g}, f32 LM shape "
+          f"{errs[1]:.3g}")
+
+    q, k, v = qkv(LM_T, LM_T, LM_B, 16, 64, bf16)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    k4 = lambda: ops.flash_attention(q, k, v, causal=True)  # noqa: E731
+    k4p = lambda: _attn_plain(q, k, v, causal=True)  # noqa: E731
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=True)
+    lib_err = _max_abs_err([sdpa().transpose(1, 2).float()], [k4().float()])
+    B, H, T, hd = LM_B, 16, LM_T, 64
+    nbytes = 4 * B * T * H * hd * 2
+    flops = 4 * hd * B * H * T * (T + 1) // 2
+    bound = _bound_ms(nbytes, flops, BF16_TENSOR_FLOPS_PER_S)
+    report["flash_attention"] = dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:26",
+        max_abs_err=errs[0], ms=_time_ms(k4, 20), plain_ms=_time_ms(k4p, 5),
+        bound_ms=bound[0], bound_by=bound[1], library_ms=_time_ms(sdpa, 20),
+        device_ms=_device_ms(k4, 20), library_device_ms=_device_ms(sdpa, 20))
+    r = report["flash_attention"]
+    print(f"[4] K4 at ({B}, {H}, {T}, {hd}) bf16 causal: {r['ms']:.4g} ms "
+          f"(device {r['device_ms']:.4g}), plain {r['plain_ms']:.4g} ms, "
+          f"SDPA {r['library_ms']:.4g} ms (device "
+          f"{r['library_device_ms']:.4g}) "
+          f"(|K4 - SDPA| max {lib_err:.3g}), bound {bound[0]:.3g} ms by "
+          f"{bound[1]} ({flops:.4g} flop, {nbytes} bytes)")
+
+
+def _check_k5(report: dict, dev) -> None:
+    """Phase 5: K5 against its plain version, and its times."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rows, d = LM_B * LM_T, 1024
+    bitwise = {}
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-6)):
+        x = torch.randn((rows, d), generator=gen, device=dev).to(dtype)
+        s = torch.randn((d,), generator=gen, device=dev).to(dtype)
+        got, want = ops.fused_rmsnorm(x, s), ref.rmsnorm_plain(x, s)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        bitwise[str(dtype)] = bool(torch.equal(got, want))
+        if dtype == torch.bfloat16:
+            err = _max_abs_err([got.float()], [want.float()])
+            xb, sb = x, s
+    torch.cuda.synchronize()
+    k5 = lambda: ops.fused_rmsnorm(xb, sb)  # noqa: E731
+    k5p = lambda: ref.rmsnorm_plain(xb, sb)  # noqa: E731
+    lib = lambda: F.rms_norm(xb, (d,), weight=sb, eps=1e-6)  # noqa: E731
+    bound = _bound_ms(2 * rows * d * 2 + d * 2, 4 * rows * d)
+    report["rmsnorm"] = dict(
+        name="rmsnorm", route="cuda",
+        source="src/repro_torch/kernels/csrc/rmsnorm.cu",
+        replaces="src/repro/kernels/rmsnorm.py:15",
+        max_abs_err=err, ms=_time_ms(k5, 50), plain_ms=_time_ms(k5p, 20),
+        bound_ms=bound[0], bound_by=bound[1], library_ms=_time_ms(lib, 50),
+        device_ms=_device_ms(k5, 50), library_device_ms=_device_ms(lib, 50))
+    r = report["rmsnorm"]
+    print(f"[5] K5 ok at ({rows}, {d}): bitwise equal to its twin "
+          f"{json.dumps(bitwise)}; bf16 max |err| {err:.3g}; "
+          f"{r['ms']:.4g} ms (device {r['device_ms']:.4g}), plain "
+          f"{r['plain_ms']:.4g} ms, F.rms_norm {r['library_ms']:.4g} ms "
+          f"(device {r['library_device_ms']:.4g}), bound {bound[0]:.3g} ms "
+          f"by {bound[1]}")
+
+
+def _lm_path(dev) -> dict:
+    """Phase 8: the LM serving path on K4 and on the chunked route."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import run_lm
+    from repro_torch.models import transformer as tf
+
+    chunked = configs.get(LM_ARCH)
+    flash = dataclasses.replace(chunked, attn_impl="pallas")
+    kw = dict(batch=LM_B, prompt_len=LM_T, seed=0, device=dev)
+    run_lm(flash, new_tokens=2, **kw)             # warm-up: cold starts
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    a = run_lm(flash, new_tokens=LM_NEW, **kw)
+    torch.cuda.synchronize()
+    counts = dict(ops.LAUNCHES)
+    b = run_lm(chunked, new_tokens=LM_NEW, **kw)
+    torch.cuda.synchronize()
+    _check(counts["flash_attention"] == flash.n_layers,
+           f"K4 launched {counts['flash_attention']} times in one prefill "
+           f"of {flash.n_layers} layers")
+    la, lb = a["logits"].float(), b["logits"].float()
+    _check(la.shape == (LM_B, flash.vocab), "prefill logits shape")
+    _check(bool(torch.isfinite(la).all() & torch.isfinite(lb).all()),
+           "non-finite prefill logits")
+    rel = float((la - lb).abs().max() / lb.abs().max())
+    _check(rel <= LM_LOGIT_RTOL, f"K4 and chunked prefill logits differ by "
+           f"{rel:.3g} of max |logit| (limit {LM_LOGIT_RTOL})")
+    for out in (a, b):
+        toks = out["tokens"]
+        _check(toks.shape == (LM_B, LM_NEW + 1) and (toks >= 0).all()
+               and (toks < flash.vocab).all(), "generated tokens")
+    agree = float(np.mean(a["tokens"] == b["tokens"]))
+    print(f"[8] LM {LM_ARCH} full size ({flash.n_layers} layers, d "
+          f"{flash.d_model}, vocab {flash.vocab}, {flash.dtype}), B = {LM_B}, "
+          f"prompt {LM_T}, {LM_NEW} new tokens")
+    print(f"[8] K4 route: prefill {a['prefill_s'] * 1e3:.3f} ms, decode "
+          f"{a['tok_per_s']:.1f} tok/s; chunked route: prefill "
+          f"{b['prefill_s'] * 1e3:.3f} ms, decode {b['tok_per_s']:.1f} tok/s")
+    print(f"[8] K4 launches in the K4 route's run: "
+          f"{counts['flash_attention']} (one per layer of one prefill); "
+          f"last-position prefill logits max |delta| {rel:.4g} of max "
+          f"|logit| {float(lb.abs().max()):.4g} (limit {LM_LOGIT_RTOL}); "
+          f"greedy tokens agree at {agree:.4f} of positions "
+          f"(identical: {bool(agree == 1.0)})")
+
+    # One more prefill on K4 under the profiler (counts already read).
+    gen = torch.Generator(device=dev).manual_seed(0)
+    with torch.inference_mode():
+        params = tf.init_params(flash, gen, dev)
+        batch = {"tokens": torch.randint(0, flash.vocab, (LM_B, LM_T),
+                                         generator=gen, device=dev)}
+        prefill = tf.make_prefill_step(flash)
+        prefill(params, batch)
+        rows = _profile("[q]", "1 traced prefill on K4", lambda: prefill(
+            params, batch))
+        k4_ms = sum(ms for ms, _, name in rows if "flash_attention" in name)
+        busy = sum(ms for ms, _, _ in rows)
+        print(f"[q] K4 share of the traced prefill's device time: "
+              f"{k4_ms / busy if busy else float('nan'):.4f} ({k4_ms:.3f} "
+              f"of {busy:.3f} ms)")
+        logits, cache = prefill(params, batch)
+        tok = torch.argmax(logits[:, -1], -1)[:, None]
+        serve_step = tf.make_serve_step(flash)
+
+        def decode(steps=4):
+            nonlocal cache, tok
+            for _ in range(steps):
+                step_logits, cache = serve_step(params, cache, tok)
+                tok = torch.argmax(step_logits[:, -1], -1)[:, None]
+
+        decode()
+        _profile("[q]", "4 traced decode steps", decode)
+    return {"counts": counts, "flash": a, "chunked": b, "rel": rel,
+            "agree": agree, "n_layers": flash.n_layers}
 
 
 def main(argv: list[str]) -> int:
@@ -210,6 +460,15 @@ def main(argv: list[str]) -> int:
             ref.invert_rate_plain(g.reshape(1, n), t.reshape(1, n),
                                   bm[:1, None], 42), rtol=1e-5, atol=1e-3)
     torch.cuda.synchronize()
+    # K1 with one scalar cap (the TPU's `_bisect_kernel`) at one cell's
+    # N_max users, timed apart: G and target in, the result out, one cap.
+    g56, t56 = G.reshape(-1)[:56], tgt.reshape(-1)[:56]
+    k1a = lambda: ops.sroa_invert_rate(g56, t56, 1e6, 42)  # noqa: E731
+    k1a_bound = _bound_ms(12 * 56 + 4, 56 * 8 * 43)
+    k1a_times = dict(k1a_ms=_time_ms(k1a, 50), k1a_device_ms=_device_ms(
+        k1a, 50), k1a_plain_ms=_time_ms(
+        lambda: ref.invert_rate_plain(g56, t56, 1e6, 42), 5),
+        k1a_bound_ms=k1a_bound[0], k1a_bound_by=k1a_bound[1])
     n_el = G.numel()
     bound = _bound_ms(16 * n_el, n_el * 8 * 43)
     report["sroa_invert"] = dict(
@@ -217,9 +476,15 @@ def main(argv: list[str]) -> int:
         source="src/repro_torch/kernels/csrc/sroa_bisect.cu",
         replaces="src/repro/kernels/sroa_bisect.py:84",
         max_abs_err=err, ms=_time_ms(k1, 50), plain_ms=_time_ms(k1p, 5),
-        bound_ms=bound[0], bound_by=bound[1], library_ms=None)
+        device_ms=_device_ms(k1, 50),
+        bound_ms=bound[0], bound_by=bound[1], library_ms=None, **k1a_times)
     print(f"[1] K1 ok at ({C}, {N}) per-element caps and n = 1, 17, 51: "
           f"max |err| {err:.3g} Hz")
+    print(f"[1] K1 with a scalar cap (K1a) at n = 56: "
+          f"{k1a_times['k1a_ms']:.4g} ms (device "
+          f"{k1a_times['k1a_device_ms']:.4g}), plain "
+          f"{k1a_times['k1a_plain_ms']:.4g} ms, bound {k1a_bound[0]:.3g} ms "
+          f"by {k1a_bound[1]}")
 
     # ---- phase 2: K2 against its plain version on one engine round -----
     cands, valid = fengine._pruned_candidates(cells, init, mask, TOP_K)
@@ -274,6 +539,7 @@ def main(argv: list[str]) -> int:
         source="src/repro_torch/kernels/csrc/sroa_bisect.cu",
         replaces="src/repro/kernels/sroa_bisect.py:167",
         max_abs_err=err, ms=_time_ms(k2, 5), plain_ms=plain_ms,
+        device_ms=_device_ms(k2, 2),
         bound_ms=bound[0], bound_by=bound[1], library_ms=None)
     worst = fengine.sroa_solve_flops(N, sroa.SroaConfig(**SERVE_CAPS)) * P
     # The re-price shape: one problem per cell (its nearest-edge pattern).
@@ -311,9 +577,14 @@ def main(argv: list[str]) -> int:
         source="src/repro_torch/kernels/csrc/topk_moves.cu",
         replaces="src/repro/kernels/topk_moves.py:41",
         max_abs_err=err, ms=_time_ms(k3, 50), plain_ms=_time_ms(k3p, 5),
+        device_ms=_device_ms(k3, 50),
         bound_ms=bound[0], bound_by=bound[1], library_ms=None)
     print(f"[3] K3 ok at ({C}, {N}, {M}), k = {TOP_K}: indices identical, "
           f"max |score err| {err:.3g}")
+
+    # ---- phases 4 and 5: K4 and K5 against their plain versions --------
+    _check_k4(report, dev)
+    _check_k5(report, dev)
     if kernels_only:
         print(json.dumps({"kernels": list(report.values())}))
         print(smi)
@@ -322,7 +593,7 @@ def main(argv: list[str]) -> int:
             "count": torch.cuda.device_count()}}))
         return 0
 
-    # ---- phase 4: the main path ----------------------------------------
+    # ---- phase 6: the planning path ------------------------------------
     cfg = sroa.SroaConfig(**SERVE_CAPS, fused=True)
     svc_cfg = ServiceConfig(top_k=TOP_K, max_rounds=12, escape_iters=2)
     ops.reset_launches()
@@ -330,13 +601,13 @@ def main(argv: list[str]) -> int:
     svc = PlanningService(fbatch.draw_fleet(0, 128, device=dev), lam=1.0,
                           sroa_cfg=cfg, cfg=svc_cfg, device="cuda")
     torch.cuda.synchronize()
-    print(f"[4] bootstrap: sum R = {float(svc.R_ref.sum()):.6g} in "
+    print(f"[6] bootstrap: sum R = {float(svc.R_ref.sum()):.6g} in "
           f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
     recs = []
 
     def on_tick(rec):
         recs.append(rec)
-        print(f"[4] tick {rec.tick}: changed {rec.changed}, replanned "
+        print(f"[6] tick {rec.tick}: changed {rec.changed}, replanned "
               f"{rec.replanned.size}, served {rec.served}, sum R "
               f"{rec.sum_R:.6g}, {rec.tick_ms:.1f} ms")
 
@@ -344,7 +615,7 @@ def main(argv: list[str]) -> int:
                     on_tick=on_tick)
     torch.cuda.synchronize()
     main_counts = dict(ops.LAUNCHES)
-    print(f"[4] telemetry: {json.dumps(snap)}")
+    print(f"[6] telemetry: {json.dumps(snap)}")
     _check(len(recs) == 3 and snap["unserved"] == 0, "unserved requests")
     _check(all(math.isfinite(r.sum_R) for r in recs), "non-finite sum R")
     _check(np.isfinite(svc.alloc.R).all() and np.isfinite(svc.R_ref).all(),
@@ -352,7 +623,7 @@ def main(argv: list[str]) -> int:
     _check(((svc.assigns >= 0) & (svc.assigns < M)).all(),
            "assignment off the edge range")
 
-    # ---- phase 5: the use_pallas route (K1 inside the eager nest) ------
+    # ---- phase 7: the use_pallas route (K1 inside the eager nest) ------
     assigns = torch.as_tensor(svc.assigns, device=dev)
     pal = sroa.SroaConfig(**SERVE_CAPS, use_pallas=True)
     ops.reset_launches()
@@ -364,29 +635,52 @@ def main(argv: list[str]) -> int:
     torch.testing.assert_close(got.R, want.R, rtol=1e-5, atol=0)
     torch.testing.assert_close(got.R.cpu(), torch.as_tensor(svc.alloc.R),
                                rtol=5e-3, atol=0)
-    print(f"[5] use_pallas solve_batch ok: {invert_count} K1 launches; R "
+    print(f"[7] use_pallas solve_batch ok: {invert_count} K1 launches; R "
           f"== eager nest (rtol 1e-5), == fused re-price (rtol 5e-3)")
 
-    _profile_ticks(svc, 2)
+    _profile("[p]", "2 traced ticks",
+             lambda: [svc.tick() for _ in range(2)])
+    del svc
 
-    # ---- phase 6: launch counts and times ------------------------------
+    # ---- phase 8: the LM serving path ----------------------------------
+    lm = _lm_path(dev)
+
+    # ---- phase 9: launch counts and times ------------------------------
+    # K5 lies on no path (no model calls it): its count is that of the
+    # LM path's run, 0, and is not held to be positive.
     counts = {"sroa_invert": invert_count,
               "sroa_solve": main_counts["sroa_solve"],
-              "topk_moves": main_counts["topk_moves"]}
-    print(f"[6] kernels: {json.dumps(counts)}")
+              "topk_moves": main_counts["topk_moves"],
+              "flash_attention": lm["counts"]["flash_attention"],
+              "rmsnorm": lm["counts"]["rmsnorm"]}
+    print(f"[9] kernels: {json.dumps(counts)}")
     for name, n in counts.items():
-        _check(n > 0, f"{name} never launched on its path")
+        _check(n > 0 or name == "rmsnorm",
+               f"{name} never launched on its path")
         report[name]["launches"] = n
         r = report[name]
-        print(f"[6] {name}: {r['ms']:.4g} ms (plain {r['plain_ms']:.4g} ms, "
-              f"bound {r['bound_ms']:.3g} ms by {r['bound_by']})")
+        lib = (f", library {r['library_ms']:.4g} ms"
+               if r["library_ms"] is not None else "")
+        dev_ms = ("not measured" if r["device_ms"] is None
+                  else f"{r['device_ms']:.4g} ms")
+        print(f"[9] {name}: {r['ms']:.4g} ms (device {dev_ms}, "
+              f"plain {r['plain_ms']:.4g} ms, "
+              f"bound {r['bound_ms']:.3g} ms by {r['bound_by']}{lib})")
     rounds = main_counts["sroa_solve"]
-    print(f"[6] main path: {snap['plans_per_s']:.4g} plans/s, tick p50 "
+    print(f"[9] planning path: {snap['plans_per_s']:.4g} plans/s, tick p50 "
           f"{snap['tick_ms']['p50']:.4g} ms; {rounds} K2 and "
           f"{main_counts['topk_moves']} K3 launches")
+    fl = lm["flash"]
+    L = lm["n_layers"]
+    k4_share = L * report["flash_attention"]["ms"] / (fl["prefill_s"] * 1e3)
+    print(f"[9] LM path: prefill {fl['prefill_s'] * 1e3:.3f} ms, decode "
+          f"{fl['tok_per_s']:.1f} tok/s on K4; {counts['flash_attention']} "
+          f"K4 launches; {L} x K4's phase-4 time is {k4_share:.4f} of the "
+          f"prefill")
     print(json.dumps({"kernels": [report[k] for k in
                                   ("sroa_invert", "sroa_solve",
-                                   "topk_moves")]}))
+                                   "topk_moves", "flash_attention",
+                                   "rmsnorm")]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

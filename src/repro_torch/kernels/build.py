@@ -85,7 +85,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sroa_invert_rate.argtypes = [p, p, p, ll, p, ll, i, p]
     lib.sroa_solve.argtypes = ([p] * 19 + [i] * 6 + [f] * 5 + [p])
     lib.topk_moves.argtypes = [p] * 10 + [i] * 4 + [p]
-    for fn in (lib.sroa_invert_rate, lib.sroa_solve, lib.topk_moves):
+    lib.flash_attention.argtypes = ([p] * 4 + [i] * 6 + [ll] * 12 + [i] * 4
+                                    + [f, p])
+    lib.rmsnorm.argtypes = [p, p, p, i, ll, i, f, p]
+    for fn in (lib.sroa_invert_rate, lib.sroa_solve, lib.topk_moves,
+               lib.flash_attention, lib.rmsnorm):
         fn.restype = ctypes.c_int
     return lib
 

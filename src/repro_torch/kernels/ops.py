@@ -5,9 +5,10 @@ Each wrapper flattens every leading axis into its kernel's problem axis
 the device of its tensors: CPU tensors run the plain PyTorch version in
 :mod:`repro_torch.kernels.ref`; CUDA tensors launch the hand-written
 kernel, or raise.  Every tensor operand of a call must lie on one device
-(Python scalars broadcast onto it); a call that mixes devices raises.  ``LAUNCHES`` counts kernel launches (only launches: the
-plain version never counts) under ``sroa_invert`` (K1), ``sroa_solve``
-(K2) and ``topk_moves`` (K3).
+(Python scalars broadcast onto it); a call that mixes devices raises.
+``LAUNCHES`` counts kernel launches (only launches: the plain version never
+counts) under ``sroa_invert`` (K1), ``sroa_solve`` (K2), ``topk_moves``
+(K3), ``flash_attention`` (K4) and ``rmsnorm`` (K5).
 """
 from __future__ import annotations
 
@@ -17,7 +18,8 @@ import torch
 
 from repro_torch.kernels import ref
 
-LAUNCHES = {"sroa_invert": 0, "sroa_solve": 0, "topk_moves": 0}
+LAUNCHES = {"sroa_invert": 0, "sroa_solve": 0, "topk_moves": 0,
+            "flash_attention": 0, "rmsnorm": 0}
 
 
 def reset_launches() -> None:
@@ -157,3 +159,41 @@ def topk_move_scores(gain, H, p_max, assign, mask, N0, B, *, k: int):
         user, dst, score = ref.topk_moves_plain(*args, k=k)
     return (user.reshape(lead + (k,)), dst.reshape(lead + (k,)),
             score.reshape(lead + (k,)))
+
+
+def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
+                    window=None) -> torch.Tensor:
+    """Flash attention (K4) in the model layout: q (B, Tq, H, hd), k/v
+    (B, Tk, H, hd) -> (B, Tq, H, hd) in q's dtype, scaled by 1/sqrt(hd).
+
+    Heads are not repeated here: k and v carry q's head count (the model's
+    ``attention`` repeats grouped heads first, as the JAX package does).
+    """
+    cuda = _on_cuda(q, k, v)
+    if q.dim() != 4 or k.shape != v.shape or k.shape[0] != q.shape[0] \
+            or k.shape[2:] != q.shape[2:]:
+        raise ValueError(f"flash_attention takes q (B, Tq, H, hd) and k/v "
+                         f"(B, Tk, H, hd), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if not cuda:
+        return ref.attention_plain(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=causal, q_offset=q_offset, window=window).transpose(1, 2)
+    from repro_torch.kernels import flash_attention as fa
+    out = fa.flash_attention_cuda(q, k, v, causal=causal, q_offset=q_offset,
+                                  window=window)
+    LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def fused_rmsnorm(x, scale, eps: float = 1e-6) -> torch.Tensor:
+    """Fused RMSNorm (K5): x (..., d), scale (d,) -> x's shape and dtype."""
+    cuda = _on_cuda(x, scale)
+    if not cuda:
+        return ref.rmsnorm_plain(x, scale, eps)
+    from repro_torch.kernels import rmsnorm
+    d = x.shape[-1]
+    out = rmsnorm.rmsnorm_cuda(x.reshape(-1, d).contiguous(),
+                               scale.to(torch.float32).contiguous(), eps)
+    LAUNCHES["rmsnorm"] += 1
+    return out.reshape(x.shape)

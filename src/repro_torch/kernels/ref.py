@@ -11,8 +11,15 @@ numbers:
   them; once every problem of the batch is frozen the remaining trips are
   no-ops, so the loop stops there.
 * :func:`topk_moves_plain`  — K3 (``csrc/topk_moves.cu::topk_moves``).
+* :func:`attention_plain`   — K4 (``csrc/flash_attention.cu``): the TPU
+  kernel's blockwise online softmax in f32, with its finite ``NEG_INF``,
+  its key-padding mask and its causal skip of key blocks.
+* :func:`rmsnorm_plain`     — K5 (``csrc/rmsnorm.cu``): the sum of squares
+  in the kernel's warp order (bitwise in f32 up to ``rsqrt``).
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -20,6 +27,9 @@ import torch.nn.functional as F
 
 LN2 = float(np.log(2.0))
 _BIG = 1e30
+NEG_INF = -1e30          # K4's finite mask value (flash_attention.py:23)
+FLASH_BLOCK_Q = 64       # K4's query rows per block
+FLASH_BLOCK_K = 64       # K4's keys per staged tile
 
 
 def _const(like: torch.Tensor, value: float) -> torch.Tensor:
@@ -268,3 +278,72 @@ def topk_moves_plain(gain, H, p_max, assign, mask, N0, B, *, k: int):
     idx = torch.stack(idx, dim=1)
     return ((idx // M).to(torch.int32), (idx % M).to(torch.int32),
             torch.stack(val, dim=1))
+
+
+def attention_plain(q, k, v, *, causal: bool = True, q_offset: int = 0,
+                    window=None, block_q: int = FLASH_BLOCK_Q,
+                    block_k: int = FLASH_BLOCK_K) -> torch.Tensor:
+    """Blockwise online-softmax attention, q (..., Tq, hd), k/v (..., Tk,
+    hd) -> (..., Tq, hd) in q's dtype.
+
+    The TPU kernel's algorithm (``flash_attention.py:26-79``) on every
+    query block at once: q is scaled by 1/sqrt(hd) in f32, masked scores
+    are the finite -1e30 (so a fully masked first key block adds exp(0)
+    terms that the next real block's alpha = exp(-1e30 - m) wipes), keys
+    past Tk are masked, and key blocks past a query block's causal limit
+    ``last`` leave its running (m, denom, acc) untouched.
+    """
+    *lead, Tq, hd = q.shape
+    Tk = k.shape[-2]
+    nqb, nkb = -(-Tq // block_q), -(-Tk // block_k)
+    dev = q.device
+    qf = F.pad(q.float() * (1.0 / math.sqrt(hd)),
+               (0, 0, 0, nqb * block_q - Tq))
+    qf = qf.reshape(*lead, nqb, block_q, hd)
+    kf = F.pad(k.float(), (0, 0, 0, nkb * block_k - Tk))
+    vf = F.pad(v.float(), (0, 0, 0, nkb * block_k - Tk))
+    q_pos = q_offset + torch.arange(nqb * block_q, device=dev).reshape(
+        nqb, block_q, 1)
+    if causal:
+        last = torch.clamp(
+            (q_offset + (torch.arange(nqb, device=dev) + 1) * block_q
+             + block_k - 1) // block_k, max=nkb)
+    else:
+        last = torch.full((nqb,), nkb, device=dev)
+    acc = torch.zeros(*lead, nqb, block_q, hd, device=dev)
+    m = torch.full((*lead, nqb, block_q), NEG_INF, device=dev)
+    denom = torch.zeros_like(m)
+    for kb in range(int(last.max())):
+        sl = slice(kb * block_k, (kb + 1) * block_k)
+        kblk, vblk = kf[..., None, sl, :], vf[..., None, sl, :]
+        s = qf @ kblk.transpose(-1, -2)            # (..., nqb, bq, bk)
+        k_pos = kb * block_k + torch.arange(block_k, device=dev)
+        mask = (k_pos < Tk).expand(nqb, block_q, block_k)
+        if causal:
+            mask = mask & (k_pos <= q_pos)
+        if window is not None:
+            mask = mask & (k_pos > q_pos - window)
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        live = (kb < last)[:, None]                 # (nqb, 1)
+        denom = torch.where(live, denom * alpha + p.sum(-1), denom)
+        acc = torch.where(live[..., None], acc * alpha[..., None] + p @ vblk,
+                          acc)
+        m = torch.where(live, m_new, m)
+    out = acc / torch.clamp_min(denom, 1e-30)[..., None]
+    return out.reshape(*lead, nqb * block_q, hd)[..., :Tq, :].to(q.dtype)
+
+
+def rmsnorm_plain(x: torch.Tensor, scale: torch.Tensor,
+                  eps: float = 1e-6) -> torch.Tensor:
+    """``x * rsqrt(mean(x^2) + eps) * scale`` over the last axis, in f32,
+    cast to x's dtype last (``rmsnorm.py:15-19``).  The sum of squares adds
+    in K5's order (one warp per row: :func:`warp_sum_plain`), so in f32 it
+    is bitwise the kernel's; the mean is a true division by d."""
+    d = x.shape[-1]
+    xf = x.float().reshape(-1, d)
+    var = warp_sum_plain(xf * xf) / _const(xf, float(d))
+    y = xf * torch.rsqrt(var + eps)
+    return (y * scale.float()).to(x.dtype).reshape(x.shape)

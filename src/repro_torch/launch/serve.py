@@ -1,4 +1,12 @@
-"""Serving entry point: the streaming fleet planning endpoint.
+"""Serving entry points: LM decode and the streaming fleet planning
+endpoint.
+
+``--mode lm`` (default) prefills a batch of prompts and decodes greedily
+with the ring-buffer KV cache, for the dense family; a reduced config
+unless ``--full-size``:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \
+      --arch qwen1.5-0.5b --batch 4 --prompt-len 32 --new-tokens 16
 
 ``--mode plan`` serves the fleet planning endpoint as a streaming control
 plane (:mod:`repro_torch.fleet.service`): each tick advances mobility,
@@ -11,8 +19,9 @@ coalesced Poisson request load:
 
 The flags are the JAX entry point's; ``--device`` picks the card (default
 ``cuda``) or the CPU.  SROA runs fused, one launch of kernel K2 per batch.
-``--mode lm`` and the planning extensions that are
-not ported yet (``--no-stream``, ``--host-loop``, ``--horizon``,
+The LM path attends with ``ArchConfig.attn_impl`` (``"chunked"``; a caller
+of :func:`run_lm` picks K4 with ``"pallas"``).  The planning extensions
+that are not ported yet (``--no-stream``, ``--host-loop``, ``--horizon``,
 ``--switch-cost``, ``--compression``, ``--topology-period``, ``--m-cand``)
 exit with a message.
 """
@@ -92,6 +101,65 @@ def run_service(args) -> dict:
             "stats": snap}
 
 
+def _sync(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run_lm(cfg, *, batch: int, prompt_len: int, new_tokens: int, seed: int,
+           device="cuda") -> dict:
+    """Prefill ``batch`` random prompts of ``prompt_len`` tokens and decode
+    ``new_tokens`` greedy tokens with the ring-buffer KV cache (prefill
+    without ``pad_to``, as the JAX entry point does).
+
+    Weights and prompts come from one ``torch.Generator`` seeded with
+    ``seed`` on ``device``.  Returns the timings (host clock around
+    synchronised work), the prefill's last-position logits (B, V) and the
+    generated tokens (B, 1 + new_tokens) as numpy.
+    """
+    import torch
+
+    from repro_torch.models import transformer as tf
+
+    print(f"[serve] arch={cfg.name} family={cfg.family} "
+          f"layers={cfg.n_layers} d={cfg.d_model} attn={cfg.attn_impl} "
+          f"dtype={str(cfg.dtype).replace('torch.', '')} device={device}")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    B, T = batch, prompt_len
+    with torch.inference_mode():
+        params = tf.init_params(cfg, gen, device)
+        prompts = torch.randint(0, cfg.vocab, (B, T), generator=gen,
+                                device=device)
+        prefill = tf.make_prefill_step(cfg)
+        serve = tf.make_serve_step(cfg)
+
+        _sync(device)
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, {"tokens": prompts})
+        _sync(device)
+        t_prefill = time.perf_counter() - t0
+        print(f"[prefill] {B}x{T} tokens in {t_prefill * 1e3:.2f} ms")
+
+        tok = torch.argmax(logits[:, -1], -1)[:, None]
+        out_tokens = [tok]
+        t0 = time.perf_counter()
+        for _ in range(new_tokens):
+            step_logits, cache = serve(params, cache, tok)
+            tok = torch.argmax(step_logits[:, -1], -1)[:, None]
+            out_tokens.append(tok)
+        _sync(device)
+        dt = time.perf_counter() - t0
+    tps = new_tokens * B / dt if dt > 0 else float("nan")
+    gen_tokens = torch.cat(out_tokens, 1).cpu().numpy()
+    print(f"[decode] {new_tokens} steps x batch {B} in {dt:.3f} s "
+          f"-> {tps:.1f} tok/s")
+    print(f"[sample] first sequence: {gen_tokens[0][:16].tolist()}")
+    return {"tok_per_s": tps, "prefill_s": t_prefill, "decode_s": dt,
+            "logits": logits[:, -1], "tokens": gen_tokens}
+
+
 _NOT_PORTED = {
     "no_stream": "--no-stream (the per-cell request loop needs "
                  "fleet/incremental)",
@@ -114,7 +182,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--full-size", action="store_true")
     ap.add_argument("--device", default="cuda",
-                    help="torch device to plan on (default cuda; cpu runs "
+                    help="torch device to serve on (default cuda; cpu runs "
                          "the kernels' plain PyTorch versions)")
     # planning endpoint knobs (the JAX entry point's)
     ap.add_argument("--cells", type=int, default=8)
@@ -158,8 +226,18 @@ def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
     if args.mode == "lm":
-        raise SystemExit("repro_torch: --mode lm (LM serving) is not ported "
-                         "yet; use python -m repro.launch.serve --mode lm")
+        from repro_torch import configs
+
+        if args.arch not in configs.ARCHS:
+            raise SystemExit(f"unknown arch {args.arch!r}")
+        cfg = configs.get(args.arch)
+        if not cfg.has_decode:
+            raise SystemExit(f"{args.arch} is encoder-only (no decode)")
+        if not args.full_size:
+            cfg = cfg.reduced()
+        return run_lm(cfg, batch=args.batch, prompt_len=args.prompt_len,
+                      new_tokens=args.new_tokens, seed=args.seed,
+                      device=args.device)
     defaults = ap.parse_args(["--mode", "plan"])
     for name, what in _NOT_PORTED.items():
         if getattr(args, name) != getattr(defaults, name):

@@ -3,7 +3,8 @@
 Both packages are fed the same inputs: a JAX ``Scenario`` or
 ``FleetScenario`` becomes a dict of numpy leaves, which the port's
 ``scenario_from_numpy`` / ``fleet_from_numpy`` turn into tensors bit for
-bit.  Results come back the other way through :func:`host`.
+bit; a JAX model's parameter dict goes through ``params_from_numpy``.
+Results come back the other way through :func:`host`.
 """
 from __future__ import annotations
 
@@ -38,6 +39,19 @@ def scenario_to_torch(scn, device="cpu"):
 def fleet_to_torch(fleet, device="cpu"):
     from repro_torch.fleet.batch import fleet_from_numpy
     return fleet_from_numpy(to_numpy(fleet), device)
+
+
+def params_to_torch(jax_params, cfg, device="cpu"):
+    """A JAX model's nested parameter dict as the port's tensors, for the
+    port's ``ArchConfig`` ``cfg`` (bfloat16 leaves cross exactly)."""
+    from repro_torch.models.transformer import params_from_numpy
+
+    def numpy_tree(node):
+        if isinstance(node, dict):
+            return {k: numpy_tree(v) for k, v in node.items()}
+        return np.asarray(node)
+
+    return params_from_numpy(numpy_tree(jax_params), cfg, device)
 
 
 def assert_bitwise(got, want, err_msg: str = "") -> None:

@@ -1,5 +1,5 @@
-"""The port's hand-written CUDA kernels against their plain PyTorch twins,
-on a card.  Every test here is marked ``cuda`` and skips itself when
+"""The port's hand-written CUDA kernels (K1-K5) against their plain
+PyTorch twins, on a card.  Every test here is marked ``cuda`` and skips itself when
 ``torch.cuda.is_available()`` is false; this file imports neither JAX nor
 the JAX package, so it runs on a machine that has only PyTorch:
 
@@ -98,6 +98,101 @@ def test_k3_matches_its_twin(fleet):
     want = ref.topk_moves_plain(*(x.contiguous() for x in args), k=6)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def _randn(shape, dtype, device, seed):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(shape, generator=g).to(device, dtype)
+
+
+def _attention_plain(q, k, v, **kw):
+    t = lambda x: x.transpose(1, 2)  # noqa: E731
+    return t(ref.attention_plain(t(q), t(k), t(v), **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,T,hd", [
+    (1, 1, 8, 64), (2, 4, 16, 64), (1, 2, 128, 128), (2, 2, 96, 80),
+    (1, 4, 256, 112), (1, 2, 70, 256),
+])
+def test_k4_matches_its_twin(cuda, B, H, T, hd, dtype):
+    """The JAX flash sweep's shapes plus hd 256: 2e-5 in f32, 2e-2 in bf16
+    (exp and the summation order differ from the twin's)."""
+    dt = getattr(torch, dtype)
+    q, k, v = (_randn((B, T, H, hd), dt, cuda, T + hd + i) for i in range(3))
+    got = _launched("flash_attention",
+                    lambda: ops.flash_attention(q, k, v, causal=True))
+    assert got.dtype == dt and got.shape == (B, T, H, hd)
+    tol = 2e-2 if dt == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(),
+                               _attention_plain(q, k, v, causal=True).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw,Tq,Tk", [
+    (dict(causal=False), 64, 64),
+    (dict(causal=True, window=16), 160, 160),
+    (dict(causal=True, q_offset=63), 1, 64),
+    (dict(causal=True, q_offset=100), 30, 130),
+])
+def test_k4_masks_and_offsets(cuda, kw, Tq, Tk):
+    q = _randn((2, Tq, 3, 64), torch.float32, cuda, 1)
+    k = _randn((2, Tk, 3, 64), torch.float32, cuda, 2)
+    v = _randn((2, Tk, 3, 64), torch.float32, cuda, 3)
+    got = _launched("flash_attention",
+                    lambda: ops.flash_attention(q, k, v, **kw))
+    torch.testing.assert_close(got, _attention_plain(q, k, v, **kw),
+                               rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_k4_reads_strided_operands(cuda):
+    """q, k and v as views of one fused (B, T, 3, H, hd) projection: the
+    kernel addresses them through their strides."""
+    qkv = _randn((2, 70, 3, 4, 64), torch.bfloat16, cuda, 4)
+    q, k, v = qkv.unbind(2)
+    assert not q.is_contiguous()
+    got = _launched("flash_attention",
+                    lambda: ops.flash_attention(q, k, v, causal=True))
+    want = ops.flash_attention(q.contiguous(), k.contiguous(),
+                               v.contiguous(), causal=True)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(4, 128), (2, 7, 256), (1, 1, 512),
+                                   (3, 33, 384), (64, 1024)])
+def test_k5_matches_its_twin(cuda, shape, dtype):
+    """f32 to 1e-6 (the twin adds in the kernel's order; only rsqrt may
+    differ in its last bit), bf16 to 2e-2."""
+    dt = getattr(torch, dtype)
+    x = _randn(shape, dt, cuda, 5)
+    s = _randn(shape[-1:], dt, cuda, 6)
+    got = _launched("rmsnorm", lambda: ops.fused_rmsnorm(x, s))
+    assert got.dtype == dt and got.shape == shape
+    tol = 2e-2 if dt == torch.bfloat16 else 1e-6
+    torch.testing.assert_close(got.float(),
+                               ref.rmsnorm_plain(x, s).float(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.cuda
+def test_k4_k5_refuse_what_they_do_not_take(cuda):
+    from repro_torch.kernels import flash_attention, rmsnorm
+
+    x = torch.ones((1, 4, 1, 300), device=cuda)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention.flash_attention_cuda(x, x, x, causal=True,
+                                             q_offset=0, window=None)
+    h = x[..., :64].half()
+    with pytest.raises(TypeError):
+        flash_attention.flash_attention_cuda(h, h, h, causal=True,
+                                             q_offset=0, window=None)
+    with pytest.raises(TypeError):
+        rmsnorm.rmsnorm_cuda(h[0, :, 0], torch.ones(64, device=cuda), 1e-6)
 
 
 @pytest.mark.cuda

@@ -1,6 +1,6 @@
-"""Port parity: the three planning kernels' plain PyTorch versions against
-the JAX package's Pallas kernels (run in interpret mode, as the JAX tests
-run them), and the public wrappers' flattening and dispatch.
+"""Port parity: the kernels' plain PyTorch versions against the JAX
+package's Pallas kernels (run in interpret mode, as the JAX tests run
+them) or its oracles, and the public wrappers' flattening and dispatch.
 
 * K1 ``invert_rate_plain``  vs ``ops.sroa_invert_rate(_batched)``:
   rtol 1e-5, atol 1e-3 (``tests/test_kernels.py:179``).
@@ -10,6 +10,13 @@ run them), and the public wrappers' flattening and dispatch.
   ~B 2^-b_iters each to the budget sum, so the two are not bitwise.
 * K3 ``topk_moves_plain``   vs ``ops.topk_move_scores``: indices exact,
   scores rtol 1e-5, padding and cell axis included.
+* K4 ``attention_plain`` (through ``ops.flash_attention``) vs
+  ``ref.attention_ref`` on the JAX flash sweep: 2e-5 in f32, 2e-2 in bf16
+  (``tests/test_kernels.py:70``).  The JAX flash kernel itself does not
+  run on this jax (``pl.load`` is gone), so its oracle stands in.
+* K5 ``rmsnorm_plain`` (through ``ops.fused_rmsnorm``) vs
+  ``ops.fused_rmsnorm`` on the JAX rmsnorm sweep: 1e-5 in f32, 2e-2 in bf16
+  (``tests/test_kernels.py:114``).
 
 The CUDA kernels themselves are held against these twins on a card by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
@@ -29,6 +36,7 @@ from repro.core import sroa as jsroa  # noqa: E402
 from repro.core import system_model as jsm  # noqa: E402
 from repro.core import wireless as jw  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels import sroa_bisect as jsb  # noqa: E402
 from repro_torch.core import sroa as tsroa  # noqa: E402
 from repro_torch.core import system_model as tsm  # noqa: E402
@@ -259,6 +267,109 @@ def test_topk_flattens_the_cell_axis(launches):
             assert_bitwise(x[i], y)
 
 
+# ------------------------------------------------------------------ K4
+def _qkv(shapes, dtype, seed):
+    """numpy normals as (JAX, torch) pairs of one dtype: both round the
+    same f32 values to bf16 to nearest even."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for shape in shapes:
+        x = rng.normal(size=shape).astype(np.float32)
+        out.append((jnp.asarray(x, jnp.bfloat16 if dtype == "bf16"
+                                else jnp.float32),
+                    _t(x).to(torch.bfloat16 if dtype == "bf16"
+                             else torch.float32)))
+    return out
+
+
+def _attention_ref(q, k, v, **kw):
+    """JAX's oracle in the model layout (B, T, H, hd)."""
+    t = lambda x: x.transpose(0, 2, 1, 3)  # noqa: E731
+    return t(jref.attention_ref(t(q), t(k), t(v), **kw))
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(host(got.float()),
+                               np.asarray(want, np.float32), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("B,H,T,hd", [
+    (1, 1, 8, 64), (2, 4, 16, 64), (1, 2, 128, 128), (2, 2, 96, 80),
+    (1, 4, 256, 112),
+])
+def test_flash_plain_matches_oracle(B, H, T, hd, dtype, launches):
+    (qj, qt), (kj, kt), (vj, vt) = _qkv([(B, T, H, hd)] * 3, dtype, T + hd)
+    got = ops.flash_attention(qt, kt, vt, causal=True)
+    assert got.shape == (B, T, H, hd) and got.dtype == qt.dtype
+    _close(got, _attention_ref(qj, kj, vj, causal=True),
+           2e-2 if dtype == "bf16" else 2e-5)
+
+
+@pytest.mark.parametrize("T", [64, 160])
+@pytest.mark.parametrize("kw", [dict(causal=False),
+                                dict(causal=True, window=16)])
+def test_flash_plain_non_causal_and_window(T, kw, launches):
+    """At T = 160 a query block's first key blocks lie wholly outside the
+    window: the finite -1e30 folds exp(0) terms into the running sums and
+    the next real block wipes them."""
+    (qj, qt), (kj, kt), (vj, vt) = _qkv([(1, T, 2, 64)] * 3, "f32", 1)
+    _close(ops.flash_attention(qt, kt, vt, **kw),
+           _attention_ref(qj, kj, vj, **kw), 2e-5)
+
+
+def test_flash_plain_decode_offset(launches):
+    """Tq = 1 with q_offset = S - 1 (a decode step against its context)."""
+    S = 64
+    (qj, qt), (kj, kt), (vj, vt) = _qkv(
+        [(1, 1, 2, 64), (1, S, 2, 64), (1, S, 2, 64)], "f32", 2)
+    _close(ops.flash_attention(qt, kt, vt, causal=True, q_offset=S - 1),
+           _attention_ref(qj, kj, vj, causal=True, q_offset=S - 1), 2e-5)
+
+
+def test_flash_plain_skips_blocks_past_the_causal_limit():
+    """Key blocks past a query block's limit leave it untouched: poisoning
+    them with NaN changes nothing (the TPU kernel never loads them)."""
+    rng = np.random.default_rng(5)
+    q, k, v = (_t(rng.normal(size=(2, 130, 64)).astype(np.float32))
+               for _ in range(3))
+    want = ref.attention_plain(q, k, v, causal=True)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, 128:], v2[:, 128:] = float("nan"), float("nan")
+    got = ref.attention_plain(q[:, :128], k2, v2, causal=True)
+    assert_bitwise(got, want[:, :128])
+
+
+# ------------------------------------------------------------------ K5
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(4, 128), (2, 7, 256), (1, 1, 512),
+                                   (3, 33, 384)])
+def test_rmsnorm_plain_matches_pallas(shape, dtype, launches):
+    rng = np.random.default_rng(len(shape))
+    jdt, tdt = ((jnp.bfloat16, torch.bfloat16) if dtype == "bf16"
+                else (jnp.float32, torch.float32))
+    x = rng.normal(size=shape).astype(np.float32)
+    s = rng.normal(size=shape[-1]).astype(np.float32)
+    want = jops.fused_rmsnorm(jnp.asarray(x, jdt), jnp.asarray(s, jdt))
+    got = ops.fused_rmsnorm(_t(x).to(tdt), _t(s).to(tdt))
+    assert got.shape == shape and got.dtype == tdt
+    _close(got, want, 2e-2 if dtype == "bf16" else 1e-5)
+
+
+@pytest.mark.parametrize("d", [1, 33, 1024])
+def test_rmsnorm_plain_sums_in_the_kernels_order(d):
+    """The sum of squares is ``warp_sum_plain``'s lane order, close to a
+    plain f32 mean (it is a reordering of the same sum)."""
+    rng = np.random.default_rng(d)
+    x = _t(rng.normal(size=(5, d)).astype(np.float32))
+    s = _t(rng.normal(size=d).astype(np.float32))
+    got = ref.rmsnorm_plain(x, s, 1e-6)
+    var = (x.double() ** 2).mean(-1, keepdim=True)
+    want = x.double() * torch.rsqrt(var + 1e-6) * s.double()
+    np.testing.assert_allclose(host(got), host(want), rtol=1e-5, atol=1e-6)
+
+
 # ------------------------------------------------------------- dispatch
 def test_wrappers_refuse_devices_without_a_kernel_route():
     x = torch.ones(4, device="meta")
@@ -274,6 +385,9 @@ def test_wrappers_refuse_devices_without_a_kernel_route():
                                             1.0, 1.0, 0.0),
         lambda a, b: ops.topk_move_scores(a[..., None], b, a, a.int(),
                                           a.bool(), 1.0, 1.0, k=1),
+        lambda a, b: ops.flash_attention(a[:, None, None], b[:, None, None],
+                                         a[:, None, None]),
+        lambda a, b: ops.fused_rmsnorm(a, b[0]),
     ]
     for call in calls:
         for a, b in ((cpu, other), (other, cpu)):
@@ -283,7 +397,8 @@ def test_wrappers_refuse_devices_without_a_kernel_route():
 
 def test_build_names_the_library_by_source_and_flags(tmp_path):
     srcs = sorted(build.CSRC.glob("*.cu"))
-    assert [s.name for s in srcs] == ["sroa_bisect.cu", "topk_moves.cu"]
+    assert [s.name for s in srcs] == ["flash_attention.cu", "rmsnorm.cu",
+                                      "sroa_bisect.cu", "topk_moves.cu"]
     d1 = build._digest(srcs, build.NVCC_FLAGS)
     assert d1 == build._digest(srcs, list(build.NVCC_FLAGS))
     assert d1 != build._digest(srcs, build.NVCC_FLAGS + ["-G"])

@@ -317,8 +317,10 @@ def test_service_unported_modes_raise():
 def test_serve_entry_point_refuses_what_is_not_ported():
     from repro_torch.launch import serve
 
-    with pytest.raises(SystemExit, match="not ported"):
-        serve.main(["--mode", "lm"])
+    # LM serving runs the dense family; the other families still raise.
+    with pytest.raises(NotImplementedError, match="not ported"):
+        serve.main(["--mode", "lm", "--device", "cpu", "--arch",
+                    "zamba2-7b"])
     for flag in (["--horizon", "3"], ["--no-stream"], ["--compression"],
                  ["--topology-period", "2"]):
         with pytest.raises(SystemExit, match="not ported"):
