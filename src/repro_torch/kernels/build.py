@@ -87,9 +87,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.topk_moves.argtypes = [p] * 10 + [i] * 4 + [p]
     lib.flash_attention.argtypes = ([p] * 4 + [i] * 6 + [ll] * 12 + [i] * 4
                                     + [f, p])
+    lib.flash_attention_sm90.argtypes = ([p] * 4 + [i] * 5 + [ll] * 12
+                                         + [i] * 4 + [f, p])
+    lib.flash_attention_sm90_occupancy.argtypes = [i, p, p]
     lib.rmsnorm.argtypes = [p, p, p, i, ll, i, f, p]
     for fn in (lib.sroa_invert_rate, lib.sroa_solve, lib.topk_moves,
-               lib.flash_attention, lib.rmsnorm):
+               lib.flash_attention, lib.flash_attention_sm90,
+               lib.flash_attention_sm90_occupancy, lib.rmsnorm):
         fn.restype = ctypes.c_int
     return lib
 
@@ -101,6 +105,8 @@ def load(verbose: bool = False) -> ctypes.CDLL:
     compiler's report (``-Xptxas -v``: registers, spills) in ``build_log``.
     """
     global _lib, build_log
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is not None:
             return _lib

@@ -28,7 +28,9 @@
 // bf16 in and out, so the card's bf16 tensor rate and its memory rate
 // bound it near 0.01 ms.  This kernel runs on the f32 CUDA cores from
 // shared memory (two loads per FMA pair in the score loop) and is far
-// above that bound; wgmma, TMA and bf16 tensor cores are later work.
+// above that bound.  It is K4's route for f32 (whose 2e-5 tolerance the
+// bf16 tensor cores cannot meet), for hd in (128, 256] and for layouts
+// TMA does not take; bf16 with hd <= 128 runs flash_attention_sm90.cu.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -219,9 +221,17 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
            float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
   auto kern = flash_attention_kernel<T, HD>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // Raise the kernel's shared-memory cap once per device, not per launch.
+  static unsigned set_on = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
+  if (dev >= 32 || !(set_on & (1u << dev))) {
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 32) set_on |= 1u << dev;
+  }
   const dim3 grid((Tq + kBlockQ - 1) / kBlockQ, B * H);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),

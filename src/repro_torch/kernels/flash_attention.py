@@ -1,62 +1,112 @@
-"""Launcher for K4 (``csrc/flash_attention.cu``) on CUDA tensors.
+"""Launcher for K4 (``csrc/flash_attention_sm90.cu`` and
+``csrc/flash_attention.cu``) on CUDA tensors.
 
 K4 replaces ``repro/kernels/flash_attention.py`` ``_flash_kernel``: the
 online-softmax attention forward pass with causal masking, a query offset
 and a sliding window, f32 statistics, and the output in the input's type.
-One block per (batch x head, 64 query rows); K/V tiles of 64 keys staged
-in shared memory; q, k, v and the output are addressed in the model layout
-(B, T, H, hd) through their strides.  Any hd up to 256, without padding;
-the scale is 1/sqrt(hd) of the true hd.
+q, k, v and the output are addressed in the model layout (B, T, H, hd)
+through their strides; the scale is 1/sqrt(hd) of the true hd.
+
+Two kernels compute it, and one rule picks between them from the operands'
+dtype, head dim, strides and addresses alone (:func:`takes_wgmma`):
+
+* ``flash_attention_sm90`` (tensor cores: wgmma for both products, TMA
+  copies through a two-stage K/V ring) takes bf16 with 0 < hd <= 128 when
+  every stride but the head dim's, of q, k, v and the output, is a
+  positive multiple of 16 bytes and every base address is 16-byte aligned;
+* ``flash_attention`` (f32 CUDA cores, any hd up to 256, any strides)
+  takes everything else: f32, hd in (128, 256], and odd layouts.
+
+The choice never depends on a failure: a build or launch error raises.
 """
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.sroa_bisect import _ptr, _stream
+from repro_torch.kernels.sroa_bisect import _call, _stream
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
+WGMMA_MAX_HEAD_DIM = 128
+
+
+def takes_wgmma(dtype: torch.dtype, hd: int, strides, ptrs) -> bool:
+    """The routing rule: True for the tensor-core kernel.
+
+    ``strides`` are the element strides of every axis but the head dim of
+    q, k, v and the output; ``ptrs`` their base addresses.  bf16, 0 < hd
+    <= 128, every stride a positive multiple of 8 elements (16 bytes: TMA's
+    stride unit) and every address 16-byte aligned."""
+    return (dtype == torch.bfloat16 and 0 < hd <= WGMMA_MAX_HEAD_DIM
+            and min(strides) > 0 and math.gcd(*strides) % 8 == 0
+            and math.gcd(*ptrs) % 16 == 0)
+
+
+def _refuse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Raise the error that says why K4 does not take these operands."""
+    B, Tq, H, hd = q.shape
+    Tk = k.shape[1]
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"K4 takes float32 or bfloat16, got {q.dtype}")
+    for name, x, T in (("q", q, Tq), ("k", k, Tk), ("v", v, Tk)):
+        if x.device != q.device or not x.is_cuda:
+            raise ValueError(f"{name} must be a CUDA tensor on q's device, "
+                             f"got {x.device}")
+        if x.dtype != q.dtype:
+            raise TypeError(f"{name} is {x.dtype}, q is {q.dtype}")
+        if x.shape != (B, T, H, hd):
+            raise ValueError(f"{name} has shape {tuple(x.shape)}, expected "
+                             f"{(B, T, H, hd)}")
+        if x.stride(3) != 1:
+            raise ValueError(f"{name} must have a unit head-dim stride")
+    if not 0 < hd <= MAX_HEAD_DIM:
+        raise ValueError(f"K4 takes head dims up to {MAX_HEAD_DIM}, got {hd}")
+    raise ValueError("K4 needs at least one key")
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool, q_offset: int,
-                         window) -> torch.Tensor:
+                         *, causal: bool, q_offset: int, window,
+                         _route: str | None = None):
     """K4 on q (B, Tq, H, hd), k/v (B, Tk, H, hd) CUDA tensors of one
     dtype (f32 or bf16), each with a unit head-dim stride.  Returns a new
-    contiguous (B, Tq, H, hd) tensor in that dtype."""
+    contiguous (B, Tq, H, hd) tensor in that dtype, and True when the
+    tensor-core kernel computed it.
+
+    ``_route`` ("wgmma" or "simt") overrides the rule, for timing the two
+    kernels on the same tensors; "wgmma" raises where the rule refuses."""
     B, Tq, H, hd = q.shape
     Tk = k.shape[1]
-    for name, x, shape in (("q", q, (B, Tq, H, hd)), ("k", k, (B, Tk, H, hd)),
-                           ("v", v, (B, Tk, H, hd))):
-        if not x.is_cuda:
-            raise ValueError(f"{name} must be a CUDA tensor, got {x.device}")
-        if x.device != q.device:
-            raise ValueError("K4 operands must share one device")
-        if x.dtype != q.dtype:
-            raise TypeError(f"{name} is {x.dtype}, q is {q.dtype}")
-        if tuple(x.shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(x.shape)}, expected "
-                             f"{shape}")
-        if x.stride(3) != 1:
-            raise ValueError(f"{name} must have a unit head-dim stride")
-    if q.dtype not in _DTYPES:
-        raise TypeError(f"K4 takes float32 or bfloat16, got {q.dtype}")
-    if not 0 < hd <= MAX_HEAD_DIM:
-        raise ValueError(f"K4 takes head dims up to {MAX_HEAD_DIM}, got {hd}")
-    if Tk == 0:
-        raise ValueError("K4 needs at least one key")
-    out = torch.empty((B, Tq, H, hd), dtype=q.dtype, device=q.device)
-    strides = [ctypes.c_longlong(x.stride(i))
-               for x in (q, k, v, out) for i in (0, 1, 2)]
-    with torch.cuda.device(q.device):
-        err = build.load().flash_attention(
-            _ptr(q), _ptr(k), _ptr(v), _ptr(out), _DTYPES[q.dtype], B, H,
-            Tq, Tk, hd, *strides, int(bool(causal)), int(q_offset),
-            int(window is not None), int(window or 0),
-            1.0 / math.sqrt(hd), _stream(q))
-    build.check(err, "flash_attention")
-    return out
+    dev, dt = q.device, q.dtype
+    # One expression on the hot path; _refuse names what failed.
+    if not (q.is_cuda and dt in _DTYPES and k.dtype == dt and v.dtype == dt
+            and k.shape == v.shape == (B, Tk, H, hd) and Tk > 0
+            and 0 < hd <= MAX_HEAD_DIM
+            and q.stride(3) == k.stride(3) == v.stride(3) == 1
+            and k.device == dev and v.device == dev):
+        _refuse(q, k, v)
+    out = torch.empty((B, Tq, H, hd), dtype=dt, device=dev)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+               Tq * H * hd, H * hd, hd)
+    wgmma = takes_wgmma(dt, hd, strides, ptrs)
+    if _route is not None:
+        if _route not in ("wgmma", "simt"):
+            raise ValueError(f"no K4 route {_route!r}")
+        if _route == "wgmma" and not wgmma:
+            raise ValueError("the tensor-core K4 does not take these "
+                             "operands")
+        wgmma = _route == "wgmma"
+    lib = build.load()
+    common = (int(bool(causal)), int(q_offset), int(window is not None),
+              int(window or 0), 1.0 / math.sqrt(hd), _stream(q))
+    if wgmma:
+        err = _call(dev, lib.flash_attention_sm90, *ptrs, B, H, Tq, Tk, hd,
+                    *strides, *common)
+    else:
+        err = _call(dev, lib.flash_attention, *ptrs, _DTYPES[dt], B, H, Tq,
+                    Tk, hd, *strides, *common)
+    build.check(err, "flash_attention_sm90" if wgmma else "flash_attention")
+    return out, wgmma

@@ -8,7 +8,9 @@ kernel, or raise.  Every tensor operand of a call must lie on one device
 (Python scalars broadcast onto it); a call that mixes devices raises.
 ``LAUNCHES`` counts kernel launches (only launches: the plain version never
 counts) under ``sroa_invert`` (K1), ``sroa_solve`` (K2), ``topk_moves``
-(K3), ``flash_attention`` (K4) and ``rmsnorm`` (K5).
+(K3), ``flash_attention`` (K4, either of its kernels) and ``rmsnorm``
+(K5); ``flash_attention_sm90`` counts the K4 launches that took the
+tensor-core kernel.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import torch
 from repro_torch.kernels import ref
 
 LAUNCHES = {"sroa_invert": 0, "sroa_solve": 0, "topk_moves": 0,
-            "flash_attention": 0, "rmsnorm": 0}
+            "flash_attention": 0, "flash_attention_sm90": 0, "rmsnorm": 0}
 
 
 def reset_launches() -> None:
@@ -168,6 +170,7 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
 
     Heads are not repeated here: k and v carry q's head count (the model's
     ``attention`` repeats grouped heads first, as the JAX package does).
+    On CUDA, ``flash_attention.takes_wgmma`` picks the kernel.
     """
     cuda = _on_cuda(q, k, v)
     if q.dim() != 4 or k.shape != v.shape or k.shape[0] != q.shape[0] \
@@ -180,9 +183,11 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             causal=causal, q_offset=q_offset, window=window).transpose(1, 2)
     from repro_torch.kernels import flash_attention as fa
-    out = fa.flash_attention_cuda(q, k, v, causal=causal, q_offset=q_offset,
-                                  window=window)
+    out, wgmma = fa.flash_attention_cuda(q, k, v, causal=causal,
+                                         q_offset=q_offset, window=window)
     LAUNCHES["flash_attention"] += 1
+    if wgmma:
+        LAUNCHES["flash_attention_sm90"] += 1
     return out
 
 
@@ -193,7 +198,9 @@ def fused_rmsnorm(x, scale, eps: float = 1e-6) -> torch.Tensor:
         return ref.rmsnorm_plain(x, scale, eps)
     from repro_torch.kernels import rmsnorm
     d = x.shape[-1]
-    out = rmsnorm.rmsnorm_cuda(x.reshape(-1, d).contiguous(),
-                               scale.to(torch.float32).contiguous(), eps)
+    if scale.dtype != torch.float32 or not scale.is_contiguous():
+        scale = scale.to(torch.float32).contiguous()
+    flat = x if x.dim() == 2 else x.reshape(-1, d)
+    out = rmsnorm.rmsnorm_cuda(flat.contiguous(), scale, eps)
     LAUNCHES["rmsnorm"] += 1
-    return out.reshape(x.shape)
+    return out if x.dim() == 2 else out.reshape(x.shape)

@@ -11,11 +11,13 @@ numbers:
   them; once every problem of the batch is frozen the remaining trips are
   no-ops, so the loop stops there.
 * :func:`topk_moves_plain`  — K3 (``csrc/topk_moves.cu::topk_moves``).
-* :func:`attention_plain`   — K4 (``csrc/flash_attention.cu``): the TPU
-  kernel's blockwise online softmax in f32, with its finite ``NEG_INF``,
-  its key-padding mask and its causal skip of key blocks.
+* :func:`attention_plain`   — K4 (``csrc/flash_attention_sm90.cu`` and
+  ``csrc/flash_attention.cu``): the TPU kernel's blockwise online softmax
+  in f32, with its finite ``NEG_INF``, its key-padding mask and its causal
+  skip of key blocks.
 * :func:`rmsnorm_plain`     — K5 (``csrc/rmsnorm.cu``): the sum of squares
-  in the kernel's warp order (bitwise in f32 up to ``rsqrt``).
+  in the kernel's chunk-and-warp order (:func:`chunk_sum_plain`; bitwise
+  up to ``rsqrt``).
 """
 from __future__ import annotations
 
@@ -336,14 +338,46 @@ def attention_plain(q, k, v, *, causal: bool = True, q_offset: int = 0,
     return out.reshape(*lead, nqb * block_q, hd)[..., :Tq, :].to(q.dtype)
 
 
+def chunk_sum_plain(x: torch.Tensor, vec: int) -> torch.Tensor:
+    """Row sums of (P, N) in K5's order, (P, 1).
+
+    The row splits into chunks of ``vec`` consecutive elements; lane ``l``
+    of the warp adds chunks ``l, l + 32, ...`` in turn and the elements of
+    each chunk in order, then five butterfly steps add lane ``l ^ off`` for
+    off = 16, 8, 4, 2, 1.  ``vec = 1`` is K5's scalar path.  Past the row's
+    end the lanes add +0, which changes no sum of non-negative terms (K5
+    sums squares)."""
+    P, N = x.shape
+    K = -(-N // (32 * vec))
+    lanes = F.pad(x, (0, K * 32 * vec - N)).reshape(P, K, 32, vec)
+    v = torch.zeros((P, 32), dtype=x.dtype, device=x.device)
+    for k in range(K):
+        for e in range(vec):
+            v = v + lanes[:, k, :, e]
+    idx = torch.arange(32, device=x.device)
+    for off in (16, 8, 4, 2, 1):
+        v = v + v[:, idx ^ off]
+    return v[:, :1]
+
+
+def rmsnorm_vec(d: int, dtype: torch.dtype) -> int:
+    """K5's chunk width for rows of ``d`` values of ``dtype``: one 16-byte
+    vector (8 bf16 or 4 f32 values) when it divides d, else 1 (the scalar
+    path)."""
+    vec = 16 // dtype.itemsize
+    return vec if d % vec == 0 else 1
+
+
 def rmsnorm_plain(x: torch.Tensor, scale: torch.Tensor,
                   eps: float = 1e-6) -> torch.Tensor:
     """``x * rsqrt(mean(x^2) + eps) * scale`` over the last axis, in f32,
     cast to x's dtype last (``rmsnorm.py:15-19``).  The sum of squares adds
-    in K5's order (one warp per row: :func:`warp_sum_plain`), so in f32 it
-    is bitwise the kernel's; the mean is a true division by d."""
+    in K5's order (:func:`chunk_sum_plain` with K5's chunk width), so it is
+    bitwise the kernel's up to ``rsqrt``; the mean is a true division by
+    d."""
     d = x.shape[-1]
     xf = x.float().reshape(-1, d)
-    var = warp_sum_plain(xf * xf) / _const(xf, float(d))
+    var = chunk_sum_plain(xf * xf, rmsnorm_vec(d, x.dtype)) / _const(
+        xf, float(d))
     y = xf * torch.rsqrt(var + eps)
     return (y * scale.float()).to(x.dtype).reshape(x.shape)

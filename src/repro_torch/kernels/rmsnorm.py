@@ -2,20 +2,25 @@
 
 K5 replaces ``repro/kernels/rmsnorm.py`` ``_rmsnorm_kernel``: per row,
 ``x * rsqrt(mean(x^2) + eps) * scale`` in f32, cast to x's type last.  One
-warp per row; the sum of squares adds in a fixed order, which the plain
-twin ``ref.rmsnorm_plain`` repeats.  No model calls it: the models'
-``layers.rms_norm`` rounds to x's type before the scale multiply.
+warp per row, 16-byte loads and stores, the row read once; the sum of
+squares adds in a fixed order, which the plain twin ``ref.rmsnorm_plain``
+repeats.  No model calls it: the models' ``layers.rms_norm`` rounds to x's
+type before the scale multiply.
 """
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.sroa_bisect import _check, _ptr, _stream
+from repro_torch.kernels.sroa_bisect import _call, _check, _stream
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """x, or a fresh copy of it when its base is not 16-byte aligned (the
+    kernel's vector loads need it; the copy changes no value or order)."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor,
@@ -32,10 +37,10 @@ def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor,
     _check("scale", scale, (d,))
     if scale.device != x.device:
         raise ValueError("K5 operands must share one device")
+    x, scale = _aligned(x), _aligned(scale)
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        err = build.load().rmsnorm(
-            _ptr(x), _ptr(scale), _ptr(out), _DTYPES[x.dtype],
-            ctypes.c_longlong(rows), d, float(eps), _stream(x))
+    err = _call(x.device, build.load().rmsnorm, x.data_ptr(),
+                scale.data_ptr(), out.data_ptr(), _DTYPES[x.dtype], rows, d,
+                float(eps), _stream(x))
     build.check(err, "rmsnorm")
     return out

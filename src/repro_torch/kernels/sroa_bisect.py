@@ -14,8 +14,6 @@ the current stream and raise on a launch error; they never synchronize.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.kernels import build
@@ -33,12 +31,22 @@ def _check(name: str, x: torch.Tensor, shape: tuple, dtype=torch.float32):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _ptr(x: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(x.data_ptr())
+def _ptr(x: torch.Tensor) -> int:
+    return x.data_ptr()           # argtypes turn ints into pointers
 
 
-def _stream(x: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
+def _stream(x: torch.Tensor) -> int:
+    """The raw handle of PyTorch's current stream on x's device."""
+    return torch._C._cuda_getCurrentRawStream(x.device.index)
+
+
+def _call(dev: torch.device, fn, *args) -> int:
+    """``fn(*args)`` with ``dev`` as the current device; the switch is
+    skipped when it already is (a device context costs microseconds)."""
+    if dev.index == torch._C._cuda_getDevice():
+        return fn(*args)
+    with torch.cuda.device(dev):
+        return fn(*args)
 
 
 def invert_rate_cuda(G: torch.Tensor, target: torch.Tensor,
@@ -54,11 +62,10 @@ def invert_rate_cuda(G: torch.Tensor, target: torch.Tensor,
         if x.device != G.device:
             raise ValueError("K1 operands must share one device")
     out = torch.empty_like(G)
-    with torch.cuda.device(G.device):
-        err = build.load().sroa_invert_rate(
-            _ptr(G), _ptr(target), _ptr(b_max),
-            ctypes.c_longlong(1 if b_max.numel() == n and n > 1 else 0),
-            _ptr(out), ctypes.c_longlong(n), int(iters), _stream(G))
+    err = _call(G.device, build.load().sroa_invert_rate, _ptr(G),
+                _ptr(target), _ptr(b_max),
+                1 if b_max.numel() == n and n > 1 else 0, _ptr(out), n,
+                int(iters), _stream(G))
     build.check(err, "sroa_invert_rate")
     return out
 
@@ -83,12 +90,11 @@ def solve_cuda(per_user: tuple, per_problem: tuple, *, b_iters: int,
     t, R, b_sum = (torch.empty((P,), dtype=torch.float32, device=dev)
                    for _ in range(3))
     feas = torch.empty((P,), dtype=torch.bool, device=dev)
-    with torch.cuda.device(dev):
-        err = build.load().sroa_solve(
-            *map(_ptr, per_user + per_problem),
-            *map(_ptr, (b, f, p, t, R, b_sum, feas)),
-            P, N, int(b_iters), int(f_iters), int(p_iters), int(t_iters),
-            float(eps0), float(eps1), float(eps2), float(t_low), float(t_up),
-            _stream(b))
+    err = _call(dev, build.load().sroa_solve,
+                *map(_ptr, per_user + per_problem),
+                *map(_ptr, (b, f, p, t, R, b_sum, feas)),
+                P, N, int(b_iters), int(f_iters), int(p_iters), int(t_iters),
+                float(eps0), float(eps1), float(eps2), float(t_low),
+                float(t_up), _stream(b))
     build.check(err, "sroa_solve")
     return b, f, p, t, R, b_sum, feas

@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.sroa_bisect import _check, _ptr, _stream
+from repro_torch.kernels.sroa_bisect import _call, _check, _ptr, _stream
 
 
 def topk_moves_cuda(gain: torch.Tensor, H: torch.Tensor, p_max: torch.Tensor,
@@ -35,10 +35,9 @@ def topk_moves_cuda(gain: torch.Tensor, H: torch.Tensor, p_max: torch.Tensor,
     user = torch.empty((P, k), dtype=torch.int32, device=dev)
     dst = torch.empty((P, k), dtype=torch.int32, device=dev)
     score = torch.empty((P, k), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = build.load().topk_moves(
-            *map(_ptr, (gain, H, p_max, assign, mask, N0, B, user, dst,
-                        score)),
-            P, N, M, int(k), _stream(gain))
+    err = _call(dev, build.load().topk_moves,
+                *map(_ptr, (gain, H, p_max, assign, mask, N0, B, user, dst,
+                            score)),
+                P, N, M, int(k), _stream(gain))
     build.check(err, "topk_moves")
     return user, dst, score

@@ -35,11 +35,16 @@ def fleet(cuda):
     return batch.draw_fleet(3, 4, SPEC, n_range=(6, 12), device=cuda)
 
 
-def _launched(name, fn):
-    n0 = ops.LAUNCHES[name]
+def _launched(name, fn, wgmma=None):
+    """fn's result; fn launched kernel ``name`` once and, for K4, took the
+    tensor-core kernel when ``wgmma`` is True and the SIMT one when it is
+    False."""
+    n0, w0 = ops.LAUNCHES[name], ops.LAUNCHES["flash_attention_sm90"]
     out = fn()
     torch.cuda.synchronize()
     assert ops.LAUNCHES[name] == n0 + 1
+    if wgmma is not None:
+        assert ops.LAUNCHES["flash_attention_sm90"] == w0 + int(wgmma)
     return out
 
 
@@ -122,7 +127,8 @@ def test_k4_matches_its_twin(cuda, B, H, T, hd, dtype):
     dt = getattr(torch, dtype)
     q, k, v = (_randn((B, T, H, hd), dt, cuda, T + hd + i) for i in range(3))
     got = _launched("flash_attention",
-                    lambda: ops.flash_attention(q, k, v, causal=True))
+                    lambda: ops.flash_attention(q, k, v, causal=True),
+                    wgmma=dt == torch.bfloat16 and hd <= 128)
     assert got.dtype == dt and got.shape == (B, T, H, hd)
     tol = 2e-2 if dt == torch.bfloat16 else 2e-5
     torch.testing.assert_close(got.float(),
@@ -131,20 +137,45 @@ def test_k4_matches_its_twin(cuda, B, H, T, hd, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("kw,Tq,Tk", [
     (dict(causal=False), 64, 64),
     (dict(causal=True, window=16), 160, 160),
     (dict(causal=True, q_offset=63), 1, 64),
     (dict(causal=True, q_offset=100), 30, 130),
 ])
-def test_k4_masks_and_offsets(cuda, kw, Tq, Tk):
-    q = _randn((2, Tq, 3, 64), torch.float32, cuda, 1)
-    k = _randn((2, Tk, 3, 64), torch.float32, cuda, 2)
-    v = _randn((2, Tk, 3, 64), torch.float32, cuda, 3)
+def test_k4_masks_and_offsets(cuda, kw, Tq, Tk, dtype):
+    """f32 runs on the SIMT kernel (2e-5), bf16 on the tensor-core kernel
+    (2e-2): its non-causal, window, q_offset and Tq != Tk paths."""
+    dt = getattr(torch, dtype)
+    q = _randn((2, Tq, 3, 64), dt, cuda, 1)
+    k = _randn((2, Tk, 3, 64), dt, cuda, 2)
+    v = _randn((2, Tk, 3, 64), dt, cuda, 3)
     got = _launched("flash_attention",
-                    lambda: ops.flash_attention(q, k, v, **kw))
-    torch.testing.assert_close(got, _attention_plain(q, k, v, **kw),
-                               rtol=2e-5, atol=2e-5)
+                    lambda: ops.flash_attention(q, k, v, **kw),
+                    wgmma=dt == torch.bfloat16)
+    tol = 2e-2 if dt == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(),
+                               _attention_plain(q, k, v, **kw).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,hd", [(4, 1024, 16, 64), (1, 1024, 24, 128)])
+def test_k4_takes_the_tensor_cores_at_the_model_shapes(cuda, B, T, H, hd):
+    """qwen1.5-0.5b's prefill (hd 64) and llama3.2-3b's heads (hd 128): in
+    bf16 the wgmma kernel, held to the twin at 2e-2; in f32 the SIMT one."""
+    q, k, v = (_randn((B, T, H, hd), torch.bfloat16, cuda, 7 + i)
+               for i in range(3))
+    got = _launched("flash_attention",
+                    lambda: ops.flash_attention(q, k, v, causal=True),
+                    wgmma=True)
+    torch.testing.assert_close(
+        got.float(), _attention_plain(q, k, v, causal=True).float(),
+        rtol=2e-2, atol=2e-2)
+    f = q[:1, :128].float()
+    _launched("flash_attention",
+              lambda: ops.flash_attention(f, f, f, causal=True), wgmma=False)
 
 
 @pytest.mark.cuda
@@ -155,7 +186,8 @@ def test_k4_reads_strided_operands(cuda):
     q, k, v = qkv.unbind(2)
     assert not q.is_contiguous()
     got = _launched("flash_attention",
-                    lambda: ops.flash_attention(q, k, v, causal=True))
+                    lambda: ops.flash_attention(q, k, v, causal=True),
+                    wgmma=True)
     want = ops.flash_attention(q.contiguous(), k.contiguous(),
                                v.contiguous(), causal=True)
     assert torch.equal(got, want)
@@ -164,19 +196,22 @@ def test_k4_reads_strided_operands(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [(4, 128), (2, 7, 256), (1, 1, 512),
-                                   (3, 33, 384), (64, 1024)])
+                                   (3, 33, 384), (64, 1024), (2, 8192),
+                                   (3, 4100), (4, 36)])
 def test_k5_matches_its_twin(cuda, shape, dtype):
-    """f32 to 1e-6 (the twin adds in the kernel's order; only rsqrt may
-    differ in its last bit), bf16 to 2e-2."""
+    """Bitwise: the twin adds in the kernel's order (16-byte chunks, or
+    single elements where d is not a multiple of the vector), and rsqrtf is
+    torch.rsqrt on the card.  d 8192 keeps a bf16 row in registers and
+    reads an f32 one twice; 4100 and 36 take bf16's scalar path."""
     dt = getattr(torch, dtype)
     x = _randn(shape, dt, cuda, 5)
     s = _randn(shape[-1:], dt, cuda, 6)
     got = _launched("rmsnorm", lambda: ops.fused_rmsnorm(x, s))
     assert got.dtype == dt and got.shape == shape
+    want = ref.rmsnorm_plain(x, s)
     tol = 2e-2 if dt == torch.bfloat16 else 1e-6
-    torch.testing.assert_close(got.float(),
-                               ref.rmsnorm_plain(x, s).float(), rtol=tol,
-                               atol=tol)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
@@ -191,6 +226,12 @@ def test_k4_k5_refuse_what_they_do_not_take(cuda):
     with pytest.raises(TypeError):
         flash_attention.flash_attention_cuda(h, h, h, causal=True,
                                              q_offset=0, window=None)
+    # The tensor-core kernel refuses f32 when asked for by name.
+    f = x[..., :64]
+    with pytest.raises(ValueError, match="tensor-core"):
+        flash_attention.flash_attention_cuda(f, f, f, causal=True,
+                                             q_offset=0, window=None,
+                                             _route="wgmma")
     with pytest.raises(TypeError):
         rmsnorm.rmsnorm_cuda(h[0, :, 0], torch.ones(64, device=cuda), 1e-6)
 

@@ -357,17 +357,80 @@ def test_rmsnorm_plain_matches_pallas(shape, dtype, launches):
     _close(got, want, 2e-2 if dtype == "bf16" else 1e-5)
 
 
-@pytest.mark.parametrize("d", [1, 33, 1024])
+@pytest.mark.parametrize("d", [1, 33, 1024, 1028])
 def test_rmsnorm_plain_sums_in_the_kernels_order(d):
-    """The sum of squares is ``warp_sum_plain``'s lane order, close to a
-    plain f32 mean (it is a reordering of the same sum)."""
+    """The sum of squares adds in K5's order: 16-byte chunks (4 f32 values)
+    when they divide d, single elements otherwise; the result stays close
+    to a plain mean (it is a reordering of the same sum)."""
     rng = np.random.default_rng(d)
     x = _t(rng.normal(size=(5, d)).astype(np.float32))
     s = _t(rng.normal(size=d).astype(np.float32))
     got = ref.rmsnorm_plain(x, s, 1e-6)
+    vec = 4 if d % 4 == 0 else 1
+    assert ref.rmsnorm_vec(d, torch.float32) == vec
+    assert ref.rmsnorm_vec(d, torch.bfloat16) == (8 if d % 8 == 0 else 1)
+    var = ref.chunk_sum_plain(x * x, vec) / torch.tensor(float(d))
+    assert_bitwise(got, x * torch.rsqrt(var + 1e-6) * s)
     var = (x.double() ** 2).mean(-1, keepdim=True)
     want = x.double() * torch.rsqrt(var + 1e-6) * s.double()
     np.testing.assert_allclose(host(got), host(want), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("N,vec", [(1, 1), (33, 1), (1028, 1), (1024, 4),
+                                   (1028, 4), (1024, 8), (8192, 8), (24, 8)])
+def test_chunk_sum_plain_adds_in_the_kernels_order(N, vec):
+    """K5's lanes, one step at a time: lane l adds chunks l, l + 32, ...
+    of ``vec`` elements, each chunk's elements in order, then butterflies
+    over lanes l ^ 16, 8, 4, 2, 1."""
+    rng = np.random.default_rng(N + vec)
+    x = np.asarray(rng.uniform(0, 1e3, (2, N)) * 10.0 ** rng.integers(
+        -3, 4, (2, N)), np.float32)
+    n_chunks = -(-N // vec)
+    want = np.empty((2, 1), np.float32)
+    for r in range(2):
+        lane = [np.float32(0.0)] * 32
+        for c in range(n_chunks):
+            for e in range(vec):
+                if c * vec + e < N:
+                    lane[c % 32] = np.float32(lane[c % 32] + x[r, c * vec + e])
+        for off in (16, 8, 4, 2, 1):
+            lane = [np.float32(lane[i] + lane[i ^ off]) for i in range(32)]
+        assert len(set(lane)) == 1            # every lane ends equal
+        want[r, 0] = lane[0]
+    assert_bitwise(ref.chunk_sum_plain(_t(x), vec), want)
+
+
+# ------------------------------------------------------------ K4 route
+_CONTIG = (4096, 1024, 64)     # (B, T, H, hd) = (., 64, 16, 64) strides
+
+
+@pytest.mark.parametrize("dtype,hd,strides,ptrs,wgmma", [
+    (torch.bfloat16, 64, _CONTIG * 4, (0, 1 << 20, 2 << 20, 3 << 20), True),
+    (torch.bfloat16, 128, _CONTIG * 4, (256,) * 4, True),
+    (torch.bfloat16, 80, (7680, 480, 80) * 4, (512,) * 4, True),
+    (torch.bfloat16, 112, (7168, 448, 112) * 4, (512,) * 4, True),
+    (torch.bfloat16, 8, (512, 64, 8) * 4, (512,) * 4, True),
+    # the fused (B, T, 3, H, hd) projection's views: strides of 3 H hd
+    (torch.bfloat16, 64, (3 * 70 * 256, 768, 64) * 3 + (70 * 256, 256, 64),
+     (512, 512 + 512, 512 + 1024, 4096), True),
+    (torch.float32, 64, _CONTIG * 4, (512,) * 4, False),
+    (torch.float16, 64, _CONTIG * 4, (512,) * 4, False),
+    (torch.bfloat16, 136, (8704, 544, 136) * 4, (512,) * 4, False),
+    (torch.bfloat16, 256, _CONTIG * 4, (512,) * 4, False),
+    (torch.bfloat16, 0, _CONTIG * 4, (512,) * 4, False),
+    (torch.bfloat16, 36, (2304, 144, 36) * 4, (512,) * 4, False),
+    (torch.bfloat16, 64, (4096, 1028, 64) + _CONTIG * 3, (512,) * 4, False),
+    (torch.bfloat16, 64, (4096, 1024, 0) + _CONTIG * 3, (512,) * 4, False),
+    (torch.bfloat16, 64, _CONTIG * 4, (512, 520, 512, 512), False),
+    (torch.bfloat16, 64, _CONTIG * 4, (512, 512, 512, 514), False),
+])
+def test_k4_routing_rule(dtype, hd, strides, ptrs, wgmma):
+    """The tensor-core kernel takes bf16, 0 < hd <= 128, every non-head-dim
+    stride a positive multiple of 16 bytes and 16-byte-aligned bases;
+    everything else goes to the SIMT kernel.  A pure function: no card."""
+    from repro_torch.kernels import flash_attention as fa
+
+    assert fa.takes_wgmma(dtype, hd, strides, ptrs) is wgmma
 
 
 # ------------------------------------------------------------- dispatch
@@ -397,7 +460,8 @@ def test_wrappers_refuse_devices_without_a_kernel_route():
 
 def test_build_names_the_library_by_source_and_flags(tmp_path):
     srcs = sorted(build.CSRC.glob("*.cu"))
-    assert [s.name for s in srcs] == ["flash_attention.cu", "rmsnorm.cu",
+    assert [s.name for s in srcs] == ["flash_attention.cu",
+                                      "flash_attention_sm90.cu", "rmsnorm.cu",
                                       "sroa_bisect.cu", "topk_moves.cu"]
     d1 = build._digest(srcs, build.NVCC_FLAGS)
     assert d1 == build._digest(srcs, list(build.NVCC_FLAGS))
