@@ -9,17 +9,28 @@ Phases, each reported on its own lines:
 
 0. The card (``nvidia-smi``) and the build of ``src/repro_torch/kernels/
    csrc/*.cu`` with nvcc (one process per source, all at once), with
-   ``-Xptxas -v``'s registers, spills and static shared memory per kernel.
-1. K1 (Lemma-1 inversion) against its plain PyTorch version at the fleet's
-   flattened shape and at odd shapes: rtol 1e-5, atol 1e-3.  K1 with one
-   scalar cap (the TPU's ``_bisect_kernel``) is timed apart at n = 56.
-2. K2 (the fused Algorithm 2-4 solve) against its plain version on one
-   engine round of the README fleet (128 cells x 9 candidates, N_max
-   users): feasible identical, R and t to rtol 1e-4, b to rtol 1e-3 with
-   atol 1 Hz (room for a last-bit difference of a library function, which
-   can flip a bisection step; the plain version adds in the kernel's warp
-   order); a problem solved alone equals the same problem inside the batch
-   bitwise.  K2 is also timed at the re-price shape (one problem per cell).
+   ``-Xptxas -v``'s registers, spills and static shared memory per kernel,
+   K2's two kernels' registers on a line of their own, and the SASS
+   instructions of K1's and K2's bisection loops at each depth
+   (``cuobjdump -sass``).
+1. The branch-free log1pf and division of K1 and K2 against the
+   toolkit's (every float of [+0, FLT_MAX]; 2^32 hashed pairs), bitwise.
+   K1 (Lemma-1 inversion) against its plain PyTorch version at the fleet's
+   flattened shape and at odd shapes: rtol 1e-5, atol 1e-3, and bitwise
+   at the fleet's shape at every speculation depth (each timed on the same
+   tensors).  K1 with one scalar cap (the TPU's ``_bisect_kernel``) is
+   timed apart at n = 56.
+2. K2 (the fused Algorithm 2-4 solve) on one engine round of the README
+   fleet (128 cells x 9 candidates, N_max users) and at the re-price shape
+   (one problem per cell): the one-thread-per-user kernel at every
+   speculation depth, PR 11's one-warp-per-problem kernel and the plain
+   version give the same bits (the plain version adds in the kernel's warp
+   order; feasible identical, R and t to rtol 1e-4 and b to rtol 1e-3 are
+   checked too); a problem solved alone equals the same problem inside the
+   batch bitwise.  Both kernels are timed on the same tensors at both
+   shapes, each depth of the new one too, and every depth on the round's
+   first 256, 512 and 768 problems (where the depth rule's crossover
+   lies); the blocks an SM holds are printed.
 3. K3 (top-k move nomination) against its plain version at
    (128, N_max, 5), k = 8: indices exact, scores to rtol 1e-5.
 4. K4 (flash attention) against its plain version: at the LM prefill's
@@ -76,6 +87,7 @@ import ctypes
 import dataclasses
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -128,14 +140,18 @@ def _time_ms(fn, reps: int) -> float:
     return times[len(times) // 2]
 
 
-def _device_ms(fn, reps: int, cold: bool = False) -> float:
+def _device_ms(fn, reps: int, cold: bool = False,
+               kernel: str | None = None) -> float:
     """Device time of one call of ``fn``: the sum of every device event
     that ``torch.profiler`` records over ``reps`` calls, over ``reps``.
     Unlike :func:`_time_ms` it leaves out the host's time between launches
     (Python, ctypes, argument checks), which dominates a microsecond
     kernel's wall time.  ``cold`` rewrites a buffer of twice the card's
     50 MB L2 before every call (its kernel is left out of the sum), so the
-    call reads its inputs from device memory, as a bound assumes."""
+    call reads its inputs from device memory, as a bound assumes.
+    ``kernel`` names the one kernel ``fn`` launches: the result is then the
+    median of that kernel's device events, which stays right when the
+    profiler drops an event of a session of a few long kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
@@ -152,6 +168,12 @@ def _device_ms(fn, reps: int, cold: bool = False) -> float:
                 flush.bitwise_not_()
             fn()
         torch.cuda.synchronize()
+    if kernel is not None:
+        times = sorted(evt.time_range.elapsed_us() for evt in prof.events()
+                       if evt.device_type != DeviceType.CPU
+                       and kernel in evt.name)
+        if times:
+            return times[len(times) // 2] / 1e3
     rows = prof.key_averages()
     us = sum(evt.self_device_time_total for evt in rows
              if evt.device_type != DeviceType.CPU
@@ -209,6 +231,44 @@ def _ptxas(log: str) -> list[str]:
         elif name and "registers" in line:
             out.append(f"{name}: {line.split(':', 1)[-1].strip()}; {spill}")
             name = None
+    return out
+
+
+def _sass_rounds(sass: str) -> dict:
+    """The SASS instructions of the bisection loops of each SROA kernel,
+    read from ``cuobjdump -sass`` output: for every function whose name
+    holds ``sroa``, the lengths of its innermost loops that hold a
+    reciprocal (MUFU.RCP: the step's G / b), each marked "ieee" when it
+    also holds FCHK (the IEEE division's slow-path check: PR 11's steps,
+    one a loop) and "nb" when it does not (the branch-free rounds: the
+    loop is unrolled twice, so it holds 2D steps at depth D)."""
+    import re
+
+    out = {}
+    for chunk in re.split(r"\n\s*Function : ", sass)[1:]:
+        m = re.search(r"(sroa_(?:solve_lanes|solve|invert_rate)_kernel)"
+                      r"(?:ILi(\d+)E)?", chunk.split("\n", 1)[0])
+        if not m:
+            continue
+        ins = [(int(a, 16), op) for a, op in re.findall(
+            r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", chunk)]
+        loops = []
+        for addr, op in ins:
+            b = re.search(r"\bBRA\b[^;]*?0x([0-9a-f]+)", op)
+            if b and int(b.group(1), 16) < addr:
+                loops.append((int(b.group(1), 16), addr))
+        found = set()
+        for lo, hi in loops:
+            if any(lo <= a < b <= hi and (a, b) != (lo, hi)
+                   for a, b in loops):
+                continue                      # not innermost
+            body = [o for a, o in ins if lo <= a <= hi]
+            if any("MUFU.RCP" in o for o in body):
+                kind = ("ieee" if any(o.startswith("FCHK") for o in body)
+                        else "nb")
+                found.add(f"{len(body)} {kind}")
+        out[m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")] = \
+            sorted(found)
     return out
 
 
@@ -564,6 +624,7 @@ def main(argv: list[str]) -> int:
     from repro_torch.fleet.service import (PlanningService, ServiceConfig,
                                            run_load)
     from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import sroa_bisect as sb
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -579,8 +640,21 @@ def main(argv: list[str]) -> int:
     build.load(verbose=True)
     print(f"[0] built {len(list(build.CSRC.glob('*.cu')))} sources into "
           f"{build.build_dir()} in {time.perf_counter() - t0:.1f} s")
-    for line in _ptxas(build.build_log):
+    ptxas = _ptxas(build.build_log)
+    for line in ptxas:
         print(f"[0]   ptxas: {line}")
+    print("[0] K2 registers: " + "; ".join(
+        line.split(",")[0] for line in ptxas if "sroa_solve" in line))
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        rounds = json.dumps(_sass_rounds(subprocess.run(
+            [cuobjdump, "-sass", build.load()._name], capture_output=True,
+            text=True, check=True).stdout))
+    except (OSError, subprocess.CalledProcessError) as exc:
+        rounds = f"not measured ({exc})"
+    print(f"[0] SASS instructions of the innermost bisection loops (with "
+          f"MUFU.RCP; 'nb' branch-free, two rounds of D steps; 'ieee' one "
+          f"step with the division's FCHK branch): {rounds}")
     for hd in (64, 128):
         smem, ctas = ctypes.c_int(), ctypes.c_int()
         build.check(build.load().flash_attention_sm90_occupancy(
@@ -589,6 +663,7 @@ def main(argv: list[str]) -> int:
               f"of dynamic shared memory a CTA of 128 threads, "
               f"{ctas.value} CTAs an SM")
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     fleet = fbatch.draw_fleet(0, 128, device=dev)
     C, N, M = fleet.C, fleet.N_max, fleet.M
     print(f"[0] fleet: draw_fleet(0, 128): C={C}, N_max={N}, M={M}, "
@@ -608,7 +683,29 @@ def main(argv: list[str]) -> int:
     k1p = lambda: ref.invert_rate_plain(G, tgt, bm[:, None], 42)  # noqa
     got, want = k1(), k1p()
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
+    _check(torch.equal(got, want), "K1 differs from its twin")
     err = _max_abs_err([got], [want])
+    t0 = time.perf_counter()
+    bad = sb.math_check(dev)
+    _check(bad == (0, 0), f"the branch-free log1pf / division differ from "
+           f"the toolkit's on {bad} inputs")
+    print(f"[1] branch-free log1pf == log1pf on every float of [+0, "
+          f"FLT_MAX] and fast division == IEEE division on 2^32 hashed pairs "
+          f"(0 mismatches, {time.perf_counter() - t0:.2f} s)")
+    # Every speculation depth gives the twin's bits; each is timed on the
+    # same flattened tensors as the routed call.
+    flat = [x.reshape(-1).contiguous()
+            for x in (G, tgt, torch.broadcast_to(bm[:, None], G.shape))]
+    k1_depth = sb.invert_depth(G.numel(), sms)
+    k1_depth_ms = {}
+    for d in sb.DEPTHS:
+        for iters in (42, SERVE_CAPS["b_iters"], 7):
+            _check(torch.equal(
+                sb.invert_rate_cuda(*flat, iters, _depth=d).reshape(G.shape),
+                ref.invert_rate_plain(G, tgt, bm[:, None], iters)),
+                f"K1 at depth {d}, {iters} steps differs from its twin")
+        k1_depth_ms[d] = _device_ms(
+            lambda: sb.invert_rate_cuda(*flat, 42, _depth=d), 50)
     for n in (1, 17, 3 * 17):
         g, t = G.reshape(-1)[:n], tgt.reshape(-1)[:n]
         torch.testing.assert_close(
@@ -637,9 +734,15 @@ def main(argv: list[str]) -> int:
         replaces="src/repro/kernels/sroa_bisect.py:84",
         max_abs_err=err, ms=_time_ms(k1, 50), plain_ms=_time_ms(k1p, 5),
         device_ms=_device_ms(k1, 50),
-        bound_ms=bound[0], bound_by=bound[1], library_ms=None, **k1a_times)
+        bound_ms=bound[0], bound_by=bound[1], library_ms=None,
+        depth=k1_depth, depth_device_ms=k1_depth_ms, **k1a_times)
+    r = report["sroa_invert"]
     print(f"[1] K1 ok at ({C}, {N}) per-element caps and n = 1, 17, 51: "
-          f"max |err| {err:.3g} Hz")
+          f"max |err| {err:.3g} Hz; bitwise its twin at depths "
+          f"{list(sb.DEPTHS)} x 42, {SERVE_CAPS['b_iters']}, 7 steps")
+    print(f"[1] K1 at ({C}, {N}), 42 steps: {r['ms']:.4g} ms (device "
+          f"{r['device_ms']:.4g}) at the picked depth {k1_depth}; device ms "
+          f"by depth {json.dumps(k1_depth_ms)}")
     print(f"[1] K1 with a scalar cap (K1a) at n = 56: "
           f"{k1a_times['k1a_ms']:.4g} ms (device "
           f"{k1a_times['k1a_device_ms']:.4g}), plain "
@@ -664,63 +767,158 @@ def main(argv: list[str]) -> int:
                                     cs.f_max, cs.p_max)]
     per_prob = [flat_s(x) for x in (cs.B_open, cs.B_open, cs.N0, ones,
                                     cc.E_cloud_total)]
-    k2 = lambda: ops.sroa_solve_batched(*per_user, *per_prob,  # noqa: E731
-                                        **SERVE_CAPS)
-    got = k2()
-    # K2's own times first: after the plain twin's 33 s of uninstrumented
-    # eager kernels, a profiler session that holds only K2 records no
-    # device activity (sessions of K1 still do), so K2's device time is
-    # read before the twin runs.
-    k2_ms, k2_device_ms = _time_ms(k2, 5), _device_ms(k2, 2)
-    work = {}
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    want = ref.sroa_solve_plain(*per_user, *per_prob, **SERVE_CAPS,
-                                work=work)
-    e1.record()
-    e1.synchronize()
-    plain_ms = e0.elapsed_time(e1)
-    _check(torch.equal(got[6], want[6]), "K2 feasible flags differ")
-    torch.testing.assert_close(got[4], want[4], rtol=1e-4, atol=0)
-    torch.testing.assert_close(got[3], want[3], rtol=1e-4, atol=0)
-    torch.testing.assert_close(got[0], want[0], rtol=1e-3, atol=1.0)
-    err = _max_abs_err(got[4:5], want[4:5])
-    for q in (0, P // 2 + 3, P - 1):
-        alone = ops.sroa_solve_batched(*(x[q:q + 1] for x in per_user),
-                                       *(x[q:q + 1] for x in per_prob),
-                                       **SERVE_CAPS)
-        for x, y in zip(got, alone):
-            _check(torch.equal(x[q:q + 1], y), f"K2 problem {q} not bitwise")
-    torch.cuda.synchronize()
-    flops = N * (8 * SERVE_CAPS["b_iters"] * work["inversions"]
-                 + 12 * work["f_steps"] + 8 * work["p_steps"]
-                 + 20 * work["t_steps"] + 10 * SERVE_CAPS["t_iters"] * P)
-    nbytes = P * N * 4 * (7 + 3) + P * 4 * (5 + 3) + P
-    bound = _bound_ms(nbytes, flops)
-    report["sroa_solve"] = dict(
-        name="sroa_solve", route="cuda",
-        source="src/repro_torch/kernels/csrc/sroa_bisect.cu",
-        replaces="src/repro/kernels/sroa_bisect.py:167",
-        max_abs_err=err, ms=k2_ms, plain_ms=plain_ms,
-        device_ms=k2_device_ms,
-        bound_ms=bound[0], bound_by=bound[1], library_ms=None)
-    worst = fengine.sroa_solve_flops(N, sroa.SroaConfig(**SERVE_CAPS)) * P
+    k2_kw = dict(SERVE_CAPS, eps0=1e-4, eps1=1e-4, eps2=1e-4, t_low=1.0,
+                 t_up=3e7)               # sroa_solve_batched's defaults
+
+    def on(route, pu, pp):
+        """K2 on one kernel (and depth), past the routing rule."""
+        return lambda: sb.solve_cuda(tuple(pu), tuple(pp), **k2_kw,
+                                     _route=route)[0]
+
+    def same(x, y):
+        return all(torch.equal(a, b) for a, b in zip(x, y))
+
     # The re-price shape: one problem per cell (its nearest-edge pattern).
     rp_user = [x.contiguous() for x in (c0.A, c0.J, c0.H, c0.delta, c0.h,
                                         cells.f_max, cells.p_max)]
     rp_prob = [x.contiguous() for x in (cells.B_open, cells.B_open,
                                         cells.N0, ones.expand(C),
                                         c0.E_cloud_total)]
-    reprice_ms = _time_ms(lambda: ops.sroa_solve_batched(
-        *rp_user, *rp_prob, **SERVE_CAPS), 5)
-    print(f"[2] K2 ok on P = {C} x {A} = {P} problems, N = {N}: feasible "
-          f"identical ({int(got[6].sum())}/{P}), max |dR| {err:.3g}, 3 "
-          f"problems alone == in batch bitwise; this data's work "
-          f"{work} = {flops:.4g} flop (cap model {worst:.4g})")
-    print(f"[2] K2 at the re-price shape P = {C}, N = {N}: {reprice_ms:.4g} "
-          f"ms (median of 5)")
+    shapes = {"plan": (per_user, per_prob), "reprice": (rp_user, rp_prob)}
+    got, outs, t2 = {}, {}, {}
+    for key, (pu, pp) in shapes.items():
+        routed = lambda: ops.sroa_solve_batched(  # noqa: E731
+            *pu, *pp, **SERVE_CAPS)
+        got[key] = routed()
+        outs[key] = on(("warp", 0), pu, pp)()
+        route = sb.solve_route(pu[0].shape[0], N, sms)
+        _check(route[0] == "lanes", f"K2 at {key} took {route}")
+        _check(same(got[key], outs[key]), f"K2 at {key}: the routed call "
+               f"{route} differs from PR 11's kernel")
+        for d in sb.DEPTHS:
+            _check(same(on(("lanes", d), pu, pp)(), outs[key]),
+                   f"K2 at {key}: the lanes kernel at depth {d} differs "
+                   f"from PR 11's kernel")
+        # Times first: after the plain twin's 33 s of uninstrumented eager
+        # kernels, a profiler session that holds only K2 records no device
+        # activity (sessions of K1 still do), so K2's device times are
+        # read before the twin runs.
+        pr11 = on(("warp", 0), pu, pp)
+        t2[key] = dict(
+            route=route, ms=_time_ms(routed, 5), device_ms=_device_ms(
+                routed, 3, kernel="sroa_solve"), pr11_ms=_time_ms(pr11, 5),
+            pr11_device_ms=_device_ms(pr11, 3, kernel="sroa_solve"),
+            depth_device_ms={d: _device_ms(on(("lanes", d), pu, pp), 3,
+                                           kernel="sroa_solve")
+                             for d in sb.DEPTHS})
+    # Where the depth rule's crossover lies: the planning batch's first P
+    # problems at every depth (2P warps, P / 264 warps a scheduler on 132
+    # SMs), timed with the others before the twin runs.
+    sweep = {}
+    for n_prob in (256, 512, 768):
+        pu, pp = ([x[:n_prob].contiguous() for x in xs]
+                  for xs in (per_user, per_prob))
+        sweep[n_prob] = {d: _device_ms(on(("lanes", d), pu, pp), 3,
+                                       kernel="sroa_solve")
+                         for d in sb.DEPTHS}
+    torch.cuda.synchronize()
+    work, plain_ms = {}, {}
+    for key, (pu, pp) in shapes.items():
+        work[key] = {}
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        want = ref.sroa_solve_plain(*pu, *pp, **SERVE_CAPS, work=work[key])
+        e1.record()
+        e1.synchronize()
+        plain_ms[key] = e0.elapsed_time(e1)
+        _check(same(got[key], want), f"K2 at {key} differs from its twin")
+        if key == "plan":
+            _check(torch.equal(got[key][6], want[6]),
+                   "K2 feasible flags differ")
+            torch.testing.assert_close(got[key][4], want[4], rtol=1e-4,
+                                       atol=0)
+            torch.testing.assert_close(got[key][3], want[3], rtol=1e-4,
+                                       atol=0)
+            torch.testing.assert_close(got[key][0], want[0], rtol=1e-3,
+                                       atol=1.0)
+            err = _max_abs_err(got[key][4:5], want[4:5])
+    for q in (0, P // 2 + 3, P - 1):
+        alone = ops.sroa_solve_batched(*(x[q:q + 1] for x in per_user),
+                                       *(x[q:q + 1] for x in per_prob),
+                                       **SERVE_CAPS)
+        for x, y in zip(got["plan"], alone):
+            _check(torch.equal(x[q:q + 1], y), f"K2 problem {q} not bitwise")
+    torch.cuda.synchronize()
+
+    def k2_bound(w, n_prob):
+        flops = N * (8 * SERVE_CAPS["b_iters"] * w["inversions"]
+                     + 12 * w["f_steps"] + 8 * w["p_steps"]
+                     + 20 * w["t_steps"] + 10 * SERVE_CAPS["t_iters"]
+                     * n_prob)
+        nbytes = n_prob * N * 4 * (7 + 3) + n_prob * 4 * (5 + 3) + n_prob
+        return flops, _bound_ms(nbytes, flops)
+
+    flops, bound = k2_bound(work["plan"], P)
+    rp_bound = k2_bound(work["reprice"], C)[1]
+    tp, tr = t2["plan"], t2["reprice"]
+    reprice = dict(P=C, plain_ms=plain_ms["reprice"], bound_ms=rp_bound[0],
+                   bound_by=rp_bound[1], work=work["reprice"])
+    report["sroa_solve_lanes"] = dict(
+        name="sroa_solve_lanes", route="cuda",
+        source="src/repro_torch/kernels/csrc/sroa_bisect.cu",
+        replaces="src/repro/kernels/sroa_bisect.py:167",
+        max_abs_err=err, ms=tp["ms"], plain_ms=plain_ms["plan"],
+        device_ms=tp["device_ms"], bound_ms=bound[0], bound_by=bound[1],
+        library_ms=None, depth=tp["route"][1],
+        depth_device_ms=tp["depth_device_ms"],
+        reprice=dict(reprice, ms=tr["ms"], device_ms=tr["device_ms"],
+                     depth=tr["route"][1],
+                     depth_device_ms=tr["depth_device_ms"]))
+    # PR 11's kernel (K2's route for N > 512) on the same tensors.
+    report["sroa_solve"] = dict(
+        name="sroa_solve", route="cuda",
+        source="src/repro_torch/kernels/csrc/sroa_bisect.cu",
+        replaces="src/repro/kernels/sroa_bisect.py:167",
+        max_abs_err=err, ms=tp["pr11_ms"], plain_ms=plain_ms["plan"],
+        device_ms=tp["pr11_device_ms"], bound_ms=bound[0],
+        bound_by=bound[1], library_ms=None,
+        reprice=dict(reprice, ms=tr["pr11_ms"],
+                     device_ms=tr["pr11_device_ms"]))
+    worst = fengine.sroa_solve_flops(N, sroa.SroaConfig(**SERVE_CAPS)) * P
+    print(f"[2] K2 ok on P = {C} x {A} = {P} problems, N = {N}: the lanes "
+          f"kernel at depths {list(sb.DEPTHS)}, PR 11's kernel and the "
+          f"twin bitwise equal (feasible {int(got['plan'][6].sum())}/{P}, "
+          f"max |dR| {err:.3g}), 3 problems alone == in batch bitwise; this "
+          f"data's work {work['plan']} = {flops:.4g} flop (cap model "
+          f"{worst:.4g})")
+    occ = {}
+    for d in sb.DEPTHS:
+        blocks = ctypes.c_int()
+        build.check(build.load().sroa_solve_lanes_occupancy(
+            d, N, ctypes.byref(blocks)), "sroa_solve_lanes_occupancy")
+        occ[d] = blocks.value
+    report["sroa_solve_lanes"]["blocks_per_sm"] = occ
+    report["sroa_solve_lanes"]["depth_sweep_device_ms"] = sweep
+    W = math.ceil(N / 32)
+    print("[2] lanes kernel device ms by depth on the planning batch's "
+          "first P problems: " + "; ".join(
+              f"P = {n} ({n * W / (4 * sms):.3g} warps a scheduler) "
+              f"{json.dumps(t)}" for n, t in sweep.items()))
+    print(f"[2] lanes kernel at N = {N}: one problem a block of "
+          f"{32 * math.ceil(N / 32)} threads; blocks an SM by depth "
+          f"{json.dumps(occ)} ({sms} SMs)")
+    for key, t in t2.items():
+        n_prob = shapes[key][0][0].shape[0]
+        pr11_dev, dev_ms = t["pr11_device_ms"], t["device_ms"]
+        ratio = (f"{pr11_dev / dev_ms:.3g}x" if pr11_dev and dev_ms
+                 else "not measured")
+        print(f"[2] K2 at P = {n_prob}, N = {N} ({key}): lanes kernel depth "
+              f"{t['route'][1]} {t['ms']:.4g} ms (device {dev_ms}); PR 11's "
+              f"kernel {t['pr11_ms']:.4g} ms (device {pr11_dev}), {ratio} "
+              f"the lanes kernel's device time; device ms by depth "
+              f"{json.dumps(t['depth_device_ms'])}; bitwise equal to the "
+              f"twin ({plain_ms[key]:.0f} ms)")
 
     # ---- phase 3: K3 against its plain version -------------------------
     H_move = fengine._move_H(cells)
@@ -811,14 +1009,18 @@ def main(argv: list[str]) -> int:
     lm = _lm_path(dev)
 
     # ---- phase 9: launch counts and times ------------------------------
-    # Two kernels lie on no path: K5 (no model calls it) and K4's SIMT
-    # kernel (the route for f32 and hd > 128; the LM path is bf16, hd 64).
-    # Their counts are those of the LM path's run, 0, and are not held to
-    # be positive.  ``flash_attention`` counts every K4 launch, so the SIMT
-    # kernel's are the launches that did not take the tensor cores.
+    # Three kernels lie on no path: K5 (no model calls it), K4's SIMT
+    # kernel (the route for f32 and hd > 128; the LM path is bf16, hd 64)
+    # and PR 11's K2 kernel (the route for N > 512; the fleet's N is 56).
+    # Their counts are those of their path's run, 0, and are not held to
+    # be positive.  ``flash_attention`` counts every K4 launch and
+    # ``sroa_solve`` every K2 launch, so the SIMT kernel's and PR 11's are
+    # the launches that did not take the other kernel.
     lmc = lm["counts"]
     counts = {"sroa_invert": invert_count,
-              "sroa_solve": main_counts["sroa_solve"],
+              "sroa_solve_lanes": main_counts["sroa_solve_lanes"],
+              "sroa_solve": (main_counts["sroa_solve"]
+                             - main_counts["sroa_solve_lanes"]),
               "topk_moves": main_counts["topk_moves"],
               "flash_attention_sm90": lmc["flash_attention_sm90"],
               "flash_attention": (lmc["flash_attention"]
@@ -827,7 +1029,8 @@ def main(argv: list[str]) -> int:
     print(f"[9] kernels: {json.dumps(counts)} (ops.LAUNCHES of the LM run: "
           f"{json.dumps(lmc)})")
     for name, n in counts.items():
-        _check(n > 0 or name in ("rmsnorm", "flash_attention"),
+        _check(n > 0 or name in ("rmsnorm", "flash_attention",
+                                 "sroa_solve"),
                f"{name} never launched on its path")
         report[name]["launches"] = n
         r = report[name]
@@ -840,7 +1043,8 @@ def main(argv: list[str]) -> int:
               f"bound {r['bound_ms']:.3g} ms by {r['bound_by']}{lib})")
     rounds = main_counts["sroa_solve"]
     print(f"[9] planning path: {snap['plans_per_s']:.4g} plans/s, tick p50 "
-          f"{snap['tick_ms']['p50']:.4g} ms; {rounds} K2 and "
+          f"{snap['tick_ms']['p50']:.4g} ms; {rounds} K2 launches "
+          f"({main_counts['sroa_solve_lanes']} on the lanes kernel) and "
           f"{main_counts['topk_moves']} K3 launches")
     fl = lm["flash"]
     L = lm["n_layers"]

@@ -82,8 +82,12 @@ def _compile(sources: list[Path], out: Path, verbose: bool) -> str:
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
         ctypes.c_float
-    lib.sroa_invert_rate.argtypes = [p, p, p, ll, p, ll, i, p]
+    lib.sroa_invert_rate.argtypes = [p, p, p, ll, p, ll, i, i, i, p]
     lib.sroa_solve.argtypes = ([p] * 19 + [i] * 6 + [f] * 5 + [p])
+    lib.sroa_solve_lanes.argtypes = ([p] * 19 + [i] * 6 + [f] * 5
+                                     + [i, p])
+    lib.sroa_solve_lanes_occupancy.argtypes = [i, i, p]
+    lib.sroa_math_check.argtypes = [p, ll, p]
     lib.topk_moves.argtypes = [p] * 10 + [i] * 4 + [p]
     lib.flash_attention.argtypes = ([p] * 4 + [i] * 6 + [ll] * 12 + [i] * 4
                                     + [f, p])
@@ -91,7 +95,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                                          + [i] * 4 + [f, p])
     lib.flash_attention_sm90_occupancy.argtypes = [i, p, p]
     lib.rmsnorm.argtypes = [p, p, p, i, ll, i, f, p]
-    for fn in (lib.sroa_invert_rate, lib.sroa_solve, lib.topk_moves,
+    for fn in (lib.sroa_invert_rate, lib.sroa_solve, lib.sroa_solve_lanes,
+               lib.sroa_solve_lanes_occupancy, lib.sroa_math_check,
+               lib.topk_moves,
                lib.flash_attention, lib.flash_attention_sm90,
                lib.flash_attention_sm90_occupancy, lib.rmsnorm):
         fn.restype = ctypes.c_int

@@ -7,10 +7,11 @@ the device of its tensors: CPU tensors run the plain PyTorch version in
 kernel, or raise.  Every tensor operand of a call must lie on one device
 (Python scalars broadcast onto it); a call that mixes devices raises.
 ``LAUNCHES`` counts kernel launches (only launches: the plain version never
-counts) under ``sroa_invert`` (K1), ``sroa_solve`` (K2), ``topk_moves``
-(K3), ``flash_attention`` (K4, either of its kernels) and ``rmsnorm``
-(K5); ``flash_attention_sm90`` counts the K4 launches that took the
-tensor-core kernel.
+counts) under ``sroa_invert`` (K1), ``sroa_solve`` (K2, either of its
+kernels), ``topk_moves`` (K3), ``flash_attention`` (K4, either of its
+kernels) and ``rmsnorm`` (K5); ``sroa_solve_lanes`` counts the K2 launches
+that took the one-thread-per-user kernel and ``flash_attention_sm90`` the
+K4 launches that took the tensor-core kernel.
 """
 from __future__ import annotations
 
@@ -20,8 +21,9 @@ import torch
 
 from repro_torch.kernels import ref
 
-LAUNCHES = {"sroa_invert": 0, "sroa_solve": 0, "topk_moves": 0,
-            "flash_attention": 0, "flash_attention_sm90": 0, "rmsnorm": 0}
+LAUNCHES = {"sroa_invert": 0, "sroa_solve": 0, "sroa_solve_lanes": 0,
+            "topk_moves": 0, "flash_attention": 0, "flash_attention_sm90": 0,
+            "rmsnorm": 0}
 
 
 def reset_launches() -> None:
@@ -92,6 +94,7 @@ def sroa_solve_batched(A, J, H, delta, h, f_max, p_max, B, b_max, N0, lam,
                        eps1: float = 1e-4, eps2: float = 1e-4,
                        t_low: float = 1.0, t_up: float = 3e7):
     """Fused full-SROA solve (K2): every (..., N)-leading axis in one launch.
+    On CUDA, ``sroa_bisect.solve_route`` picks the kernel and its depth.
 
     Per-user operands are (..., N); per-problem operands are (...) or
     scalar.  Returns (b, f, p) shaped (..., N) and (t, R, b_sum, feasible)
@@ -118,10 +121,12 @@ def sroa_solve_batched(A, J, H, delta, h, f_max, p_max, B, b_max, N0, lam,
               t_up=t_up)
     if cuda:
         from repro_torch.kernels import sroa_bisect
-        out = sroa_bisect.solve_cuda(
+        out, (kernel, _) = sroa_bisect.solve_cuda(
             tuple(x.contiguous() for x in per_user),
             tuple(x.contiguous() for x in per_problem), **kw)
         LAUNCHES["sroa_solve"] += 1
+        if kernel == "lanes":
+            LAUNCHES["sroa_solve_lanes"] += 1
     else:
         out = ref.sroa_solve_plain(*per_user, *per_problem, **kw)
     b, f, p, t, R, b_sum, feas = out

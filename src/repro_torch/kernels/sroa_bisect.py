@@ -4,19 +4,62 @@
   ``_bisect_kernel`` and ``_bisect_kernel_vec`` (the Lemma-1 bandwidth
   inversion): one thread per element; a stride-0 ``b_max`` covers the
   scalar-budget form, a per-element one the fleet-batched form.
-* K2 ``sroa_solve`` replaces ``_solve_kernel``: the whole Algorithm 2-4
-  nest for P problems, one warp per problem.
+* K2 replaces ``_solve_kernel``: the whole Algorithm 2-4 nest for P
+  problems, on one of two kernels that :func:`solve_route` picks from
+  (P, N) alone: ``sroa_solve_lanes`` (one thread per user, N <= 512) or
+  PR 11's ``sroa_solve`` (one warp per problem, any N).
 
 Both are bound by the latency of their dependent bisection chains, not by
-memory: see the source notes in ``csrc/sroa_bisect.cu``.  These launchers
-check device, dtype, contiguity and shape, allocate the outputs, launch on
-the current stream and raise on a launch error; they never synchronize.
+memory: see the source notes in ``csrc/sroa_bisect.cu``.  K1 and the lanes
+kernel evaluate 2^D - 1 bisection midpoints at once (speculation depth D,
+1 or 2); every depth gives the same bits, and :func:`spec_depth` picks it from
+how many warps each SM scheduler would hold.  These launchers check device,
+dtype, contiguity and shape, allocate the outputs, launch on the current
+stream and raise on a launch error; they never synchronize.
 """
 from __future__ import annotations
+
+import functools
+import math
 
 import torch
 
 from repro_torch.kernels import build
+
+LANES_MAX_N = 512        # 16 warps a problem: 512 threads at 96 registers
+SCHEDULERS_PER_SM = 4    # warp schedulers of a Hopper SM
+DEPTHS = (1, 2)
+
+
+def spec_depth(warps: int, sms: int) -> int:
+    """The speculation depth for a launch of ``warps`` warps on ``sms`` SMs.
+
+    A deeper round shortens each thread's dependent chain but issues more
+    instructions (2^D - 1 predicate evaluations for D steps), so it pays
+    only where the SM schedulers hold few warps to interleave: depth 2 up
+    to two warps a scheduler, else 1 (on an H100, depth 2 won at 0.5 and
+    1.9 warps a scheduler and lost at 2.9; ``PERF.md``)."""
+    per_scheduler = warps / (SCHEDULERS_PER_SM * sms)
+    return 2 if per_scheduler <= 2.0 else 1
+
+
+def solve_route(P: int, N: int, sms: int) -> tuple[str, int]:
+    """K2's kernel and speculation depth for P problems of N users on a
+    card of ``sms`` SMs: ("lanes", depth) for N <= 512, else ("warp", 0)
+    (PR 11's kernel, which has no depth).  A pure function: no card."""
+    if N > LANES_MAX_N:
+        return "warp", 0
+    return "lanes", spec_depth(P * math.ceil(N / 32), sms)
+
+
+def invert_depth(n: int, sms: int) -> int:
+    """K1's speculation depth for n elements, one thread each."""
+    return spec_depth(math.ceil(n / 32), sms)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(name: str, x: torch.Tensor, shape: tuple, dtype=torch.float32):
@@ -49,9 +92,25 @@ def _call(dev: torch.device, fn, *args) -> int:
         return fn(*args)
 
 
+def math_check(device, pairs: int = 1 << 32) -> tuple[int, int]:
+    """The branch-free arithmetic of K1 and K2 against the toolkit's on
+    ``device``: (log1pf mismatches over every float of [+0, FLT_MAX],
+    division mismatches over ``pairs`` hashed operand pairs).
+    Synchronizes."""
+    bad = torch.zeros(2, dtype=torch.int64, device=device)
+    err = _call(bad.device, build.load().sroa_math_check, _ptr(bad),
+                int(pairs), _stream(bad))
+    build.check(err, "sroa_math_check")
+    return tuple(int(x) for x in bad.cpu())
+
+
 def invert_rate_cuda(G: torch.Tensor, target: torch.Tensor,
-                     b_max: torch.Tensor, iters: int) -> torch.Tensor:
-    """K1 on flat (n,) float32 tensors; ``b_max`` has 1 or n elements."""
+                     b_max: torch.Tensor, iters: int,
+                     _depth: int | None = None) -> torch.Tensor:
+    """K1 on flat (n,) float32 tensors; ``b_max`` has 1 or n elements.
+
+    ``_depth`` overrides :func:`invert_depth`, for holding and timing every
+    depth on the same tensors."""
     n = G.numel()
     _check("G", G, (n,))
     _check("target", target, (n,))
@@ -61,20 +120,30 @@ def invert_rate_cuda(G: torch.Tensor, target: torch.Tensor,
     for x in (target, b_max):
         if x.device != G.device:
             raise ValueError("K1 operands must share one device")
+    sms = _sms(G.device.index)
+    depth = invert_depth(n, sms) if _depth is None else _depth
+    if depth not in DEPTHS:
+        raise ValueError(f"no speculation depth {depth}")
     out = torch.empty_like(G)
     err = _call(G.device, build.load().sroa_invert_rate, _ptr(G),
                 _ptr(target), _ptr(b_max),
                 1 if b_max.numel() == n and n > 1 else 0, _ptr(out), n,
-                int(iters), _stream(G))
+                int(iters), depth, sms, _stream(G))
     build.check(err, "sroa_invert_rate")
     return out
 
 
 def solve_cuda(per_user: tuple, per_problem: tuple, *, b_iters: int,
                f_iters: int, p_iters: int, t_iters: int, eps0: float,
-               eps1: float, eps2: float, t_low: float, t_up: float):
+               eps1: float, eps2: float, t_low: float, t_up: float,
+               _route: tuple[str, int] | None = None):
     """K2 on (A, J, H, delta, h, f_max, p_max) (P, N) and
-    (B, b_max, N0, lam, E_cloud_total) (P,) float32 tensors."""
+    (B, b_max, N0, lam, E_cloud_total) (P,) float32 tensors.  Returns
+    (b, f, p, t, R, b_sum, feasible) and the (kernel, depth) that ran.
+
+    ``_route`` overrides :func:`solve_route` (("warp", 0) or ("lanes", D)),
+    for timing the two kernels and every depth on the same tensors; the
+    lanes kernel raises for N > 512."""
     P, N = per_user[0].shape
     dev = per_user[0].device
     for name, x in zip(("A", "J", "H", "delta", "h", "f_max", "p_max"),
@@ -90,11 +159,22 @@ def solve_cuda(per_user: tuple, per_problem: tuple, *, b_iters: int,
     t, R, b_sum = (torch.empty((P,), dtype=torch.float32, device=dev)
                    for _ in range(3))
     feas = torch.empty((P,), dtype=torch.bool, device=dev)
-    err = _call(dev, build.load().sroa_solve,
-                *map(_ptr, per_user + per_problem),
-                *map(_ptr, (b, f, p, t, R, b_sum, feas)),
-                P, N, int(b_iters), int(f_iters), int(p_iters), int(t_iters),
-                float(eps0), float(eps1), float(eps2), float(t_low),
-                float(t_up), _stream(b))
-    build.check(err, "sroa_solve")
-    return b, f, p, t, R, b_sum, feas
+    sms = _sms(dev.index)
+    kernel, depth = solve_route(P, N, sms) if _route is None else _route
+    if kernel == "lanes" and (N > LANES_MAX_N or depth not in DEPTHS):
+        raise ValueError(f"the lanes K2 takes N <= {LANES_MAX_N} and a "
+                         f"depth in {DEPTHS}, got N = {N}, depth {depth}")
+    if kernel not in ("lanes", "warp"):
+        raise ValueError(f"no K2 kernel {kernel!r}")
+    args = (*map(_ptr, per_user + per_problem),
+            *map(_ptr, (b, f, p, t, R, b_sum, feas)),
+            P, N, int(b_iters), int(f_iters), int(p_iters), int(t_iters),
+            float(eps0), float(eps1), float(eps2), float(t_low),
+            float(t_up))
+    lib = build.load()
+    if kernel == "lanes":
+        err = _call(dev, lib.sroa_solve_lanes, *args, depth, _stream(b))
+    else:
+        err = _call(dev, lib.sroa_solve, *args, _stream(b))
+    build.check(err, f"sroa_solve ({kernel})")
+    return (b, f, p, t, R, b_sum, feas), (kernel, depth)

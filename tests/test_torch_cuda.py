@@ -1,5 +1,6 @@
 """The port's hand-written CUDA kernels (K1-K5) against their plain
-PyTorch twins, on a card.  Every test here is marked ``cuda`` and skips itself when
+PyTorch twins, on a card (K2's two kernels and every speculation depth of
+K1 and K2 bitwise).  Every test here is marked ``cuda`` and skips itself when
 ``torch.cuda.is_available()`` is false; this file imports neither JAX nor
 the JAX package, so it runs on a machine that has only PyTorch:
 
@@ -73,8 +74,10 @@ def test_k2_matches_its_twin_and_is_batch_independent(fleet):
     c = sroa_constants(cs, cands, mask[:, None, :])
     args = (c.A, c.J, c.H, c.delta, c.h, cs.f_max, cs.p_max, cs.B_open,
             cs.B_open, cs.N0, 1.0, c.E_cloud_total)
+    lanes = ops.LAUNCHES["sroa_solve_lanes"]
     got = _launched("sroa_solve",
                     lambda: ops.sroa_solve_batched(*args, **CAPS))
+    assert ops.LAUNCHES["sroa_solve_lanes"] == lanes + 1
     P = cands.shape[0] * cands.shape[1]
     flat = [torch.broadcast_to(torch.as_tensor(x, device=cands.device),
                                cands.shape[:2] + (cands.shape[2],)
@@ -90,6 +93,122 @@ def test_k2_matches_its_twin_and_is_batch_independent(fleet):
     alone = ops.sroa_solve_batched(*(x[5:6] for x in flat), **CAPS)
     for g, a in zip(got, alone):
         assert torch.equal(g.reshape((P,) + g.shape[2:])[5:6], a)
+
+
+def _k2_problems(fleet, top_k):
+    """One engine round's (P, N) and (P,) K2 operands for ``fleet``."""
+    cells, mask = fleet.cells, fleet.mask
+    init = batch.fleet_assignments(fleet)
+    cands, _ = engine._pruned_candidates(cells, init, mask, top_k)
+    cs = expand_scenario(cells, 1)
+    c = sroa_constants(cs, cands, mask[:, None, :])
+    C, A, N = cands.shape
+    ones = torch.ones((), device=cands.device)
+    per_user = [torch.broadcast_to(x, (C, A, N)).reshape(C * A, N)
+                .contiguous() for x in (c.A, c.J, c.H, c.delta, c.h,
+                                        cs.f_max, cs.p_max)]
+    per_problem = [torch.broadcast_to(x, (C, A)).reshape(C * A).contiguous()
+                   for x in (cs.B_open, cs.B_open, cs.N0, ones,
+                             c.E_cloud_total)]
+    return per_user, per_problem
+
+
+# Odd b_iters, so every depth runs its remainder rounds.
+SWEEP_CAPS = dict(b_iters=31, f_iters=12, p_iters=10, t_iters=12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [12, 33, 56, 64, 65, 200])
+def test_k2_lanes_matches_pr11_kernel_and_twin(cuda, N):
+    """The lanes K2 at every speculation depth, PR 11's kernel and the twin
+    give the same bits; N = 12 is the fixture's 6-12 users (padding), the
+    others one W = 1-7 warps a problem."""
+    from repro_torch.kernels import sroa_bisect
+
+    n_range = (6, 12) if N == 12 else (N, N)
+    spec = dataclasses.replace(wireless.ScenarioSpec(), N=N, M=3)
+    fleet = batch.draw_fleet(N, 3, spec, n_range=n_range, device=cuda)
+    per_user, per_problem = _k2_problems(fleet, 2)
+    kw = dict(SWEEP_CAPS, eps0=1e-4, eps1=1e-4, eps2=1e-4, t_low=1.0,
+              t_up=3e7)
+    want = ref.sroa_solve_plain(*per_user, *per_problem, **kw)
+    routes = [("warp", 0)] + [("lanes", d) for d in sroa_bisect.DEPTHS]
+    for route in routes:
+        got, ran = sroa_bisect.solve_cuda(tuple(per_user),
+                                          tuple(per_problem), **kw,
+                                          _route=route)
+        assert ran == route
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), route
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [1, 2])
+def test_k2_lanes_alone_equals_in_batch(fleet, depth):
+    from repro_torch.kernels import sroa_bisect
+
+    per_user, per_problem = _k2_problems(fleet, 4)
+    kw = dict(CAPS, eps0=1e-4, eps1=1e-4, eps2=1e-4, t_low=1.0, t_up=3e7)
+    got, _ = sroa_bisect.solve_cuda(tuple(per_user), tuple(per_problem),
+                                    **kw, _route=("lanes", depth))
+    P = per_user[0].shape[0]
+    for q in (0, P // 2, P - 1):
+        alone, _ = sroa_bisect.solve_cuda(
+            tuple(x[q:q + 1].contiguous() for x in per_user),
+            tuple(x[q:q + 1].contiguous() for x in per_problem), **kw,
+            _route=("lanes", depth))
+        for g, a in zip(got, alone):
+            assert torch.equal(g[q:q + 1], a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iters", [30, 31, 42, 1])
+@pytest.mark.parametrize("depth", [1, 2])
+def test_k1_matches_its_twin_at_every_depth(cuda, depth, iters):
+    """Feasible and infeasible caps, tau <= 0's 1e30 target, 0, -0, a
+    subnormal, +inf and zero G."""
+    from repro_torch.kernels import sroa_bisect
+
+    rng = np.random.default_rng(depth + iters)
+    G = rng.uniform(1e3, 1e10, 4096).astype(np.float32)
+    tgt = (G * rng.uniform(0, 1.3, 4096) / np.log(2.0)).astype(np.float32)
+    tgt[:6] = [1e30, 0.0, -0.0, 1e-40, np.inf, 1e12]
+    G[6] = 0.0
+    bm = rng.uniform(1e5, 2e7, 4096).astype(np.float32)
+    G, tgt, bm = (torch.tensor(x, device=cuda) for x in (G, tgt, bm))
+    got = sroa_bisect.invert_rate_cuda(G, tgt, bm, iters, _depth=depth)
+    assert torch.equal(got, ref.invert_rate_plain(G, tgt, bm, iters))
+
+
+@pytest.mark.cuda
+def test_branch_free_math_is_the_toolkits(cuda):
+    """K1/K2's branch-free log1pf on every float of [+0, FLT_MAX] and their
+    branch-free division on 2^32 hashed pairs of its range, bitwise the
+    toolkit's."""
+    from repro_torch.kernels import sroa_bisect
+
+    assert sroa_bisect.math_check(cuda) == (0, 0)
+
+
+@pytest.mark.cuda
+def test_k2_routes_by_shape_and_refuses_bad_routes(cuda):
+    from repro_torch.kernels import sroa_bisect
+
+    one = torch.ones((2, 600), device=cuda)
+    per_user = (one,) * 7
+    per_problem = (one[:, 0].contiguous(),) * 5
+    kw = dict(b_iters=2, f_iters=1, p_iters=1, t_iters=1, eps0=1e-4,
+              eps1=1e-4, eps2=1e-4, t_low=1.0, t_up=3e7)
+    _, ran = sroa_bisect.solve_cuda(per_user, per_problem, **kw)
+    assert ran == ("warp", 0)
+    with pytest.raises(ValueError, match="lanes"):
+        sroa_bisect.solve_cuda(per_user, per_problem, **kw,
+                               _route=("lanes", 1))
+    small = tuple(x[..., :56].contiguous() for x in per_user)
+    with pytest.raises(ValueError, match="depth"):
+        sroa_bisect.solve_cuda(small, per_problem, **kw, _route=("lanes", 3))
+    with pytest.raises(ValueError, match="depth"):
+        sroa_bisect.invert_rate_cuda(one[0], one[0], one[0], 8, _depth=3)
 
 
 @pytest.mark.cuda

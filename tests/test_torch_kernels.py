@@ -18,6 +18,12 @@ them) or its oracles, and the public wrappers' flattening and dispatch.
   ``ops.fused_rmsnorm`` on the JAX rmsnorm sweep: 1e-5 in f32, 2e-2 in bf16
   (``tests/test_kernels.py:114``).
 
+* The designs K1 and K2 rely on, as plain models held bitwise to the
+  twins' arithmetic: the lanes K2's cross-warp sum (``warp_sum_plain``),
+  the speculative bisection at depths 1 and 2 (``bisect_rate_plain``), the
+  kLn2 threshold that replaces the step's division, and the kernel and
+  depth picks (pure functions of the shape).
+
 The CUDA kernels themselves are held against these twins on a card by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
@@ -177,6 +183,216 @@ def test_warp_sum_plain_adds_in_the_kernels_order(N):
         assert len(set(lane)) == 1            # every lane ends equal
         want[r, 0] = lane[0]
     assert_bitwise(ref.warp_sum_plain(_t(x)), want)
+
+
+@pytest.mark.parametrize("N", [1, 31, 32, 33, 56, 64, 65, 200])
+def test_lanes_sum_adds_in_warp_sum_plain_order(N):
+    """The lanes K2's sum, one step at a time: W = ceil(N/32) warps, user
+    l + 32w on lane l of warp w (0 past N); every warp adds the W values of
+    its lane in warp order, then butterflies over lanes l ^ 16, 8, 4, 2, 1.
+    Every lane of every warp ends with the same bits, warp_sum_plain's."""
+    rng = np.random.default_rng(N + 1)
+    x = np.asarray(rng.uniform(0, 1e6, (3, N)) * 10.0 ** rng.integers(
+        -3, 4, (3, N)), np.float32)
+    W = -(-N // 32)
+    want = np.empty((3, 1), np.float32)
+    for r in range(3):
+        slot = np.zeros((W, 32), np.float32)
+        slot.reshape(-1)[:N] = x[r]
+        held = set()
+        for _ in range(W):                    # each warp, redundantly
+            lane = [slot[0, i] for i in range(32)]
+            for k in range(1, W):
+                lane = [np.float32(lane[i] + slot[k, i]) for i in range(32)]
+            for off in (16, 8, 4, 2, 1):
+                lane = [np.float32(lane[i] + lane[i ^ off])
+                        for i in range(32)]
+            held |= {v.tobytes() for v in lane}
+        assert len(held) == 1
+        want[r, 0] = lane[0]
+    assert_bitwise(ref.warp_sum_plain(_t(x)), want)
+
+
+def _rate_threshold(tgt: torch.Tensor) -> torch.Tensor:
+    """``rate_threshold`` of ``csrc/sroa_bisect.cu``, element-wise: the
+    smallest float y with fl(y / ln2) >= tgt (NaN and -inf pass through;
+    +inf starts at FLT_MAX * ln2)."""
+    c = torch.tensor(ref.LN2, dtype=torch.float32)
+    fmax = torch.tensor(torch.finfo(torch.float32).max)
+    up_inf = torch.tensor(float("inf"))
+    live = tgt > -float("inf")
+    y = torch.where(tgt <= fmax, tgt * c, fmax * c)
+    while True:
+        step = live & ~(y / c >= tgt)
+        if not bool(step.any()):
+            break
+        y = torch.where(step, torch.nextafter(y, up_inf), y)
+    while True:
+        d = torch.nextafter(y, -up_inf)
+        step = live & (d / c >= tgt)
+        if not bool(step.any()):
+            break
+        y = torch.where(step, d, y)
+    return torch.where(live, y, tgt)
+
+
+def _rate_threshold_window(tgt: torch.Tensor):
+    """``rate_threshold``'s fast path: the predicate at the seven floats
+    y0 - 3 .. y0 + 3 around y0 = fl(tgt ln2); where the first fails and the
+    last passes, the threshold is the first that passes.  Returns the
+    threshold and where the window applied."""
+    c = torch.tensor(ref.LN2, dtype=torch.float32)
+    y0 = (tgt * c).view(torch.int32)
+    ok = torch.stack([(y0 + k).view(torch.float32) / c >= tgt
+                      for k in range(-3, 4)])
+    fails = (~ok).sum(0).to(torch.int32)
+    used = ((tgt >= 2.0 ** -50) & (tgt <= 2.0 ** 70) & ~ok[0] & ok[-1])
+    return (y0 - 3 + fails).view(torch.float32), used
+
+
+def _spec_bisect(G, tgt, bm, iters: int, depth: int) -> torch.Tensor:
+    """``invert_rate_dev<depth>``'s bisection, element-wise: rounds of
+    ``depth`` steps (then one for an odd remainder) that evaluate the
+    predicate y >= thr at every midpoint the next steps can visit, then
+    walk the sequential path through them with selects."""
+    thr = _rate_threshold(tgt)
+
+    def passes(b):
+        bs = torch.clamp_min(b, 1e-12)
+        return bs * torch.log1p(G / bs) >= thr
+
+    def round_(lo, hi, d):
+        S = 1 << d
+        e = {0: lo, S: hi}
+        s = S
+        while s > 1:
+            for i in range(0, S, s):
+                e[i + s // 2] = 0.5 * (e[i] + e[i + s])
+            s //= 2
+        ok = {m: passes(e[m]) for m in range(1, S)}
+        node = torch.zeros(G.shape, dtype=torch.int64)
+        s = S // 2
+        while s >= 1:
+            okm = torch.zeros(G.shape, dtype=torch.bool)
+            em = torch.zeros_like(G)
+            for i in range(0, S, 2 * s):
+                at = node == i
+                okm = torch.where(at, ok[i + s], okm)
+                em = torch.where(at, e[i + s], em)
+            hi = torch.where(okm, em, hi)
+            lo = torch.where(okm, lo, em)
+            node = torch.where(okm, node, node + s)
+            s //= 2
+        return lo, hi
+
+    lo, hi = torch.zeros_like(G), bm.clone()
+    i = 0
+    while i + depth <= iters:
+        lo, hi = round_(lo, hi, depth)
+        i += depth
+    if depth == 2 and i < iters:
+        lo, hi = round_(lo, hi, 1)
+    return hi
+
+
+def _bisect_sweep(seed: int, n: int = 4000):
+    """G, targets and caps for the inversion: targets around rate(b_max)
+    (feasible and infeasible caps), 1e30 (tau <= 0), 0, -0, subnormals,
+    +-inf and NaN, and zero G."""
+    rng = np.random.default_rng(seed)
+    G = np.asarray(2.0 ** rng.uniform(-20, 60, n), np.float32)
+    bm = np.asarray(2.0 ** rng.uniform(-5, 35, n), np.float32)
+    tgt = np.asarray(rng.uniform(0, 1.3, n) * G / np.log(2.0)
+                     * 10.0 ** rng.integers(-2, 3, n), np.float32)
+    special = np.array([1e30, 0.0, -0.0, 1e-45, 1e-40, 1.2e-38, np.inf,
+                        -np.inf, np.nan, -5.0, 3.4e38], np.float32)
+    tgt[:special.size * 8] = np.repeat(special, 8)
+    G[::17] = 0.0
+    return _t(G), _t(tgt), _t(bm)
+
+
+@pytest.mark.parametrize("iters", [30, 31, 42, 61, 13, 7, 5, 3, 2, 1, 0])
+@pytest.mark.parametrize("depth", [1, 2])
+def test_speculative_bisection_is_bitwise_the_sequential_one(depth, iters):
+    """K1/K2's inversion model (threshold predicate, speculative rounds)
+    against ref.bisect_rate_plain's sequential steps (division predicate),
+    with the kernel's early return of b_max where b_max itself fails."""
+    G, tgt, bm = _bisect_sweep(depth * 100 + iters)
+    want = ref.bisect_rate_plain(G, tgt, bm, iters)
+    assert torch.equal(_spec_bisect(G, tgt, bm, iters, depth), want)
+    inv = ref.invert_rate_plain(G, tgt, bm, iters)
+    bs = torch.clamp_min(bm, 1e-12)
+    feas = bs * torch.log1p(G / bs) >= _rate_threshold(tgt)
+    assert torch.equal(torch.where(feas, want, bm), inv)
+    assert bool((~feas).any()) and bool(feas.any())
+
+
+def test_rate_threshold_is_the_division_predicate():
+    """fl(y / ln2) >= tgt  <=>  y >= thr(tgt), for y within 40 ulps of thr
+    and for the rates of the sweep's midpoints, at every special target."""
+    G, tgt, bm = _bisect_sweep(7)
+    c = torch.tensor(ref.LN2, dtype=torch.float32)
+    thr = _rate_threshold(tgt)
+    inf = torch.tensor(float("inf"))
+    y = thr.clone()
+    for _ in range(40):
+        y = torch.nextafter(y, -inf)
+    for _ in range(81):
+        assert torch.equal(y / c >= tgt, y >= thr)
+        y = torch.nextafter(y, inf)
+    for frac in np.linspace(0.0, 1.0, 23):
+        b = torch.clamp_min(bm * float(frac), 1e-12)
+        y = b * torch.log1p(G / b)
+        assert torch.equal(ref.rate_plain(b, G) >= tgt, y >= thr)
+    finite = torch.isfinite(tgt)
+    assert bool((thr[finite] - tgt[finite] * c).abs().le(
+        4 * torch.finfo(torch.float32).eps * (tgt[finite] * c).abs()
+        + 1e-44).all())
+
+
+def test_rate_threshold_window_is_the_walk():
+    """The kernel's seven-float window gives the walk's threshold wherever
+    it applies, and it applies to every target in [2^-50, 2^70]: random
+    ones, the floats next to powers of two and the sweep's."""
+    rng = np.random.default_rng(11)
+    tgt = np.asarray(2.0 ** rng.uniform(-50, 70, 200_000), np.float32)
+    edges = np.asarray(2.0 ** np.arange(-50, 70), np.float32)
+    near = np.concatenate([np.nextafter(edges, 0), edges,
+                           np.nextafter(edges, np.inf)]).astype(np.float32)
+    G, sweep, bm = _bisect_sweep(3)
+    tgt = torch.cat([_t(tgt), _t(near), sweep])
+    thr, used = _rate_threshold_window(tgt)
+    walk = _rate_threshold(tgt)
+    assert torch.equal(thr[used], walk[used])
+    in_range = (tgt >= 2.0 ** -50) & (tgt <= 2.0 ** 70)
+    assert torch.equal(used, in_range)
+
+
+@pytest.mark.parametrize("P,N,sms,route", [
+    (1152, 56, 132, ("lanes", 1)),      # the planning round
+    (128, 56, 132, ("lanes", 2)),       # the re-price shape
+    (528, 56, 132, ("lanes", 2)),       # two warps a scheduler
+    (529, 56, 132, ("lanes", 1)),
+    (4, 12, 132, ("lanes", 2)),
+    (1, 512, 132, ("lanes", 2)),
+    (1, 513, 132, ("warp", 0)),         # past 16 warps a problem
+    (2000, 1024, 132, ("warp", 0)),
+    (128, 56, 114, ("lanes", 2)),       # an H100 PCIe
+])
+def test_k2_kernel_and_depth_pick(P, N, sms, route):
+    """A pure function of (P, N) and the card's SM count: no card."""
+    from repro_torch.kernels import sroa_bisect
+
+    assert sroa_bisect.solve_route(P, N, sms) == route
+
+
+@pytest.mark.parametrize("n,sms,depth", [
+    (128 * 56, 132, 2), (56, 132, 2), (1, 132, 2), (32 * 1056, 132, 2),
+    (32 * 1056 + 1, 132, 1), (10 ** 6, 132, 1)])
+def test_k1_depth_pick(n, sms, depth):
+    from repro_torch.kernels import sroa_bisect
+
+    assert sroa_bisect.invert_depth(n, sms) == depth
 
 
 def test_solve_plain_counts_the_work_the_kernel_does(launches):
