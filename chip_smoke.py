@@ -31,8 +31,17 @@ Phases, each reported on its own lines:
    shapes, each depth of the new one too, and every depth on the round's
    first 256, 512 and 768 problems (where the depth rule's crossover
    lies); the blocks an SM holds are printed.
-3. K3 (top-k move nomination) against its plain version at
-   (128, N_max, 5), k = 8: indices exact, scores to rtol 1e-5.
+3. K3 (top-k move nomination): the routed call, the one-warp-per-cell
+   kernel, the block kernel and the plain version give identical
+   user, dst and score at the planning shape (128, N_max, 5) and at
+   (128, 128, 4) and (16, 300, 7) (past the warp kernel's cap), k = 8 and
+   40, and the two kernels and the plain version at (128, N_max, 5) on
+   operands that leave the warp kernel's branch-free ranges (tiny and
+   huge gains and H, noise past 2^60 in every other cell).  The two
+   kernels are timed on the same tensors in turns, beside ``torch.topk``
+   on the twin's score tile (selection only), an empty kernel's launch
+   (the floor), the bound and the wrapper's host cost; the warp kernel's
+   blocks an SM and K3's ``-Xptxas -v`` lines are printed.
 4. K4 (flash attention) against its plain version: at the LM prefill's
    (B, H, T, hd) = (4, 16, 1024, 64) in bf16 and f32, at hd 128
    (llama3.2-3b's heads), at the JAX sweep's odd shapes, non-causal, with
@@ -66,7 +75,8 @@ Phases, each reported on its own lines:
 9. Launch counts of the main paths (every count reset to 0 right before
    a path and read right after it), each kernel's time beside its plain
    version's, its bound and its library call, then the card and the
-   result line.  Each kernel's time is given twice: CUDA events around
+   result line; every K3 launch of the planning path must take the warp
+   kernel.  Each kernel's time is given twice: CUDA events around
    one call (``ms``: the host's launch overhead included) and the device
    time ``torch.profiler`` records per call (``device_ms``).  K4's and
    K5's wrappers also get ``host_ms``: the host clock over 1,000
@@ -107,6 +117,7 @@ LM_ARCH, LM_B, LM_T, LM_NEW = "qwen1.5-0.5b", 4, 1024, 32
 LM_LOGIT_RTOL = 5e-2
 
 SERVE_CAPS = dict(b_iters=30, f_iters=24, p_iters=20, t_iters=28)
+DEVICE_MS_SESSIONS = 3        # profiler sessions before "not measured"
 TOP_K = 8
 
 
@@ -151,7 +162,10 @@ def _device_ms(fn, reps: int, cold: bool = False,
     call reads its inputs from device memory, as a bound assumes.
     ``kernel`` names the one kernel ``fn`` launches: the result is then the
     median of that kernel's device events, which stays right when the
-    profiler drops an event of a session of a few long kernels."""
+    profiler drops an event of a session of a few long kernels.  Now and
+    then a session records no device activity at all (a K5 session did on
+    an H100, after 37 phases' sessions had); up to ``DEVICE_MS_SESSIONS``
+    sessions are run before the time counts as not measured (None)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
@@ -161,29 +175,45 @@ def _device_ms(fn, reps: int, cold: bool = False,
                          device="cuda") if cold else None)
     fn()
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            if cold:
-                flush.bitwise_not_()
-            fn()
-        torch.cuda.synchronize()
-    if kernel is not None:
-        times = sorted(evt.time_range.elapsed_us() for evt in prof.events()
-                       if evt.device_type != DeviceType.CPU
-                       and kernel in evt.name)
-        if times:
-            return times[len(times) // 2] / 1e3
-    rows = prof.key_averages()
-    us = sum(evt.self_device_time_total for evt in rows
-             if evt.device_type != DeviceType.CPU
-             and not (cold and "bitwise_not" in evt.key))
-    if us > 0:
-        return us / 1e3 / reps
-    print("chip_smoke: the profiler recorded no device time; its rows: "
-          + json.dumps([(evt.key[:60], str(evt.device_type), evt.count,
-                         evt.self_device_time_total) for evt in rows]))
+    for _ in range(DEVICE_MS_SESSIONS):
+        with torch_profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                if cold:
+                    flush.bitwise_not_()
+                fn()
+            torch.cuda.synchronize()
+        if kernel is not None:
+            times = sorted(evt.time_range.elapsed_us()
+                           for evt in prof.events()
+                           if evt.device_type != DeviceType.CPU
+                           and kernel in evt.name)
+            if times:
+                return times[len(times) // 2] / 1e3
+        rows = prof.key_averages()
+        us = sum(evt.self_device_time_total for evt in rows
+                 if evt.device_type != DeviceType.CPU
+                 and not (cold and "bitwise_not" in evt.key))
+        if us > 0:
+            return us / 1e3 / reps
+        print("chip_smoke: the profiler recorded no device time; its rows: "
+              + json.dumps([(evt.key[:60], str(evt.device_type), evt.count,
+                             evt.self_device_time_total) for evt in rows]))
     return None
+
+
+def _fmt(x, spec: str = ".4g") -> str:
+    """A measured number, or "not measured" where the profiler recorded
+    none (``_device_ms`` returned None)."""
+    return "not measured" if x is None else format(x, spec)
+
+
+def _div(a, b):
+    return None if a is None or b is None else a / b
+
+
+def _sub(a, b):
+    return None if a is None or b is None else a - b
 
 
 def _host_ms(fn, n: int = 1000) -> float:
@@ -432,18 +462,18 @@ def _check_k4(report: dict, dev) -> None:
         device_ms=_device_ms(simt, 10), library_device_ms=lib_dev)
     r, rs = report["flash_attention_sm90"], report["flash_attention"]
     print(f"[4] K4 at ({B}, {H}, {T}, {hd}) bf16 causal: tensor cores "
-          f"{r['ms']:.4g} ms (device {r['device_ms']:.4g}); SIMT "
-          f"{rs['ms']:.4g} ms (device {rs['device_ms']:.4g}), "
-          f"{rs['device_ms'] / r['device_ms']:.3g}x the tensor cores' "
+          f"{r['ms']:.4g} ms (device {_fmt(r['device_ms'])}); SIMT "
+          f"{rs['ms']:.4g} ms (device {_fmt(rs['device_ms'])}), "
+          f"{_fmt(_div(rs['device_ms'], r['device_ms']), '.3g')}x the tensor cores' "
           f"device time; plain {r['plain_ms']:.4g} ms; SDPA "
-          f"{r['library_ms']:.4g} ms (device {r['library_device_ms']:.4g}; "
+          f"{r['library_ms']:.4g} ms (device {_fmt(r['library_device_ms'])}; "
           f"|K4 - SDPA| max {lib_err:.3g}); bound {bound[0]:.4g} ms by "
           f"{bound[1]} ({flops:.4g} flop, {nbytes} bytes), "
-          f"{bound[0] / r['device_ms']:.4f} of it; with a cold L2 "
-          f"{r['device_ms_cold']:.4g} ms (SDPA "
-          f"{r['library_device_ms_cold']:.4g}); host "
+          f"{_fmt(_div(bound[0], r['device_ms']), '.4f')} of it; with a cold L2 "
+          f"{_fmt(r['device_ms_cold'])} ms (SDPA "
+          f"{_fmt(r['library_device_ms_cold'])}); host "
           f"{r['host_ms']:.4g} ms a call (1,000 unsynchronised at (1, 64, 1, "
-          f"64)), events - device {r['ms'] - r['device_ms']:.4g} ms")
+          f"64)), events - device {_fmt(_sub(r['ms'], r['device_ms']))} ms")
 
     B, H, T, hd = 1, 24, LM_T, 128
     q, k, v = qkv(T, T, B, H, hd, bf16)
@@ -460,8 +490,8 @@ def _check_k4(report: dict, dev) -> None:
                       library_ms=t["lib"], library_device_ms=t["lib_dev"],
                       bound_ms=b128[0], bound_by=b128[1])
     print(f"[4] K4 at ({B}, {H}, {T}, {hd}) bf16 causal: tensor cores "
-          f"{t['ms']:.4g} ms (device {t['dev']:.4g}); SDPA {t['lib']:.4g} "
-          f"ms (device {t['lib_dev']:.4g}); bound {b128[0]:.4g} ms by "
+          f"{t['ms']:.4g} ms (device {_fmt(t['dev'])}); SDPA {t['lib']:.4g} "
+          f"ms (device {_fmt(t['lib_dev'])}); bound {b128[0]:.4g} ms by "
           f"{b128[1]}")
 
 
@@ -504,17 +534,167 @@ def _check_k5(report: dict, dev) -> None:
     r = report["rmsnorm"]
     print(f"[5] K5 ok at ({rows}, {d}): bitwise equal to its twin "
           f"{json.dumps(bitwise)}; bf16 max |err| against the twin {err:.3g}; "
-          f"{r['ms']:.4g} ms (device {r['device_ms']:.4g}), plain "
+          f"{r['ms']:.4g} ms (device {_fmt(r['device_ms'])}), plain "
           f"{r['plain_ms']:.4g} ms, F.rms_norm {r['library_ms']:.4g} ms "
-          f"(device {r['library_device_ms']:.4g}), bound {bound[0]:.4g} ms "
-          f"by {bound[1]}, {bound[0] / r['device_ms']:.4f} of it (the "
+          f"(device {_fmt(r['library_device_ms'])}), bound {bound[0]:.4g} ms "
+          f"by {bound[1]}, {_fmt(_div(bound[0], r['device_ms']), '.4f')} of it (the "
           f"timing loop's {4 * rows * d / 1e6:.3g} MB stay in L2); with a "
           f"cold L2 "
-          f"{r['device_ms_cold']:.4g} ms (F.rms_norm "
-          f"{r['library_device_ms_cold']:.4g}), "
-          f"{bound[0] / r['device_ms_cold']:.4f} of the bound; host "
+          f"{_fmt(r['device_ms_cold'])} ms (F.rms_norm "
+          f"{_fmt(r['library_device_ms_cold'])}), "
+          f"{_fmt(_div(bound[0], r['device_ms_cold']), '.4f')} of the bound; host "
           f"{r['host_ms']:.4g} ms a call (1,000 unsynchronised at (64, "
-          f"{d})), events - device {r['ms'] - r['device_ms']:.4g} ms")
+          f"{d})), events - device {_fmt(_sub(r['ms'], r['device_ms']))} ms")
+
+
+def _check_k3(report: dict, dev, cells, init, mask, sms: int) -> None:
+    """Phase 3: K3's warp kernel, its block kernel and the plain twin,
+    bitwise at the planning shape and at two synthetic ones; the two
+    kernels timed on the same tensors in turns, beside ``torch.topk`` on
+    the twin's score tile, an empty kernel's launch and the bound."""
+    import torch
+
+    from repro_torch.fleet import engine as fengine
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import topk_moves as tk
+    from repro_torch.kernels.sroa_bisect import _stream
+
+    C, N, M = cells.gain.shape
+    targs = [cells.gain.contiguous(), fengine._move_H(cells).contiguous(),
+             cells.p_max.contiguous(), init.contiguous(), mask.contiguous(),
+             cells.N0.contiguous(), cells.B_open.contiguous()]
+
+    def on(route, args, k):
+        return lambda: tk.topk_moves_cuda(*args, k, _route=route)[0]
+
+    def same(x, y):
+        return all(torch.equal(a, b) for a, b in zip(x, y))
+
+    def synth(P, n, m, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return [torch.randn((P, n, m), generator=g, device=dev).abs() * 1e-7
+                + 1e-9, torch.full((P, n), 2.4e5, device=dev),
+                torch.full((P, n), 0.2, device=dev),
+                torch.randint(0, m, (P, n), generator=g, device=dev,
+                              dtype=torch.int32),
+                torch.rand((P, n), generator=g, device=dev) < 0.9,
+                torch.full((P,), 1e-17, device=dev),
+                torch.full((P,), 1e7, device=dev)]
+
+    def off_range(P, n, m, seed):
+        """synth's operands sent off the warp kernel's branch-free division
+        and log1pf: a tenth of the gains 1e-30, one 1e30, and N0 = 1e-3,
+        B = 1e25 (noise past 2^60) in the even cells; in the odd ones user
+        1's H 1e30 and user 2's 1e-30 (with ordinary gains)."""
+        g, H, pm, a, mk, N0, B = synth(P, n, m, seed)
+        gen = torch.Generator(device=dev).manual_seed(seed + 1)
+        g[torch.rand(g.shape, generator=gen, device=dev) < 0.1] = 1e-30
+        g[:, 1:3] = 2e-8
+        H[1::2, 1], H[1::2, 2] = 1e30, 1e-30
+        g[:, n // 2, m - 1] = 1e30
+        N0[::2], B[::2] = 1e-3, 1e25
+        return [g, H, pm, a, mk, N0, B]
+
+    k3 = lambda: ops.topk_move_scores(*targs, k=TOP_K)  # noqa: E731
+    k3p = lambda: ref.topk_moves_plain(*targs, k=TOP_K)  # noqa: E731
+    w0 = ops.LAUNCHES["topk_moves_warp"]
+    got, want = k3(), k3p()
+    _check(ops.LAUNCHES["topk_moves_warp"] == w0 + 1,
+           "K3 at the planning shape did not take the warp kernel")
+    _check(same(got, want), "K3 differs from its twin")
+    _check(same(on("warp", targs, TOP_K)(), want)
+           and same(on("block", targs, TOP_K)(), want),
+           "K3's warp and block kernels differ from the twin")
+    err = _max_abs_err(got[2:], want[2:])
+    cases = [f"({C}, {N}, {M}) warp"]
+    for P, n, m, seed in ((128, 128, 4, 31), (16, 300, 7, 32)):
+        args = synth(P, n, m, seed)
+        route = tk.topk_route(n, m, TOP_K)
+        for k in (TOP_K, 40):
+            want_s = ref.topk_moves_plain(*args, k=k)
+            _check(same(ops.topk_move_scores(*args, k=k), want_s)
+                   and same(on("block", args, k)(), want_s)
+                   and (route == "block" or same(on("warp", args, k)(),
+                                                 want_s)),
+                   f"K3 at ({P}, {n}, {m}), k = {k} differs from its twin")
+        cases.append(f"({P}, {n}, {m}) {route}")
+    args = off_range(C, N, M, 33)
+    _check(not ref.move_scores_plain(*args).isnan().any(),
+           "K3's off-range operands make a NaN score")
+    for k in (TOP_K, 40):
+        want_s = ref.topk_moves_plain(*args, k=k)
+        _check(same(on("warp", args, k)(), want_s)
+               and same(on("block", args, k)(), want_s),
+               f"K3 off the fast ranges at ({C}, {N}, {M}), k = {k} differs "
+               f"from its twin")
+    cases.append(f"({C}, {N}, {M}) warp off the fast ranges")
+    torch.cuda.synchronize()
+    print(f"[3] K3 ok: the routed call, the warp kernel, the block "
+          f"kernel and the twin give identical user, dst and score at "
+          f"{', '.join(cases)} (k = {TOP_K} and 40); max |score err| {err}")
+
+    # Both kernels on the same tensors, in turns (warp, block, block,
+    # warp).
+    kname = {"warp": "topk_moves_warp_kernel", "block": "topk_moves_kernel"}
+    turns = {r: {"ms": [], "device_ms": []} for r in kname}
+    for r in ("warp", "block", "block", "warp"):
+        turns[r]["ms"].append(_time_ms(on(r, targs, TOP_K), 50))
+        turns[r]["device_ms"].append(_device_ms(on(r, targs, TOP_K), 50,
+                                                kernel=kname[r]))
+    S = tk.warp_slots(N, M)
+    blocks = ctypes.c_int()
+    build.check(build.load().topk_moves_warp_occupancy(
+        S, N, M, ctypes.byref(blocks)), "topk_moves_warp_occupancy")
+    tile = ref.move_scores_plain(*targs)
+    lib = lambda: torch.topk(tile, TOP_K, dim=1, largest=False,  # noqa
+                             sorted=True)
+    _check(torch.equal(lib()[0], want[2]),
+           "torch.topk's values differ from the twin's scores")
+    empty = lambda: build.check(  # noqa: E731
+        build.load().topk_empty(_stream(tile)), "topk_empty")
+    nbytes = C * N * M * 4 + C * N * (4 + 4 + 4 + 1) + C * 8 + C * TOP_K * 12
+    bound = _bound_ms(nbytes, C * (12 + TOP_K) * N * M)
+    plain_ms = _time_ms(k3p, 5)
+    common = dict(route="cuda",
+                  source="src/repro_torch/kernels/csrc/topk_moves.cu",
+                  replaces="src/repro/kernels/topk_moves.py:41",
+                  max_abs_err=err, plain_ms=plain_ms, bound_ms=bound[0],
+                  bound_by=bound[1], library_ms=_time_ms(lib, 50),
+                  library_device_ms=_device_ms(lib, 50),
+                  library_is="torch.topk on the twin's (P, N*M) tile: "
+                             "selection only; the port never calls it",
+                  floor_ms=_time_ms(empty, 50),
+                  floor_device_ms=_device_ms(empty, 50, kernel="topk_empty"))
+
+    def mean(x):
+        return None if None in x else sum(x) / len(x)
+
+    for r, name in (("warp", "topk_moves_warp"), ("block", "topk_moves")):
+        report[name] = dict(common, name=name, ms=mean(turns[r]["ms"]),
+                            device_ms=mean(turns[r]["device_ms"]),
+                            turns=turns[r])
+    rw = report["topk_moves_warp"]
+    rw.update(slots=S, blocks_per_sm=blocks.value,
+              routed_ms=_time_ms(k3, 50), host_ms=_host_ms(k3))
+    rb = report["topk_moves"]
+    ptx = [line for line in _ptxas(build.build_log) if "topk" in line]
+    print("[3] K3 ptxas (registers; stack frame, spill stores and loads): "
+          + " | ".join(ptx))
+    print(f"[3] warp kernel at ({C}, {N}, {M}): S = {S} entries a lane, "
+          f"one cell (warp) a block, {blocks.value} blocks an SM "
+          f"({sms} SMs)")
+    print(f"[3] K3 at ({C}, {N}, {M}), k = {TOP_K}, in turns (warp, block, "
+          f"block, warp): warp kernel {rw['ms']:.4g} ms (device "
+          f"{rw['device_ms']}), the block kernel {rb['ms']:.4g} ms "
+          f"(device {rb['device_ms']}); turns {json.dumps(turns)}; plain "
+          f"{plain_ms:.4g} ms; torch.topk on the twin's tile (selection "
+          f"only) {common['library_ms']:.4g} ms (device "
+          f"{common['library_device_ms']}); empty kernel (launch floor) "
+          f"{common['floor_ms']:.4g} ms (device "
+          f"{common['floor_device_ms']}); bound {bound[0]:.4g} ms by "
+          f"{bound[1]} ({nbytes} bytes); ops.topk_move_scores "
+          f"{rw['routed_ms']:.4g} ms, host {rw['host_ms']:.4g} ms a call "
+          f"(1,000 unsynchronised)")
 
 
 def _lm_path(dev) -> dict:
@@ -741,11 +921,11 @@ def main(argv: list[str]) -> int:
           f"max |err| {err:.3g} Hz; bitwise its twin at depths "
           f"{list(sb.DEPTHS)} x 42, {SERVE_CAPS['b_iters']}, 7 steps")
     print(f"[1] K1 at ({C}, {N}), 42 steps: {r['ms']:.4g} ms (device "
-          f"{r['device_ms']:.4g}) at the picked depth {k1_depth}; device ms "
+          f"{_fmt(r['device_ms'])}) at the picked depth {k1_depth}; device ms "
           f"by depth {json.dumps(k1_depth_ms)}")
     print(f"[1] K1 with a scalar cap (K1a) at n = 56: "
           f"{k1a_times['k1a_ms']:.4g} ms (device "
-          f"{k1a_times['k1a_device_ms']:.4g}), plain "
+          f"{_fmt(k1a_times['k1a_device_ms'])}), plain "
           f"{k1a_times['k1a_plain_ms']:.4g} ms, bound {k1a_bound[0]:.3g} ms "
           f"by {k1a_bound[1]}")
 
@@ -920,30 +1100,8 @@ def main(argv: list[str]) -> int:
               f"{json.dumps(t['depth_device_ms'])}; bitwise equal to the "
               f"twin ({plain_ms[key]:.0f} ms)")
 
-    # ---- phase 3: K3 against its plain version -------------------------
-    H_move = fengine._move_H(cells)
-    targs = [cells.gain.contiguous(), H_move.contiguous(),
-             cells.p_max.contiguous(), init.contiguous(), mask.contiguous(),
-             cells.N0.contiguous(), cells.B_open.contiguous()]
-    k3 = lambda: ops.topk_move_scores(*targs, k=TOP_K)  # noqa: E731
-    k3p = lambda: ref.topk_moves_plain(*targs, k=TOP_K)  # noqa: E731
-    got, want = k3(), k3p()
-    _check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
-           "K3 nominated other moves")
-    torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=0)
-    torch.cuda.synchronize()
-    err = _max_abs_err(got[2:], want[2:])
-    nbytes = C * N * M * 4 + C * N * (4 + 4 + 4 + 1) + C * 8 + C * TOP_K * 12
-    bound = _bound_ms(nbytes, C * (12 + TOP_K) * N * M)
-    report["topk_moves"] = dict(
-        name="topk_moves", route="cuda",
-        source="src/repro_torch/kernels/csrc/topk_moves.cu",
-        replaces="src/repro/kernels/topk_moves.py:41",
-        max_abs_err=err, ms=_time_ms(k3, 50), plain_ms=_time_ms(k3p, 5),
-        device_ms=_device_ms(k3, 50),
-        bound_ms=bound[0], bound_by=bound[1], library_ms=None)
-    print(f"[3] K3 ok at ({C}, {N}, {M}), k = {TOP_K}: indices identical, "
-          f"max |score err| {err:.3g}")
+    # ---- phase 3: K3's two kernels against their plain version ---------
+    _check_k3(report, dev, cells, init, mask, sms)
 
     # ---- phases 4 and 5: K4 and K5 against their plain versions --------
     _check_k4(report, dev)
@@ -1009,35 +1167,41 @@ def main(argv: list[str]) -> int:
     lm = _lm_path(dev)
 
     # ---- phase 9: launch counts and times ------------------------------
-    # Three kernels lie on no path: K5 (no model calls it), K4's SIMT
+    # Four kernels lie on no path: K5 (no model calls it), K4's SIMT
     # kernel (the route for f32 and hd > 128; the LM path is bf16, hd 64)
-    # and PR 11's K2 kernel (the route for N > 512; the fleet's N is 56).
+    # and the one-warp-per-problem K2 and the block K3 kernels (the
+    # routes for N > 512 and for N*M > 512; the fleet's cells are 56 x 5).
     # Their counts are those of their path's run, 0, and are not held to
-    # be positive.  ``flash_attention`` counts every K4 launch and
-    # ``sroa_solve`` every K2 launch, so the SIMT kernel's and PR 11's are
-    # the launches that did not take the other kernel.
+    # be positive.  ``flash_attention``, ``sroa_solve`` and ``topk_moves``
+    # count every K4, K2 and K3 launch, so those three kernels' launches
+    # are the ones that did not take the other kernel.
     lmc = lm["counts"]
     counts = {"sroa_invert": invert_count,
               "sroa_solve_lanes": main_counts["sroa_solve_lanes"],
               "sroa_solve": (main_counts["sroa_solve"]
                              - main_counts["sroa_solve_lanes"]),
-              "topk_moves": main_counts["topk_moves"],
+              "topk_moves_warp": main_counts["topk_moves_warp"],
+              "topk_moves": (main_counts["topk_moves"]
+                             - main_counts["topk_moves_warp"]),
               "flash_attention_sm90": lmc["flash_attention_sm90"],
               "flash_attention": (lmc["flash_attention"]
                                   - lmc["flash_attention_sm90"]),
               "rmsnorm": lmc["rmsnorm"]}
     print(f"[9] kernels: {json.dumps(counts)} (ops.LAUNCHES of the LM run: "
           f"{json.dumps(lmc)})")
+    _check(main_counts["topk_moves_warp"] == main_counts["topk_moves"] > 0,
+           f"{main_counts['topk_moves'] - main_counts['topk_moves_warp']} "
+           f"of the planning path's {main_counts['topk_moves']} K3 launches "
+           f"took the block kernel")
     for name, n in counts.items():
         _check(n > 0 or name in ("rmsnorm", "flash_attention",
-                                 "sroa_solve"),
+                                 "sroa_solve", "topk_moves"),
                f"{name} never launched on its path")
         report[name]["launches"] = n
         r = report[name]
         lib = (f", library {r['library_ms']:.4g} ms"
                if r["library_ms"] is not None else "")
-        dev_ms = ("not measured" if r["device_ms"] is None
-                  else f"{r['device_ms']:.4g} ms")
+        dev_ms = _fmt(r["device_ms"]) + " ms" * (r["device_ms"] is not None)
         print(f"[9] {name}: {r['ms']:.4g} ms (device {dev_ms}, "
               f"plain {r['plain_ms']:.4g} ms, "
               f"bound {r['bound_ms']:.3g} ms by {r['bound_by']}{lib})")
@@ -1045,16 +1209,18 @@ def main(argv: list[str]) -> int:
     print(f"[9] planning path: {snap['plans_per_s']:.4g} plans/s, tick p50 "
           f"{snap['tick_ms']['p50']:.4g} ms; {rounds} K2 launches "
           f"({main_counts['sroa_solve_lanes']} on the lanes kernel) and "
-          f"{main_counts['topk_moves']} K3 launches")
+          f"{main_counts['topk_moves']} K3 launches "
+          f"({main_counts['topk_moves_warp']} on the warp kernel)")
     fl = lm["flash"]
     L = lm["n_layers"]
-    k4_share = (L * report["flash_attention_sm90"]["device_ms"]
-                / (fl["prefill_s"] * 1e3))
+    k4_dev = report["flash_attention_sm90"]["device_ms"]
+    k4_share = _div(None if k4_dev is None else L * k4_dev,
+                    fl["prefill_s"] * 1e3)
     print(f"[9] LM path: prefill {fl['prefill_s'] * 1e3:.3f} ms, decode "
           f"{fl['tok_per_s']:.1f} tok/s on K4; "
           f"{counts['flash_attention_sm90']} K4 launches on the tensor "
-          f"cores; {L} x K4's phase-4 device time is {k4_share:.4f} of the "
-          f"prefill's wall time")
+          f"cores; {L} x K4's phase-4 device time is "
+          f"{_fmt(k4_share, '.4f')} of the prefill's wall time")
     print(json.dumps({"kernels": [report[k] for k in counts]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

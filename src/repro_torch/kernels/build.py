@@ -3,9 +3,9 @@
 Every ``csrc/*.cu`` source compiles to an object (one ``nvcc`` per source,
 all started together), and the objects link into one shared library with a
 plain C interface.  The library lands in ``build/repro_torch_kernels/`` at
-the repository root, named by a hash of the sources and flags so an edited
-source never loads a stale build.  It is built on first use, from the
-sources alone.
+the repository root, named by a hash of the sources, the headers they
+share (``csrc/*.cuh``) and the flags, so an edited file never loads a stale
+build.  It is built on first use, from the sources alone.
 """
 from __future__ import annotations
 
@@ -41,6 +41,11 @@ def _nvcc() -> str:
             return cand
     raise RuntimeError("nvcc not found: the repro_torch CUDA kernels are "
                        "built with nvcc from the CUDA toolkit")
+
+
+def headers() -> list[Path]:
+    """The headers the sources include: hashed with them, not compiled."""
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def _digest(sources: list[Path], flags: list[str]) -> str:
@@ -89,6 +94,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sroa_solve_lanes_occupancy.argtypes = [i, i, p]
     lib.sroa_math_check.argtypes = [p, ll, p]
     lib.topk_moves.argtypes = [p] * 10 + [i] * 4 + [p]
+    lib.topk_moves_warp.argtypes = [p] * 10 + [i] * 5 + [p]
+    lib.topk_moves_warp_occupancy.argtypes = [i] * 3 + [p]
+    lib.topk_empty.argtypes = [p]
     lib.flash_attention.argtypes = ([p] * 4 + [i] * 6 + [ll] * 12 + [i] * 4
                                     + [f, p])
     lib.flash_attention_sm90.argtypes = ([p] * 4 + [i] * 5 + [ll] * 12
@@ -97,7 +105,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.rmsnorm.argtypes = [p, p, p, i, ll, i, f, p]
     for fn in (lib.sroa_invert_rate, lib.sroa_solve, lib.sroa_solve_lanes,
                lib.sroa_solve_lanes_occupancy, lib.sroa_math_check,
-               lib.topk_moves,
+               lib.topk_moves, lib.topk_moves_warp,
+               lib.topk_moves_warp_occupancy, lib.topk_empty,
                lib.flash_attention, lib.flash_attention_sm90,
                lib.flash_attention_sm90_occupancy, lib.rmsnorm):
         fn.restype = ctypes.c_int
@@ -119,7 +128,8 @@ def load(verbose: bool = False) -> ctypes.CDLL:
         sources = sorted(CSRC.glob("*.cu"))
         out_dir = build_dir()
         out_dir.mkdir(parents=True, exist_ok=True)
-        so = out_dir / f"libreprotorch_{_digest(sources, NVCC_FLAGS)}.so"
+        digest = _digest(sources + headers(), NVCC_FLAGS)
+        so = out_dir / f"libreprotorch_{digest}.so"
         if not so.exists() or verbose:
             build_log = _compile(sources, so, verbose)
         _lib = _bind(ctypes.CDLL(str(so)))

@@ -1,28 +1,58 @@
 // K3: top-k move nomination for the assignment engine, for Hopper (sm_90a),
 // with a plain C interface for ctypes.
 //
-// Replaces src/repro/kernels/topk_moves.py `_topk_kernel`.  For each cell
-// it scores every single-user move n: s -> m by the airtime it adds at the
-// equal-split reference bandwidth b_ref = B / n_act,
+// Replaces src/repro/kernels/topk_moves.py `_topk_kernel` (:41, called at
+// :140).  For each cell it scores every single-user move n: s -> m by the
+// airtime it adds at the equal-split reference bandwidth b_ref = B / n_act,
 //
 //   score(n, m) = a(n, m) (1 + (c_m + 1)/n_act) - a(n, s) (1 + c_s/n_act),
 //   a(n, m)     = H_n / log2(1 + g(n, m) p_max_n / (N0 b_ref)),
 //
 // with 1e30 for the own edge and for masked users, then keeps the k
 // smallest scores in k rounds of argmin-and-knock-out (ties to the lowest
-// flat index n*M + m).
+// flat index n*M + m; a knocked-out entry becomes 1e30, so rounds past the
+// legal moves pick the lowest-index 1e30 entry, possibly again).
 //
-// Design: one block per cell.  The (N, M) score tile lives in shared
-// memory; the per-edge loads c_m and the active count come from one pass of
-// shared-memory atomics (exact: integer counts in float); each round is a
-// block-wide lexicographic (score, index) argmin — warp shuffles, then one
-// warp over the per-warp winners — so the result does not depend on the
-// order threads run in.  Bound: it reads N*M + 4N floats per cell and does
-// k passes over the tile; at the engine's shapes (N*M ~ 280, k = 8) it is
-// a few microseconds of launch and block-barrier latency, far from either
-// the memory or the arithmetic roof.
+// Bound: a cell reads N*M + 4N floats and writes 3k words, and does a
+// log1pf and a few divisions per entry: at the engine's shape (128 cells of
+// 56 x 5, k = 8) that is ~0.07 us of bytes on the whole card, far below one
+// kernel launch.  What bounds K3 is the launch and one cell's dependent
+// chain of latencies (loads, counts, scores, k selection rounds), so both
+// designs attack the chain, not bytes or operations.
+//
+// Two kernels compute it, bit for bit (built with --fmad=false, as the
+// plain twin `ref.topk_moves_plain` computes):
+//
+// * `topk_moves_warp_kernel<S>` (N*M <= 32 * 16): one warp per cell, one
+//   cell a block, no block barrier anywhere.  Lane l owns
+//   the flat entries e = l + 32j, j < S, as registers with implicit
+//   indices; slots past N*M hold +inf, so they never win a round, not even
+//   the all-1e30 rounds.  With one warp on an SM sub-partition every
+//   latency is exposed, so the design is about the length of the chain:
+//   - all loads (the tile coalesced, the users' operands) are issued before
+//     any use; edge counts are integer shared atomics and n_act a ballot
+//     (exact in any order);
+//   - a(n, s) comes out of the score pass itself (the lane holding (n, s)
+//     writes the user's source term), so there is one log1pf an entry and
+//     no per-user pass;
+//   - every slot's work is straight-line code (unconditional loads, then
+//     selects), and the divisions and log1pf are the branch-free versions
+//     of fast_math.cuh, so the S slots' chains interleave; a slot whose
+//     operands leave their ranges takes the toolkit's functions after;
+//   - a round is two redux.sync minima over the lanes' cached (key,
+//     entry) minima (scores as order-preserving unsigned keys), a
+//     branch-free knock-out by the owner lane and a log2(S)-deep tree
+//     rescan; lane r % 32 keeps round r's result and the warp stores 32
+//     results at a time, coalesced.
+// * `topk_moves_kernel` (the first port's design; any N*M whose tile fits
+//   in 227 KB of shared memory): one block of 128 threads per cell, the
+//   tile in shared memory, per-edge loads by shared atomics and k
+//   block-wide argmins with two barriers each.  It is the route past the
+//   warp kernel's cap and the yardstick the redesign is timed against.
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "fast_math.cuh"
 
 namespace {
 
@@ -131,6 +161,306 @@ __global__ void topk_moves_kernel(const float* __restrict__ gain,
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// The warp kernel: one cell a warp.
+
+// A user's operands in the warp kernel's shared array.  `s` is
+// the current edge of an active user, M for an active user whose edge lies
+// outside [0, M) (every edge is then a move and the source term is 0, as
+// in the block kernel) and -1 for a masked user (no move).  `src` is the
+// source term a(n, s) (1 + c_s/n_act).
+struct __align__(16) WarpUser {
+  float H, pm, src;
+  int s;
+};
+
+// Shared words a block: N users of 4 words, then the M edge weights
+// 1 + (c_m + 1)/n_act and the M source weights 1 + c_m/n_act, padded to
+// 16 bytes, then a word a lane that takes the stores a lane makes only
+// sometimes (so that every store is unconditional).
+__host__ __device__ inline int warp_smem_words(int N, int M) {
+  return 4 * N + ((2 * M + 3) & ~3) + 32;
+}
+
+// An unsigned key with the float's order: key(a) < key(b) iff a < b, for
+// floats that are not NaN and not -0 (a score is neither: a(n, m) w_m > 0
+// for H > 0, and 1e30 and +inf are constants); `key_value` restores the
+// bits.  One unsigned compare then orders scores.
+__device__ __forceinline__ unsigned order_key(float f) {
+  const unsigned u = __float_as_uint(f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float key_value(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+// The lane's smallest (key, entry) over its S slots, ties to the lower
+// entry; slot j of lane l holds entry l + 32j.  A tree of compare-selects,
+// ceil(log2 S) deep, unrolled: no register is indexed at run time.  The
+// left operand of every pair holds the lower entries, so a tie keeps it.
+template <int S>
+__device__ __forceinline__ void lane_min(const unsigned (&key)[S], int lane,
+                                         unsigned& lk, unsigned& le) {
+  unsigned k2[S], e2[S];
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    k2[j] = key[j];
+    e2[j] = lane + 32 * j;
+  }
+#pragma unroll
+  for (int w = 1; w < S; w *= 2) {
+#pragma unroll
+    for (int j = 0; j + w < S; j += 2 * w) {
+      if (k2[j + w] < k2[j]) {
+        k2[j] = k2[j + w];
+        e2[j] = e2[j + w];
+      }
+    }
+  }
+  lk = k2[0];
+  le = e2[0];
+}
+
+// One warp a block.  The explicit minimum of one block an SM lets ptxas
+// give every instance the registers it needs: without it nvcc 12.9 held an
+// instance of S = 6 to 64 registers, and it spilled.
+template <int S>
+__global__ void __launch_bounds__(32, 1)
+topk_moves_warp_kernel(const float* __restrict__ gain,
+                       const float* __restrict__ H,
+                       const float* __restrict__ p_max,
+                       const int* __restrict__ assign,
+                       const bool* __restrict__ mask,
+                       const float* __restrict__ N0,
+                       const float* __restrict__ B,
+                       int* __restrict__ user_out,
+                       int* __restrict__ dst_out,
+                       float* __restrict__ score_out,
+                       int N, int M, int k) {
+  extern __shared__ float4 warp_smem[];
+  const int lane = threadIdx.x;
+  const int q = blockIdx.x;
+  float* wsm = reinterpret_cast<float*>(warp_smem);
+  WarpUser* users = reinterpret_cast<WarpUser*>(wsm);
+  float* wgt = wsm + 4 * N;
+  float* wsrc = wgt + M;
+  float* sink = wsm + warp_smem_words(N, M) - 32 + lane;
+
+  const int NM = N * M;
+  const size_t urow = (size_t)q * N;
+  const float* g_cell = gain + urow * M;
+
+  // Every load is issued before the first use of any: the tile (coalesced,
+  // lane l reads entries l + 32j; 0 past N*M), the cell's scalars and each
+  // lane's users l + 32c (c < S, since N <= N*M <= 32S; a lane past N
+  // reads user N - 1 again).  Each slot's work below is straight-line code
+  // (loads, then selects): a branch around it would make the compiler run
+  // the slots one after another.
+  int* cnt = reinterpret_cast<int*>(wsrc);
+  for (int m = lane; m < M; m += 32) cnt[m] = 0;
+  __syncwarp();
+  float v[S];
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    const int e = lane + 32 * j;
+    v[j] = e < NM ? __ldg(g_cell + e) : 0.0f;
+  }
+  const float Bq = __ldg(B + q);
+  const float N0q = __ldg(N0 + q);
+  int as_[S];
+  bool mk_[S];
+  float H_[S], pm_[S];
+#pragma unroll
+  for (int c = 0; c < S; ++c) {
+    if (32 * c < N) {                 // uniform over the warp
+      const size_t n = urow + min(lane + 32 * c, N - 1);
+      as_[c] = __ldg(assign + n);
+      mk_[c] = mask[n];
+      H_[c] = __ldg(H + n);
+      pm_[c] = __ldg(p_max + n);
+    }
+  }
+  // Edge counts by integer shared atomics (exact, in any order) and the
+  // active count by ballots: the block kernel adds 1.0f per user, the same
+  // floats.
+  int n_active = 0;
+#pragma unroll
+  for (int c = 0; c < S; ++c) {
+    if (32 * c < N) {
+      const int n = lane + 32 * c;
+      const bool in = n < N;
+      const int a = as_[c];
+      const int s = (in && mk_[c]) ? ((a >= 0 && a < M) ? a : M) : -1;
+      if (in) users[n] = WarpUser{H_[c], pm_[c], 0.0f, s};
+      if (s >= 0 && s < M) atomicAdd(&cnt[s], 1);
+      n_active += __popc(__ballot_sync(kFull, s >= 0));
+    }
+  }
+  __syncwarp();
+
+  // Each edge's two weights, lanes over edges (in place of its count).
+  // Counts and n_act are integers in [0, 512] and [1, 512], inside
+  // div_rn_fast's range (fast_math.cuh); B is checked.
+  auto fast_num = [](float a) {
+    return (__float_as_uint(a) == 0u) | ((a >= kFastA0) & (a <= kFastA1));
+  };
+  const float n_act = fmaxf((float)n_active, 1.0f);
+  const float b_ref = fast_num(Bq) ? div_rn_fast(Bq, n_act) : Bq / n_act;
+  const float noise = fmaxf(N0q * b_ref, 1e-30f);
+  for (int m = lane; m < M; m += 32) {
+    const float c = (float)cnt[m];
+    wgt[m] = 1.0f + div_rn_fast(c + 1.0f, n_act);
+    wsrc[m] = 1.0f + div_rn_fast(c, n_act);
+  }
+  __syncwarp();
+
+  // (n, m) of entry l + 32j advance by 32 = dn M + dm entries a slot: one
+  // division a warp, none an entry.
+  const int n0 = lane / M, m0 = lane - n0 * M;
+  const int dn = 32 / M, dm = 32 - dn * M;
+  auto next = [&](int& n, int& m) {
+    m += dm;
+    n += dn;
+    if (m >= M) {
+      m -= M;
+      ++n;
+    }
+  };
+
+  // The airtime a(n, m) = H / max(log1pf(g pm / noise) / ln 2, 1e-9) of
+  // every entry with the branch-free division and log1pf (fast_math.cuh),
+  // so that the slots' chains interleave.  g pm / noise is taken as
+  // (g pm 2^t) / (noise 2^t), the same quotient, with 2^t bringing a noise
+  // below div_rn_fast's range into [1, 2).  A slot whose operands leave
+  // the fast ranges takes the toolkit's division and log1pf after: the
+  // same bits either way.
+  float scale = 1.0f;
+  if (noise < kFastB0)
+    scale = __int_as_float((254 - ((__float_as_int(noise) >> 23) & 0xff))
+                           << 23);
+  const float noise_s = noise * scale;
+  const bool noise_fast = (noise_s >= kFastB0) & (noise_s <= kFastB1);
+  int s_[S];
+  unsigned slow = 0u;
+  {
+    int n = n0, m = m0;
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+      const bool in = lane + 32 * j < NM;
+      const WarpUser u = users[in ? n : 0];
+      const float a1 = v[j] * u.pm * scale;
+      const float x = div_rn_fast(a1, noise_s);
+      const float L = log1pf_pos(x);
+      const float se = div_rn_fast(L, kLn2);
+      v[j] = div_rn_fast(u.H, fmaxf(se, 1e-9f));
+      s_[j] = u.s;
+      const bool fast = noise_fast & fast_num(a1) & fast_num(L) &
+                        fast_num(u.H) & (__float_as_uint(x) < 0x7f800000u);
+      slow |= (unsigned)(in & !fast) << j;
+      next(n, m);
+    }
+  }
+  if (slow) {
+    int n = n0, m = m0;
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+      if (slow & (1u << j)) {
+        const WarpUser u = users[n];
+        const float g = __ldg(g_cell + lane + 32 * j);
+        v[j] = u.H / fmaxf(log1pf(g * u.pm / noise) / kLn2, 1e-9f);
+      }
+      next(n, m);
+    }
+  }
+  // The lane that holds a user's own edge (n, s) writes its source term.
+  {
+    int n = n0, m = m0;
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+      const bool own = (lane + 32 * j < NM) & (m == s_[j]);
+      *(own ? &users[n].src : sink) = v[j] * wsrc[m];
+      next(n, m);
+    }
+  }
+  __syncwarp();
+
+  // Scores as order keys: 1e30 for a masked user's entries and the own
+  // edge, +inf past N*M, so a padding slot never wins, not even a round of
+  // 1e30 entries.
+  unsigned key[S];
+  {
+    int n = n0, m = m0;
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+      const bool in = lane + 32 * j < NM;
+      const float sc = v[j] * wgt[m] - users[in ? n : 0].src;
+      const bool move = (s_[j] >= 0) & (m != s_[j]);
+      key[j] = order_key(in ? (move ? sc : kBig) : INFINITY);
+      next(n, m);
+    }
+  }
+
+  // k rounds: the warp's smallest (key, entry) by two redux.sync minima
+  // (the key, then the entry among the lanes holding it); the owner lane
+  // knocks the winner out to 1e30 and every lane takes its minimum anew
+  // (only the owner's changes), without a branch.  Lane r % 32 keeps round
+  // r's result; the warp stores 32 results at a time, coalesced.
+  const unsigned big_key = order_key(kBig);
+  unsigned lk, le, rk = 0, re = 0;
+  lane_min<S>(key, lane, lk, le);
+  for (int r = 0; r < k; ++r) {
+    const unsigned wk = __reduce_min_sync(kFull, lk);
+    const unsigned we = __reduce_min_sync(kFull, lk == wk ? le : ~0u);
+    if (lane == (r & 31)) {
+      rk = wk;
+      re = we;
+    }
+    const unsigned hit = lane == (int)(we & 31u) ? (we >> 5) : 0xffu;
+#pragma unroll
+    for (int j = 0; j < S; ++j) key[j] = (unsigned)j == hit ? big_key : key[j];
+    lane_min<S>(key, lane, lk, le);
+    if ((r & 31) == 31 || r == k - 1) {   // 32 results, or the last few
+      if (lane <= (r & 31)) {
+        const size_t o = (size_t)q * k + (r & ~31) + lane;
+        const int u = (int)re / M;
+        user_out[o] = u;
+        dst_out[o] = (int)re - u * M;
+        score_out[o] = key_value(rk);
+      }
+    }
+  }
+}
+
+// A block's shared memory: at most 4 N + 2 M + 35 words, ~8 KB for
+// N*M <= 512, inside the default 48 KB.
+inline size_t warp_smem_bytes(int N, int M) {
+  return (size_t)warp_smem_words(N, M) * sizeof(float);
+}
+
+template <int S>
+int launch_warp(const float* gain, const float* H, const float* p_max,
+                const int* assign, const bool* mask, const float* N0,
+                const float* B, int* user_out, int* dst_out,
+                float* score_out, int P, int N, int M, int k,
+                cudaStream_t stream) {
+  topk_moves_warp_kernel<S><<<P, 32, warp_smem_bytes(N, M), stream>>>(
+      gain, H, p_max, assign, mask, N0, B, user_out, dst_out, score_out, N,
+      M, k);
+  return (int)cudaGetLastError();
+}
+
+template <int S>
+int warp_occupancy(int N, int M, int* blocks) {
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, topk_moves_warp_kernel<S>, 32, warp_smem_bytes(N, M));
+}
+
+// The launch floor: the same library's launch of a kernel that does
+// nothing, timed beside K3.
+__global__ void topk_empty_kernel() {}
+
 }  // namespace
 
 extern "C" {
@@ -152,6 +482,48 @@ int topk_moves(const float* gain, const float* H, const float* p_max,
   topk_moves_kernel<<<P, kThreads, smem, stream>>>(
       gain, H, p_max, assign, mask, N0, B, user_out, dst_out, score_out, N,
       M, k);
+  return (int)cudaGetLastError();
+}
+
+// The warp kernel at S slots a lane (9 or 16; N*M <= 32S; the same set as
+// topk_moves.WARP_SLOTS).
+#define K3_SLOTS(X) X(9) X(16)
+
+int topk_moves_warp(const float* gain, const float* H, const float* p_max,
+                    const int* assign, const bool* mask, const float* N0,
+                    const float* B, int* user_out, int* dst_out,
+                    float* score_out, int P, int N, int M, int k, int S,
+                    cudaStream_t stream) {
+  if (P <= 0 || k <= 0) return 0;
+  if (N <= 0 || M <= 0 || (long long)N * M > 32LL * S)
+    return (int)cudaErrorInvalidValue;
+  switch (S) {
+#define K3_CASE(s)                                                        \
+    case s:                                                               \
+      return launch_warp<s>(gain, H, p_max, assign, mask, N0, B, user_out, \
+                            dst_out, score_out, P, N, M, k, stream);
+    K3_SLOTS(K3_CASE)
+#undef K3_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+int topk_moves_warp_occupancy(int S, int N, int M, int* blocks) {
+  if (N <= 0 || M <= 0) return (int)cudaErrorInvalidValue;
+  switch (S) {
+#define K3_CASE(s) \
+    case s:        \
+      return warp_occupancy<s>(N, M, blocks);
+    K3_SLOTS(K3_CASE)
+#undef K3_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+int topk_empty(cudaStream_t stream) {
+  topk_empty_kernel<<<1, 32, 0, stream>>>();
   return (int)cudaGetLastError();
 }
 

@@ -10,8 +10,9 @@ kernel, or raise.  Every tensor operand of a call must lie on one device
 counts) under ``sroa_invert`` (K1), ``sroa_solve`` (K2, either of its
 kernels), ``topk_moves`` (K3), ``flash_attention`` (K4, either of its
 kernels) and ``rmsnorm`` (K5); ``sroa_solve_lanes`` counts the K2 launches
-that took the one-thread-per-user kernel and ``flash_attention_sm90`` the
-K4 launches that took the tensor-core kernel.
+that took the one-thread-per-user kernel, ``topk_moves_warp`` the K3
+launches that took the one-warp-per-cell kernel and ``flash_attention_sm90``
+the K4 launches that took the tensor-core kernel.
 """
 from __future__ import annotations
 
@@ -22,8 +23,8 @@ import torch
 from repro_torch.kernels import ref
 
 LAUNCHES = {"sroa_invert": 0, "sroa_solve": 0, "sroa_solve_lanes": 0,
-            "topk_moves": 0, "flash_attention": 0, "flash_attention_sm90": 0,
-            "rmsnorm": 0}
+            "topk_moves": 0, "topk_moves_warp": 0, "flash_attention": 0,
+            "flash_attention_sm90": 0, "rmsnorm": 0}
 
 
 def reset_launches() -> None:
@@ -135,37 +136,61 @@ def sroa_solve_batched(A, J, H, delta, h, f_max, p_max, B, b_max, N0, lam,
             b_sum.reshape(lead), feas.reshape(lead))
 
 
+_K3_DTYPES = (torch.float32, torch.float32, torch.float32, torch.int32,
+              torch.bool, torch.float32, torch.float32)
+
+
+def _k3_final(operands) -> bool:
+    """Every K3 operand already a contiguous tensor of its final dtype and
+    shape (gain (P, N, M); H, p_max, assign, mask (P, N); N0, B (P,)) on
+    gain's device: the check of one pass, with no copy."""
+    gain = operands[0]
+    if not isinstance(gain, torch.Tensor) or gain.dim() != 3:
+        return False
+    P, N, _ = gain.shape
+    dev = gain.device
+    shapes = (gain.shape, (P, N), (P, N), (P, N), (P, N), (P,), (P,))
+    return all(isinstance(x, torch.Tensor) and x.dtype is dtype
+               and x.device == dev and x.shape == shape
+               and x.is_contiguous()
+               for x, dtype, shape in zip(operands, _K3_DTYPES, shapes))
+
+
 def topk_move_scores(gain, H, p_max, assign, mask, N0, B, *, k: int):
     """Top-k move pruning (K3): the cheapest k (user, dst) moves per cell.
 
     gain is (..., N, M); H/p_max/assign/mask are (..., N); N0/B are (...)
     or scalar.  Returns (user, dst, score), each (..., k); entries with
-    ``score >= 1e29`` are padding (fewer than k valid moves).
+    ``score >= 1e29`` are padding (fewer than k valid moves).  On CUDA,
+    ``topk_moves.topk_route`` picks the kernel.  Operands already in their
+    final dtype, shape and layout pass through untouched.
     """
-    cuda = _on_cuda(gain, H, p_max, assign, mask, N0, B)
-    gain = _f32(gain, gain)
-    lead, (N, M) = gain.shape[:-2], gain.shape[-2:]
-    P = math.prod(lead)
-
-    def fu(x, dtype):
-        x = torch.as_tensor(x, dtype=dtype, device=gain.device)
-        return torch.broadcast_to(x, lead + (N,)).reshape(P, N)
-
-    def fs(x):
-        return torch.broadcast_to(_f32(x, gain), lead).reshape(P)
-
-    args = (gain.reshape(P, N, M), fu(H, torch.float32),
-            fu(p_max, torch.float32), fu(assign, torch.int32),
-            fu(mask, torch.bool), fs(N0), fs(B))
+    operands = (gain, H, p_max, assign, mask, N0, B)
+    lead = gain.shape[:-2]
+    if _k3_final(operands):
+        cuda = _on_cuda(gain)
+        args = operands
+    else:
+        cuda = _on_cuda(*operands)
+        N, M = gain.shape[-2:]
+        P = math.prod(lead)
+        shapes = ((P, N, M), (P, N), (P, N), (P, N), (P, N), (P,), (P,))
+        args = tuple(
+            torch.broadcast_to(torch.as_tensor(x, dtype=dtype,
+                                               device=gain.device),
+                               lead + shape[1:]).reshape(shape).contiguous()
+            for x, dtype, shape in zip(operands, _K3_DTYPES, shapes))
     if cuda:
         from repro_torch.kernels import topk_moves
-        user, dst, score = topk_moves.topk_moves_cuda(
-            *(x.contiguous() for x in args), k)
+        out, route = topk_moves._launch(*args, k)
         LAUNCHES["topk_moves"] += 1
+        if route == "warp":
+            LAUNCHES["topk_moves_warp"] += 1
     else:
-        user, dst, score = ref.topk_moves_plain(*args, k=k)
-    return (user.reshape(lead + (k,)), dst.reshape(lead + (k,)),
-            score.reshape(lead + (k,)))
+        out = ref.topk_moves_plain(*args, k=k)
+    if len(lead) == 1:
+        return out
+    return tuple(x.reshape(lead + (k,)) for x in out)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,

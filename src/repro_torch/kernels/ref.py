@@ -10,7 +10,11 @@ numbers:
   (``torch.where``) exactly as the TPU kernel's fixed-trip loops freeze
   them; once every problem of the batch is frozen the remaining trips are
   no-ops, so the loop stops there.
-* :func:`topk_moves_plain`  — K3 (``csrc/topk_moves.cu::topk_moves``).
+* :func:`topk_moves_plain`  — K3 (``csrc/topk_moves.cu``, both kernels):
+  the score tile (:func:`move_scores_plain`) and k rounds of argmin and
+  knock-out.  :func:`topk_select_lanes_plain` models the warp kernel's
+  selection (lanes, slots, cached minima, owner knock-outs); the CPU tests
+  hold it to the twin's bitwise.
 * :func:`attention_plain`   — K4 (``csrc/flash_attention_sm90.cu`` and
   ``csrc/flash_attention.cu``): the TPU kernel's blockwise online softmax
   in f32, with its finite ``NEG_INF``, its key-padding mask and its causal
@@ -244,10 +248,9 @@ def sroa_solve_plain(A, J, H, delta, h, f_max, p_max, B, b_max, N0, lam,
             (bsb <= b_tol)[:, 0])
 
 
-def topk_moves_plain(gain, H, p_max, assign, mask, N0, B, *, k: int):
-    """Top-k single-user moves of P cells: gain (P, N, M); H, p_max,
-    assign, mask (P, N); N0, B (P,).  Returns (user, dst, score), (P, k).
-    """
+def move_scores_plain(gain, H, p_max, assign, mask, N0, B) -> torch.Tensor:
+    """K3's (P, N*M) move-score tile (row-major (user, edge)): the airtime a
+    move adds, 1e30 for the own edge and for masked users."""
     P, N, M = gain.shape
     mk = mask.to(torch.float32)
     n_act = torch.clamp_min(torch.sum(mk, dim=1), 1.0)[:, None, None]
@@ -264,7 +267,15 @@ def topk_moves_plain(gain, H, p_max, assign, mask, N0, B, *, k: int):
              - a_src * (1.0 + c_src / n_act))
     col = torch.arange(M, device=gain.device)
     valid = (mk[..., None] > 0) & (col != assign[..., None])
-    score = torch.where(valid, score, _BIG).reshape(P, N * M)
+    return torch.where(valid, score, _BIG).reshape(P, N * M)
+
+
+def topk_moves_plain(gain, H, p_max, assign, mask, N0, B, *, k: int):
+    """Top-k single-user moves of P cells: gain (P, N, M); H, p_max,
+    assign, mask (P, N); N0, B (P,).  Returns (user, dst, score), (P, k).
+    """
+    P, N, M = gain.shape
+    score = move_scores_plain(gain, H, p_max, assign, mask, N0, B)
 
     flat = torch.arange(N * M, device=gain.device).expand(P, N * M)
     rows = torch.arange(P, device=gain.device)
@@ -280,6 +291,48 @@ def topk_moves_plain(gain, H, p_max, assign, mask, N0, B, *, k: int):
     idx = torch.stack(idx, dim=1)
     return ((idx // M).to(torch.int32), (idx % M).to(torch.int32),
             torch.stack(val, dim=1))
+
+
+def topk_select_lanes_plain(tile: torch.Tensor, k: int, S: int):
+    """The selection of K3's warp kernel (``topk_moves_warp_kernel<S>``)
+    over a (P, E) score tile, E <= 32 S: (flat index (P, k) int64, score
+    (P, k)).
+
+    Lane l holds entries l + 32 j in its slot j (+inf past E) and caches
+    the first of its smallest slots as (score, entry).  A round takes the
+    smallest cached score over the lanes, then the smallest entry among
+    the lanes that cache it (the kernel's two ``redux.sync`` minima, on
+    keys with the scores' order); lane r % 32 keeps round r's winner, the
+    lane that owns it (entry % 32) sets its slot entry // 32 to 1e30, and
+    every lane takes its minimum anew (only the owner's can change)."""
+    P, E = tile.shape
+    if E > 32 * S:
+        raise ValueError(f"{E} entries do not fit 32 lanes of {S} slots")
+    dev = tile.device
+    slots = torch.full((P, 32 * S), math.inf, dtype=tile.dtype, device=dev)
+    slots[:, :E] = tile
+    slots = slots.reshape(P, S, 32).transpose(1, 2)     # (P, lane, slot)
+    lane = torch.arange(32, device=dev)
+    slot = torch.arange(S, device=dev)
+
+    def lane_min(x):
+        v = torch.amin(x, dim=2)
+        j = torch.argmax((x == v[..., None]).to(torch.uint8), dim=2)
+        return v, lane + 32 * j
+
+    lv, le = lane_min(slots)
+    idx, val = [], []
+    for r in range(k):
+        wv = torch.amin(lv, dim=1, keepdim=True)
+        we = torch.amin(torch.where(lv == wv, le, 2 ** 31), dim=1,
+                        keepdim=True)
+        idx.append(we[:, 0])
+        val.append(wv[:, 0])
+        own = lane == (we & 31)                              # (P, lane)
+        hit = own[..., None] & (slot == (we >> 5)[..., None])
+        slots = torch.where(hit, _BIG, slots)
+        lv, le = lane_min(slots)
+    return torch.stack(idx, dim=1), torch.stack(val, dim=1)
 
 
 def attention_plain(q, k, v, *, causal: bool = True, q_offset: int = 0,

@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels (K1-K5) against their plain
-PyTorch twins, on a card (K2's two kernels and every speculation depth of
-K1 and K2 bitwise).  Every test here is marked ``cuda`` and skips itself when
+PyTorch twins, on a card (K2's and K3's two kernels and every speculation
+depth of K1 and K2 bitwise).  Every test here is marked ``cuda`` and skips itself when
 ``torch.cuda.is_available()`` is false; this file imports neither JAX nor
 the JAX package, so it runs on a machine that has only PyTorch:
 
@@ -217,11 +217,143 @@ def test_k3_matches_its_twin(fleet):
     init = batch.fleet_assignments(fleet)
     args = (cells.gain, engine._move_H(cells), cells.p_max, init,
             fleet.mask, cells.N0, cells.B_open)
+    w0 = ops.LAUNCHES["topk_moves_warp"]
     got = _launched("topk_moves",
                     lambda: ops.topk_move_scores(*args, k=6))
+    assert ops.LAUNCHES["topk_moves_warp"] == w0 + 1     # N*M <= 512
     want = ref.topk_moves_plain(*(x.contiguous() for x in args), k=6)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def _k3_operands(P, N, M, seed, device):
+    """K3 operands full of equal scores, made with numpy: gains on a grid of
+    three values, the second half of the users a copy of the first; cell 1
+    all masked and cell 2 with one active user (where P allows)."""
+    rng = np.random.default_rng(seed)
+    gain = rng.integers(1, 4, (P, N, M)).astype(np.float32) * 1e-8
+    assign = rng.integers(0, M, (P, N)).astype(np.int32)
+    mask = rng.random((P, N)) < 0.8
+    h = N // 2
+    for x in (gain, assign, mask):
+        x[:, N - h:] = x[:, :h]
+    if P > 2:
+        mask[1:3] = False
+        mask[2, N // 3] = True
+    arrays = (gain, np.full((P, N), 2.4e5, np.float32),
+              np.full((P, N), 0.2, np.float32), assign, mask,
+              np.full((P,), 1e-17, np.float32), np.full((P,), 1e7, np.float32))
+    return [torch.from_numpy(x).to(device) for x in arrays]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [1, 1152])
+@pytest.mark.parametrize("M", [1, 2, 5, 8])
+@pytest.mark.parametrize("N", [1, 6, 31, 32, 33, 56, 64, 65, 128])
+def test_k3_warp_and_block_kernels_match_the_twin(cuda, N, M, P):
+    """Both kernels give the twin's user, dst and score (torch.equal) for
+    every k, past the legal moves too (the warp kernel up to N*M = 512)."""
+    from repro_torch.kernels import topk_moves as tk
+
+    args = _k3_operands(P, N, M, 10 * N + M, cuda)
+    for k in (1, 8, 32, 33, N * M + 3):
+        want = ref.topk_moves_plain(*args, k=k)
+        outs = [tk.topk_moves_cuda(*args, k, _route="block")]
+        if N * M <= tk.WARP_MAX_ENTRIES:
+            outs.append(tk.topk_moves_cuda(*args, k, _route="warp"))
+        torch.cuda.synchronize()
+        for got, route in outs:
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (route, k)
+
+
+def _k3_off_range(P, N, M, case, device):
+    """K3 operands that send the warp kernel's slots off its branch-free
+    division and log1pf (csrc/fast_math.cuh) onto the toolkit's.
+    "operands": in every cell a tenth of the gains are 1e-30 (g p_max 2^t
+    and log1p below 2^-60) and user 0's are, one gain is 0 (fast), one
+    1e30 (g p_max / noise = inf), user 1 has H = 1e30 and user 2 H = 1e-30
+    (H outside [2^-60, 2^80]), with ordinary gains.  "noise": every other
+    cell has N0 = 1e-3 and B = 1e25 (B past 2^80, and noise past 2^60, so
+    each of its slots is off the range).  Made with numpy."""
+    gain, H, p_max, assign, mask, N0, B = (
+        x.cpu().numpy().copy() for x in _k3_operands(P, N, M, N + M, "cpu"))
+    rng = np.random.default_rng(7 * N + M)
+    if case == "operands":
+        gain[rng.random(gain.shape) < 0.1] = 1e-30
+        gain[:, 0] = 1e-30
+        if N > 2:
+            gain[:, 1:3] = 2e-8
+            H[:, 1], H[:, 2] = 1e30, 1e-30
+        gain[:, -1, 0] = 0.0
+        gain[:, N // 2, M - 1] = 1e30
+    else:
+        N0[::2], B[::2] = 1e-3, 1e25
+    arrays = (gain, H, p_max, assign, mask, N0, B)
+    return [torch.from_numpy(x).to(device) for x in arrays]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["operands", "noise"])
+@pytest.mark.parametrize("P", [1, 1152])
+@pytest.mark.parametrize("N,M", [(6, 5), (56, 5), (64, 8)])
+def test_k3_warp_kernel_off_its_fast_ranges(cuda, N, M, P, case):
+    """Slots whose operands leave the branch-free ranges (several a lane,
+    or every slot of a cell) give the twin's and the block kernel's user,
+    dst and score (torch.equal)."""
+    from repro_torch.kernels import topk_moves as tk
+
+    args = _k3_off_range(P, N, M, case, cuda)
+    assert not ref.move_scores_plain(*args).isnan().any()
+    for k in (8, N * M + 3):
+        want = ref.topk_moves_plain(*args, k=k)
+        warp, route = tk.topk_moves_cuda(*args, k, _route="warp")
+        blk, _ = tk.topk_moves_cuda(*args, k, _route="block")
+        assert route == "warp"
+        for g, b, w in zip(warp, blk, want):
+            assert torch.equal(g, w) and torch.equal(b, w), (k, case)
+
+
+@pytest.mark.cuda
+def test_k3_on_the_readme_fleet(cuda):
+    """draw_fleet(0, 128): every launch takes the warp kernel, and it equals
+    the block kernel and the twin."""
+    from repro_torch.kernels import topk_moves as tk
+
+    big = batch.draw_fleet(0, 128, device=cuda)
+    cells = big.cells
+    args = [x.contiguous() for x in (
+        cells.gain, engine._move_H(cells), cells.p_max,
+        batch.fleet_assignments(big), big.mask, cells.N0, cells.B_open)]
+    w0 = ops.LAUNCHES["topk_moves_warp"]
+    got = _launched("topk_moves", lambda: ops.topk_move_scores(*args, k=8))
+    assert ops.LAUNCHES["topk_moves_warp"] == w0 + 1
+    blk, route = tk.topk_moves_cuda(*args, 8, _route="block")
+    assert route == "block"
+    want = ref.topk_moves_plain(*args, k=8)
+    for g, b, w in zip(got, blk, want):
+        assert torch.equal(g, w) and torch.equal(b, w)
+
+
+@pytest.mark.cuda
+def test_k3_refuses_what_it_does_not_take(cuda):
+    from repro_torch.kernels import topk_moves as tk
+
+    args = _k3_operands(2, 65, 8, 0, cuda)          # N*M = 520 > 512
+    with pytest.raises(ValueError, match="512"):
+        tk.topk_moves_cuda(*args, 4, _route="warp")
+    with pytest.raises(ValueError, match="no K3 kernel"):
+        tk.topk_moves_cuda(*args, 4, _route="lanes")
+    _, route = tk.topk_moves_cuda(*args, 4)
+    assert route == "block"
+    big = _k3_operands(1, 58112, 1, 0, cuda)        # 232,452 bytes of tile
+    with pytest.raises(ValueError, match="232448"):
+        tk.topk_moves_cuda(*big, 4)
+    small = _k3_operands(2, 6, 5, 0, cuda)
+    with pytest.raises(ValueError, match="assign"):
+        tk.topk_moves_cuda(*small[:3], small[3].long(), *small[4:], 4)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        tk.topk_moves_cuda(*small[:6], small[6].cpu(), 4)
 
 
 def _randn(shape, dtype, device, seed):

@@ -9,7 +9,7 @@ them) or its oracles, and the public wrappers' flattening and dispatch.
   The TPU kernel pads users to 128 lanes and its padded lanes add
   ~B 2^-b_iters each to the budget sum, so the two are not bitwise.
 * K3 ``topk_moves_plain``   vs ``ops.topk_move_scores``: indices exact,
-  scores rtol 1e-5, padding and cell axis included.
+  scores rtol 1e-5, padding, ties and cell axis included.
 * K4 ``attention_plain`` (through ``ops.flash_attention``) vs
   ``ref.attention_ref`` on the JAX flash sweep: 2e-5 in f32, 2e-2 in bf16
   (``tests/test_kernels.py:70``).  The JAX flash kernel itself does not
@@ -22,7 +22,8 @@ them) or its oracles, and the public wrappers' flattening and dispatch.
   twins' arithmetic: the lanes K2's cross-warp sum (``warp_sum_plain``),
   the speculative bisection at depths 1 and 2 (``bisect_rate_plain``), the
   kLn2 threshold that replaces the step's division, and the kernel and
-  depth picks (pure functions of the shape).
+  depth picks (pure functions of the shape).  K3's warp kernel's selection
+  (``topk_select_lanes_plain``) against the twin's, bitwise, and its route.
 
 The CUDA kernels themselves are held against these twins on a card by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
@@ -483,6 +484,103 @@ def test_topk_flattens_the_cell_axis(launches):
             assert_bitwise(x[i], y)
 
 
+def _tie_heavy(P, N, M, seed):
+    """numpy K3 operands full of equal scores: gains on a grid of three
+    values, the second half of the users copies the first (gain, edge and
+    mask), cell 1 is all masked and cell 2 has one active user (fewer legal
+    moves than most k)."""
+    rng = np.random.default_rng(seed)
+    gain = rng.integers(1, 4, (P, N, M)).astype(np.float32) * 1e-8
+    assign = rng.integers(0, M, (P, N)).astype(np.int32)
+    mask = rng.random((P, N)) < 0.8
+    h = N // 2
+    for x in (gain, assign, mask):
+        x[:, N - h:] = x[:, :h]
+    mask[1] = False
+    mask[2] = False
+    mask[2, N // 3] = True
+    return (gain, np.full((P, N), 2.4e5, np.float32),
+            np.full((P, N), 0.2, np.float32), assign, mask,
+            np.full((P,), 1e-17, np.float32), np.full((P,), 1e7, np.float32))
+
+
+@pytest.mark.parametrize("M", [1, 2, 5, 8])
+@pytest.mark.parametrize("N", [1, 6, 31, 32, 33, 56, 64, 65, 128])
+def test_warp_selection_model_is_the_twins_selection(N, M):
+    """The warp kernel's lanes, +inf padding slots, cached minima, rounds
+    of two minima over the lanes and owner knock-outs pick the twin's
+    moves, bitwise, for every k (past the legal moves too).  Past the warp
+    kernel's cap the model runs with ceil(N*M / 32) slots."""
+    from repro_torch.kernels import topk_moves
+
+    args = [torch.from_numpy(x) for x in _tie_heavy(4, N, M, 10 * N + M)]
+    tile = ref.move_scores_plain(*args)
+    S = (topk_moves.warp_slots(N, M)
+         if N * M <= topk_moves.WARP_MAX_ENTRIES else -(-N * M // 32))
+    for k in (1, 8, 32, 33, N * M + 3):
+        idx, val = ref.topk_select_lanes_plain(tile, k, S)
+        user, dst, score = ref.topk_moves_plain(*args, k=k)
+        assert torch.equal(idx, user.long() * M + dst.long()), k
+        assert_bitwise(val, score)
+
+
+@pytest.mark.parametrize("N,M,route", [
+    (56, 5, "warp"),            # the planning shape
+    (1, 1, "warp"), (64, 8, "warp"), (512, 1, "warp"), (1, 512, "warp"),
+    (128, 4, "warp"),           # at the cap: 16 entries a lane
+    (65, 8, "block"), (513, 1, "block"), (129, 4, "block"),
+    (300, 7, "block"),
+    (58111, 1, "block"),        # (N*M + M) * 4 = 232,448 bytes: fits
+])
+def test_k3_route(N, M, route):
+    """A pure function of (N, M): no card; k does not choose."""
+    from repro_torch.kernels import topk_moves
+
+    for k in (1, 8, N * M + 3):
+        assert topk_moves.topk_route(N, M, k) == route
+
+
+def test_k3_block_route_refuses_past_227_kb():
+    from repro_torch.kernels import topk_moves
+
+    with pytest.raises(ValueError, match="232448"):
+        topk_moves.topk_route(58112, 1, 8)
+    with pytest.raises(ValueError, match="232448"):
+        topk_moves.topk_route(4000, 15, 8)
+    for bad in ((0, 5, 8), (56, 0, 8), (56, 5, 0)):
+        with pytest.raises(ValueError, match=">= 1"):
+            topk_moves.topk_route(*bad)
+
+
+@pytest.mark.parametrize("N,M,S", [(56, 5, 9), (1, 1, 9), (32, 1, 9),
+                                   (33, 1, 9), (6, 32, 9), (72, 4, 9),
+                                   (73, 4, 16), (512, 1, 16), (64, 8, 16)])
+def test_k3_warp_slots(N, M, S):
+    from repro_torch.kernels import topk_moves
+
+    assert topk_moves.warp_slots(N, M) == S
+
+
+def test_k3_warp_slots_refuse_past_the_cap():
+    from repro_torch.kernels import topk_moves
+
+    with pytest.raises(ValueError, match="512"):
+        topk_moves.warp_slots(65, 8)
+
+
+def test_topk_tie_heavy_matches_pallas(launches):
+    """Duplicated users, an all-masked cell and a cell with fewer legal
+    moves than k, through the port's wrapper and the JAX kernel."""
+    args = _tie_heavy(3, 33, 5, 11)
+    k = 40                      # cell 2 has 4 legal moves
+    user, dst, score = _compare_topk(tuple(jnp.asarray(x) for x in args),
+                                     k)
+    score = host(score)
+    assert (score[1] >= 1e29).all() and (score[2, 4:] >= 1e29).all()
+    assert (score[0] < 1e29).all()
+    assert len(set(score[0].tolist())) < k      # ties among the picks
+
+
 # ------------------------------------------------------------------ K4
 def _qkv(shapes, dtype, seed):
     """numpy normals as (JAX, torch) pairs of one dtype: both round the
@@ -682,5 +780,8 @@ def test_build_names_the_library_by_source_and_flags(tmp_path):
     d1 = build._digest(srcs, build.NVCC_FLAGS)
     assert d1 == build._digest(srcs, list(build.NVCC_FLAGS))
     assert d1 != build._digest(srcs, build.NVCC_FLAGS + ["-G"])
+    # The shared header is hashed with the sources (it is not compiled).
+    assert [h.name for h in build.headers()] == ["fast_math.cuh"]
+    assert d1 != build._digest(srcs + build.headers(), build.NVCC_FLAGS)
     assert build.build_dir().parts[-2:] == ("build", "repro_torch_kernels")
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
