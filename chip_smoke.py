@@ -72,8 +72,23 @@ Phases, each reported on its own lines:
    probabilities to bf16 before the PV product, in other orders).  One
    more prefill on K4 and four decode steps run under ``torch.profiler``
    (lines ``[q]``).
+t. TSIA, the RA baselines and the per-cell planner (lines ``[t]``, run
+   between phases 8 and 9): (a) ``tsia.solve(draw_scenario(0))`` at the
+   paper's N = 50, M = 5 and full caps on K2, one lanes-kernel launch a
+   score, its R the trace's minimum and ``evaluate``'s; K2 at TSIA's
+   P = 1 and at the host loop's P = 1 + N (M - 1) = 201 (timed in phase 2,
+   before any plain twin runs; checked and bounded here); (b) TSIA at
+   the serve caps with every score recorded, all the scored patterns then
+   solved in one call of K2's plain twin: b, f, p bitwise, R to rtol
+   1e-4; (c) HFEL and SROA at the nearest-edge pattern with and without
+   ``use_pallas`` (K1 launched, R to rtol 1e-5), SROA below every other
+   ``RA_METHODS`` entry (Fig 2); (d) ``serve --no-stream`` over 16 cells
+   of up to 50 users on 5 edges with top-8 pruning (K2 and K3, every K3
+   launch on the warp kernel), then ``--host-loop`` over 2 cells: every
+   assignment in range, every R finite, unchanged cells cache hits.
 9. Launch counts of the main paths (every count reset to 0 right before
-   a path and read right after it), each kernel's time beside its plain
+   a path and read right after it; phase t's path as each kernel's
+   ``launches_tsia_path``), each kernel's time beside its plain
    version's, its bound and its library call, then the card and the
    result line; every K3 launch of the planning path must take the warp
    kernel.  Each kernel's time is given twice: CUDA events around
@@ -307,6 +322,16 @@ def _bound_ms(nbytes: float, flops: float,
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _k2_bound(w: dict, n_prob: int, N: int, caps: dict = SERVE_CAPS):
+    """K2's operations (this data's ``work`` from the twin, 8 flop a rate
+    step) and its bound: (flops, (ms, "bytes" | "operations"))."""
+    flops = N * (8 * caps["b_iters"] * w["inversions"] + 12 * w["f_steps"]
+                 + 8 * w["p_steps"] + 20 * w["t_steps"]
+                 + 10 * caps["t_iters"] * n_prob)
+    nbytes = n_prob * N * 4 * (7 + 3) + n_prob * 4 * (5 + 3) + n_prob
+    return flops, _bound_ms(nbytes, flops)
 
 
 def _max_abs_err(got, want) -> float:
@@ -697,6 +722,272 @@ def _check_k3(report: dict, dev, cells, init, mask, sms: int) -> None:
           f"(1,000 unsynchronised)")
 
 
+def _counted(fn):
+    """Run ``fn`` with every launch count set to 0 first; returns its
+    result and the counts of that run."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    ops.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(ops.LAUNCHES)
+
+
+def _add(total: dict, counts: dict) -> None:
+    for name, n in counts.items():
+        total[name] = total.get(name, 0) + n
+
+
+def _k2_operands(scn, assigns):
+    """K2's operands for one scenario's patterns, each pattern's constants
+    computed as ``sroa.solve`` computes them: per-user (P, N), per-problem
+    (P,)."""
+    import torch
+
+    from repro_torch.core.system_model import sroa_constants
+
+    cs = [sroa_constants(scn, a) for a in assigns]
+    P, N = len(cs), scn.N
+    pu = [torch.stack([getattr(c, k) for c in cs]).contiguous()
+          for k in ("A", "J", "H", "delta", "h")]
+    pu += [scn.f_max.expand(P, N).contiguous(),
+           scn.p_max.expand(P, N).contiguous()]
+    one = torch.ones(P, device=scn.device)
+    pp = [scn.B_open * one, scn.B_open * one, scn.N0 * one, one,
+          torch.stack([c.E_cloud_total for c in cs])]
+    return pu, pp
+
+
+def _k2_tsia_shapes(dev) -> dict:
+    """K2 at TSIA's shape (P = 1: ``draw_scenario(0)``'s nearest-edge
+    pattern, the first TSIA scores, at full caps) and at the host loop's
+    (P = 1 + N (M - 1) = 201: that pattern's neighbourhood, serve caps)."""
+    import torch
+
+    from repro_torch.core import sroa, wireless
+    from repro_torch.fleet.incremental import candidate_assigns
+
+    scn = wireless.draw_scenario(0, device=dev)
+    full = sroa.SroaConfig()
+    full_caps = dict(b_iters=full.b_iters, f_iters=full.f_iters,
+                     p_iters=full.p_iters, t_iters=full.t_iters)
+    nearest = wireless.nearest_edge_assignment(scn)
+    nb = torch.as_tensor(candidate_assigns(nearest.cpu().numpy(), scn.M),
+                         device=dev)
+    return {"tsia_p1": (_k2_operands(scn, [nearest]), full_caps),
+            "host_loop_p201": (_k2_operands(scn, list(nb)), SERVE_CAPS)}
+
+
+def _time_k2_tsia_shapes(shapes: dict) -> dict:
+    """K2's events and device time at the shapes of
+    :func:`_k2_tsia_shapes`, read before any plain twin runs (phase 2)."""
+    from repro_torch.kernels import ops
+
+    out = {}
+    for key, ((pu, pp), caps) in shapes.items():
+        fn = lambda: ops.sroa_solve_batched(*pu, *pp, **caps)  # noqa: E731
+        out[key] = dict(P=pu[0].shape[0], N=pu[0].shape[1], caps=caps,
+                        ms=_time_ms(fn, 3),
+                        device_ms=_device_ms(fn, 3, kernel="sroa_solve"))
+    return out
+
+
+def _tsia_path(dev, report: dict, k2: dict) -> dict:
+    """Phase t: TSIA (Algorithm 5) on K2, the RA baselines on K1 and K2,
+    and the per-cell planner (``serve --no-stream``, ``--host-loop``) on K2
+    and K3.  Returns the launch counts of the path's runs (timing and
+    comparison launches left out)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import baselines, sroa, tsia, wireless
+    from repro_torch.core.system_model import evaluate
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import serve
+
+    path: dict = {}
+    scn = wireless.draw_scenario(0, device=dev)
+    N, M = scn.N, scn.M
+    full = sroa.SroaConfig(fused=True)
+    full_caps = dict(b_iters=full.b_iters, f_iters=full.f_iters,
+                     p_iters=full.p_iters, t_iters=full.t_iters)
+    k2 = {key: dict(t) for key, t in k2.items()}
+
+    # (a) TSIA at the paper's N = 50, M = 5 and full caps: one K2 launch
+    # a score.
+    scores = []
+
+    def score_full(a):
+        scores.append(a.copy())
+        return tsia._score(scn, a, 1.0, full)
+
+    t0 = time.perf_counter()
+    res, counts = _counted(lambda: tsia.solve(scn, 1.0, full,
+                                              score_fn=score_full))
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    _add(path, counts)
+    h = res.history
+    n_scores = len(scores)
+    _check(n_scores == 2 + h.total_iters,
+           f"TSIA scored {n_scores} patterns in {h.total_iters} moves")
+    _check(counts["sroa_solve"] == n_scores,
+           f"{counts['sroa_solve']} K2 launches for {n_scores} scores")
+    _check(counts["sroa_solve_lanes"] == n_scores,
+           f"{n_scores - counts['sroa_solve_lanes']} of TSIA's K2 launches "
+           f"took PR 11's kernel")
+    _check(res.R == min(h.R_trace), "TSIA's R is not its trace's minimum")
+    best = torch.as_tensor(res.assign, device=dev)
+    R_ev = float(evaluate(scn, best, res.sroa.b, res.sroa.f, res.sroa.p,
+                          1.0).R)
+    _check(abs(R_ev - res.R) <= 1e-5 * abs(res.R),
+           f"evaluate gives {R_ev} for TSIA's R {res.R}")
+    _check(all(src != dst for _, _, _, src, dst in h.moves),
+           "a TSIA move with src == dst")
+    _check(((res.assign >= 0) & (res.assign < M)).all(), "TSIA assignment")
+
+    shapes = _k2_tsia_shapes(dev)
+    nearest = wireless.nearest_edge_assignment(scn)
+    print(f"[t] (a) TSIA at draw_scenario(0) (N = {N}, M = {M}), caps "
+          f"{full_caps}, fused: {n_scores} scores ({h.iters_stage1} + "
+          f"{h.iters_stage2} moves) in {wall_ms:.1f} ms, "
+          f"{wall_ms / n_scores:.3f} ms a score; {counts['sroa_solve']} K2 "
+          f"launches, all on the lanes kernel; R = {res.R:.6g} "
+          f"(evaluate {R_ev:.6g}); K2 at P = 1 (phase 2, nearest-edge "
+          f"pattern): {_fmt(k2['tsia_p1']['device_ms'])} ms device, "
+          f"{k2['tsia_p1']['ms']:.4g} ms events")
+
+    # (b) TSIA at the serve caps, every score recorded; then every scored
+    # pattern in ONE call of K2's plain twin: the same bits, so the plain
+    # version would have taken the same decisions.
+    serve_cfg = sroa.SroaConfig(**SERVE_CAPS, fused=True)
+    rec = []
+
+    def score_rec(a):
+        out = tsia._score(scn, a, 1.0, serve_cfg)
+        rec.append((a.copy(), out[0]))
+        return out
+
+    res_b, counts = _counted(lambda: tsia.solve(scn, 1.0, serve_cfg,
+                                                score_fn=score_rec))
+    _add(path, counts)
+    pu, pp = _k2_operands(scn, [torch.as_tensor(a, device=dev)
+                                for a, _ in rec])
+    t0 = time.perf_counter()
+    want = ref.sroa_solve_plain(*pu, *pp, **SERVE_CAPS)
+    torch.cuda.synchronize()
+    twin_ms = (time.perf_counter() - t0) * 1e3
+    for i, (_, got) in enumerate(rec):
+        for k, name in enumerate(("b", "f", "p")):
+            _check(torch.equal(getattr(got, name).reshape(-1), want[k][i]),
+                   f"TSIA score {i}: K2's {name} differs from the twin's")
+        torch.testing.assert_close(got.R.reshape(()), want[4][i],
+                                   rtol=1e-4, atol=0)
+    print(f"[t] (b) TSIA at the serve caps: {len(rec)} scores, "
+          f"{len(res_b.history.moves)} moves; K2's b, f, p of every scored "
+          f"pattern bitwise the twin's in one call at P = {len(rec)} "
+          f"({twin_ms:.0f} ms), R to rtol 1e-4")
+
+    # The plain twin at the two timed shapes, with this data's work.
+    for key, ((pu, pp), caps) in shapes.items():
+        w = {}
+        t0 = time.perf_counter()
+        plain = ref.sroa_solve_plain(*pu, *pp, **caps, work=w)
+        torch.cuda.synchronize()
+        k2[key]["plain_ms"] = (time.perf_counter() - t0) * 1e3
+        got = ops.sroa_solve_batched(*pu, *pp, **caps)
+        _check(all(torch.equal(x, y) for x, y in zip(got, plain)),
+               f"K2 at {key} differs from its twin")
+        flops, (bms, by) = _k2_bound(w, k2[key]["P"], N, caps)
+        k2[key].update(work=w, flops=flops, bound_ms=bms, bound_by=by)
+        print(f"[t] K2 at P = {k2[key]['P']}, N = {N} ({key}, caps "
+              f"{caps}): device {_fmt(k2[key]['device_ms'])} ms, events "
+              f"{k2[key]['ms']:.4g} ms, plain {k2[key]['plain_ms']:.0f} ms "
+              f"(bitwise), bound {bms:.3g} ms by {by} (work {w})")
+    report["sroa_solve_lanes"].update(k2)
+
+    # (c) The baselines at the nearest-edge pattern, on the serve caps:
+    # HFEL's and SROA's inversions on K1 (use_pallas) against the eager
+    # inversion; SROA below every other method (Fig 2).
+    eager_cfg = sroa.SroaConfig(**SERVE_CAPS)
+    k1_cfg = sroa.SroaConfig(**SERVE_CAPS, use_pallas=True)
+
+    def R_of(ra):
+        return float(evaluate(scn, nearest, ra.b, ra.f, ra.p, 1.0).R)
+
+    scores_ra = {}
+    k1_n = {}
+    for name in ("HFEL", "SROA"):
+        fn = baselines.RA_METHODS[name]
+        R_e = R_of(fn(scn, nearest, 1.0, eager_cfg))
+        ra, counts = _counted(lambda: fn(scn, nearest, 1.0, k1_cfg))
+        _add(path, counts)
+        k1_n[name] = counts["sroa_invert"]
+        _check(k1_n[name] > 0, f"{name} on use_pallas launched no K1")
+        R_k = R_of(ra)
+        _check(abs(R_k - R_e) <= 1e-5 * abs(R_e),
+               f"{name}: R on K1 {R_k} against the eager inversion {R_e}")
+        scores_ra[name] = R_e
+    for name, fn in baselines.RA_METHODS.items():
+        if name not in scores_ra:
+            scores_ra[name] = R_of(fn(scn, nearest, 1.0, eager_cfg))
+    _check(all(math.isfinite(R) for R in scores_ra.values()),
+           f"non-finite baseline R: {scores_ra}")
+    _check(min(scores_ra, key=scores_ra.get) == "SROA",
+           f"SROA does not beat every baseline: {scores_ra}")
+    print(f"[t] (c) RA baselines at the nearest-edge pattern: R "
+          f"{json.dumps({k: round(v, 3) for k, v in scores_ra.items()})}; "
+          f"SROA lowest; K1 launches on use_pallas: {json.dumps(k1_n)}, R "
+          f"equal to the eager inversion's to rtol 1e-5")
+
+    # (d) The per-cell planner through the CLI: the engine route at the
+    # README fleet's width with top-8 pruning, then the host loop.
+    argv = ["--mode", "plan", "--no-stream", "--device", "cuda",
+            "--cells", "16", "--cell-users", "50", "--cell-edges", "5",
+            "--rounds", "2", "--plan-rounds", "12"]
+    runs = {}
+    for key, extra in (("no_stream", ["--top-k", str(TOP_K)]),
+                       ("host_loop", ["--host-loop", "--cells", "2",
+                                      "--rounds", "1"])):
+        out, counts = _counted(lambda: serve.main(argv + extra))
+        _add(path, counts)
+        for i, rnd in enumerate(out["rounds"]):
+            for c, r in enumerate(rnd["responses"]):
+                a = np.asarray(r["assign"])
+                _check(((a >= 0) & (a < 5)).all() and len(a) > 0,
+                       f"{key} round {i} cell {c}: assignment off range")
+                _check(math.isfinite(r["objective"]),
+                       f"{key} round {i} cell {c}: non-finite R")
+                if c not in rnd["changed"]:
+                    _check(r["cached"], f"{key} round {i}: unchanged cell "
+                           f"{c} was not a cache hit")
+        _check(counts["sroa_solve"] > 0, f"{key}: no K2 launch")
+        _check(counts["sroa_solve_lanes"] == counts["sroa_solve"],
+               f"{key}: a K2 launch took PR 11's kernel")
+        if key == "no_stream":
+            _check(counts["topk_moves"] > 0, "no_stream: no K3 launch")
+            block = counts["topk_moves"] - counts["topk_moves_warp"]
+            _check(block == 0, f"no_stream: {block} K3 launches took the "
+                   f"block kernel")
+        n_cells = len(out["rounds"][0]["responses"])
+        runs[key] = dict(cold_ms=out["cold_ms"], counts=counts,
+                         rounds=[dict(changed=len(r["changed"]),
+                                      hits=r["hits"], ms=r["ms"],
+                                      plans_per_s=n_cells / r["ms"] * 1e3)
+                                 for r in out["rounds"]])
+        print(f"[t] (d) serve {' '.join(argv[2:3] + extra)} ({n_cells} "
+              f"cells of up to 50 users, M = 5): cold {out['cold_ms']:.1f} "
+              f"ms; rounds " + "; ".join(
+                  f"{r['changed']} changed, {r['hits']} hits, "
+                  f"{r['ms']:.1f} ms, {r['plans_per_s']:.4g} plans/s"
+                  for r in runs[key]["rounds"])
+              + f"; launches {json.dumps(counts)}")
+    return {"counts": path, "tsia": dict(scores=n_scores, wall_ms=wall_ms,
+                                         ms_per_score=wall_ms / n_scores),
+            "k2": k2, "baselines": scores_ra, "serve": runs}
+
+
 def _lm_path(dev) -> dict:
     """Phase 8: the LM serving path on K4 and on the chunked route."""
     import numpy as np
@@ -1001,6 +1292,8 @@ def main(argv: list[str]) -> int:
         sweep[n_prob] = {d: _device_ms(on(("lanes", d), pu, pp), 3,
                                        kernel="sroa_solve")
                          for d in sb.DEPTHS}
+    # K2 at phase t's shapes (TSIA's P = 1, the host loop's P = 201).
+    k2_tsia = _time_k2_tsia_shapes(_k2_tsia_shapes(dev))
     torch.cuda.synchronize()
     work, plain_ms = {}, {}
     for key, (pu, pp) in shapes.items():
@@ -1031,16 +1324,8 @@ def main(argv: list[str]) -> int:
             _check(torch.equal(x[q:q + 1], y), f"K2 problem {q} not bitwise")
     torch.cuda.synchronize()
 
-    def k2_bound(w, n_prob):
-        flops = N * (8 * SERVE_CAPS["b_iters"] * w["inversions"]
-                     + 12 * w["f_steps"] + 8 * w["p_steps"]
-                     + 20 * w["t_steps"] + 10 * SERVE_CAPS["t_iters"]
-                     * n_prob)
-        nbytes = n_prob * N * 4 * (7 + 3) + n_prob * 4 * (5 + 3) + n_prob
-        return flops, _bound_ms(nbytes, flops)
-
-    flops, bound = k2_bound(work["plan"], P)
-    rp_bound = k2_bound(work["reprice"], C)[1]
+    flops, bound = _k2_bound(work["plan"], P, N)
+    rp_bound = _k2_bound(work["reprice"], C, N)[1]
     tp, tr = t2["plan"], t2["reprice"]
     reprice = dict(P=C, plain_ms=plain_ms["reprice"], bound_ms=rp_bound[0],
                    bound_by=rp_bound[1], work=work["reprice"])
@@ -1166,6 +1451,9 @@ def main(argv: list[str]) -> int:
     # ---- phase 8: the LM serving path ----------------------------------
     lm = _lm_path(dev)
 
+    # ---- phase t: TSIA, the baselines and the per-cell planner ---------
+    tp = _tsia_path(dev, report, k2_tsia)
+
     # ---- phase 9: launch counts and times ------------------------------
     # Four kernels lie on no path: K5 (no model calls it), K4's SIMT
     # kernel (the route for f32 and hd > 128; the LM path is bf16, hd 64)
@@ -1193,11 +1481,28 @@ def main(argv: list[str]) -> int:
            f"{main_counts['topk_moves'] - main_counts['topk_moves_warp']} "
            f"of the planning path's {main_counts['topk_moves']} K3 launches "
            f"took the block kernel")
+    tpc = tp["counts"]
+    tsia_counts = {"sroa_invert": tpc["sroa_invert"],
+                   "sroa_solve_lanes": tpc["sroa_solve_lanes"],
+                   "sroa_solve": tpc["sroa_solve"] - tpc["sroa_solve_lanes"],
+                   "topk_moves_warp": tpc["topk_moves_warp"],
+                   "topk_moves": (tpc["topk_moves"]
+                                  - tpc["topk_moves_warp"]),
+                   "flash_attention_sm90": tpc["flash_attention_sm90"],
+                   "flash_attention": (tpc["flash_attention"]
+                                       - tpc["flash_attention_sm90"]),
+                   "rmsnorm": tpc["rmsnorm"]}
+    print(f"[9] kernels on phase t's path (TSIA, baselines, per-cell "
+          f"planner): {json.dumps(tsia_counts)}")
+    for name in ("sroa_invert", "sroa_solve_lanes", "topk_moves_warp"):
+        _check(tsia_counts[name] > 0, f"{name} never launched on phase "
+               f"t's path")
     for name, n in counts.items():
         _check(n > 0 or name in ("rmsnorm", "flash_attention",
                                  "sroa_solve", "topk_moves"),
                f"{name} never launched on its path")
         report[name]["launches"] = n
+        report[name]["launches_tsia_path"] = tsia_counts[name]
         r = report[name]
         lib = (f", library {r['library_ms']:.4g} ms"
                if r["library_ms"] is not None else "")
@@ -1206,6 +1511,14 @@ def main(argv: list[str]) -> int:
               f"plain {r['plain_ms']:.4g} ms, "
               f"bound {r['bound_ms']:.3g} ms by {r['bound_by']}{lib})")
     rounds = main_counts["sroa_solve"]
+    ts, k2t = tp["tsia"], tp["k2"]
+    print(f"[9] TSIA path: {ts['scores']} scores at "
+          f"{ts['ms_per_score']:.4g} ms a score; K2 at P = 1 (full caps) "
+          f"{_fmt(k2t['tsia_p1']['device_ms'])} ms device, at P = "
+          f"{k2t['host_loop_p201']['P']} (serve caps) "
+          f"{_fmt(k2t['host_loop_p201']['device_ms'])} ms; --no-stream "
+          + "; ".join(f"{r['ms']:.1f} ms, {r['plans_per_s']:.4g} plans/s"
+                      for r in tp["serve"]["no_stream"]["rounds"]))
     print(f"[9] planning path: {snap['plans_per_s']:.4g} plans/s, tick p50 "
           f"{snap['tick_ms']['p50']:.4g} ms; {rounds} K2 launches "
           f"({main_counts['sroa_solve_lanes']} on the lanes kernel) and "

@@ -1,13 +1,16 @@
 """Fleet-scale planning on top of the paper's core algorithms.
 
 * :mod:`repro_torch.fleet.batch`    — stacked scenarios + batched SROA.
-* :mod:`repro_torch.fleet.dynamics` — fleet mobility / fading / churn.
+* :mod:`repro_torch.fleet.dynamics` — mobility / fading / churn streams,
+  per cell and for a whole fleet.
 * :mod:`repro_torch.fleet.engine`   — batched assignment search (TSIA over
   every cell at once).
+* :mod:`repro_torch.fleet.incremental` — engine front end, the host
+  reference loop and warm-start re-planning.
 * :mod:`repro_torch.fleet.planner`  — the cached :class:`FleetPlanner`.
 * :mod:`repro_torch.fleet.service`  — the streaming control plane.
 
-Not ported yet: ``incremental``, ``horizon`` and ``topology``.
+Not ported yet: ``horizon`` and ``topology``.
 """
 from repro_torch.fleet.batch import (FleetScenario, candidate_assigns_device,
                                      draw_fleet, fleet_assignments,

@@ -4,12 +4,14 @@ Callers hand it a :class:`~repro_torch.fleet.batch.FleetScenario` (or one
 scenario) and get back complete plans (assignment + per-user b/f/p +
 objective).  Identical planning problems are served from an LRU cache keyed
 on a content digest of the scenario — the same digest the JAX package
-computes for the same leaves.
+computes for the same leaves — which keeps the re-planning loop cheap
+between dynamics events: unchanged cells cost a hash, changed cells a
+warm-started batched-TSIA polish (:func:`repro_torch.fleet.incremental
+.replan`).
 
-Ported: the engine route (:meth:`FleetPlanner.plan_fleet` with no warm
-starts), :meth:`allocate` and :meth:`allocate_fleet`.  :meth:`plan` and
-:meth:`plan_fleet_horizon` need ``fleet/incremental.py`` and the horizon
-module, which are not ported yet, and raise.
+Not ported yet: rolling-horizon planning (``horizon > 1``,
+:meth:`plan_fleet_horizon`, ``gain_stack``; DESIGN.md D10) and compression
+ladders (``ladder``, ``warm_comp``; D11), which raise.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from repro_torch.core import sroa
 from repro_torch.core.wireless import Scenario
 from repro_torch.fleet import batch as fbatch
 from repro_torch.fleet import engine as fengine
+from repro_torch.fleet import incremental
 
 
 def _host(x) -> np.ndarray:
@@ -71,11 +74,13 @@ def _not_ported(what: str):
 
 
 class FleetPlanner:
-    """Planning endpoint with an LRU solve cache (engine route).
+    """Planning endpoint with an LRU solve cache.
 
-    Knobs as in the JAX planner; ``use_engine=False`` (the host loop of
-    ``fleet/incremental.py``), ``horizon > 1`` (D10) and a ``ladder`` with
-    two or more rungs (D11) are not ported and raise.
+    Knobs as in the JAX planner: ``use_engine`` routes cold plans through
+    the batched engine (False: the host loop,
+    :func:`repro_torch.fleet.incremental.solve_host`); ``top_k`` and
+    ``n_starts`` are the engine's search knobs (D9).  ``horizon > 1``
+    (D10) and a ``ladder`` (D11) are not ported and raise.
     """
 
     def __init__(self, lam: float = 1.0,
@@ -84,8 +89,6 @@ class FleetPlanner:
                  escape_iters: int = 6, use_engine: bool = True,
                  top_k: int = 0, n_starts: int = 1, n_buckets: int = 1,
                  horizon: int = 1, switch_cost: float = 0.0, ladder=None):
-        if not use_engine:
-            _not_ported("the host-driven planning loop (fleet/incremental)")
         if horizon > 1:
             _not_ported("rolling-horizon planning (DESIGN.md D10)")
         if ladder is not None:
@@ -129,8 +132,55 @@ class FleetPlanner:
                 "hit_rate": self.hits / total if total else 0.0}
 
     # ------------------------------------------------------------ planning
-    def plan(self, scn: Scenario, *args, **kwargs) -> PlanResult:
-        _not_ported("FleetPlanner.plan (needs fleet/incremental)")
+    def plan(self, scn: Scenario, warm_assign=None, new_users=None,
+             mask=None, gain_stack=None, warm_comp=None) -> PlanResult:
+        """Plan one cell: cache lookup, else (warm-started) batched TSIA.
+
+        ``warm_assign`` (N,) warm-starts :func:`incremental.replan` with
+        ``new_users`` seeded nearest-edge; without it the cold plan runs on
+        the engine, or on the host loop when ``use_engine`` is False.
+        ``gain_stack`` (D10) and ``warm_comp`` (D11) are not ported.
+        """
+        if gain_stack is not None:
+            _not_ported("horizon plans (gain_stack, DESIGN.md D10)")
+        if warm_comp is not None:
+            _not_ported("compression ladders (DESIGN.md D11)")
+        if mask is not None:
+            mask = np.asarray(_host(mask), bool)
+            if mask.all():
+                mask = None              # all-active == unmasked plan
+        key = scenario_digest(scn, self.lam, mask)
+        hit = self._lookup(key)
+        if hit is not None:
+            return hit
+        t0 = time.perf_counter()
+        if warm_assign is not None:
+            res = incremental.replan(scn, warm_assign, self.lam, self.cfg,
+                                     new_users=new_users, mask=mask,
+                                     max_rounds=self.max_rounds,
+                                     escape_iters=self.escape_iters,
+                                     use_engine=self.use_engine,
+                                     top_k=self.top_k,
+                                     n_starts=self.n_starts)
+        elif self.use_engine:
+            res = incremental.solve(scn, self.lam, self.cfg,
+                                    max_rounds=self.max_rounds,
+                                    escape_iters=self.escape_iters,
+                                    mask=mask, top_k=self.top_k,
+                                    n_starts=self.n_starts)
+        else:
+            res = incremental.solve_host(scn, self.lam, self.cfg,
+                                         max_rounds=self.max_rounds,
+                                         escape_iters=self.escape_iters,
+                                         mask=mask)
+        plan = PlanResult(
+            assign=np.asarray(res.assign), b=np.asarray(res.sroa.b),
+            f=np.asarray(res.sroa.f), p=np.asarray(res.sroa.p),
+            R=float(res.R), t=float(res.sroa.t), cached=False,
+            solve_calls=res.history.solve_calls,
+            plan_ms=(time.perf_counter() - t0) * 1e3)
+        self._insert(key, plan)
+        return plan
 
     def plan_fleet_horizon(self, *args, **kwargs):
         _not_ported("FleetPlanner.plan_fleet_horizon (DESIGN.md D10)")
@@ -154,15 +204,28 @@ class FleetPlanner:
         self._insert(key, plan)
         return plan
 
+    @staticmethod
+    def _warm_assign(w) -> np.ndarray | None:
+        """Normalize a warm start: PlanResult, array, or None."""
+        if w is None:
+            return None
+        return np.asarray(_host(getattr(w, "assign", w)), np.int32)
+
     def plan_fleet(self, fleet: fbatch.FleetScenario,
                    warm: list | None = None) -> list[PlanResult]:
-        """Plan every cell of a fleet through the batched engine.
+        """Plan every cell of a fleet (per-cell cache + warm starts).
 
-        Warm starts go through :meth:`plan`, which is not ported yet.
+        ``warm`` entries may be :class:`PlanResult`\\ s, raw assignment
+        arrays or None.  With the engine enabled and no warm starts, the
+        cold cells are planned through :meth:`plan_fleet_batched` — every
+        cell's search in one batched run — instead of cell by cell.
         """
-        if warm is not None and any(w is not None for w in warm):
-            _not_ported("warm-started FleetPlanner.plan_fleet")
-        return self.plan_fleet_batched(fleet)
+        warm = warm or [None] * fleet.C
+        if self.use_engine and all(w is None for w in warm):
+            return self.plan_fleet_batched(fleet)
+        return [self.plan(fleet.cell(i),
+                          warm_assign=self._warm_assign(warm[i]))
+                for i in range(fleet.C)]
 
     def plan_fleet_batched(self,
                            fleet: fbatch.FleetScenario) -> list[PlanResult]:

@@ -17,11 +17,17 @@ coalesced Poisson request load:
   PYTHONPATH=src python -m repro_torch.launch.serve --mode plan \
       --cells 8 --rounds 3 --device cuda
 
+``--no-stream`` serves the per-cell request loop instead (warm-started
+``FleetPlanner.plan`` calls, :func:`run_planner`); ``--host-loop`` plans
+through the host-driven batched-TSIA loop rather than the engine (and
+implies ``--no-stream``).
+
 The flags are the JAX entry point's; ``--device`` picks the card (default
-``cuda``) or the CPU.  SROA runs fused, one launch of kernel K2 per batch.
-The LM path attends with ``ArchConfig.attn_impl`` (``"chunked"``; a caller
-of :func:`run_lm` picks K4 with ``"pallas"``).  The planning extensions
-that are not ported yet (``--no-stream``, ``--host-loop``, ``--horizon``,
+``cuda``) or the CPU.  SROA runs fused at the caps 30/24/20/28, one launch
+of kernel K2 per batch, where the JAX entry point runs the jnp nest at the
+same caps.  The LM path attends with ``ArchConfig.attn_impl``
+(``"chunked"``; a caller of :func:`run_lm` picks K4 with ``"pallas"``).
+The planning extensions that are not ported yet (``--horizon``,
 ``--switch-cost``, ``--compression``, ``--topology-period``, ``--m-cand``)
 exit with a message.
 """
@@ -31,6 +37,24 @@ import argparse
 import dataclasses
 import json
 import time
+
+
+def plan_request(planner, scn, warm_assign=None, new_users=None,
+                 mask=None) -> dict:
+    """One planning request -> JSON-able response (the endpoint contract)."""
+    plan = planner.plan(scn, warm_assign=warm_assign, new_users=new_users,
+                        mask=mask)
+    return {
+        "assign": plan.assign.tolist(),
+        "b_hz": plan.b.tolist(),
+        "f_hz": plan.f.tolist(),
+        "p_w": plan.p.tolist(),
+        "objective": plan.R,
+        "deadline_s": plan.t,
+        "cached": plan.cached,
+        "solve_calls": plan.solve_calls,
+        "plan_ms": plan.plan_ms,
+    }
 
 
 def _parse_tiers(s: str) -> tuple:
@@ -101,6 +125,79 @@ def run_service(args) -> dict:
             "stats": snap}
 
 
+def run_planner(args) -> dict:
+    """The ``--no-stream`` driver: the per-cell request loop.
+
+    A cold round plans every cell; each of ``--rounds`` rounds then moves
+    and churns a random subset of cells (per-cell dynamics) and sends one
+    warm-started request per cell.  Unchanged cells come back as cache
+    hits.  Returns the last round's ``sum_R``, the cache ``stats`` and a
+    record per round (``rounds``: cells changed, cache hits, wall ms and
+    the responses).
+    """
+    import numpy as np
+
+    from repro_torch.fleet import FleetPlanner, dynamics
+
+    spec, fleet, cfg = _draw_serve_fleet(args)
+    planner = FleetPlanner(lam=args.lam, cfg=cfg,
+                           max_rounds=args.plan_rounds, escape_iters=2,
+                           use_engine=not args.host_loop,
+                           top_k=args.top_k, n_starts=args.n_starts)
+
+    route = "host loop" if args.host_loop else "engine"
+    print(f"[plan] fleet: {fleet.C} cells, N_max={fleet.N_max}, "
+          f"M={fleet.M} (route: {route}, device={args.device})")
+    t0 = time.perf_counter()
+    plans = planner.plan_fleet(fleet)
+    _sync(args.device)
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    total_R = sum(p.R for p in plans)
+    print(f"[plan] cold round: sum R={total_R:.1f} in {cold_ms:.0f}ms "
+          f"({sum(p.solve_calls for p in plans)} batched solves)")
+
+    cells = [fleet.cell(i) for i in range(fleet.C)]
+    states = [dynamics.init_state(c, seed=args.seed + i)
+              for i, c in enumerate(cells)]
+    warm = [p.assign for p in plans]
+    rng = np.random.default_rng(args.seed)
+    records = []
+    for rnd in range(args.rounds):
+        # A random subset of cells sees a dynamics event; the rest are
+        # unchanged and must come back as cache hits.
+        moved = rng.uniform(size=fleet.C) < args.event_rate
+        events = [None] * fleet.C
+        for i in np.flatnonzero(moved):
+            cells[i], states[i] = dynamics.mobility_step(
+                cells[i], states[i], rng)
+            cells[i], states[i], events[i] = dynamics.churn_step(
+                cells[i], states[i], rng, spec)
+        t0 = time.perf_counter()
+        responses = [
+            plan_request(planner, cells[i],
+                         warm_assign=warm[i],
+                         new_users=None if events[i] is None
+                         else events[i].arrived,
+                         mask=states[i].active)
+            for i in range(fleet.C)
+        ]
+        _sync(args.device)
+        ms = (time.perf_counter() - t0) * 1e3
+        # Each round's assignments seed the next round's warm starts.
+        warm = [np.asarray(r["assign"], np.int32) for r in responses]
+        hits = sum(r["cached"] for r in responses)
+        total_R = sum(r["objective"] for r in responses)
+        records.append({"changed": np.flatnonzero(moved).tolist(),
+                        "hits": hits, "ms": ms, "sum_R": total_R,
+                        "responses": responses})
+        print(f"[plan] round {rnd}: {int(moved.sum())} cells changed, "
+              f"{hits}/{fleet.C} cache hits, sum R={total_R:.1f}, "
+              f"{ms:.0f}ms")
+    print(f"[plan] cache stats: {planner.stats}")
+    return {"sum_R": total_R, "stats": planner.stats, "cold_ms": cold_ms,
+            "rounds": records}
+
+
 def _sync(device) -> None:
     import torch
 
@@ -161,9 +258,6 @@ def run_lm(cfg, *, batch: int, prompt_len: int, new_tokens: int, seed: int,
 
 
 _NOT_PORTED = {
-    "no_stream": "--no-stream (the per-cell request loop needs "
-                 "fleet/incremental)",
-    "host_loop": "--host-loop (fleet/incremental)",
     "horizon": "--horizon (rolling-horizon planning, DESIGN.md D10)",
     "switch_cost": "--switch-cost (rolling-horizon planning, D10)",
     "compression": "--compression (compression ladders, D11)",
@@ -210,8 +304,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="engine iteration budget per search")
     ap.add_argument("--event-rate", type=float, default=0.4,
                     help="per-round probability a cell sees dynamics")
-    ap.add_argument("--host-loop", action="store_true")
-    ap.add_argument("--no-stream", action="store_true")
+    ap.add_argument("--host-loop", action="store_true",
+                    help="plan via the host-driven batched-TSIA loop "
+                         "instead of the engine (implies --no-stream)")
+    ap.add_argument("--no-stream", action="store_true",
+                    help="serve via the per-cell request loop instead of "
+                         "the streaming control plane")
     ap.add_argument("--replan-all", action="store_true",
                     help="disable drift gating (re-search every cell every "
                          "tick)")
@@ -242,6 +340,8 @@ def main(argv=None):
     for name, what in _NOT_PORTED.items():
         if getattr(args, name) != getattr(defaults, name):
             raise SystemExit(f"repro_torch: {what} is not ported yet")
+    if args.no_stream or args.host_loop:
+        return run_planner(args)
     return run_service(args)
 
 

@@ -11,6 +11,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+# The port's tests run beside the JAX package's in the same pytest-xdist
+# workers, and every worker imports this module while it collects.  Left
+# alone, torch's intra-op pool takes every core in every worker; the
+# oversubscribed cores starve XLA's in-process collectives, and an
+# all-reduce over the host devices that tests/test_dryrun_tools.py forces
+# (512 of them) misses its rendezvous deadline, which aborts the worker
+# (tests/test_service.py's prewarm).  The port's CPU tests are bound by the
+# per-op overhead of small tensors: one thread costs them nothing.
+torch.set_num_threads(1)
+
 
 def to_numpy(tree) -> dict:
     """A NamedTuple pytree as a (nested) dict of numpy arrays; ``None``

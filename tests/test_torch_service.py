@@ -211,14 +211,32 @@ def test_allocate_matches_jax_and_caches(planned):
 
 
 def test_planner_routes_not_ported_yet_raise(planned):
+    """What still refuses: rolling horizons (D10) and compression ladders
+    (D11) in the planner, and ``replan`` on a horizon stack, a ladder or an
+    edge mask (D12).  ``plan``, warm-started ``plan_fleet`` and
+    ``use_engine=False`` run (``tests/test_torch_incremental.py``)."""
+    from repro_torch.fleet import incremental as tinc
+
     _, tf, _, tp, _, _ = planned
-    with pytest.raises(NotImplementedError, match="incremental"):
-        tp.plan(tf.cell(0))
-    with pytest.raises(NotImplementedError):
-        tp.plan_fleet(tf, warm=[np.zeros(8, np.int32)] * tf.C)
-    for kw in (dict(use_engine=False), dict(horizon=3), dict(ladder=(1,))):
+    cell = tf.cell(0)
+    for kw in (dict(horizon=3), dict(ladder=(1,))):
         with pytest.raises(NotImplementedError):
             tplan.FleetPlanner(**kw)
+    with pytest.raises(NotImplementedError, match="D10"):
+        tp.plan_fleet_horizon(tf)
+    with pytest.raises(NotImplementedError, match="D10"):
+        tp.plan(cell, gain_stack=np.ones((2, cell.N, cell.M), np.float32))
+    with pytest.raises(NotImplementedError, match="D11"):
+        tp.plan(cell, warm_comp=np.zeros(cell.N, np.int32))
+    prev = np.zeros(cell.N, np.int32)
+    for kw, what in ((dict(gain_stack=np.ones((2, cell.N, cell.M))), "D10"),
+                     (dict(ladder=(1, 2)), "D11"),
+                     (dict(init_comp=prev), "D11")):
+        with pytest.raises(NotImplementedError, match=what):
+            tinc.replan(cell, prev, 1.0, TCFG, **kw)
+    masked = cell._replace(edge_mask=torch.ones(cell.M, dtype=torch.bool))
+    with pytest.raises(NotImplementedError, match="D12"):
+        tinc.replan(masked, prev, 1.0, TCFG)
 
 
 # -------------------------------------------------------------------- shard
@@ -321,7 +339,8 @@ def test_serve_entry_point_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="not ported"):
         serve.main(["--mode", "lm", "--device", "cpu", "--arch",
                     "zamba2-7b"])
-    for flag in (["--horizon", "3"], ["--no-stream"], ["--compression"],
-                 ["--topology-period", "2"]):
+    for flag in (["--horizon", "3"], ["--switch-cost", "1.0"],
+                 ["--compression"], ["--topology-period", "2"],
+                 ["--m-cand", "4"], ["--no-stream", "--horizon", "2"]):
         with pytest.raises(SystemExit, match="not ported"):
             serve.main(["--mode", "plan", "--device", "cpu"] + flag)
