@@ -86,9 +86,26 @@ t. TSIA, the RA baselines and the per-cell planner (lines ``[t]``, run
    of up to 50 users on 5 edges with top-8 pruning (K2 and K3, every K3
    launch on the warp kernel), then ``--host-loop`` over 2 cells: every
    assignment in range, every R finite, unchanged cells cache hits.
+h. The planner's extended decision space (lines ``[h]``, run after phase
+   t): the README's four planning examples through ``serve --mode
+   plan``'s construction (``serve.build_service``) on the README fleet,
+   ``draw_fleet(0, 128)`` (M = 8 candidate sites for h4), the CLI's caps
+   and top-8 pruning: h1
+   ``--n-starts 4``, h2 ``--horizon 4 --switch-cost 100``, h3
+   ``--compression`` over three device tiers, 3 ticks each; h4 ``--m-cand
+   8 --topology-period 2 --edge-cost 2000``, 5 ticks (the redesign runs
+   at ticks 2 and 4); h5 all four knobs at once on 16 cells, 2 ticks.
+   Each run reports plans/s, tick p50/p99, sum R, K2's and K3's launches
+   and problems a launch, and one traced tick's K2 and K3 device time;
+   every launch must take the lanes K2 and the warp K3.  Then K2 on one
+   h5 cell's horizon round of the joint (assignment, compression) search
+   (82 problems: comp-scaled loads, a predicted slot's gains, B over open
+   sites) and K3 on the comp-aware upload bits at M = 8 (the routed call
+   and both kernels) are held bitwise to their twins.
 9. Launch counts of the main paths (every count reset to 0 right before
-   a path and read right after it; phase t's path as each kernel's
-   ``launches_tsia_path``), each kernel's time beside its plain
+   a path and read right after it; phase t's and phase h's paths as each
+   kernel's ``launches_tsia_path`` and ``launches_h_path``), each
+   kernel's time beside its plain
    version's, its bound and its library call, then the card and the
    result line; every K3 launch of the planning path must take the warp
    kernel.  Each kernel's time is given twice: CUDA events around
@@ -108,6 +125,7 @@ when it is not run from a checkout of the repository.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import json
@@ -740,6 +758,22 @@ def _add(total: dict, counts: dict) -> None:
         total[name] = total.get(name, 0) + n
 
 
+def _by_kernel(c: dict) -> dict:
+    """A path's ``ops.LAUNCHES`` as launches of each kernel: the routed
+    counters (``sroa_solve``, ``topk_moves``, ``flash_attention``) count
+    both kernels of their op, so the other kernel's launches are the
+    difference."""
+    return {"sroa_invert": c["sroa_invert"],
+            "sroa_solve_lanes": c["sroa_solve_lanes"],
+            "sroa_solve": c["sroa_solve"] - c["sroa_solve_lanes"],
+            "topk_moves_warp": c["topk_moves_warp"],
+            "topk_moves": c["topk_moves"] - c["topk_moves_warp"],
+            "flash_attention_sm90": c["flash_attention_sm90"],
+            "flash_attention": (c["flash_attention"]
+                                - c["flash_attention_sm90"]),
+            "rmsnorm": c["rmsnorm"]}
+
+
 def _k2_operands(scn, assigns):
     """K2's operands for one scenario's patterns, each pattern's constants
     computed as ``sroa.solve`` computes them: per-user (P, N), per-problem
@@ -964,7 +998,7 @@ def _tsia_path(dev, report: dict, k2: dict) -> dict:
                            f"{c} was not a cache hit")
         _check(counts["sroa_solve"] > 0, f"{key}: no K2 launch")
         _check(counts["sroa_solve_lanes"] == counts["sroa_solve"],
-               f"{key}: a K2 launch took PR 11's kernel")
+               f"{key}: a K2 launch took the one-warp-per-problem kernel")
         if key == "no_stream":
             _check(counts["topk_moves"] > 0, "no_stream: no K3 launch")
             block = counts["topk_moves"] - counts["topk_moves_warp"]
@@ -986,6 +1020,253 @@ def _tsia_path(dev, report: dict, k2: dict) -> dict:
     return {"counts": path, "tsia": dict(scores=n_scores, wall_ms=wall_ms,
                                          ms_per_score=wall_ms / n_scores),
             "k2": k2, "baselines": scores_ra, "serve": runs}
+
+
+# Phase h: the README's planning examples (`README.md`, "Planning"), each
+# through the CLI's own construction on the README fleet: (key, cells,
+# ticks, flags).  h4 runs 5 ticks so that the redesign (every 2 ticks from tick
+# 1 on) runs at ticks 2 and 4; h5 sets every knob at once on 16 cells.
+H_TIERS = "lo:1.6:1.0:0.55:0.35,mid,hi:0.7:1.2:1.5:0.3"
+H_RUNS = (
+    ("h1", 128, 3, ["--n-starts", "4"]),
+    ("h2", 128, 3, ["--horizon", "4", "--switch-cost", "100"]),
+    ("h3", 128, 3, ["--tiers", H_TIERS, "--compression", "--topk-frac",
+                    "0.05"]),
+    ("h4", 128, 5, ["--m-cand", "8", "--topology-period", "2",
+                    "--edge-cost", "2000"]),
+    ("h5", 16, 2, ["--n-starts", "4", "--horizon", "4", "--switch-cost",
+                   "100", "--tiers", H_TIERS, "--compression",
+                   "--topk-frac", "0.05", "--m-cand", "8",
+                   "--topology-period", "1", "--edge-cost", "2000"]),
+)
+
+
+@contextlib.contextmanager
+def _launch_sizes():
+    """Record the problems (P) of every K2 and K3 wrapper call made inside
+    the block: ``{"sroa_solve": [P, ...], "topk_moves": [P, ...]}``."""
+    from repro_torch.kernels import ops
+
+    sizes = {"sroa_solve": [], "topk_moves": []}
+    k2, k3 = ops.sroa_solve_batched, ops.topk_move_scores
+
+    def k2_rec(*args, **kw):
+        out = k2(*args, **kw)
+        sizes["sroa_solve"].append(out[3].numel())      # t: one a problem
+        return out
+
+    def k3_rec(*args, **kw):
+        out = k3(*args, **kw)
+        sizes["topk_moves"].append(out[0].numel() // kw["k"])
+        return out
+
+    ops.sroa_solve_batched, ops.topk_move_scores = k2_rec, k3_rec
+    try:
+        yield sizes
+    finally:
+        ops.sroa_solve_batched, ops.topk_move_scores = k2, k3
+
+
+def _histogram(xs) -> dict:
+    out = {}
+    for x in xs:
+        out[str(x)] = out.get(str(x), 0) + 1
+    return dict(sorted(out.items(), key=lambda kv: int(kv[0])))
+
+
+def _check_h_kernels(svc, dev) -> dict:
+    """K2 and K3 against their twins on operands of h5's last state: one
+    cell's horizon round of the joint (assignment, compression) search
+    over two predicted slots (comp-scaled loads, a predicted slot's gains,
+    B over open sites only), and K3 on the comp-aware upload bits at
+    M = 8 for every cell, on the routed call and both kernels."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.system_model import expand_scenario, sroa_constants
+    from repro_torch.fleet import dynamics
+    from repro_torch.fleet import engine as fengine
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import topk_moves as tk
+
+    sub = svc.fleet.index([0])
+    cells = sub.cells
+    stack = torch.as_tensor(dynamics.predict_fleet_rollout(
+        sub, svc.state, svc.cfg.horizon, cfg=svc.cfg.stream,
+        rows=np.array([0]))[:, :2], device=dev)
+    cur = torch.as_tensor(svc.assigns[:1], device=dev)
+    comp = torch.as_tensor(svc.comps[:1], device=dev)
+    cands, comps, _ = fengine._pruned_candidates_comp(
+        cells, cur, comp, sub.mask, TOP_K, svc.ladder)
+    C, A, N = cands.shape
+    K = stack.shape[1]
+    _check(int(comps.max()) > 0, "h5's cell 0 has no compressed user")
+    _check(bool((cells.B_open < cells.B_total).all()),
+           "h5's cell 0 has every site open")
+    _check(not torch.equal(stack[:, 1], stack[:, 0]),
+           "the predicted slot equals the live channel")
+    cs = expand_scenario(expand_scenario(cells, 1), 1)._replace(
+        gain=stack[:, :, None])
+    c = sroa_constants(cs, cands[:, None].expand(C, K, A, N),
+                       sub.mask[:, None, None, :],
+                       comps[:, None].expand(C, K, A, N), svc.ladder)
+    lead = (C, K, A)
+    pu = [torch.broadcast_to(x, lead + (N,)).reshape(-1, N).contiguous()
+          for x in (c.A, c.J, c.H, c.delta, c.h, cs.f_max, cs.p_max)]
+    pp = [torch.broadcast_to(x, lead).reshape(-1).contiguous()
+          for x in (cs.B_open, cs.B_open, cs.N0,
+                    torch.ones((), device=dev), c.E_cloud_total)]
+    lanes = ops.LAUNCHES["sroa_solve_lanes"]
+    got = ops.sroa_solve_batched(*pu, *pp, **SERVE_CAPS)
+    want = ref.sroa_solve_plain(*pu, *pp, **SERVE_CAPS)
+    _check(ops.LAUNCHES["sroa_solve_lanes"] == lanes + 1,
+           "K2 on h5's operands did not take the lanes kernel")
+    _check(all(torch.equal(g, w) for g, w in zip(got, want)),
+           "K2 on h5's operands differs from its twin")
+    k2_err = _max_abs_err(got, want)
+
+    fl = svc.fleet
+    H = fengine._move_H(fl.cells, torch.as_tensor(svc.comps, device=dev),
+                        svc.ladder)
+    args = [x.contiguous() for x in (
+        fl.cells.gain, H, fl.cells.p_max,
+        torch.as_tensor(svc.assigns, device=dev), fl.mask, fl.cells.N0,
+        fl.cells.B_open)]
+    want3 = ref.topk_moves_plain(*args, k=TOP_K)
+    w0 = ops.LAUNCHES["topk_moves_warp"]
+    outs = [ops.topk_move_scores(*args, k=TOP_K)]
+    _check(ops.LAUNCHES["topk_moves_warp"] == w0 + 1,
+           "K3 at M = 8 did not take the warp kernel")
+    outs += [tk.topk_moves_cuda(*args, TOP_K, _route=r)[0]
+             for r in ("warp", "block")]
+    _check(all(torch.equal(g, w) for out in outs
+               for g, w in zip(out, want3)),
+           "K3 on the comp-aware H at M = 8 differs from its twin")
+    torch.cuda.synchronize()
+    print(f"[h] K2 on h5's operands (cell 0, {K} predicted slots x {A} "
+          f"joint candidates = {K * A} problems, N = {N}; levels up to "
+          f"{int(comps.max())}, B over {int(cells.edge_mask.sum())} of "
+          f"{cells.M} sites): bitwise its twin, max |err| {k2_err}")
+    print(f"[h] K3 on the comp-aware H at ({fl.C}, {fl.N_max}, {fl.M}), "
+          f"k = {TOP_K}: the routed call, the warp kernel "
+          f"(S = {tk.warp_slots(fl.N_max, fl.M)}) and the block kernel "
+          f"bitwise its twin")
+    return {"k2_problems": K * A, "k2_max_abs_err": k2_err}
+
+
+def _plan_extensions_path(dev) -> dict:
+    """Phase h: the planner's extended decision space through
+    ``serve.build_service``: restarts (h1), the rolling horizon
+    (h2), the compression ladder over device tiers (h3), topology design
+    (h4) and all four at once (h5).  Returns the launch counts of the
+    runs (construction and ticks; checks and traces left out)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.wireless import ScenarioSpec
+    from repro_torch.fleet import batch as fbatch
+    from repro_torch.fleet.service import run_load
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    path: dict = {}
+    runs = {}
+    base = ["--mode", "plan", "--device", "cuda", "--cell-users", "56",
+            "--cell-edges", "5", "--plan-rounds", "12", "--top-k",
+            str(TOP_K), "--seed", "0"]
+    t_phase = time.perf_counter()
+    check = None
+    for key, n_cells, ticks, flags in H_RUNS:
+        args = serve.build_parser().parse_args(
+            base + ["--cells", str(n_cells)] + flags)
+        spec = dataclasses.replace(
+            ScenarioSpec(), M=max(args.m_cand, args.cell_edges),
+            tiers=serve._parse_tiers(args.tiers) if args.tiers else ())
+        fleet = fbatch.draw_fleet(0, n_cells, spec, device=dev)
+        recs = []
+        with _launch_sizes() as sizes:
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            _, svc = serve.build_service(args, fleet)
+            torch.cuda.synchronize()
+            boot_ms = (time.perf_counter() - t0) * 1e3
+            snap = run_load(svc, ticks=ticks, req_per_tick=2.0, seed=7,
+                            on_tick=recs.append)
+            torch.cuda.synchronize()
+            counts = dict(ops.LAUNCHES)
+        _add(path, counts)
+        M = svc.fleet.M
+        active = np.asarray(svc.state.active, bool)
+        _check(len(recs) == ticks and snap["unserved"] == 0,
+               f"{key}: unserved requests")
+        _check(all(math.isfinite(r.sum_R) for r in recs),
+               f"{key}: non-finite sum R")
+        _check(((svc.assigns >= 0) & (svc.assigns < M)).all(),
+               f"{key}: assignment off the edge range")
+        _check(counts["sroa_solve"] > 0 and counts["topk_moves"] > 0,
+               f"{key}: K2 or K3 never launched")
+        _check(counts["sroa_solve_lanes"] == counts["sroa_solve"],
+               f"{key}: a K2 launch took the one-warp-per-problem kernel")
+        _check(counts["topk_moves_warp"] == counts["topk_moves"],
+               f"{key}: a K3 launch took the block kernel")
+        extra = {}
+        if svc.fleet.edge_mask is not None:
+            em = svc.fleet.edge_mask.cpu().numpy()
+            on_open = np.take_along_axis(em, svc.assigns.astype(np.int64), 1)
+            _check(on_open[active].all(), f"{key}: a user on a closed site")
+            extra["topo_moves"] = sum(r.topo_moves for r in recs)
+            extra["open_sites"] = _histogram(em.sum(axis=1))
+        if svc.ladder is not None:
+            _check(((svc.comps >= 0) & (svc.comps < len(svc.ladder))).all(),
+                   f"{key}: a level off the ladder")
+            extra["levels"] = snap["compression_hist"]
+        if args.horizon > 1:
+            extra["handovers"] = sum(r.handovers for r in recs)
+        for r in recs:
+            print(f"[h] {key} tick {r.tick}: changed {r.changed}, replanned "
+                  f"{r.replanned.size}, handovers {r.handovers}, topology "
+                  f"moves {r.topo_moves}, sum R {r.sum_R:.6g}, "
+                  f"{r.tick_ms:.1f} ms")
+        with _launch_sizes() as traced_sizes:
+            rows = _profile("[h]", f"{key}: one traced tick", svc.tick)
+        busy = sum(r[0] for r in rows)
+        k2_ms = sum(r[0] for r in rows if "sroa_solve" in r[2])
+        k2_n = sum(r[1] for r in rows if "sroa_solve" in r[2])
+        k3_ms = sum(r[0] for r in rows if "topk_moves" in r[2])
+        run = dict(
+            cells=n_cells, ticks=ticks, flags=" ".join(flags),
+            bootstrap_ms=boot_ms, plans_per_s=snap["plans_per_s"],
+            tick_ms=snap["tick_ms"], sum_R=recs[-1].sum_R,
+            k2_launches=counts["sroa_solve"],
+            k3_launches=counts["topk_moves"],
+            k2_P=_histogram(sizes["sroa_solve"]),
+            k3_P=_histogram(sizes["topk_moves"]),
+            traced=dict(device_ms=busy, k2_ms=k2_ms, k2_launches=k2_n,
+                        k2_ms_a_launch=_div(k2_ms, k2_n or None),
+                        k2_P=_histogram(traced_sizes["sroa_solve"]),
+                        k3_ms=k3_ms, k2_share=_div(k2_ms, busy or None),
+                        k3_share=_div(k3_ms, busy or None)), **extra)
+        runs[key] = run
+        tr = run["traced"]
+        print(f"[h] {key} ({n_cells} cells, {flags}): bootstrap "
+              f"{boot_ms:.1f} ms; {snap['plans_per_s']:.4g} plans/s, tick "
+              f"p50 {snap['tick_ms']['p50']:.4g} ms, p99 "
+              f"{snap['tick_ms']['p99']:.4g} ms; sum R {run['sum_R']:.6g}; "
+              f"K2 {run['k2_launches']} launches (P: {json.dumps(run['k2_P'])}"
+              f"), K3 {run['k3_launches']} (P: {json.dumps(run['k3_P'])}); "
+              f"{json.dumps(extra)}")
+        print(f"[h] {key} traced tick: K2 {_fmt(tr['k2_ms'])} ms in "
+              f"{k2_n} launches ({_fmt(tr['k2_ms_a_launch'])} ms a launch, "
+              f"P: {json.dumps(tr['k2_P'])}), {_fmt(tr['k2_share'])} of "
+              f"{_fmt(busy)} ms device time; K3 {_fmt(k3_ms)} ms "
+              f"({_fmt(tr['k3_share'])})")
+        if key == "h5":
+            check = _check_h_kernels(svc, dev)
+        del svc
+    seconds = time.perf_counter() - t_phase
+    print(f"[h] phase h: {seconds:.1f} s; launches {json.dumps(path)}")
+    return {"counts": path, "runs": runs, "check": check,
+            "seconds": seconds}
 
 
 def _lm_path(dev) -> dict:
@@ -1454,6 +1735,9 @@ def main(argv: list[str]) -> int:
     # ---- phase t: TSIA, the baselines and the per-cell planner ---------
     tp = _tsia_path(dev, report, k2_tsia)
 
+    # ---- phase h: restarts, horizon, compression, topology -------------
+    hp = _plan_extensions_path(dev)
+
     # ---- phase 9: launch counts and times ------------------------------
     # Four kernels lie on no path: K5 (no model calls it), K4's SIMT
     # kernel (the route for f32 and hd > 128; the LM path is bf16, hd 64)
@@ -1481,28 +1765,25 @@ def main(argv: list[str]) -> int:
            f"{main_counts['topk_moves'] - main_counts['topk_moves_warp']} "
            f"of the planning path's {main_counts['topk_moves']} K3 launches "
            f"took the block kernel")
-    tpc = tp["counts"]
-    tsia_counts = {"sroa_invert": tpc["sroa_invert"],
-                   "sroa_solve_lanes": tpc["sroa_solve_lanes"],
-                   "sroa_solve": tpc["sroa_solve"] - tpc["sroa_solve_lanes"],
-                   "topk_moves_warp": tpc["topk_moves_warp"],
-                   "topk_moves": (tpc["topk_moves"]
-                                  - tpc["topk_moves_warp"]),
-                   "flash_attention_sm90": tpc["flash_attention_sm90"],
-                   "flash_attention": (tpc["flash_attention"]
-                                       - tpc["flash_attention_sm90"]),
-                   "rmsnorm": tpc["rmsnorm"]}
+    tsia_counts = _by_kernel(tp["counts"])
     print(f"[9] kernels on phase t's path (TSIA, baselines, per-cell "
           f"planner): {json.dumps(tsia_counts)}")
     for name in ("sroa_invert", "sroa_solve_lanes", "topk_moves_warp"):
         _check(tsia_counts[name] > 0, f"{name} never launched on phase "
                f"t's path")
+    h_counts = _by_kernel(hp["counts"])
+    print(f"[9] kernels on phase h's path (restarts, horizon, compression, "
+          f"topology): {json.dumps(h_counts)}")
+    for name in ("sroa_solve_lanes", "topk_moves_warp"):
+        _check(h_counts[name] > 0, f"{name} never launched on phase h's "
+               f"path")
     for name, n in counts.items():
         _check(n > 0 or name in ("rmsnorm", "flash_attention",
                                  "sroa_solve", "topk_moves"),
                f"{name} never launched on its path")
         report[name]["launches"] = n
         report[name]["launches_tsia_path"] = tsia_counts[name]
+        report[name]["launches_h_path"] = h_counts[name]
         r = report[name]
         lib = (f", library {r['library_ms']:.4g} ms"
                if r["library_ms"] is not None else "")
@@ -1524,6 +1805,10 @@ def main(argv: list[str]) -> int:
           f"({main_counts['sroa_solve_lanes']} on the lanes kernel) and "
           f"{main_counts['topk_moves']} K3 launches "
           f"({main_counts['topk_moves_warp']} on the warp kernel)")
+    print("[9] phase h: " + "; ".join(
+        f"{k} {r['plans_per_s']:.4g} plans/s, p50 {r['tick_ms']['p50']:.4g} "
+        f"ms, K2 {_fmt(r['traced']['k2_ms_a_launch'])} ms a launch"
+        for k, r in hp["runs"].items()) + f" ({hp['seconds']:.1f} s)")
     fl = lm["flash"]
     L = lm["n_layers"]
     k4_dev = report["flash_attention_sm90"]["device_ms"]

@@ -3,7 +3,9 @@ reference).
 
 Same layout and public names as ``repro``: :mod:`repro_torch.core` (scenario
 model, cost model, SROA), :mod:`repro_torch.fleet` (batched SROA, the
-assignment engine, dynamics, the planner and the streaming service),
+assignment engine, dynamics, the planner, rolling horizons, topology
+design and the streaming service), :mod:`repro_torch.fed` (the upload
+compression ladder),
 :mod:`repro_torch.kernels` (the hand-written Hopper kernels and their plain
 PyTorch versions) and :mod:`repro_torch.launch` (the ``serve`` entry point).
 

@@ -37,20 +37,35 @@ def expand_scenario(scn: Scenario, dim: int) -> Scenario:
         for name in Scenario._fields if getattr(scn, name) is not None})
 
 
+def ladder_factors(ladder, like: torch.Tensor):
+    """(epoch, bytes) factors of a compression ladder as f32 tensors."""
+    kw = dict(dtype=torch.float32, device=like.device)
+    return (torch.tensor(ladder.epoch_factors(), **kw),
+            torch.tensor(ladder.bytes_factors(), **kw))
+
+
+def ladder_levels(comp: torch.Tensor, ladder) -> torch.Tensor:
+    """Compression levels clipped onto the ladder, as gather indices."""
+    return torch.clamp(comp.long(), 0, len(ladder) - 1)
+
+
 def effective_loads(scn: Scenario, comp: torch.Tensor | None = None,
                     ladder=None):
-    """Per-user effective (cycles/sample, upload bits) under device tiers.
+    """Per-user effective (cycles/sample, upload bits) under tiers + comp.
 
     Tier multipliers always apply (all-ones is bitwise the homogeneous
-    model).  Compression pricing (a ``ladder``, DESIGN.md D11) is not
-    ported yet.
+    model).  With a per-user compression level ``comp`` (..., N) and a
+    :class:`repro_torch.fed.compression.CompressionLadder`, the level's
+    epoch factor scales compute and its bytes factor scales the upload
+    (DESIGN.md D11).
     """
-    if comp is not None or ladder is not None:
-        raise NotImplementedError(
-            "compression ladders (DESIGN.md D11) are not ported to "
-            "repro_torch yet")
     c_eff = scn.c * scn.cycle_mult
     s_eff = _col(scn.s_bits) * scn.size_mult
+    if comp is not None and ladder is not None:
+        ef, bf = ladder_factors(ladder, c_eff)
+        lv = ladder_levels(comp, ladder)
+        c_eff = c_eff * ef[lv]
+        s_eff = s_eff * bf[lv]
     return c_eff, s_eff
 
 

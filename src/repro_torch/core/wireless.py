@@ -63,8 +63,10 @@ class Scenario(NamedTuple):
     tier: torch.Tensor        # (N,) i32 device-tier index (D11)
     cycle_mult: torch.Tensor  # (N,) cycles/sample multiplier
     size_mult: torch.Tensor   # (N,) model-size multiplier
-    # Topology activation mask (D12).  Only ``None`` (every site live) is
-    # ported; a mask raises in :func:`validate_scenario` and the solvers.
+    # Topology activation mask (DESIGN.md D12).  ``None`` means every edge
+    # site is live (the fixed-M scenario).  A (M,) bool tensor marks which
+    # candidate sites are open; closed sites are excluded from assignment
+    # and contribute no bandwidth.
     edge_mask: torch.Tensor | None = None
 
     @property
@@ -86,9 +88,14 @@ class Scenario(NamedTuple):
 
     @property
     def B_open(self) -> torch.Tensor:
-        """Total bandwidth over open edges (== ``B_total``: no edge mask)."""
-        _no_edge_mask(self.edge_mask)
-        return torch.sum(self.B_edges, dim=-1)
+        """Total bandwidth over OPEN edges (== ``B_total`` when unmasked).
+
+        An all-True ``edge_mask`` selects ``B_edges`` exactly, so the sum
+        is bitwise ``B_total`` (the D12 parity invariant)."""
+        if self.edge_mask is None:
+            return torch.sum(self.B_edges, dim=-1)
+        return torch.sum(torch.where(self.edge_mask, self.B_edges, 0.0),
+                         dim=-1)
 
     # ---- edge -> cloud terms (eqs 11-12); constants given the topology ----
     def rate_cloud(self) -> torch.Tensor:
@@ -101,13 +108,6 @@ class Scenario(NamedTuple):
 
     def E_cloud(self) -> torch.Tensor:      # (M,) joules per global iteration
         return self.p_edge * self.T_cloud()
-
-
-def _no_edge_mask(edge_mask) -> None:
-    if edge_mask is not None:
-        raise NotImplementedError(
-            "Scenario.edge_mask (topology design, DESIGN.md D12) is not "
-            "ported to repro_torch yet")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -227,12 +227,12 @@ def draw_scenario_numpy(seed: int, spec: ScenarioSpec = ScenarioSpec()
 def scenario_from_numpy(d: dict, device="cuda") -> Scenario:
     """Build a Scenario from numpy leaves (e.g. a JAX scenario's arrays).
 
-    Dtypes are kept as given (float32 leaves, int32 ``tier``), so a JAX
-    scenario carried across through numpy arrives bit for bit.
+    Dtypes are kept as given (float32 leaves, int32 ``tier``, bool
+    ``edge_mask`` when the dict has one), so a JAX scenario carried across
+    through numpy arrives bit for bit.
     """
-    _no_edge_mask(d.get("edge_mask"))
     leaves = {name: torch.tensor(np.asarray(d[name]), device=device)
-              for name in Scenario._fields if name != "edge_mask"}
+              for name in Scenario._fields if d.get(name) is not None}
     return Scenario(**leaves)
 
 
@@ -244,7 +244,6 @@ def draw_scenario(seed: int, spec: ScenarioSpec = ScenarioSpec(),
 
 def validate_scenario(scn: Scenario) -> None:
     """Shape/sign sanity checks for hand-built scenarios (one cell)."""
-    _no_edge_mask(scn.edge_mask)
     n, m = scn.N, scn.M
     per_user = {"gain": (scn.gain, (n, m)), "c": (scn.c, (n,)),
                 "D": (scn.D, (n,)), "f_max": (scn.f_max, (n,)),
@@ -265,14 +264,24 @@ def validate_scenario(scn: Scenario) -> None:
         v = float(getattr(scn, name))
         if not v > 0 or math.isnan(v):
             raise ValueError(f"Scenario.{name} must be > 0, got {v}")
+    if scn.edge_mask is not None:
+        if tuple(scn.edge_mask.shape) != (m,):
+            raise ValueError(
+                f"Scenario.edge_mask has shape {tuple(scn.edge_mask.shape)}, "
+                f"expected ({m},)")
+        if not bool(torch.any(scn.edge_mask)):
+            raise ValueError("Scenario.edge_mask must keep >= 1 edge open")
 
 
 def nearest_edge_assignment(scn: Scenario) -> torch.Tensor:
     """Geographical-distance initialization used by TSIA (Alg 5, line 5).
 
-    Works on any leading batch shape: (..., N) int32.
+    Closed candidate sites (D12) are excluded: users seed onto the nearest
+    OPEN edge (all-open masks leave the distances untouched).  Works on
+    any leading batch shape: (..., N) int32.
     """
-    _no_edge_mask(scn.edge_mask)
     diff = scn.user_pos[..., :, None, :] - scn.edge_pos[..., None, :, :]
     d = torch.sqrt(torch.sum(diff * diff, dim=-1))
+    if scn.edge_mask is not None:
+        d = torch.where(scn.edge_mask[..., None, :], d, torch.inf)
     return torch.argmin(d, dim=-1).to(torch.int32)

@@ -53,7 +53,9 @@ class FleetScenario(NamedTuple):
         return self.mask.device
 
     @property
-    def edge_mask(self) -> None:
+    def edge_mask(self) -> torch.Tensor | None:
+        """(C, M) bool activation mask, or None when every site is live
+        (D12)."""
         return self.cells.edge_mask
 
     def cell(self, i: int) -> Scenario:
@@ -75,11 +77,13 @@ class FleetScenario(NamedTuple):
             mask=self.mask.to(device), n_users=self.n_users.to(device))
 
 
-def map_scenario(fn, scn: Scenario) -> Scenario:
-    """Apply ``fn`` to every (non-None) leaf of a scenario."""
-    return Scenario(**{name: (None if getattr(scn, name) is None
-                              else fn(getattr(scn, name)))
-                       for name in Scenario._fields})
+def map_scenario(fn, scn: Scenario, *rest: Scenario) -> Scenario:
+    """Apply ``fn`` leaf by leaf to one or more scenarios (a ``None`` leaf
+    stays ``None``)."""
+    return Scenario(**{
+        name: (None if getattr(scn, name) is None
+               else fn(*(getattr(s, name) for s in (scn,) + rest)))
+        for name in Scenario._fields})
 
 
 def _pad_users(scn: Scenario, n_max: int) -> Scenario:
@@ -107,8 +111,7 @@ def stack_scenarios(scns: Sequence[Scenario],
     if len(ms) != 1:
         raise ValueError(f"all cells must share an edge count, got {ms}")
     padded = [_pad_users(s, n_max) for s in scns]
-    return Scenario(**{name: torch.stack([getattr(s, name) for s in padded])
-                       for name in Scenario._fields if name != "edge_mask"})
+    return map_scenario(lambda *xs: torch.stack(xs), *padded)
 
 
 def fleet_from_scenarios(scns: Sequence[Scenario]) -> FleetScenario:
@@ -226,17 +229,14 @@ def candidate_assigns_device(assign: torch.Tensor, M: int,
 
     Row 0 is the current pattern; rows 1..N*(M-1) move user ``n`` to edge
     ``(assign[n] + k) % M`` for k in 1..M-1.  The candidate count
-    ``A = 1 + N*(M-1)`` depends only on the shapes, never on the mask:
-    moves of non-movable users are flagged invalid, not dropped.
+    ``A = 1 + N*(M-1)`` depends only on the shapes, never on the masks:
+    moves of non-movable users, and moves onto a site closed in
+    ``edge_mask`` (..., M) (D12), are flagged invalid, not dropped.
 
     Returns:
       cands: (..., A, N) int32 candidate patterns.
       valid: (..., A) bool.
     """
-    if edge_mask is not None:
-        raise NotImplementedError(
-            "edge masks (topology design, DESIGN.md D12) are not ported to "
-            "repro_torch yet")
     assign = assign.to(torch.int32)
     lead, N = assign.shape[:-1], assign.shape[-1]
     dev = assign.device
@@ -251,6 +251,10 @@ def candidate_assigns_device(assign: torch.Tensor, M: int,
                        moves.reshape(lead + (N * (M - 1), N))], dim=-2)
     move_ok = torch.broadcast_to(movable.to(torch.bool), lead + (N,)
                                  ).repeat_interleave(M - 1, dim=-1)
+    if edge_mask is not None:
+        em = torch.broadcast_to(edge_mask.to(torch.bool), lead + (M,))
+        move_ok = move_ok & torch.gather(
+            em, -1, dst.reshape(lead + (N * (M - 1),)).long())
     valid = torch.cat([torch.ones(lead + (1,), dtype=torch.bool, device=dev),
                        move_ok], dim=-1)
     return cands, valid

@@ -12,12 +12,13 @@ been numpy).  Two halves:
 * Fleet: :func:`fleet_step` advances every cell at once.  Cells outside
   ``cell_mask`` keep every leaf bit-identical (DESIGN.md D8).
 
+* Prediction: :func:`predict_rollout` and :func:`predict_fleet_rollout`
+  extrapolate the mobility state K slots ahead into the predicted-gain
+  stacks the rolling-horizon planner scores against (DESIGN.md D10).
+
 Every step consumes the same ``numpy.random.Generator`` stream call for
 call as the JAX package's, in the same float precision, so a seeded trace
 is bitwise the JAX one; the advanced scenario goes back to its device.
-
-Not ported yet: the horizon rollouts (``predict_rollout``,
-``predict_fleet_rollout``, DESIGN.md D10).
 """
 from __future__ import annotations
 
@@ -390,3 +391,79 @@ def fleet_step(fleet, state: FleetDynamicsState, rng: np.random.Generator,
     return fleet2, state2, FleetEvents(changed=changed, arrived=arrived,
                                        departed=departed, dropped=dropped,
                                        faded=faded)
+
+
+# ------------------------------------------------------- horizon prediction
+def _rollout_positions(pos: np.ndarray, vel: np.ndarray, K: int, dt: float,
+                       memory: float, side_m: float) -> list[np.ndarray]:
+    """Deterministic K-slot Gauss-Markov mean rollout of positions.
+
+    Slot 0 is the current position; slot k extrapolates the expected
+    mobility state (``E[v'] = memory * v``, the noise is zero-mean) with
+    the live step's wall reflection.  Any leading batch shape (..., N, 2).
+    """
+    out = [pos]
+    p, v = pos, vel
+    for _ in range(1, K):
+        v = memory * v
+        raw = p + v * dt
+        p = np.abs(raw)
+        p = side_m - np.abs(side_m - p)
+        v = np.where((raw < 0.0) | (raw > side_m), -v, v)
+        out.append(p)
+    return out
+
+
+def _shadow_rho(cfg: StreamConfig) -> float:
+    """AR(1) mean-decay rate of the shadowing across predicted slots.
+
+    Block fading keeps the current shadow realization across a slot
+    boundary with probability ``1 - 1/fading_every`` and otherwise draws a
+    fresh zero-mean (dB) one, so the mean rollout decays the live shadow
+    as ``rho^k`` with ``rho = 1 - 1/fading_every`` (1 with fading off).
+    """
+    return 1.0 if not cfg.fading_every else 1.0 - 1.0 / cfg.fading_every
+
+
+def predict_rollout(scn: Scenario, state: DynamicsState, K: int,
+                    cfg: StreamConfig | None = None) -> np.ndarray:
+    """(K, N, M) float32 predicted channel-gain stack for one cell (D10).
+
+    A deterministic mean rollout: positions extrapolate under the
+    expected (decayed) velocity, gains follow the new geometry, and the
+    current shadowing decays toward its 0 dB prior (:func:`_shadow_rho`).
+    No fading or churn draws.  Slot 0 is the current gain bit for bit, so
+    a horizon-1 stack scores exactly the snapshot problem.
+    """
+    cfg = cfg or StreamConfig()
+    pos = _rollout_positions(_np(scn.user_pos), state.velocity, K, cfg.dt,
+                             cfg.memory, cfg.side_m)
+    edge = _np(scn.edge_pos)
+    rho = _shadow_rho(cfg)
+    stack = np.stack([_gains(p, edge, state.shadow_ue_db * rho ** k)
+                      for k, p in enumerate(pos)])
+    stack[0] = _np(scn.gain)
+    return stack.astype(np.float32)
+
+
+def predict_fleet_rollout(fleet, state: FleetDynamicsState, K: int,
+                          cfg: StreamConfig | None = None,
+                          rows: np.ndarray | None = None) -> np.ndarray:
+    """(C, K, N, M) float32 predicted-gain stacks for a whole fleet.
+
+    Batched :func:`predict_rollout`, with slot 0 bitwise the live gains.
+    ``rows`` says which cells of the full-fleet ``state`` the (possibly
+    sliced) ``fleet`` holds: the control plane replans sub-fleets.
+    """
+    cfg = cfg or StreamConfig()
+    vel = state.velocity if rows is None else state.velocity[rows]
+    shadow = (state.shadow_ue_db if rows is None
+              else state.shadow_ue_db[rows])
+    pos = _rollout_positions(_np(fleet.cells.user_pos), vel, K, cfg.dt,
+                             cfg.memory, cfg.side_m)
+    edge = _np(fleet.cells.edge_pos)
+    rho = _shadow_rho(cfg)
+    stack = np.stack([_fleet_gains(p, edge, shadow * rho ** k)
+                      for k, p in enumerate(pos)], axis=1)
+    stack[:, 0] = _np(fleet.cells.gain)
+    return stack.astype(np.float32)

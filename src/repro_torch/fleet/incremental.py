@@ -13,11 +13,10 @@ the cost model over every candidate at once.  It is the oracle the engine
 is parity-tested against.
 
 :func:`replan` warm-starts either path from a previous assignment after a
-dynamics event, seeding only new users via nearest-edge init.
-
-Not ported yet: the rolling horizon (``gain_stack``/``switch_cost``, DESIGN.md
+dynamics event, seeding only new users via nearest-edge init; the engine
+route takes the rolling horizon (``gain_stack``/``switch_cost``, DESIGN.md
 D10), compression ladders (``ladder``/``init_comp``, D11) and edge masks
-(D12); each raises ``NotImplementedError``.
+(D12).
 """
 from __future__ import annotations
 
@@ -37,22 +36,6 @@ from repro_torch.fleet import engine as fengine
 def _host(x) -> np.ndarray:
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
         else np.asarray(x)
-
-
-def _check_snapshot(scn: Scenario, gain_stack=None, ladder=None,
-                    init_comp=None) -> None:
-    if gain_stack is not None:
-        raise NotImplementedError(
-            "rolling-horizon planning (gain_stack, DESIGN.md D10) is not "
-            "ported to repro_torch yet")
-    if ladder is not None or init_comp is not None:
-        raise NotImplementedError(
-            "compression ladders (ladder/init_comp, DESIGN.md D11) are not "
-            "ported to repro_torch yet")
-    if scn.edge_mask is not None:
-        raise NotImplementedError(
-            "edge masks (topology design, DESIGN.md D12) are not ported to "
-            "repro_torch yet")
 
 
 @dataclasses.dataclass
@@ -75,8 +58,8 @@ class BatchedTsiaResult(NamedTuple):
     sroa: sroa.SroaResult        # numpy leaves
     R: float
     history: BatchedTsiaHistory
-    comp: np.ndarray | None = None   # compression levels (always None: no
-    #                                  ladder is ported)
+    comp: np.ndarray | None = None   # per-user compression levels (D11;
+    #                                  None on the host path / ladder off)
 
 
 def candidate_assigns(assign: np.ndarray, M: int,
@@ -118,7 +101,8 @@ def _history_from_trace(res: fengine.EngineResult, n_movable: int,
     per_round = (1 + top_k) if top_k else (1 + n_movable * (M - 1))
     hist.candidates_evaluated = rounds * per_round if rounds else 1
     kind_name = {fengine.KIND_DESCENT: "descent",
-                 fengine.KIND_ESCAPE: "escape"}
+                 fengine.KIND_ESCAPE: "escape",
+                 fengine.KIND_COMP: "comp"}
     for r in np.flatnonzero(valid):
         hist.R_trace.append(float(R_best[r]))
         user, src, dst, kind, moved = (int(x) for x in mv[r])
@@ -147,9 +131,12 @@ def solve(scn: Scenario, lam=1.0,
 
     ``mask`` marks active users (inactive slots are never moved and carry
     zero cost); ``top_k`` and ``n_starts`` are the engine's search knobs
-    (move pruning through kernel K3, and restarts; DESIGN.md D9).
+    (move pruning through kernel K3, and restarts; DESIGN.md D9);
+    ``gain_stack`` (K, N, M, e.g. :func:`repro_torch.fleet.dynamics
+    .predict_rollout`) with ``switch_cost``/``incumbent`` switches to the
+    horizon objective (D10); ``ladder``/``init_comp`` make per-user
+    compression a joint decision variable (D11).
     """
-    _check_snapshot(scn, gain_stack, ladder, init_comp)
     dev = scn.device
     tmask = (torch.ones(scn.N, dtype=torch.bool, device=dev) if mask is None
              else torch.as_tensor(np.asarray(_host(mask), bool), device=dev))
@@ -159,12 +146,18 @@ def solve(scn: Scenario, lam=1.0,
     res = fengine.solve_assignment(scn, init, tmask, lam, cfg=cfg,
                                    max_rounds=max_rounds,
                                    escape_iters=escape_iters,
-                                   top_k=top_k, n_starts=n_starts)
+                                   top_k=top_k, n_starts=n_starts,
+                                   gain_stack=gain_stack,
+                                   switch_cost=float(switch_cost),
+                                   incumbent=incumbent, ladder=ladder,
+                                   init_comp=init_comp)
     n_movable = int(tmask.sum())
     hist = _history_from_trace(res, n_movable, scn.M, top_k)
     return BatchedTsiaResult(assign=_host(res.assign),
                              sroa=_sroa_host(res.sroa), R=float(res.R),
-                             history=hist)
+                             history=hist,
+                             comp=None if ladder is None
+                             else _host(res.comp))
 
 
 def solve_host(scn: Scenario, lam=1.0,
@@ -173,7 +166,6 @@ def solve_host(scn: Scenario, lam=1.0,
                max_rounds: int = 64, escape_iters: int = 8,
                mask: np.ndarray | None = None) -> BatchedTsiaResult:
     """Host loop, one batched SROA call per round (the engine's oracle)."""
-    _check_snapshot(scn)
     M = scn.M
     dev = scn.device
     movable = None if mask is None else np.asarray(_host(mask), bool)
@@ -267,18 +259,30 @@ def replan(scn: Scenario, prev_assign: np.ndarray, lam=1.0,
     Keeps the previous assignment for surviving users and seeds arrivals —
     ``new_users`` slot indices, e.g. ``ChurnEvents.arrived`` — by
     nearest-edge init, then runs a short batched-TSIA polish instead of a
-    cold full search.
+    cold full search.  With a ``gain_stack`` (horizon mode, engine route
+    only) the previous assignment doubles as the incumbent the switching
+    cost bills against; under an edge mask (D12) users whose edge closed
+    re-home to their nearest open edge first.
     """
-    _check_snapshot(scn, gain_stack, ladder, init_comp)
     init = np.array(_host(prev_assign), np.int32).copy()
     init = np.clip(init, 0, scn.M - 1)
+    if scn.edge_mask is not None:
+        em = _host(scn.edge_mask).astype(bool)
+        if not em.all():
+            ne_open = _host(nearest_edge_assignment(scn))
+            init = np.where(em[init], init, ne_open).astype(np.int32)
     if new_users is not None and len(new_users):
         ne = _host(nearest_edge_assignment(scn))
         init[np.asarray(new_users, int)] = ne[np.asarray(new_users, int)]
+    # Arrivals have no deployed edge to hand over from: their incumbent is
+    # the nearest-edge seed, so parking them there is free.
+    incumbent = init.copy()
     if use_engine:
         return solve(scn, lam, cfg, init_assign=init, max_rounds=max_rounds,
                      escape_iters=escape_iters, mask=mask, top_k=top_k,
-                     n_starts=n_starts)
+                     n_starts=n_starts, gain_stack=gain_stack,
+                     switch_cost=switch_cost, incumbent=incumbent,
+                     ladder=ladder, init_comp=init_comp)
     return solve_host(scn, lam, cfg, init_assign=init,
                       max_rounds=max_rounds, escape_iters=escape_iters,
                       mask=mask)

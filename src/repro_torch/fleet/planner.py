@@ -7,11 +7,9 @@ on a content digest of the scenario — the same digest the JAX package
 computes for the same leaves — which keeps the re-planning loop cheap
 between dynamics events: unchanged cells cost a hash, changed cells a
 warm-started batched-TSIA polish (:func:`repro_torch.fleet.incremental
-.replan`).
-
-Not ported yet: rolling-horizon planning (``horizon > 1``,
-:meth:`plan_fleet_horizon`, ``gain_stack``; DESIGN.md D10) and compression
-ladders (``ladder``, ``warm_comp``; D11), which raise.
+.replan`).  Rolling-horizon plans (:meth:`FleetPlanner.plan_fleet_horizon`,
+``gain_stack``; DESIGN.md D10) and compression ladders (``ladder``,
+``warm_comp``; D11) key the cache on their window and ladder.
 """
 from __future__ import annotations
 
@@ -69,18 +67,17 @@ class PlanResult(NamedTuple):
     comp: np.ndarray | None = None  # compression levels (None: no ladder)
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not ported to repro_torch yet")
-
-
 class FleetPlanner:
     """Planning endpoint with an LRU solve cache.
 
     Knobs as in the JAX planner: ``use_engine`` routes cold plans through
     the batched engine (False: the host loop,
     :func:`repro_torch.fleet.incremental.solve_host`); ``top_k`` and
-    ``n_starts`` are the engine's search knobs (D9).  ``horizon > 1``
-    (D10) and a ``ladder`` (D11) are not ported and raise.
+    ``n_starts`` are the engine's search knobs (D9).  ``horizon`` is the
+    window K of :meth:`plan_fleet_horizon` and ``switch_cost`` its charge
+    per handover (D10).  A ``ladder`` of >= 2 rungs optimizes per-user
+    compression jointly with the assignment (D11); it joins every cache
+    key, so ladder plans never alias ladder-off plans.
     """
 
     def __init__(self, lam: float = 1.0,
@@ -89,10 +86,6 @@ class FleetPlanner:
                  escape_iters: int = 6, use_engine: bool = True,
                  top_k: int = 0, n_starts: int = 1, n_buckets: int = 1,
                  horizon: int = 1, switch_cost: float = 0.0, ladder=None):
-        if horizon > 1:
-            _not_ported("rolling-horizon planning (DESIGN.md D10)")
-        if ladder is not None:
-            _not_ported("compression ladders (DESIGN.md D11)")
         self.lam = float(lam)
         self.cfg = cfg
         self.cache_size = cache_size
@@ -105,6 +98,10 @@ class FleetPlanner:
         self.horizon = int(horizon)
         self.switch_cost = float(switch_cost)
         self.ladder = ladder
+        # The dataclass repr pins every rung's factors: two different
+        # ladders (or ladder-off) never share a cache key.
+        self._ladder_extra = (b"" if ladder is None
+                              else repr(ladder).encode())
         self._cache: OrderedDict[str, PlanResult] = OrderedDict()
         self.hits = 0
         self.misses = 0
@@ -132,6 +129,16 @@ class FleetPlanner:
                 "hit_rate": self.hits / total if total else 0.0}
 
     # ------------------------------------------------------------ planning
+    def _horizon_extra(self, gain_stack, incumbent=None) -> bytes:
+        """Cache-key bytes of a horizon plan: the same scenario, weight and
+        mask plan differently under another predicted window, switching
+        cost or incumbent, so all three join the digest."""
+        h = b"horizon" + np.float64(self.switch_cost).tobytes()
+        h += np.asarray(_host(gain_stack), np.float32).tobytes()
+        if incumbent is not None:
+            h += np.asarray(_host(incumbent), np.int32).tobytes()
+        return h
+
     def plan(self, scn: Scenario, warm_assign=None, new_users=None,
              mask=None, gain_stack=None, warm_comp=None) -> PlanResult:
         """Plan one cell: cache lookup, else (warm-started) batched TSIA.
@@ -139,17 +146,19 @@ class FleetPlanner:
         ``warm_assign`` (N,) warm-starts :func:`incremental.replan` with
         ``new_users`` seeded nearest-edge; without it the cold plan runs on
         the engine, or on the host loop when ``use_engine`` is False.
-        ``gain_stack`` (D10) and ``warm_comp`` (D11) are not ported.
+        ``gain_stack`` (K, N, M, from :func:`repro_torch.fleet.dynamics
+        .predict_rollout`) plans on the horizon objective (D10), the warm
+        assignment doubling as the incumbent; ``warm_comp`` seeds the
+        compression search from the deployed levels (D11).
         """
-        if gain_stack is not None:
-            _not_ported("horizon plans (gain_stack, DESIGN.md D10)")
-        if warm_comp is not None:
-            _not_ported("compression ladders (DESIGN.md D11)")
         if mask is not None:
             mask = np.asarray(_host(mask), bool)
             if mask.all():
                 mask = None              # all-active == unmasked plan
-        key = scenario_digest(scn, self.lam, mask)
+        extra = (b"" if gain_stack is None
+                 else self._horizon_extra(gain_stack, warm_assign))
+        key = scenario_digest(scn, self.lam, mask,
+                              extra=extra + self._ladder_extra)
         hit = self._lookup(key)
         if hit is not None:
             return hit
@@ -161,13 +170,21 @@ class FleetPlanner:
                                      escape_iters=self.escape_iters,
                                      use_engine=self.use_engine,
                                      top_k=self.top_k,
-                                     n_starts=self.n_starts)
+                                     n_starts=self.n_starts,
+                                     gain_stack=gain_stack,
+                                     switch_cost=self.switch_cost,
+                                     ladder=self.ladder,
+                                     init_comp=warm_comp)
         elif self.use_engine:
+            # A cold plan has no deployed assignment, so no switching
+            # charge: a horizon stack rides with zero switch_cost.
             res = incremental.solve(scn, self.lam, self.cfg,
                                     max_rounds=self.max_rounds,
                                     escape_iters=self.escape_iters,
                                     mask=mask, top_k=self.top_k,
-                                    n_starts=self.n_starts)
+                                    n_starts=self.n_starts,
+                                    gain_stack=gain_stack,
+                                    ladder=self.ladder)
         else:
             res = incremental.solve_host(scn, self.lam, self.cfg,
                                          max_rounds=self.max_rounds,
@@ -178,29 +195,34 @@ class FleetPlanner:
             f=np.asarray(res.sroa.f), p=np.asarray(res.sroa.p),
             R=float(res.R), t=float(res.sroa.t), cached=False,
             solve_calls=res.history.solve_calls,
-            plan_ms=(time.perf_counter() - t0) * 1e3)
+            plan_ms=(time.perf_counter() - t0) * 1e3, comp=res.comp)
         self._insert(key, plan)
         return plan
 
-    def plan_fleet_horizon(self, *args, **kwargs):
-        _not_ported("FleetPlanner.plan_fleet_horizon (DESIGN.md D10)")
-
     def allocate(self, scn: Scenario, assign, comp=None) -> PlanResult:
-        """Resource allocation only (fixed assignment), cached."""
-        if comp is not None:
-            _not_ported("compression ladders (DESIGN.md D11)")
+        """Resource allocation only (fixed assignment), cached.  ``comp``
+        re-prices it under chosen compression levels (the planner's
+        ladder)."""
         a = np.asarray(_host(assign), np.int32)
-        key = scenario_digest(scn, self.lam, extra=a.tobytes())
+        extra = a.tobytes() + self._ladder_extra
+        if comp is not None:
+            comp = np.asarray(_host(comp), np.int32)
+            extra += comp.tobytes()
+        key = scenario_digest(scn, self.lam, extra=extra)
         hit = self._lookup(key)
         if hit is not None:
             return hit
         t0 = time.perf_counter()
         res = sroa.solve(scn, torch.tensor(a, device=scn.device),
-                         self.lam, self.cfg)
+                         self.lam, self.cfg,
+                         comp=None if comp is None
+                         else torch.tensor(comp, device=scn.device),
+                         ladder=self.ladder)
         plan = PlanResult(assign=a, b=_host(res.b), f=_host(res.f),
                           p=_host(res.p), R=float(res.R), t=float(res.t),
                           cached=False, solve_calls=1,
-                          plan_ms=(time.perf_counter() - t0) * 1e3)
+                          plan_ms=(time.perf_counter() - t0) * 1e3,
+                          comp=comp)
         self._insert(key, plan)
         return plan
 
@@ -210,6 +232,12 @@ class FleetPlanner:
         if w is None:
             return None
         return np.asarray(_host(getattr(w, "assign", w)), np.int32)
+
+    @staticmethod
+    def _warm_comp(w) -> np.ndarray | None:
+        """Compression levels a PlanResult warm start carries, if any."""
+        c = getattr(w, "comp", None)
+        return None if c is None else np.asarray(_host(c), np.int32)
 
     def plan_fleet(self, fleet: fbatch.FleetScenario,
                    warm: list | None = None) -> list[PlanResult]:
@@ -224,15 +252,23 @@ class FleetPlanner:
         if self.use_engine and all(w is None for w in warm):
             return self.plan_fleet_batched(fleet)
         return [self.plan(fleet.cell(i),
-                          warm_assign=self._warm_assign(warm[i]))
+                          warm_assign=self._warm_assign(warm[i]),
+                          warm_comp=self._warm_comp(warm[i]))
                 for i in range(fleet.C)]
 
     def plan_fleet_batched(self,
                            fleet: fbatch.FleetScenario) -> list[PlanResult]:
         """Cold-plan a fleet via the engine (cache-aware): cache hits
         short-circuit per cell, the misses run as one batched search."""
-        keys = [scenario_digest(fleet.cell(i), self.lam)
+        keys = [scenario_digest(fleet.cell(i), self.lam,
+                                extra=self._ladder_extra)
                 for i in range(fleet.C)]
+        return self._plan_misses(fleet, keys)
+
+    def _plan_misses(self, fleet: fbatch.FleetScenario, keys: list,
+                     solve=None) -> list[PlanResult]:
+        """Serve the cache hits among ``keys`` and plan the misses in one
+        batched search (``solve(sub, miss_rows)``, default the engine)."""
         plans: dict[int, PlanResult] = {}
         miss = []
         for i, k in enumerate(keys):
@@ -244,16 +280,21 @@ class FleetPlanner:
         if miss:
             sub = fleet if len(miss) == fleet.C else fleet.index(miss)
             t0 = time.perf_counter()
-            solver = (fengine.solve_fleet_assignments_bucketed
-                      if self.n_buckets > 1
-                      else fengine.solve_fleet_assignments)
-            kw = ({"n_buckets": self.n_buckets}
-                  if self.n_buckets > 1 else {})
-            out = solver(sub, lam=self.lam, cfg=self.cfg,
-                         max_rounds=self.max_rounds,
-                         escape_iters=self.escape_iters, top_k=self.top_k,
-                         n_starts=self.n_starts, **kw)
+            if solve is not None:
+                out = solve(sub, np.asarray(miss))
+            else:
+                solver = (fengine.solve_fleet_assignments_bucketed
+                          if self.n_buckets > 1
+                          else fengine.solve_fleet_assignments)
+                kw = ({"n_buckets": self.n_buckets}
+                      if self.n_buckets > 1 else {})
+                out = solver(sub, lam=self.lam, cfg=self.cfg,
+                             max_rounds=self.max_rounds,
+                             escape_iters=self.escape_iters,
+                             top_k=self.top_k, n_starts=self.n_starts,
+                             ladder=self.ladder, **kw)
             assign, R = _host(out.assign), _host(out.R)
+            comp = _host(out.comp)
             b, f, p, t = (_host(x) for x in (out.sroa.b, out.sroa.f,
                                              out.sroa.p, out.sroa.t))
             ms = (time.perf_counter() - t0) * 1e3 / len(miss)
@@ -266,10 +307,49 @@ class FleetPlanner:
                     assign=assign[row][:n], b=b[row][:n], f=f[row][:n],
                     p=p[row][:n], R=float(R[row]), t=float(t[row]),
                     cached=False, solve_calls=1 if row == 0 else 0,
-                    plan_ms=ms)
+                    plan_ms=ms,
+                    comp=comp[row][:n] if self.ladder is not None else None)
                 self._insert(keys[i], plan)
                 plans[i] = plan
         return [plans[i] for i in range(fleet.C)]
+
+    def plan_fleet_horizon(self, fleet: fbatch.FleetScenario, state,
+                           incumbents=None, stream_cfg=None, devices=None,
+                           rows: np.ndarray | None = None
+                           ) -> list[PlanResult]:
+        """MPC-plan a fleet over the planner's horizon (cache-aware).
+
+        Rolls the fleet's dynamics ``state`` K slots ahead, then runs the
+        time-expanded search for every cache-miss cell in one batched
+        search (:func:`repro_torch.fleet.horizon.plan_fleet_horizon`).
+        Cache keys fold in the predicted stacks, the switch cost and the
+        incumbents, so a horizon plan never aliases a snapshot plan.
+        """
+        from repro_torch.fleet import dynamics as fdyn
+        from repro_torch.fleet import horizon as fhorizon
+
+        stacks = fdyn.predict_fleet_rollout(fleet, state, self.horizon,
+                                            cfg=stream_cfg, rows=rows)
+        inc = (None if incumbents is None
+               else np.asarray(_host(incumbents), np.int32))
+        keys = [scenario_digest(
+            fleet.cell(i), self.lam,
+            extra=self._horizon_extra(stacks[i],
+                                      None if inc is None else inc[i])
+            + self._ladder_extra)
+            for i in range(fleet.C)]
+
+        def solve(sub, sel):
+            return fhorizon.plan_fleet_horizon(
+                sub, state, K=self.horizon, switch_cost=self.switch_cost,
+                incumbents=None if inc is None else inc[sel],
+                init_assigns=None if inc is None else inc[sel],
+                lam=self.lam, cfg=self.cfg, stream_cfg=stream_cfg,
+                max_rounds=self.max_rounds, escape_iters=self.escape_iters,
+                top_k=self.top_k, n_starts=self.n_starts, devices=devices,
+                gain_stacks=stacks[sel], ladder=self.ladder)
+
+        return self._plan_misses(fleet, keys, solve)
 
     def allocate_fleet(self, fleet: fbatch.FleetScenario, assigns=None,
                        comps=None) -> sroa.SroaResult:

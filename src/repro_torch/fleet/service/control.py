@@ -18,8 +18,11 @@ Each :meth:`~PlanningService.tick`:
    compiles nothing, so the port searches no padding cells;
 4. **serves** every queued request with the tick's plan snapshot.
 
-Ported: snapshot planning.  ``horizon``/``switch_cost`` (D10), ``ladder``
-(D11) and ``topology_period`` (D12) raise.
+The searches take the planner's whole decision space: restarts
+(``n_starts``, D9), the rolling horizon (``horizon``/``switch_cost``,
+D10, with the previous window's winner as a warm-start restart),
+compression ladders (``ladder``, D11) and, every ``topology_period``
+ticks, a redesign of the open edge sites (D12).
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ from repro_torch.core import sroa
 from repro_torch.core.wireless import Scenario, ScenarioSpec
 from repro_torch.fleet import batch as fbatch
 from repro_torch.fleet import dynamics
+from repro_torch.fleet import engine as fengine
 from repro_torch.fleet.planner import FleetPlanner, PlanResult, scenario_digest
 from repro_torch.fleet.service import drift as fdrift
 from repro_torch.fleet.service import shard as fshard
@@ -58,13 +62,16 @@ class ServiceConfig:
     warm_start: bool = True    # seed re-searches from the cached plans
     shard: bool = True         # split the cell axis over several devices
     top_k: int = 0             # engine move pruning (0 = full nbhd; D9)
-    n_starts: int = 1          # engine restarts (D9; <= 2 ported)
+    n_starts: int = 1          # engine restarts (D9)
     horizon: int = 1           # predicted slots per plan (1 = snapshot; D10)
     switch_cost: float = 0.0   # weighted-cost charge per handover (D10)
-    ladder: object = None      # CompressionLadder (D11; not ported)
-    topology_period: int = 0   # edge-topology redesign period (D12; not
-    #                            ported)
-    topology: object = None
+    ladder: object = None      # CompressionLadder: >= 2 rungs makes
+    #                            per-user compression a decision var (D11)
+    topology_period: int = 0   # redesign the edge topology every P ticks
+    #                            (0 = off; needs a fleet with an edge_mask,
+    #                            D12)
+    topology: object = None    # TopologyConfig of the redesign (None =
+    #                            defaults; edge_cost lives here)
 
 
 class TickRecord(NamedTuple):
@@ -78,7 +85,7 @@ class TickRecord(NamedTuple):
     tick_ms: float
     drift: fdrift.DriftReport | None
     handovers: int = 0         # active users whose edge changed this tick
-    topo_moves: int = 0        # topology moves accepted (always 0 here)
+    topo_moves: int = 0        # topology moves accepted this tick (D12)
 
 
 class PlanningService:
@@ -95,27 +102,18 @@ class PlanningService:
                  planner: FleetPlanner | None = None,
                  spec: ScenarioSpec | None = None, seed: int = 0,
                  devices=None, device="cuda"):
-        if cfg.horizon > 1 or cfg.switch_cost != 0.0:
-            raise NotImplementedError(
-                "rolling-horizon service mode (DESIGN.md D10) is not ported "
-                "to repro_torch yet")
-        if cfg.ladder is not None:
-            raise NotImplementedError(
-                "compression ladders (DESIGN.md D11) are not ported to "
-                "repro_torch yet")
-        if cfg.topology_period:
-            raise NotImplementedError(
-                "topology redesign (DESIGN.md D12) is not ported to "
-                "repro_torch yet")
         self.cfg = cfg
         self.spec = spec or ScenarioSpec()
         self.device = torch.device(device)
         self.planner = planner or FleetPlanner(
             lam=lam, cfg=sroa_cfg or sroa.SroaConfig(),
             max_rounds=cfg.max_rounds, escape_iters=cfg.escape_iters,
-            top_k=cfg.top_k, n_starts=cfg.n_starts)
+            top_k=cfg.top_k, n_starts=cfg.n_starts, ladder=cfg.ladder)
         self.lam = self.planner.lam
         self.sroa_cfg = self.planner.cfg
+        # An explicit planner wins: its ladder is the one every solve uses.
+        self.ladder = self.planner.ladder
+        self._comp_on = fengine._comp_enabled(self.ladder)
         self.devices = fshard.cell_devices(devices) if cfg.shard else None
         fleet = fleet.to(self.device)
         self.state = dynamics.init_fleet_state(
@@ -129,22 +127,53 @@ class PlanningService:
         self._bootstrap()
 
     # -------------------------------------------------------------- engine
-    def _engine(self, fleet, init_assigns):
+    def _horizon_mode(self) -> bool:
+        return self.cfg.horizon > 1 or self.cfg.switch_cost != 0.0
+
+    def _engine(self, fleet, init_assigns, rows=None, init_comps=None,
+                tail_inits=None):
+        gs = inc = None
+        sc = 0.0
+        if self._horizon_mode():
+            # MPC mode (D10): score candidates against the K-slot predicted
+            # channel and bill handovers off the deployed assignment.
+            # ``rows`` maps a sub-fleet back to its rows of the full
+            # dynamics state so the rollout extrapolates the right users.
+            gs = torch.as_tensor(dynamics.predict_fleet_rollout(
+                fleet, self.state, self.cfg.horizon, cfg=self.cfg.stream,
+                rows=rows), device=self.device)
+            if init_assigns is not None:
+                # A cold bootstrap has nothing deployed: no switching cost.
+                inc = init_assigns
+                sc = float(self.cfg.switch_cost)
         return fshard.solve_fleet_sharded(
             fleet, init_assigns, self.lam, self.sroa_cfg,
             self.cfg.max_rounds, self.cfg.escape_iters,
             devices=self.devices, top_k=self.cfg.top_k,
-            n_starts=self.cfg.n_starts)
+            n_starts=self.cfg.n_starts, gain_stacks=gs, switch_cost=sc,
+            incumbents=inc, ladder=self.ladder, init_comps=init_comps,
+            tail_inits=tail_inits)
 
     def _reprice(self) -> sroa.SroaResult:
         """Batched SROA of the current assignments under the live channel."""
         res = self.planner.allocate_fleet(
-            self.fleet, torch.as_tensor(self.assigns, device=self.device))
+            self.fleet, torch.as_tensor(self.assigns, device=self.device),
+            torch.as_tensor(self.comps, device=self.device)
+            if self._comp_on else None)
         return sroa.SroaResult(*(_host(x) for x in res))
 
     def _bootstrap(self) -> None:
         out = self._engine(self.fleet, None)
         self.assigns = _host(out.assign).copy()
+        # Deployed compression levels ride with the assignments (level 0,
+        # uncompressed, when the ladder is off).
+        self.comps = _host(out.comp).copy()
+        # Receding-horizon warm-start stash (D10): each cell's previous
+        # winning window pattern, fed to the next replan as one extra
+        # engine restart (so warm search never loses to cold).
+        self._tail = (self.assigns.copy()
+                      if self._horizon_mode() and self.cfg.warm_start
+                      else None)
         self.alloc = self._reprice()
         self.gain_ref = _host(self.fleet.cells.gain).astype(np.float64)
         self.R_ref = np.asarray(self.alloc.R, np.float64).copy()
@@ -159,12 +188,14 @@ class PlanningService:
             mask = self.state.active[i]
             row = Scenario(*(None if x is None else x[i] for x in cells))
             key = scenario_digest(row, self.lam,
-                                  None if mask.all() else mask)
+                                  None if mask.all() else mask,
+                                  extra=self.planner._ladder_extra)
             plan = PlanResult(
                 assign=self.assigns[i].copy(), b=self.alloc.b[i],
                 f=self.alloc.f[i], p=self.alloc.p[i],
                 R=float(self.alloc.R[i]), t=float(self.alloc.t[i]),
-                cached=False, solve_calls=0, plan_ms=0.0, comp=None)
+                cached=False, solve_calls=0, plan_ms=0.0,
+                comp=self.comps[i].copy() if self._comp_on else None)
             self.planner._insert(key, plan)
 
     # -------------------------------------------------------------- replan
@@ -172,7 +203,7 @@ class PlanningService:
                 ev: dynamics.FleetEvents | None) -> None:
         """One engine call re-searching exactly the drifted cells."""
         sub = self.fleet.index(idx)
-        init = None
+        init = icomp = None
         if self.cfg.warm_start:
             init = self.assigns[idx].copy()
             if ev is not None and ev.arrived[idx].any():
@@ -182,8 +213,56 @@ class PlanningService:
                 init = np.where(ev.arrived[idx], ne, init)
             init = torch.as_tensor(init, dtype=torch.int32,
                                    device=self.device)
-        out = self._engine(sub, init)
+            if self._comp_on:
+                # Arrivals start uncompressed; survivors keep their level.
+                ic = self.comps[idx].copy()
+                if ev is not None:
+                    ic = np.where(ev.arrived[idx], 0, ic)
+                icomp = torch.as_tensor(ic, dtype=torch.int32,
+                                        device=self.device)
+        # Receding-horizon warm start (D10): the previous window's winner
+        # rides as one extra restart row (the engine re-homes it off closed
+        # edges), so warm MPC search never loses to a cold one.
+        tails = (torch.as_tensor(self._tail[idx], device=self.device)
+                 if self._tail is not None else None)
+        out = self._engine(sub, init, rows=idx, init_comps=icomp,
+                           tail_inits=tails)
         self.assigns[idx] = _host(out.assign)
+        self.comps[idx] = _host(out.comp)
+        if self._tail is not None:
+            self._tail[idx] = self.assigns[idx]
+
+    # ------------------------------------------------------------- topology
+    def _redesign_topology(self) -> int:
+        """Slow-timescale edge redesign (D12): rerun the bilevel search.
+
+        Runs :func:`repro_torch.fleet.topology.design_topology` from the
+        current mask and assignments (a warm bilevel restart), installs the
+        winning mask on the live fleet and refreshes plans and caches for
+        every cell whose topology changed.  Returns the accepted moves.
+        """
+        from repro_torch.fleet import topology as ftopo
+        tcfg = self.cfg.topology or ftopo.TopologyConfig()
+        old = _host(self.fleet.cells.edge_mask).astype(bool)
+        res = ftopo.design_topology(
+            self.fleet, self.lam, self.sroa_cfg, tcfg,
+            init_assigns=self.assigns, max_rounds=self.cfg.max_rounds,
+            escape_iters=self.cfg.escape_iters, top_k=self.cfg.top_k,
+            n_starts=self.cfg.n_starts)
+        moved = np.flatnonzero((res.edge_mask != old).any(axis=1))
+        if moved.size:
+            self.fleet = res.fleet
+            self.assigns[moved] = res.assigns[moved]
+            if self._tail is not None:
+                self._tail[moved] = res.assigns[moved]
+            # New sites mean new geometry references: reset the drift
+            # baseline so the redesign itself does not read as drift.
+            self.alloc = self._reprice()
+            self.gain_ref[moved] = _host(self.fleet.cells.gain).astype(
+                np.float64)[moved]
+            self.R_ref[moved] = np.asarray(self.alloc.R, np.float64)[moved]
+            self._install_cache(moved)
+        return len(res.history)
 
     # ---------------------------------------------------------------- serve
     def submit(self) -> PlanRequest:
@@ -203,6 +282,14 @@ class PlanningService:
             self.fleet, self.state, ev = dynamics.fleet_step(
                 self.fleet, self.state, self.rng, cfg=self.cfg.stream,
                 spec=self.spec, cell_mask=cm)
+
+        # Slow-timescale topology redesign (D12): every P ticks, reopen the
+        # edge placement question under the drifted geometry.
+        topo_moves = 0
+        if (self.cfg.topology_period and self.tick_idx > 0
+                and self.tick_idx % self.cfg.topology_period == 0
+                and self.fleet.cells.edge_mask is not None):
+            topo_moves = self._redesign_topology()
 
         gain_now = _host(self.fleet.cells.gain).astype(np.float64)
         alloc = self._reprice()
@@ -242,7 +329,7 @@ class PlanningService:
             "R": R_now.tolist(),
             "assign": self.assigns.tolist(),
             "replanned": sorted(replanned),
-            "comp": None,
+            "comp": self.comps.tolist() if self._comp_on else None,
             "cached": [i not in replanned for i in range(C)],
             "drift_channel": report.channel.tolist(),
             "plan_ms": tick_ms,
@@ -262,18 +349,20 @@ class PlanningService:
                          & active).sum())
         tiers = _host(self.fleet.cells.tier)
         tier_replans = (tiers[idx][active[idx]] if idx.size else None)
+        comp_levels = self.comps[active] if self._comp_on else None
         self.telemetry.record_tick(
             n_cells=C, n_changed=changed, n_replanned=idx.size,
             engine_calls=engine_calls, alloc_calls=alloc_calls,
             sum_R=sum_R, tick_ms=tick_ms, drift_scores=report.channel,
             objective_scores=report.objective, coalesced=coalesced,
-            handovers=handovers, tier_replans=tier_replans)
+            handovers=handovers, tier_replans=tier_replans,
+            comp_levels=comp_levels)
         rec = TickRecord(tick=self.tick_idx, changed=changed,
                          replanned=np.asarray(idx),
                          engine_calls=engine_calls, sum_R=sum_R,
                          served=served, coalesced=coalesced,
                          tick_ms=tick_ms, drift=report,
-                         handovers=handovers)
+                         handovers=handovers, topo_moves=topo_moves)
         self.tick_idx += 1
         return rec
 

@@ -48,21 +48,27 @@ def solve_fleet_sharded(fleet: fbatch.FleetScenario, init_assigns=None,
     """Fleet-wide assignment search, split over ``devices`` when given.
 
     ``devices`` is a list of at least two torch devices (see
-    :func:`cell_devices`); None runs the single-device path.
+    :func:`cell_devices`); None runs the single-device path.  The per-cell
+    operands of the horizon (``gain_stacks`` (C, K, N, M), ``incumbents``),
+    the compression search (``init_comps``) and the warm starts
+    (``tail_inits``) split with the cells.
     """
     kw = dict(lam=lam, cfg=cfg, max_rounds=max_rounds,
               escape_iters=escape_iters, top_k=top_k, n_starts=n_starts,
-              gain_stacks=gain_stacks, switch_cost=switch_cost,
-              incumbents=incumbents, ladder=ladder, init_comps=init_comps,
-              tail_inits=tail_inits)
+              switch_cost=switch_cost, ladder=ladder)
+    per_cell = dict(gain_stacks=gain_stacks, incumbents=incumbents,
+                    init_comps=init_comps, tail_inits=tail_inits)
     if not devices or len(devices) < 2:
-        return fengine.solve_fleet_assignments(fleet, init_assigns, **kw)
+        return fengine.solve_fleet_assignments(fleet, init_assigns, **kw,
+                                               **per_cell)
     if init_assigns is None:
         init_assigns = fbatch.fleet_assignments(fleet)
     init = torch.as_tensor(init_assigns, dtype=torch.int32,
                            device=fleet.device)
     lam_v = torch.broadcast_to(torch.as_tensor(
         lam, dtype=torch.float32, device=fleet.device), (fleet.C,))
+    per_cell = {k: None if v is None else torch.as_tensor(
+        v, device=fleet.device) for k, v in per_cell.items()}
     chunks = torch.arange(fleet.C, device=fleet.device).tensor_split(
         len(devices))
     outs = []
@@ -70,6 +76,8 @@ def solve_fleet_sharded(fleet: fbatch.FleetScenario, init_assigns=None,
         if idx.numel() == 0:
             continue
         kw["lam"] = lam_v[idx].to(dev)
+        part = {k: None if v is None else v[idx].to(dev)
+                for k, v in per_cell.items()}
         outs.append(fengine.solve_fleet_assignments(
-            fleet.index(idx).to(dev), init[idx].to(dev), **kw))
+            fleet.index(idx).to(dev), init[idx].to(dev), **kw, **part))
     return _concat(outs, fleet.device)

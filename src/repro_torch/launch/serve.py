@@ -22,14 +22,21 @@ coalesced Poisson request load:
 through the host-driven batched-TSIA loop rather than the engine (and
 implies ``--no-stream``).
 
-The flags are the JAX entry point's; ``--device`` picks the card (default
-``cuda``) or the CPU.  SROA runs fused at the caps 30/24/20/28, one launch
-of kernel K2 per batch, where the JAX entry point runs the jnp nest at the
-same caps.  The LM path attends with ``ArchConfig.attn_impl``
-(``"chunked"``; a caller of :func:`run_lm` picks K4 with ``"pallas"``).
-The planning extensions that are not ported yet (``--horizon``,
-``--switch-cost``, ``--compression``, ``--topology-period``, ``--m-cand``)
-exit with a message.
+The planner's extended decision space takes the JAX entry point's flags:
+``--n-starts`` restarts, ``--horizon K --switch-cost c`` (rolling-horizon
+planning), ``--compression [--topk-frac f]`` (per-user compression
+ladders, usually with ``--tiers``) and ``--m-cand M --topology-period P
+--edge-cost e`` (M candidate sites a cell, ``--cell-edges`` of them open,
+redesigned every P ticks):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode plan \
+      --cells 8 --rounds 4 --horizon 4 --switch-cost 100 --device cuda
+
+``--device`` picks the card (default ``cuda``) or the CPU.  SROA runs
+fused at the caps 30/24/20/28, one launch of kernel K2 per batch, where the
+JAX entry point runs the jnp nest at the same caps.  The LM path attends
+with ``ArchConfig.attn_impl`` (``"chunked"``; a caller of :func:`run_lm`
+picks K4 with ``"pallas"``).
 """
 from __future__ import annotations
 
@@ -71,52 +78,97 @@ def _parse_tiers(s: str) -> tuple:
     return tuple(tiers)
 
 
-def _draw_serve_fleet(args):
+def _serve_ladder(args):
+    if not args.compression:
+        return None
+    from repro_torch.fed.compression import default_ladder
+    return default_ladder(args.topk_frac)
+
+
+def _draw_serve_fleet(args, fleet=None):
+    """(spec, fleet, SROA config) of ``--mode plan``; a given ``fleet`` (of
+    the flags' edge count) replaces the draw."""
     from repro_torch.core import sroa
     from repro_torch.core.wireless import ScenarioSpec
     from repro_torch.fleet import draw_fleet
 
+    # Topology mode (D12): draw M_cand candidate sites a cell but open only
+    # --cell-edges of them; the service's periodic redesign decides which
+    # (and how many) stay open.
+    m_cand = max(args.m_cand, args.cell_edges)
     spec = dataclasses.replace(ScenarioSpec(), N=args.cell_users,
-                               M=args.cell_edges,
+                               M=m_cand,
                                tiers=_parse_tiers(args.tiers)
                                if args.tiers else ())
     n_lo = min(max(4, args.cell_users // 2), args.cell_users)
-    fleet = draw_fleet(args.seed, args.cells, spec,
-                       n_range=(n_lo, args.cell_users), device=args.device)
+    if fleet is None:
+        fleet = draw_fleet(args.seed, args.cells, spec,
+                           n_range=(n_lo, args.cell_users),
+                           device=args.device)
+    if m_cand > args.cell_edges or args.topology_period:
+        from repro_torch.fleet import topology as ftopo
+        fleet = ftopo.with_edge_mask(
+            fleet, ftopo.uniform_mask(fleet.C, m_cand, args.cell_edges))
     cfg = sroa.SroaConfig(b_iters=30, f_iters=24, p_iters=20, t_iters=28,
                           fused=True)
     return spec, fleet, cfg
 
 
-def run_service(args) -> dict:
-    """The streaming ``--mode plan`` service loop."""
+def build_service(args, fleet=None):
+    """The ``--mode plan`` service as the CLI builds it: (spec, service).
+    ``fleet`` serves a given fleet instead of the flags' draw."""
     from repro_torch.fleet.service import (DriftConfig, PlanningService,
-                                           ServiceConfig, run_load)
+                                           ServiceConfig)
 
-    spec, fleet, cfg = _draw_serve_fleet(args)
+    spec, fleet, cfg = _draw_serve_fleet(args, fleet)
+    ladder = _serve_ladder(args)
+    topo = None
+    if args.topology_period:
+        from repro_torch.fleet.topology import TopologyConfig
+        topo = TopologyConfig(edge_cost=args.edge_cost)
     svc_cfg = ServiceConfig(
         drift=DriftConfig(channel_threshold=args.drift_threshold,
                           objective_threshold=args.obj_threshold),
         event_rate=args.event_rate, replan_all=args.replan_all,
         max_rounds=args.plan_rounds, escape_iters=2,
-        top_k=args.top_k, n_starts=args.n_starts)
+        top_k=args.top_k, n_starts=args.n_starts,
+        horizon=args.horizon, switch_cost=args.switch_cost,
+        ladder=ladder, topology_period=args.topology_period,
+        topology=topo)
     mode = "replan-all" if args.replan_all else "drift-gated"
+    if args.horizon > 1 or args.switch_cost:
+        mode += (f", horizon K={args.horizon}"
+                 f" switch_cost={args.switch_cost:g}")
     if args.tiers:
         mode += f", {len(spec.tiers)} device tiers"
+    if ladder is not None:
+        mode += f", compression ladder ({len(ladder)} rungs)"
+    if args.topology_period:
+        mode += (f", topology redesign every {args.topology_period} ticks "
+                 f"(M_cand={fleet.M}, edge_cost={args.edge_cost:g})")
     print(f"[serve] fleet: {fleet.C} cells, N_max={fleet.N_max}, "
           f"M={fleet.M} (streaming control plane, {mode}, "
           f"device={args.device})")
-    t0 = time.time()
     svc = PlanningService(fleet, lam=args.lam, sroa_cfg=cfg, cfg=svc_cfg,
                           spec=spec, seed=args.seed, device=args.device)
+    return spec, svc
+
+
+def run_service(args) -> dict:
+    """The streaming ``--mode plan`` service loop."""
+    from repro_torch.fleet.service import run_load
+
+    t0 = time.time()
+    _, svc = build_service(args)
     print(f"[serve] bootstrap: sum R={float(svc.R_ref.sum()):.1f} "
           f"in {time.time() - t0:.2f}s")
 
     def on_tick(rec):
+        topo = (f", {rec.topo_moves} topo moves" if rec.topo_moves else "")
         print(f"[serve] tick {rec.tick}: {rec.changed} changed, "
               f"{rec.replanned.size} replanned, {rec.served} served "
               f"(coalesced {rec.coalesced}), sum R={rec.sum_R:.1f}, "
-              f"{rec.tick_ms:.0f}ms")
+              f"{rec.tick_ms:.0f}ms{topo}")
 
     snap = run_load(svc, ticks=args.rounds, req_per_tick=args.req_rate,
                     seed=args.seed + 7, on_tick=on_tick)
@@ -143,7 +195,8 @@ def run_planner(args) -> dict:
     planner = FleetPlanner(lam=args.lam, cfg=cfg,
                            max_rounds=args.plan_rounds, escape_iters=2,
                            use_engine=not args.host_loop,
-                           top_k=args.top_k, n_starts=args.n_starts)
+                           top_k=args.top_k, n_starts=args.n_starts,
+                           ladder=_serve_ladder(args))
 
     route = "host loop" if args.host_loop else "engine"
     print(f"[plan] fleet: {fleet.C} cells, N_max={fleet.N_max}, "
@@ -257,15 +310,6 @@ def run_lm(cfg, *, batch: int, prompt_len: int, new_tokens: int, seed: int,
             "logits": logits[:, -1], "tokens": gen_tokens}
 
 
-_NOT_PORTED = {
-    "horizon": "--horizon (rolling-horizon planning, DESIGN.md D10)",
-    "switch_cost": "--switch-cost (rolling-horizon planning, D10)",
-    "compression": "--compression (compression ladders, D11)",
-    "topology_period": "--topology-period (topology design, D12)",
-    "m_cand": "--m-cand (topology design, D12)",
-}
-
-
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--mode", default="lm", choices=("lm", "plan"))
@@ -289,17 +333,32 @@ def build_parser() -> argparse.ArgumentParser:
                          "kernel-nominated moves per round (0 = full "
                          "neighbourhood)")
     ap.add_argument("--n-starts", type=int, default=1,
-                    help="engine restarts per search (<= 2)")
-    ap.add_argument("--horizon", type=int, default=1)
-    ap.add_argument("--switch-cost", type=float, default=0.0)
-    ap.add_argument("--topology-period", type=int, default=0)
-    ap.add_argument("--edge-cost", type=float, default=0.0)
-    ap.add_argument("--m-cand", type=int, default=0)
+                    help="engine multi-start restarts per search")
+    ap.add_argument("--horizon", type=int, default=1,
+                    help="rolling-horizon slots per plan: score candidates "
+                         "against K predicted channel slots (1 = snapshot "
+                         "planning; D10)")
+    ap.add_argument("--switch-cost", type=float, default=0.0,
+                    help="weighted-cost charge per handover off the "
+                         "deployed assignment (rolling-horizon mode)")
+    ap.add_argument("--topology-period", type=int, default=0,
+                    help="streaming mode: redesign edge placement/"
+                         "activation every P ticks (0 = fixed topology; "
+                         "D12)")
+    ap.add_argument("--edge-cost", type=float, default=0.0,
+                    help="weighted-cost charge per OPEN edge site in the "
+                         "topology design objective (D12)")
+    ap.add_argument("--m-cand", type=int, default=0,
+                    help="candidate edge sites per cell; --cell-edges of "
+                         "them start open (0 = M = --cell-edges)")
     ap.add_argument("--tiers", default="",
                     help="device tiers, comma-separated "
                          "name[:cycle_mult[:size_mult[:f_scale[:prob]]]]")
-    ap.add_argument("--compression", action="store_true")
-    ap.add_argument("--topk-frac", type=float, default=0.05)
+    ap.add_argument("--compression", action="store_true",
+                    help="optimize per-user upload compression jointly "
+                         "with assignment (none/int8/top-k ladder; D11)")
+    ap.add_argument("--topk-frac", type=float, default=0.05,
+                    help="top-k fraction of the ladder's highest rung")
     ap.add_argument("--plan-rounds", type=int, default=12,
                     help="engine iteration budget per search")
     ap.add_argument("--event-rate", type=float, default=0.4,
@@ -336,10 +395,6 @@ def main(argv=None):
         return run_lm(cfg, batch=args.batch, prompt_len=args.prompt_len,
                       new_tokens=args.new_tokens, seed=args.seed,
                       device=args.device)
-    defaults = ap.parse_args(["--mode", "plan"])
-    for name, what in _NOT_PORTED.items():
-        if getattr(args, name) != getattr(defaults, name):
-            raise SystemExit(f"repro_torch: {what} is not ported yet")
     if args.no_stream or args.host_loop:
         return run_planner(args)
     return run_service(args)

@@ -72,3 +72,37 @@ def assert_bitwise(got, want, err_msg: str = "") -> None:
     np.testing.assert_array_equal(np.atleast_1d(g).view(np.uint8),
                                   np.atleast_1d(w).view(np.uint8),
                                   err_msg=err_msg)
+
+
+def assert_engine_match(got, want, rtol: float = 1e-5) -> None:
+    """Two engine results (``EngineResult`` of either package): integer
+    leaves (assignment, compression levels, round and escape counts, the
+    move trace) exactly equal, objectives to ``rtol``."""
+    for name in ("assign", "rounds", "escapes", "converged", "comp"):
+        np.testing.assert_array_equal(host(getattr(got, name)),
+                                      host(getattr(want, name)),
+                                      err_msg=name)
+    np.testing.assert_array_equal(host(got.trace.moves),
+                                  host(want.trace.moves))
+    np.testing.assert_array_equal(host(got.trace.rounds_valid),
+                                  host(want.trace.rounds_valid))
+    for name in ("R_best", "R_current"):
+        np.testing.assert_allclose(host(getattr(got.trace, name)),
+                                   host(getattr(want.trace, name)),
+                                   rtol=rtol, err_msg=name)
+    for name in ("R", "R_search"):
+        np.testing.assert_allclose(host(getattr(got, name)),
+                                   host(getattr(want, name)), rtol=rtol,
+                                   err_msg=name)
+    np.testing.assert_allclose(host(got.sroa.t), host(want.sroa.t),
+                               rtol=rtol)
+
+
+def tree_bitwise(got, want) -> None:
+    """Every leaf of two (nested) NamedTuple results bitwise equal."""
+    if isinstance(got, tuple):
+        assert type(got) is type(want)
+        for g, w in zip(got, want):
+            tree_bitwise(g, w)
+    else:
+        assert_bitwise(got, want)

@@ -500,3 +500,101 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     for a, b in ((G.cpu(), G), (G, G.cpu())):
         with pytest.raises(ValueError, match="one device"):
             ops.sroa_invert_rate(a, b, 1.0)
+
+
+def _extended_fleet(cuda, C=3, N=12, M=5, n_open=3):
+    """A tiered fleet with a candidate-site pool (the first ``n_open`` of M
+    sites open), per-user compression levels of the default ladder and a
+    3-slot predicted-gain stack: the operands the planner's extended
+    decision space feeds K2 and K3."""
+    from repro_torch.fed.compression import default_ladder
+    from repro_torch.fleet import dynamics, topology
+
+    tiers = tuple(wireless.DeviceTier(*t) for t in (
+        ("lo", 1.6, 1.0, 0.55, 0.35), ("mid",), ("hi", 0.7, 1.2, 1.5, 0.3)))
+    spec = dataclasses.replace(wireless.ScenarioSpec(), N=N, M=M,
+                               tiers=tiers)
+    fl = batch.draw_fleet(5, C, spec, n_range=(N // 2, N), device=cuda)
+    fl = topology.with_edge_mask(fl, topology.uniform_mask(C, M, n_open))
+    state = dynamics.init_fleet_state(fl, seed=5)
+    stack = torch.as_tensor(dynamics.predict_fleet_rollout(fl, state, 3),
+                            device=cuda)
+    comp = torch.as_tensor(np.random.default_rng(5).integers(
+        0, 3, (C, fl.N_max)).astype(np.int32), device=cuda)
+    return fl, stack, comp, default_ladder(0.05)
+
+
+@pytest.mark.cuda
+def test_k2_on_compression_horizon_and_mask_operands(cuda):
+    """One horizon round of the joint (assignment, compression) search on
+    a masked fleet: comp-scaled loads, predicted slots' gains and B over
+    open sites only.  K2 gives its twin's bits."""
+    fl, stack, comp, ladder = _extended_fleet(cuda)
+    cells, mask = fl.cells, fl.mask
+    assert (cells.B_open < cells.B_total).all()
+    init = engine._rehome(batch.fleet_assignments(fl), cells.edge_mask)
+    cands, comps, _ = engine._pruned_candidates_comp(cells, init, comp, mask,
+                                                     4, ladder)
+    C, A, N = cands.shape
+    K = stack.shape[1]
+    cs = expand_scenario(expand_scenario(cells, 1), 1)._replace(
+        gain=stack[:, :, None])
+    c = sroa_constants(cs, cands[:, None].expand(C, K, A, N),
+                       mask[:, None, None, :],
+                       comps[:, None].expand(C, K, A, N), ladder)
+    lead = (C, K, A)
+    args = [torch.broadcast_to(x, lead + (N,)).reshape(-1, N).contiguous()
+            for x in (c.A, c.J, c.H, c.delta, c.h, cs.f_max, cs.p_max)]
+    args += [torch.broadcast_to(x, lead).reshape(-1).contiguous()
+             for x in (cs.B_open, cs.B_open, cs.N0,
+                       torch.ones((), device=cuda), c.E_cloud_total)]
+    got = _launched("sroa_solve",
+                    lambda: ops.sroa_solve_batched(*args, **CAPS))
+    want = ref.sroa_solve_plain(*args, **CAPS)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_k3_comp_aware_H_at_M8_on_both_kernels(cuda):
+    """K3 on the comp-aware upload bits at N_max = 56, M = 8 (N*M = 448,
+    the warp kernel's S = 16): the routed call, both kernels and the twin
+    agree bit for bit."""
+    from repro_torch.kernels import topk_moves as tk
+
+    fl, _, comp, ladder = _extended_fleet(cuda, C=16, N=56, M=8, n_open=5)
+    cells = fl.cells
+    H = engine._move_H(cells, comp, ladder)
+    assert not torch.equal(H, engine._move_H(cells))
+    args = [x.contiguous() for x in (
+        cells.gain, H, cells.p_max, batch.fleet_assignments(fl), fl.mask,
+        cells.N0, cells.B_open)]
+    assert tk.topk_route(fl.N_max, 8, 8) == "warp"
+    w0 = ops.LAUNCHES["topk_moves_warp"]
+    got = _launched("topk_moves", lambda: ops.topk_move_scores(*args, k=8))
+    assert ops.LAUNCHES["topk_moves_warp"] == w0 + 1
+    blk, _ = tk.topk_moves_cuda(*args, 8, _route="block")
+    want = ref.topk_moves_plain(*args, k=8)
+    for g, b, w in zip(got, blk, want):
+        assert torch.equal(g, w) and torch.equal(b, w)
+
+
+@pytest.mark.cuda
+def test_restarts_on_the_card_give_the_cpu_integers(cuda):
+    """Four restarts (the threefry draws) over a fleet on K2 and K3: the
+    assignments, move traces and round counts of the same search on the
+    CPU's plain twins.  The objectives agree to the deadline bisection's
+    tolerance (eps2 = 1e-4): the constants and the cost model run on each
+    device's own log1p and log2, so one bisection step may branch apart."""
+    from repro_torch.core import sroa
+
+    cfg = sroa.SroaConfig(**CAPS, fused=True)
+    kw = dict(lam=1.0, cfg=cfg, max_rounds=4, escape_iters=1, top_k=4,
+              n_starts=4)
+    fl = batch.draw_fleet(3, 4, SPEC, n_range=(6, 12), device=cuda)
+    got = engine.solve_fleet_assignments(fl, **kw)
+    want = engine.solve_fleet_assignments(fl.to("cpu"), **kw)
+    for name in ("assign", "rounds", "escapes", "converged"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name))
+    assert torch.equal(got.trace.moves.cpu(), want.trace.moves)
+    torch.testing.assert_close(got.R.cpu(), want.R, rtol=1e-4, atol=0)

@@ -252,13 +252,3 @@ def test_difficulty_proxy_and_flop_model_match_jax(fleet_pair):
         for k in (0, 8):
             assert teng.candidate_search_flops(56, 5, 12, tcfg, k) == \
                 jeng.candidate_search_flops(56, 5, 12, cfg, k)
-
-
-@pytest.mark.parametrize("kw,what", [
-    (dict(n_starts=3), "n_starts > 2"),
-    (dict(gain_stack=np.zeros((2, 10, 3), np.float32)), "D10"),
-    (dict(ladder=(0, 1)), "D11"),
-])
-def test_unported_search_knobs_raise(scn10, kw, what):
-    with pytest.raises(NotImplementedError, match=what):
-        teng.solve_assignment(scenario_to_torch(scn10), cfg=TCFG, **kw)

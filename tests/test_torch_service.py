@@ -20,20 +20,24 @@ from _torch_parity import (assert_bitwise, fleet_to_torch,  # noqa: E402
                            host)
 from repro.core import sroa as jsroa  # noqa: E402
 from repro.core import wireless as jw  # noqa: E402
+from repro.fed import compression as jcomp  # noqa: E402
 from repro.fleet import batch as jb  # noqa: E402
 from repro.fleet import dynamics as jdyn  # noqa: E402
 from repro.fleet import planner as jplan  # noqa: E402
 from repro.fleet import service as jsvc  # noqa: E402
 from repro.fleet.service import drift as jdrift  # noqa: E402
 from repro.fleet.service import telemetry as jtel  # noqa: E402
+from repro.fleet import topology as jtopo  # noqa: E402
 from repro_torch.core import sroa as tsroa  # noqa: E402
 from repro_torch.core import wireless as tw  # noqa: E402
+from repro_torch.fed import compression as tcomp  # noqa: E402
 from repro_torch.fleet import dynamics as tdyn  # noqa: E402
 from repro_torch.fleet import engine as teng  # noqa: E402
 from repro_torch.fleet import planner as tplan  # noqa: E402
 from repro_torch.fleet import service as tsvc  # noqa: E402
 from repro_torch.fleet.service import drift as tdrift  # noqa: E402
 from repro_torch.fleet.service import telemetry as ttel  # noqa: E402
+from repro_torch.fleet import topology as ttopo  # noqa: E402
 
 CAPS = dict(b_iters=16, f_iters=10, p_iters=8, t_iters=10)
 JCFG = jsroa.SroaConfig(**CAPS)
@@ -210,33 +214,56 @@ def test_allocate_matches_jax_and_caches(planned):
     assert tp.allocate(tf.cell(1), a).cached
 
 
-def test_planner_routes_not_ported_yet_raise(planned):
-    """What still refuses: rolling horizons (D10) and compression ladders
-    (D11) in the planner, and ``replan`` on a horizon stack, a ladder or an
-    edge mask (D12).  ``plan``, warm-started ``plan_fleet`` and
-    ``use_engine=False`` run (``tests/test_torch_incremental.py``)."""
-    from repro_torch.fleet import incremental as tinc
+def test_planner_ladder_plans_match_jax():
+    """A planner with a compression ladder (D11): cold fleet plans carry
+    the JAX plans' levels; a warm re-plan from a PlanResult seeds the
+    search with its levels; ``allocate`` re-prices under given levels;
+    ladder plans never share a cache key with ladder-off plans."""
+    jf, tf = _fleets(seed=3)
+    kw = dict(lam=1.0, max_rounds=3, escape_iters=1, top_k=4)
+    jp = jplan.FleetPlanner(cfg=JCFG, ladder=jcomp.default_ladder(), **kw)
+    tp = tplan.FleetPlanner(cfg=TCFG, ladder=tcomp.default_ladder(), **kw)
+    want, got = jp.plan_fleet(jf), tp.plan_fleet(tf)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g.assign, w.assign)
+        np.testing.assert_array_equal(g.comp, w.comp)
+        np.testing.assert_allclose(g.R, w.R, rtol=1e-5)
+    warm_w = jp.plan_fleet(jf, warm=[want[0], None, None])
+    warm_g = tp.plan_fleet(tf, warm=[got[0], None, None])
+    assert [p.cached for p in warm_g] == [p.cached for p in warm_w]
+    for w, g in zip(warm_w, warm_g):
+        np.testing.assert_array_equal(g.comp, w.comp)
+    comp = np.full(int(tf.n_users[1]), 2, np.int32)
+    a = np.asarray(jw.nearest_edge_assignment(jf.cell(1)))
+    wa = jp.allocate(jf.cell(1), a, comp)
+    ga = tp.allocate(tf.cell(1), a, comp)
+    np.testing.assert_allclose(ga.R, wa.R, rtol=1e-5)
+    np.testing.assert_array_equal(ga.comp, comp)
+    plain = tplan.FleetPlanner(cfg=TCFG, **kw)
+    assert not plain.plan_fleet(tf)[0].cached
 
-    _, tf, _, tp, _, _ = planned
-    cell = tf.cell(0)
-    for kw in (dict(horizon=3), dict(ladder=(1,))):
-        with pytest.raises(NotImplementedError):
-            tplan.FleetPlanner(**kw)
-    with pytest.raises(NotImplementedError, match="D10"):
-        tp.plan_fleet_horizon(tf)
-    with pytest.raises(NotImplementedError, match="D10"):
-        tp.plan(cell, gain_stack=np.ones((2, cell.N, cell.M), np.float32))
-    with pytest.raises(NotImplementedError, match="D11"):
-        tp.plan(cell, warm_comp=np.zeros(cell.N, np.int32))
-    prev = np.zeros(cell.N, np.int32)
-    for kw, what in ((dict(gain_stack=np.ones((2, cell.N, cell.M))), "D10"),
-                     (dict(ladder=(1, 2)), "D11"),
-                     (dict(init_comp=prev), "D11")):
-        with pytest.raises(NotImplementedError, match=what):
-            tinc.replan(cell, prev, 1.0, TCFG, **kw)
-    masked = cell._replace(edge_mask=torch.ones(cell.M, dtype=torch.bool))
-    with pytest.raises(NotImplementedError, match="D12"):
-        tinc.replan(masked, prev, 1.0, TCFG)
+
+def test_planner_horizon_plan_matches_jax():
+    """``plan`` with a predicted stack: the warm assignment is the
+    incumbent, and the window joins the cache key."""
+    jf, tf = _fleets(seed=5)
+    kw = dict(lam=1.0, max_rounds=3, escape_iters=1, top_k=4, horizon=3,
+              switch_cost=30.0)
+    jp = jplan.FleetPlanner(cfg=JCFG, **kw)
+    tp = tplan.FleetPlanner(cfg=TCFG, **kw)
+    state = tdyn.init_fleet_state(tf, seed=2)
+    stacks = tdyn.predict_fleet_rollout(tf, state, K=3)
+    n = int(tf.n_users[0])
+    warm = np.zeros(n, np.int32)
+    want = jp.plan(jf.cell(0), warm_assign=warm,
+                   gain_stack=stacks[0, :, :n])
+    got = tp.plan(tf.cell(0), warm_assign=warm, gain_stack=stacks[0, :, :n])
+    np.testing.assert_array_equal(got.assign, want.assign)
+    np.testing.assert_allclose(got.R, want.R, rtol=1e-5)
+    assert tp.plan(tf.cell(0), warm_assign=warm,
+                   gain_stack=stacks[0, :, :n]).cached
+    assert not tp.plan(tf.cell(0), warm_assign=warm,
+                       gain_stack=stacks[0, :, :n] * 2).cached
 
 
 # -------------------------------------------------------------------- shard
@@ -323,13 +350,71 @@ def test_service_load_resolves_every_request(services):
     json.loads(ts.telemetry.emit())
 
 
-def test_service_unported_modes_raise():
-    _, tf = _fleets()
-    for kw in (dict(horizon=2), dict(switch_cost=1.0), dict(ladder=(1, 2)),
-               dict(topology_period=3)):
-        with pytest.raises(NotImplementedError):
-            tsvc.PlanningService(tf, sroa_cfg=TCFG, device="cpu",
-                                 cfg=tsvc.ServiceConfig(**kw))
+def _mode_cfg(mode: str, comp, topo) -> dict:
+    """The ServiceConfig knobs of each README planning example, with one
+    package's compression and topology modules."""
+    if mode == "restarts":
+        return dict(n_starts=4)
+    if mode == "horizon":
+        return dict(horizon=3, switch_cost=100.0)
+    if mode == "compression":
+        return dict(ladder=comp.default_ladder(0.05))
+    return dict(topology_period=1,
+                topology=topo.TopologyConfig(edge_cost=2000.0, max_rounds=2))
+
+
+@pytest.mark.parametrize("mode", ["restarts", "horizon", "compression",
+                                  "topology"])
+def test_service_extended_modes_match_jax(mode):
+    """The four planning extensions on the streaming service, 2 ticks on
+    both packages: bootstrap and replanned sets, assignments, levels,
+    handovers, topology moves and masks exact, sum R to rtol 1e-5."""
+    spec_kw = dict(N=8, M=4 if mode == "topology" else 2)
+    tiers = tuple(TIERS) if mode == "compression" else ()
+    jspec = dataclasses.replace(JSPEC, tiers=tuple(jw.DeviceTier(*t)
+                                                   for t in tiers), **spec_kw)
+    tspec = dataclasses.replace(TSPEC, tiers=tuple(tw.DeviceTier(*t)
+                                                   for t in tiers), **spec_kw)
+    jf = jb.draw_fleet(1, 3, jspec, n_range=(5, 8))
+    if mode == "topology":
+        jf = jtopo.with_edge_mask(jf, jtopo.uniform_mask(3, 4, 2))
+    tf = fleet_to_torch(jf)
+    scfg = dict(arrival_rate=0.5, departure_rate=0.05)
+    # One device each: the JAX service's mesh would span every host
+    # device the suite forces (queue 3 of ROADMAP.md), which these
+    # comparisons do not need.
+    kw = dict(SVC_KW, event_rate=0.9, max_rounds=3, shard=False)
+    js = jsvc.PlanningService(
+        jf, lam=1.0, sroa_cfg=JCFG, spec=jspec, seed=1,
+        cfg=jsvc.ServiceConfig(stream=jdyn.StreamConfig(**scfg), **kw,
+                               **_mode_cfg(mode, jcomp, jtopo)))
+    ts = tsvc.PlanningService(
+        tf, lam=1.0, sroa_cfg=TCFG, spec=tspec, seed=1, device="cpu",
+        cfg=tsvc.ServiceConfig(stream=tdyn.StreamConfig(**scfg), **kw,
+                               **_mode_cfg(mode, tcomp, ttopo)))
+    np.testing.assert_array_equal(ts.assigns, js.assigns)
+    np.testing.assert_array_equal(ts.comps, js.comps)
+    moves = 0
+    for _ in range(2):
+        j, t = js.tick(), ts.tick()
+        moves += t.topo_moves
+        np.testing.assert_array_equal(t.replanned, j.replanned)
+        assert (t.changed, t.handovers, t.topo_moves) == \
+            (j.changed, j.handovers, j.topo_moves)
+        np.testing.assert_allclose(t.sum_R, j.sum_R, rtol=1e-5)
+        np.testing.assert_array_equal(ts.assigns, js.assigns)
+        np.testing.assert_array_equal(ts.comps, js.comps)
+    assert any(r.size for r in (t.replanned, j.replanned))
+    if mode == "compression":
+        assert ts.comps.max() > 0
+        assert ts.telemetry.snapshot()["compression_hist"] == \
+            js.telemetry.snapshot()["compression_hist"]
+    if mode == "topology":
+        assert moves > 0
+        np.testing.assert_array_equal(host(ts.fleet.edge_mask),
+                                      np.asarray(js.fleet.cells.edge_mask))
+    if mode == "horizon":
+        np.testing.assert_array_equal(ts._tail, js._tail)
 
 
 def test_serve_entry_point_refuses_what_is_not_ported():
@@ -339,8 +424,76 @@ def test_serve_entry_point_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="not ported"):
         serve.main(["--mode", "lm", "--device", "cpu", "--arch",
                     "zamba2-7b"])
-    for flag in (["--horizon", "3"], ["--switch-cost", "1.0"],
-                 ["--compression"], ["--topology-period", "2"],
-                 ["--m-cand", "4"], ["--no-stream", "--horizon", "2"]):
-        with pytest.raises(SystemExit, match="not ported"):
-            serve.main(["--mode", "plan", "--device", "cpu"] + flag)
+
+
+class _Built(Exception):
+    """Raised by a stand-in PlanningService once the CLI has built its
+    arguments."""
+
+
+@pytest.mark.parametrize("flags", [
+    ["--n-starts", "4"],
+    ["--horizon", "4", "--switch-cost", "100"],
+    ["--tiers", "lo:1.6:1.0:0.55:0.35,mid,hi:0.7:1.2:1.5:0.3",
+     "--compression", "--topk-frac", "0.05"],
+    ["--cell-edges", "3", "--m-cand", "6", "--topology-period", "2",
+     "--edge-cost", "2000"],
+], ids=["restarts", "horizon", "compression", "topology"])
+def test_serve_plan_flags_build_the_jax_service(monkeypatch, flags):
+    """Each README planning example: the port's CLI hands PlanningService
+    the fleet (leaves and edge mask bitwise) and the knobs the JAX CLI
+    hands it."""
+    import repro.fleet.service as jservice
+    from repro.launch import serve as jserve
+    import repro_torch.fleet.service as tservice
+    from repro_torch.launch import serve as tserve
+
+    seen = {}
+
+    def stand_in(tag):
+        def build(fleet, **kw):
+            seen[tag] = (fleet, kw)
+            raise _Built
+        return build
+
+    monkeypatch.setattr(jservice, "PlanningService", stand_in("jax"))
+    monkeypatch.setattr(tservice, "PlanningService", stand_in("torch"))
+    argv = ["--mode", "plan", "--cells", "2", "--cell-users", "6",
+            "--cell-edges", "2"] + flags
+    with pytest.raises(_Built):
+        jserve.main(argv)
+    with pytest.raises(_Built):
+        tserve.main(argv + ["--device", "cpu"])
+    (jfl, jkw), (tfl, tkw) = seen["jax"], seen["torch"]
+    _assert_fleet_bitwise(tfl, jfl)
+    if jfl.cells.edge_mask is None:
+        assert tfl.edge_mask is None
+    else:
+        assert_bitwise(tfl.edge_mask, jfl.cells.edge_mask)
+    jc, tc = jkw["cfg"], tkw["cfg"]
+    for name in ("max_rounds", "escape_iters", "top_k", "n_starts",
+                 "horizon", "switch_cost", "topology_period", "event_rate"):
+        assert getattr(tc, name) == getattr(jc, name), name
+    assert (tc.ladder is None) == (jc.ladder is None)
+    if jc.ladder is not None:
+        assert tc.ladder.bytes_factors() == jc.ladder.bytes_factors()
+        assert tc.ladder.epoch_factors() == jc.ladder.epoch_factors()
+    assert (tc.topology is None) == (jc.topology is None)
+    if jc.topology is not None:
+        assert tc.topology.edge_cost == jc.topology.edge_cost
+    assert tkw["sroa_cfg"].fused and not jkw["sroa_cfg"].fused
+
+
+def test_serve_plan_runs_every_planning_flag_at_once():
+    """The CLI end to end on the CPU with restarts, a horizon, a ladder
+    over device tiers and a candidate-site pool, one tick."""
+    from repro_torch.launch import serve
+
+    out = serve.main(["--mode", "plan", "--device", "cpu", "--cells", "1",
+                      "--cell-users", "5", "--cell-edges", "2", "--m-cand",
+                      "3", "--rounds", "1", "--plan-rounds", "1",
+                      "--n-starts", "3", "--horizon", "2", "--switch-cost",
+                      "100", "--compression", "--tiers",
+                      "lo:1.6:1.0:0.55:0.35,mid", "--top-k", "2"])
+    assert out["stats"]["ticks"] == 1 and out["stats"]["unserved"] == 0
+    assert np.isfinite(out["sum_R"])

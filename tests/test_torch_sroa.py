@@ -158,12 +158,22 @@ def test_sroa_constants_batched_match_jax(scn, tscn, assign):
                                    err_msg=name)
 
 
-def test_effective_loads_ladder_is_not_ported_yet(tscn):
+def test_effective_loads_price_tiers_and_levels(tscn):
+    """No ladder: the tier product, bitwise.  With one: each user's level
+    scales compute by its epoch factor and the upload by its bytes factor
+    (levels past the ladder clip onto its last rung)."""
+    from repro_torch.fed.compression import default_ladder
+
     c_eff, s_eff = tsm.effective_loads(tscn)
     assert_bitwise(c_eff, tscn.c * tscn.cycle_mult)
-    with pytest.raises(NotImplementedError, match="D11"):
-        tsm.effective_loads(tscn, comp=torch.zeros(tscn.N, dtype=torch.int32),
-                            ladder=object())
+    lad = default_ladder(0.05)
+    comp = torch.arange(tscn.N, dtype=torch.int32) % 4
+    gc, gs = tsm.effective_loads(tscn, comp=comp, ladder=lad)
+    lv = comp.clamp(max=2).long()
+    ef = torch.tensor(lad.epoch_factors(), dtype=torch.float32)
+    bf = torch.tensor(lad.bytes_factors(), dtype=torch.float32)
+    assert_bitwise(gc, c_eff * ef[lv])
+    assert_bitwise(gs, s_eff * bf[lv])
 
 
 # ------------------------------------------------------ Lemma-1 inversion

@@ -16,6 +16,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax.numpy as jnp  # noqa: E402
+
 from _torch_parity import (assert_bitwise, fleet_to_torch, host,  # noqa: E402
                            scenario_to_torch, to_numpy)
 from repro.core import wireless as jw  # noqa: E402
@@ -168,11 +170,19 @@ def test_scenario_spec_validation_agrees(kw):
             mod.ScenarioSpec(tiers=(mod.DeviceTier("x", prob=0.0),))
 
 
-def test_edge_mask_is_not_ported_yet():
-    d = to_numpy(jw.draw_scenario(0, _specs(False, N=4, M=2)[0]))
-    d["edge_mask"] = np.array([True, False])
-    with pytest.raises(NotImplementedError, match="D12"):
-        tw.scenario_from_numpy(d, "cpu")
+def test_edge_mask_crosses_and_prices_as_jax():
+    """A JAX scenario with an edge mask arrives bitwise; its open
+    bandwidth and nearest-open-edge seeding equal the JAX ones."""
+    jscn = jw.draw_scenario(0, _specs(False, N=6, M=3)[0])._replace(
+        edge_mask=jnp.asarray([True, False, True]))
+    d = to_numpy(jscn)
+    tscn = tw.scenario_from_numpy(d, "cpu")
+    assert tscn.edge_mask.dtype == torch.bool
+    assert_bitwise(tscn.edge_mask, d["edge_mask"])
+    assert_bitwise(tscn.B_open, jscn.B_open)
+    assert_bitwise(tw.nearest_edge_assignment(tscn),
+                   jw.nearest_edge_assignment(jscn))
+    tw.validate_scenario(tscn)
 
 
 def test_entry_points_default_to_cuda():
