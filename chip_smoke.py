@@ -102,9 +102,23 @@ h. The planner's extended decision space (lines ``[h]``, run after phase
    (82 problems: comp-scaled loads, a predicted slot's gains, B over open
    sites) and K3 on the comp-aware upload bits at M = 8 (the routed call
    and both kernels) are held bitwise to their twins.
+f. The paper's training pipeline (lines ``[f]``, run after phase h): (a)
+   ``launch.train.main`` on imagenette (the widest CNN, s = 899,912 bytes)
+   at the paper's N = 50, M = 5 for 10 global iterations on the card
+   (TSIA on K2 at full caps: one lanes-kernel launch a score, its R
+   ``evaluate``'s at rtol 1e-5; the straggler deadline; Algorithm 1 with
+   the users batched; the final accuracy above the first), then
+   ``--iters 12 --resume``, which must start at step 10; (b) one
+   ``global_iteration`` on the card and on the CPU on the same inputs,
+   with users dropped and one edge's users all dropped: every leaf within
+   1e-4 of its max |leaf| (the card against itself too), and top-k 0.05 +
+   int8 compression of the same update bitwise on both devices; (c) one
+   traced global iteration: device time, busy share, the five longest
+   kernels and the device events a global iteration.
 9. Launch counts of the main paths (every count reset to 0 right before
-   a path and read right after it; phase t's and phase h's paths as each
-   kernel's ``launches_tsia_path`` and ``launches_h_path``), each
+   a path and read right after it; phase t's, phase h's and phase f's
+   paths as each kernel's ``launches_tsia_path``, ``launches_h_path`` and
+   ``launches_train_path``), each
    kernel's time beside its plain
    version's, its bound and its library call, then the card and the
    result line; every K3 launch of the planning path must take the warp
@@ -360,10 +374,14 @@ def _max_abs_err(got, want) -> float:
     return max(errs) if errs else 0.0
 
 
-def _profile(tag: str, what: str, fn) -> list:
+def _profile(tag: str, what: str, fn, stats: dict | None = None) -> list:
     """Run ``fn`` once under ``torch.profiler``; print device time by
-    kernel and the device's busy share of the traced wall time.  Returns
-    the (ms, count, name) rows, largest first."""
+    kernel and the device's busy share of the traced wall time: the time
+    some device event is running (kernels that overlap on several streams,
+    as cuDNN's per-group kernels do, count once) over the wall.  Returns
+    the (ms, count, name) rows, largest first; ``stats``, when given,
+    receives the wall ms, the summed device ms, the busy (union) ms and
+    the device events."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
@@ -386,11 +404,22 @@ def _profile(tag: str, what: str, fn) -> list:
         if us > 0:
             rows.append((us / 1e3, evt.count, evt.key))
     rows.sort(reverse=True)
-    busy_ms = sum(r[0] for r in rows)
-    print(f"{tag} {what}: {wall_ms:.2f} ms wall, {busy_ms:.2f} "
+    device_ms = sum(r[0] for r in rows)
+    spans = sorted((evt.time_range.start, evt.time_range.end)
+                   for evt in prof.events()
+                   if evt.device_type != DeviceType.CPU)
+    busy_us, end = 0.0, -math.inf
+    for a, b in spans:
+        busy_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+    if stats is not None:
+        stats.update(wall_ms=wall_ms, device_ms=device_ms,
+                     union_ms=busy_us / 1e3, events=len(spans))
+    print(f"{tag} {what}: {wall_ms:.2f} ms wall, {device_ms:.2f} "
           f"ms device time in {sum(r[1] for r in rows)} device events "
-          f"({len(rows)} names); busy share "
-          f"{busy_ms / wall_ms if rows else float('nan'):.4f}")
+          f"({len(rows)} names), the device busy {busy_us / 1e3:.2f} ms; "
+          f"busy share "
+          f"{busy_us / 1e3 / wall_ms if rows else float('nan'):.4f}")
     for ms, n, name in rows[:12]:
         print(f"{tag}   {ms:10.3f} ms  {n:6d} x  {name[:90]}")
     if not rows:
@@ -1269,6 +1298,169 @@ def _plan_extensions_path(dev) -> dict:
             "seconds": seconds}
 
 
+# Phase f: the paper's training pipeline through its entry point at the
+# paper's §VI-A size (N = 50 users, M = 5 edges) on the widest of its CNNs.
+TRAIN_ARGV = ["--dataset", "imagenette", "--users", "50", "--edges", "5",
+              "--device", "cuda"]
+TRAIN_ITERS = 10
+# The card against the CPU, per leaf: max |delta| <= TRAIN_TOL * max |leaf|
+# (float32 on both, in other summation orders; cuDNN may add its weight
+# gradients atomically, so the card is not bitwise even against itself).
+TRAIN_TOL = 1e-4
+
+
+def _train_path(dev) -> dict:
+    """Phase f: ``launch.train.main`` (TSIA on K2, the straggler deadline,
+    Algorithm 1 over the imagenette CNN with users batched) for 10 global
+    iterations, then resumed to 12; one global iteration on the card and
+    on the CPU on the same inputs, a participation mask that drops users
+    and empties an edge; the uplink compression on both devices; one
+    traced global iteration.  Returns the launch counts of the two
+    pipeline runs."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.system_model import evaluate
+    from repro_torch.data import (DATASET_SHAPES, make_dataset,
+                                  partition_to_users)
+    from repro_torch.fed import hfl
+    from repro_torch.launch import train
+    from repro_torch.models import cnn
+
+    t_phase = time.perf_counter()
+    path: dict = {}
+    with tempfile.TemporaryDirectory() as ckpt:
+        # (a) The pipeline, then a resumed run.
+        argv = TRAIN_ARGV + ["--iters", str(TRAIN_ITERS), "--ckpt-dir", ckpt]
+        run, counts = _counted(lambda: train.main(argv))
+        _add(path, counts)
+        plan, rep = run.plan, run.report
+        scores = len(plan.history.R_trace) + 1      # stage 2 rescores once
+        _check(counts["sroa_solve"] == scores,
+               f"{counts['sroa_solve']} K2 launches for {scores} TSIA "
+               f"scores")
+        _check(counts["sroa_solve_lanes"] == counts["sroa_solve"],
+               "a plan-time K2 launch took the one-warp-per-problem kernel")
+        res = plan.sroa
+        cb = evaluate(run.scenario, torch.as_tensor(plan.assign, device=dev),
+                      res.b, res.f, res.p, 1.0)
+        _check(math.isclose(float(cb.R), plan.R, rel_tol=1e-5),
+               f"plan R {plan.R} is not evaluate's {float(cb.R)}")
+        acc = run.history["acc"]
+        _check(len(acc) == TRAIN_ITERS and all(map(math.isfinite, acc)),
+               "accuracy history")
+        _check(acc[-1] > acc[0], f"accuracy fell: {acc}")
+        ms_iter = rep["train_wall_s"] * 1e3 / TRAIN_ITERS
+        print(f"[f] (a) train {' '.join(argv[:-2])}: plan "
+              f"{rep['plan_s'] * 1e3:.1f} ms, {scores} TSIA scores "
+              f"({rep['plan_s'] * 1e3 / scores:.4g} ms a score), K2 "
+              f"launches {counts['sroa_solve']} (lanes "
+              f"{counts['sroa_solve_lanes']}); R {plan.R:.6g} == "
+              f"evaluate's {float(cb.R):.6g}; deadline {run.deadline:.6g} "
+              f"s; {ms_iter:.2f} ms a global iteration (with evaluation "
+              f"and checkpoint); accuracy {json.dumps(acc)}")
+        argv2 = TRAIN_ARGV + ["--iters", str(TRAIN_ITERS + 2), "--resume",
+                              "--ckpt-dir", ckpt]
+        run2, counts2 = _counted(lambda: train.main(argv2))
+        _add(path, counts2)
+        _check(run2.history["iter"] == [TRAIN_ITERS, TRAIN_ITERS + 1]
+               and run2.report["global_iters"] == 2,
+               f"the resumed run ran iterations {run2.history['iter']}")
+        _check(counts2["sroa_solve_lanes"] == counts2["sroa_solve"] > 0,
+               "resumed run: K2 off the lanes kernel")
+        print(f"[f] (a) --iters {TRAIN_ITERS + 2} --resume: started at step "
+              f"{TRAIN_ITERS}, accuracy {json.dumps(run2.history['acc'])}")
+
+    # (b) One global iteration on the card and on the CPU, same inputs.
+    cfg = cnn.PAPER_CNNS["imagenette"]
+    scn = run.scenario
+    N, M = scn.N, scn.M
+    ds = make_dataset("imagenette", n_train=4000, n_test=800,
+                      shape=DATASET_SHAPES["imagenette"], seed=0)
+    x_u, y_u, mask, sizes = partition_to_users(
+        ds.x_train, ds.y_train, np.asarray(scn.D.cpu().numpy(), int),
+        seed=0)
+    assign = np.asarray(plan.assign)
+    part = np.ones(N, np.float32)
+    part[::7] = 0.0                                    # dropped users
+    occupied = np.flatnonzero(np.bincount(assign, minlength=M))
+    empty = int(occupied[np.argmin(np.bincount(assign)[occupied])])
+    part[assign == empty] = 0.0                        # an edge emptied
+    hcfg = hfl.HflConfig(L=2, K=2, lr=0.2)
+
+    def inputs(device):
+        d = torch.device(device)
+        onehot = torch.nn.functional.one_hot(
+            torch.as_tensor(assign, dtype=torch.long), M).float()
+        return (cnn.tree_map(lambda t: t.detach().to(d), run.weights),
+                *(torch.as_tensor(a).to(d) for a in (x_u, y_u, mask)),
+                torch.as_tensor(sizes, dtype=torch.float32).to(d),
+                onehot.to(d), torch.as_tensor(part).to(d))
+
+    on = {d: inputs(d) for d in ("cuda", "cpu")}
+
+    def iteration(device):
+        return hfl.global_iteration(cfg, hcfg, *on[device])
+
+    card, card2 = iteration("cuda"), iteration("cuda")
+    t0 = time.perf_counter()
+    host = iteration("cpu")
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    errs = {}
+    for (layer, k), g, g2, c in zip(
+            [(la, k) for la in sorted(host) for k in sorted(host[la])],
+            cnn.tree_leaves(card), cnn.tree_leaves(card2),
+            cnn.tree_leaves(host)):
+        scale = float(c.abs().max())
+        err = float((g.cpu() - c).abs().max())
+        again = float((g - g2).abs().max())
+        errs[f"{layer}/{k}"] = dict(err=err, card_again=again, scale=scale)
+        _check(err <= TRAIN_TOL * scale and again <= TRAIN_TOL * scale,
+               f"{layer}/{k}: card {err:.3g} from the CPU, {again:.3g} from "
+               f"itself, past {TRAIN_TOL} x {scale:.3g}")
+    ctol = hfl.HflConfig(topk_frac=0.05, int8=True)
+    gen = torch.Generator().manual_seed(0)
+    upd = cnn.tree_map(lambda t: 0.01 * torch.randn(
+        (N,) + tuple(t.shape), generator=gen), on["cpu"][0])
+    c_host = hfl._compress_update(ctol, upd)
+    c_card = hfl._compress_update(ctol, cnn.tree_map(
+        lambda t: t.to(dev), upd))
+    for a, b in zip(cnn.tree_leaves(c_card), cnn.tree_leaves(c_host)):
+        _check(torch.equal(a.cpu().view(torch.int32), b.view(torch.int32)),
+               "the compressed update differs between the card and the CPU")
+    card_ms = _time_ms(lambda: iteration("cuda"), 5)
+    print(f"[f] (b) one global iteration (imagenette, N = {N}, M = {M}, "
+          f"K = L = 2; users {np.flatnonzero(part == 0).tolist()} dropped, "
+          f"edge {empty} emptied): card {card_ms:.3f} ms (events), CPU "
+          f"{cpu_ms:.1f} ms; max |card - CPU| / max |leaf| "
+          f"{max(e['err'] / e['scale'] for e in errs.values()):.3g}, card "
+          f"run to run {max(e['card_again'] / e['scale'] for e in errs.values()):.3g} "
+          f"(tolerance {TRAIN_TOL}); top-k 0.05 + int8 compression bitwise "
+          f"on both devices; {json.dumps(errs)}")
+
+    # (c) One traced global iteration.
+    stats: dict = {}
+    rows = _profile("[f]", "(c) one traced global iteration",
+                    lambda: iteration("cuda"), stats)
+    launches = sum(r[1] for r in rows if not r[2].startswith("Mem"))
+    print(f"[f] (c) {launches} kernel launches a global iteration (of "
+          f"{stats['events']} device events); the device busy "
+          f"{stats['union_ms']:.2f} of {stats['wall_ms']:.2f} ms (busy "
+          f"share {_fmt(_div(stats['union_ms'], stats['wall_ms']), '.4f')}; "
+          f"kernel times summed {stats['device_ms']:.2f} ms); five longest "
+          f"kernels: " + "; ".join(
+              f"{name[:60]} {ms:.3f} ms x {n}" for ms, n, name in rows[:5]))
+    seconds = time.perf_counter() - t_phase
+    print(f"[f] phase f: {seconds:.1f} s; launches {json.dumps(path)}")
+    return {"counts": path, "scores": scores, "plan_ms": rep["plan_s"] * 1e3,
+            "ms_per_iter": ms_iter, "acc": acc, "card_ms": card_ms,
+            "cpu_ms": cpu_ms, "errs": errs, "trace": dict(stats, launches=
+                                                          launches),
+            "seconds": seconds}
+
+
 def _lm_path(dev) -> dict:
     """Phase 8: the LM serving path on K4 and on the chunked route."""
     import numpy as np
@@ -1738,6 +1930,9 @@ def main(argv: list[str]) -> int:
     # ---- phase h: restarts, horizon, compression, topology -------------
     hp = _plan_extensions_path(dev)
 
+    # ---- phase f: the training pipeline --------------------------------
+    fp = _train_path(dev)
+
     # ---- phase 9: launch counts and times ------------------------------
     # Four kernels lie on no path: K5 (no model calls it), K4's SIMT
     # kernel (the route for f32 and hd > 128; the LM path is bf16, hd 64)
@@ -1777,6 +1972,11 @@ def main(argv: list[str]) -> int:
     for name in ("sroa_solve_lanes", "topk_moves_warp"):
         _check(h_counts[name] > 0, f"{name} never launched on phase h's "
                f"path")
+    f_counts = _by_kernel(fp["counts"])
+    print(f"[9] kernels on phase f's path (the training pipeline): "
+          f"{json.dumps(f_counts)}")
+    _check(f_counts["sroa_solve_lanes"] > 0,
+           "sroa_solve_lanes never launched on phase f's path")
     for name, n in counts.items():
         _check(n > 0 or name in ("rmsnorm", "flash_attention",
                                  "sroa_solve", "topk_moves"),
@@ -1784,6 +1984,7 @@ def main(argv: list[str]) -> int:
         report[name]["launches"] = n
         report[name]["launches_tsia_path"] = tsia_counts[name]
         report[name]["launches_h_path"] = h_counts[name]
+        report[name]["launches_train_path"] = f_counts[name]
         r = report[name]
         lib = (f", library {r['library_ms']:.4g} ms"
                if r["library_ms"] is not None else "")
@@ -1809,6 +2010,14 @@ def main(argv: list[str]) -> int:
         f"{k} {r['plans_per_s']:.4g} plans/s, p50 {r['tick_ms']['p50']:.4g} "
         f"ms, K2 {_fmt(r['traced']['k2_ms_a_launch'])} ms a launch"
         for k, r in hp["runs"].items()) + f" ({hp['seconds']:.1f} s)")
+    tr = fp["trace"]
+    print(f"[9] phase f: plan {fp['plan_ms']:.1f} ms ({fp['scores']} K2 "
+          f"launches), {fp['ms_per_iter']:.2f} ms a global iteration in the "
+          f"pipeline, {fp['card_ms']:.3f} ms alone (CPU {fp['cpu_ms']:.1f} "
+          f"ms); traced: the device busy {tr['union_ms']:.2f} of "
+          f"{tr['wall_ms']:.2f} ms, busy share "
+          f"{_fmt(_div(tr['union_ms'], tr['wall_ms']), '.4f')}, "
+          f"{tr['launches']} kernel launches ({fp['seconds']:.1f} s)")
     fl = lm["flash"]
     L = lm["n_layers"]
     k4_dev = report["flash_attention_sm90"]["device_ms"]

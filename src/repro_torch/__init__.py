@@ -5,9 +5,14 @@ Same layout and public names as ``repro``: :mod:`repro_torch.core` (scenario
 model, cost model, SROA), :mod:`repro_torch.fleet` (batched SROA, the
 assignment engine, dynamics, the planner, rolling horizons, topology
 design and the streaming service), :mod:`repro_torch.fed` (the upload
-compression ladder),
-:mod:`repro_torch.kernels` (the hand-written Hopper kernels and their plain
-PyTorch versions) and :mod:`repro_torch.launch` (the ``serve`` entry point).
+compression ladder and uplink transforms, Algorithm 1 batched over users,
+straggler deadlines), :mod:`repro_torch.data` (synthetic datasets and
+federated partitions), :mod:`repro_torch.models` (the paper's CNNs and the
+dense transformer family), :mod:`repro_torch.ckpt` (checkpoints in the JAX
+package's format), :mod:`repro_torch.runtime` (failure detection and
+recovery), :mod:`repro_torch.kernels` (the hand-written Hopper kernels and
+their plain PyTorch versions) and :mod:`repro_torch.launch` (the ``serve``
+and ``train`` entry points).
 
 Every entry point takes an explicit ``device=`` (default ``"cuda"``); the CPU
 is used only when asked for, and then every kernel wrapper runs its plain

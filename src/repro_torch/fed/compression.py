@@ -8,14 +8,87 @@ the on-wire size of an upload under a compression setting, and a
 levels the engine searches over jointly with the assignment (DESIGN.md
 D11).
 
-The top-k and int8 transforms of the updates themselves belong to the
-federated-training path and are not here.
+The uplink transforms themselves are here too: top-k sparsification with
+error feedback (:func:`topk_compress`) and symmetric int8 quantization
+(:func:`int8_quantize`, :func:`int8_dequantize`).  An update is a (nested)
+dict of tensors; each leaf is compressed on its own.  ``batch_dims``
+leading axes of every leaf (the users, in :mod:`repro_torch.fed.hfl`) are
+independent updates, each with its own top-k threshold or int8 scale, as
+the JAX package's ``vmap`` over users gives.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
+import torch
+
+from repro_torch.models.cnn import tree_map as _tree_map
+
+
+def _per_update(x: torch.Tensor, batch_dims: int) -> torch.Tensor:
+    """``x`` as (updates, entries): the leading ``batch_dims`` axes are
+    the updates."""
+    return x.reshape(int(np.prod(x.shape[:batch_dims])), -1)
+
+
+def topk_mask(u: torch.Tensor, frac: float, batch_dims: int = 0):
+    """1 where ``|u| >= sort(|u|)[-k]``, k = max(1, ceil(size * frac)), per
+    update; ties at the threshold keep more than k entries."""
+    flat = _per_update(u, batch_dims).abs()
+    k = max(1, int(np.ceil(flat.shape[1] * frac)))
+    thresh = torch.sort(flat, dim=-1).values[:, -k]
+    thresh = thresh.reshape(u.shape[:batch_dims] + (1,) * (u.ndim
+                                                           - batch_dims))
+    return (u.abs() >= thresh).to(u.dtype)
+
+
+class TopKState(NamedTuple):
+    error: dict          # per-leaf error-feedback residual
+
+
+def topk_init(params) -> TopKState:
+    return TopKState(error=_tree_map(torch.zeros_like, params))
+
+
+def topk_compress(update, state: TopKState, frac: float = 0.05):
+    """Keep the top `frac` fraction of entries per leaf (error feedback)."""
+    def one(u, e):
+        u = u + e
+        kept = u * topk_mask(u, frac)
+        return kept, u - kept
+
+    pairs = _tree_map(one, update, state.error)
+    return (_tree_map(lambda pair: pair[0], pairs),
+            TopKState(error=_tree_map(lambda pair: pair[1], pairs)))
+
+
+def int8_quantize(update, batch_dims: int = 0):
+    """Symmetric int8 quantization per leaf (and per update); returns
+    (q, scales).  The scale is ``max(max|u|, 1e-12) / 127``; u / scale
+    rounds half to even and is clipped to +-127."""
+    def scale(u):
+        amax = _per_update(u, batch_dims).abs().amax(dim=-1)
+        # A tensor divisor: CUDA divides by a Python scalar as a multiply
+        # by its reciprocal, which can miss the quotient's last bit.
+        s = torch.clamp_min(amax, 1e-12) / amax.new_tensor(127.0)
+        return s.reshape(u.shape[:batch_dims])
+
+    scales = _tree_map(scale, update)
+    q = _tree_map(
+        lambda u, s: torch.clamp(torch.round(u / _bcast(s, u)), -127,
+                                 127).to(torch.int8), update, scales)
+    return q, scales
+
+
+def int8_dequantize(q, scales):
+    return _tree_map(lambda qi, s: qi.to(torch.float32) * _bcast(s, qi),
+                     q, scales)
+
+
+def _bcast(s: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    return s.reshape(s.shape + (1,) * (like.ndim - s.ndim))
 
 
 def _leaves(params) -> list:

@@ -64,6 +64,29 @@ def params_to_torch(jax_params, cfg, device="cpu"):
     return params_from_numpy(numpy_tree(jax_params), cfg, device)
 
 
+def cnn_params_numpy(cfg, seed: int = 0, bias: float = 0.1) -> dict:
+    """Parameters of the JAX package's CNN ``cfg`` (its ``CnnConfig``) in
+    its layout, drawn with numpy: weights normal / sqrt(fan_in) as its
+    ``init_params`` draws them, biases normal x ``bias`` (0: zeros, as
+    ``init_params`` sets them).  (Eager ``jax.random`` compiles every
+    shape on the CPU, seconds a model.)"""
+    import jax
+
+    from repro.models import cnn
+
+    shapes = jax.eval_shape(lambda k: cnn.init_params(cfg, k),
+                            jax.random.PRNGKey(0))
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name in sorted(shapes):
+        w, b = shapes[name]["w"].shape, shapes[name]["b"].shape
+        fan_in = 25 * w[2] if len(w) == 4 else w[0]
+        out[name] = {
+            "w": (rng.normal(size=w) / np.sqrt(fan_in)).astype(np.float32),
+            "b": (bias * rng.normal(size=b)).astype(np.float32)}
+    return out
+
+
 def assert_bitwise(got, want, err_msg: str = "") -> None:
     """Same shape, same dtype width, same bits."""
     g, w = host(got), host(want)

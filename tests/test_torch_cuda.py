@@ -598,3 +598,93 @@ def test_restarts_on_the_card_give_the_cpu_integers(cuda):
         assert torch.equal(getattr(got, name).cpu(), getattr(want, name))
     assert torch.equal(got.trace.moves.cpu(), want.trace.moves)
     torch.testing.assert_close(got.R.cpu(), want.R, rtol=1e-4, atol=0)
+
+
+def _train_inputs(device, n=8, m=3):
+    """One global iteration's operands (fashionmnist CNN, n users on m
+    edges) on ``device``: users 1 and 4 dropped, and every user of edge 2
+    too (that edge averages to zeros and weighs 0 in the cloud)."""
+    from repro_torch.data import make_dataset, partition_to_users
+    from repro_torch.models import cnn
+
+    cfg = cnn.PAPER_CNNS["fashionmnist"]
+    ds = make_dataset("fashionmnist", n_train=400, n_test=10, seed=0)
+    sizes = np.random.default_rng(0).integers(20, 40, size=n)
+    x_u, y_u, mask, sizes = partition_to_users(ds.x_train, ds.y_train, sizes)
+    assign = np.arange(n) % m
+    part = np.ones(n, np.float32)
+    part[[1, 4]] = 0.0
+    part[assign == 2] = 0.0
+    w = cnn.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    onehot = torch.nn.functional.one_hot(torch.as_tensor(assign), m).float()
+    return cfg, tuple(
+        x.to(device) if isinstance(x, torch.Tensor) else
+        cnn.tree_map(lambda t: t.to(device), x)
+        for x in (w, torch.as_tensor(x_u), torch.as_tensor(y_u),
+                  torch.as_tensor(mask), torch.as_tensor(sizes).float(),
+                  onehot, torch.as_tensor(part)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compress", [False, True])
+def test_global_iteration_on_the_card_matches_the_cpu(cuda, compress):
+    """Float32 on both devices (TF32 off inside the trainer): every leaf
+    within 1e-4 of its max |leaf| of the CPU's, and of a second card run
+    (cuDNN's weight gradients may add in a run-dependent order)."""
+    from repro_torch.fed import hfl
+    from repro_torch.models import cnn
+
+    cfg = hfl.HflConfig(L=2, K=2, lr=0.2, topk_frac=0.05 if compress
+                        else None, int8=compress)
+    ccfg, card = _train_inputs(cuda)
+    _, host = _train_inputs("cpu")
+    got = hfl.global_iteration(ccfg, cfg, *card)
+    again = hfl.global_iteration(ccfg, cfg, *card)
+    want = hfl.global_iteration(ccfg, cfg, *host)
+    for g, a, w in zip(cnn.tree_leaves(got), cnn.tree_leaves(again),
+                       cnn.tree_leaves(want)):
+        tol = 1e-4 * float(w.abs().max())
+        assert float((g.cpu() - w).abs().max()) <= tol
+        assert float((g - a).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_compress_update_is_bitwise_on_both_devices(cuda):
+    from repro_torch.fed import hfl
+    from repro_torch.models import cnn
+
+    cfg = hfl.HflConfig(topk_frac=0.05, int8=True)
+    gen = torch.Generator().manual_seed(1)
+    upd = cnn.tree_map(lambda t: torch.randn((8,) + tuple(t.shape),
+                                             generator=gen),
+                       _train_inputs("cpu")[1][0])
+    got = hfl._compress_update(cfg, cnn.tree_map(lambda t: t.to(cuda), upd))
+    want = hfl._compress_update(cfg, upd)
+    for g, w in zip(cnn.tree_leaves(got), cnn.tree_leaves(want)):
+        assert torch.equal(g.cpu().view(torch.int32), w.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_train_main_plans_on_the_lanes_kernel(cuda, tmp_path):
+    """The pipeline on the card at a small size: every TSIA score one K2
+    launch on the lanes kernel, R the cost model's, a resumed run from
+    the last checkpoint."""
+    from repro_torch.core.system_model import evaluate
+    from repro_torch.launch import train
+
+    argv = ["--users", "8", "--edges", "3", "--device", "cuda",
+            "--ckpt-dir", str(tmp_path)]
+    ops.reset_launches()
+    run = train.main(argv + ["--iters", "2"])
+    torch.cuda.synchronize()
+    scores = len(run.plan.history.R_trace) + 1
+    assert ops.LAUNCHES["sroa_solve"] == ops.LAUNCHES["sroa_solve_lanes"] \
+        == scores
+    res = run.plan.sroa
+    cb = evaluate(run.scenario, torch.as_tensor(run.plan.assign,
+                                                device=cuda),
+                  res.b, res.f, res.p, 1.0)
+    assert abs(float(cb.R) - run.plan.R) <= 1e-5 * abs(run.plan.R)
+    assert all(np.isfinite(run.history["acc"]))
+    resumed = train.main(argv + ["--iters", "3", "--resume"])
+    assert resumed.history["iter"] == [2]
