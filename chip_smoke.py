@@ -52,7 +52,8 @@ Phases, each reported on its own lines:
    SIMT one.  At the LM shape in bf16 the tensor-core kernel is timed
    beside the SIMT kernel on the same tensors, beside
    ``scaled_dot_product_attention(is_causal=True)`` and against its bound;
-   at (1, 24, 1024, 128) beside SDPA.
+   at (1, 24, 1024, 128) and at llama4-scout's prefill shape (4, 40, 1024,
+   128) beside SDPA and its bound.
 5. K5 (fused RMSNorm) against its plain version at the LM's hidden-state
    shape (4096, 1024) in bf16 and f32, bitwise (the twin adds in the
    kernel's order and rsqrtf is torch.rsqrt), timed with its f32 scale
@@ -72,8 +73,26 @@ Phases, each reported on its own lines:
    probabilities to bf16 before the PV product, in other orders).  One
    more prefill on K4 and four decode steps run under ``torch.profiler``
    (lines ``[q]``).
+m. The moe family (lines ``[m]``, run after phase 8, whose weights are
+   freed first): (a) ``run_lm`` on llama4-scout-17b-a16e at full width (40
+   heads of 128, 8 KV heads, d 5120, d_ff 8192, 16 experts top-1 + 1
+   shared, vocab 202,048, bf16) cut to 12 of its 48 layers (57 GB of
+   weights), ``attn_impl="pallas"``, B = 4, 1024-token prompts, 32 greedy
+   tokens: 12 K4 launches, all on the tensor-core kernel; finite logits,
+   tokens in range; prefill ms, decode tok/s and peak memory beside the
+   bounds of :func:`_moe_bounds`.  (b) On the same weights, layer by layer
+   with the K4 route's input: K4's layer output against the chunked
+   route's within ``MOE_LAYER_RTOL`` of max |x| on the tokens routed alike,
+   the top-1 flips counted, and the whole-model logit gap of the two
+   routes as information.  (c) ``moe.route`` on the card against the CPU,
+   bitwise (expert_idx, pos, keep, load, capacity), on layer 0's router
+   logits (E 16, k 1) and on bfloat16-grid draws at kimi-k2's E 384, k 8,
+   each with rows of exact ties.  (d) One traced prefill and four traced
+   decode steps: device time by kernel, busy share, and the device time in
+   the router and dispatch, the expert products, the combine, the shared
+   expert (``record_function`` ranges of ``models/moe.py``) and K4.
 t. TSIA, the RA baselines and the per-cell planner (lines ``[t]``, run
-   between phases 8 and 9): (a) ``tsia.solve(draw_scenario(0))`` at the
+   between phases m and 9): (a) ``tsia.solve(draw_scenario(0))`` at the
    paper's N = 50, M = 5 and full caps on K2, one lanes-kernel launch a
    score, its R the trace's minimum and ``evaluate``'s; K2 at TSIA's
    P = 1 and at the host loop's P = 1 + N (M - 1) = 201 (timed in phase 2,
@@ -116,9 +135,10 @@ f. The paper's training pipeline (lines ``[f]``, run after phase h): (a)
    traced global iteration: device time, busy share, the five longest
    kernels and the device events a global iteration.
 9. Launch counts of the main paths (every count reset to 0 right before
-   a path and read right after it; phase t's, phase h's and phase f's
-   paths as each kernel's ``launches_tsia_path``, ``launches_h_path`` and
-   ``launches_train_path``), each
+   a path and read right after it; phase t's, phase h's, phase f's and
+   phase m's paths as each kernel's ``launches_tsia_path``,
+   ``launches_h_path``, ``launches_train_path`` and
+   ``launches_moe_path``), each
    kernel's time beside its plain
    version's, its bound and its library call, then the card and the
    result line; every K3 launch of the planning path must take the warp
@@ -162,6 +182,20 @@ L2_FLUSH_BYTES = 2 * 50 * 2 ** 20      # twice the H100's 50 MB L2
 # The LM path: qwen1.5-0.5b at full size, B prompts of T tokens.
 LM_ARCH, LM_B, LM_T, LM_NEW = "qwen1.5-0.5b", 4, 1024, 32
 LM_LOGIT_RTOL = 5e-2
+
+# Phase m: the moe family at llama4-scout-17b-a16e's full width (40 heads
+# of 128, 8 KV heads, d 5120, d_ff 8192, 16 experts top-1 + 1 shared, vocab
+# 202,048, untied head, bf16), cut to 12 of its 48 layers: 12 x 4.40 GB +
+# 4.14 GB of embedding and head, 57.0 GB of weights on one 80 GB card (the
+# whole model, 210 GB, fits on no single card, and sharding is not ported).
+# The depth stays fixed so that runs compare.
+MOE_ARCH, MOE_LAYERS = "llama4-scout-17b-a16e", 12
+# Layer by layer on the same input, K4's output against the chunked
+# route's on the tokens whose routing agrees: max |delta| within this
+# share of the layer's max |x| (bf16 rounds every layer's output, and the
+# two routes round their probabilities in other orders).
+MOE_LAYER_RTOL = 5e-2
+MOE_RANGES = ("moe.dispatch", "moe.experts", "moe.combine", "moe.shared")
 
 SERVE_CAPS = dict(b_iters=30, f_iters=24, p_iters=20, t_iters=28)
 DEVICE_MS_SESSIONS = 3        # profiler sessions before "not measured"
@@ -374,14 +408,17 @@ def _max_abs_err(got, want) -> float:
     return max(errs) if errs else 0.0
 
 
-def _profile(tag: str, what: str, fn, stats: dict | None = None) -> list:
+def _profile(tag: str, what: str, fn, stats: dict | None = None,
+             ranges: tuple = ()) -> list:
     """Run ``fn`` once under ``torch.profiler``; print device time by
     kernel and the device's busy share of the traced wall time: the time
     some device event is running (kernels that overlap on several streams,
     as cuDNN's per-group kernels do, count once) over the wall.  Returns
     the (ms, count, name) rows, largest first; ``stats``, when given,
     receives the wall ms, the summed device ms, the busy (union) ms and
-    the device events."""
+    the device events, and under ``ranges`` the device time of the kernels
+    launched inside each ``record_function`` range named in ``ranges``.
+    The ranges' own device-side spans are left out of every sum."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
@@ -394,27 +431,35 @@ def _profile(tag: str, what: str, fn, stats: dict | None = None) -> list:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
+    def annotation(evt):
+        return evt.key in ranges or getattr(evt, "is_user_annotation", False)
+
+    rows, in_ranges = [], {}
     for evt in prof.key_averages():
         # Device-side events only: a CPU op's self device time repeats the
         # time of the kernels it launched.
         if evt.device_type == DeviceType.CPU:
+            if evt.key in ranges:
+                in_ranges[evt.key] = evt.device_time_total / 1e3
             continue
         us = evt.self_device_time_total
-        if us > 0:
+        if us > 0 and not annotation(evt):
             rows.append((us / 1e3, evt.count, evt.key))
     rows.sort(reverse=True)
     device_ms = sum(r[0] for r in rows)
     spans = sorted((evt.time_range.start, evt.time_range.end)
                    for evt in prof.events()
-                   if evt.device_type != DeviceType.CPU)
+                   if evt.device_type != DeviceType.CPU
+                   and not (evt.name in ranges
+                            or getattr(evt, "is_user_annotation", False)))
     busy_us, end = 0.0, -math.inf
     for a, b in spans:
         busy_us += max(0.0, b - max(a, end))
         end = max(end, b)
     if stats is not None:
         stats.update(wall_ms=wall_ms, device_ms=device_ms,
-                     union_ms=busy_us / 1e3, events=len(spans))
+                     union_ms=busy_us / 1e3, events=len(spans),
+                     ranges={k: in_ranges.get(k, 0.0) for k in ranges})
     print(f"{tag} {what}: {wall_ms:.2f} ms wall, {device_ms:.2f} "
           f"ms device time in {sum(r[1] for r in rows)} device events "
           f"({len(rows)} names), the device busy {busy_us / 1e3:.2f} ms; "
@@ -454,6 +499,7 @@ def _check_k4(report: dict, dev) -> None:
     cases = [((LM_T, LM_T, LM_B, 16, 64), dtype, dict(causal=True))
              for dtype in (bf16, f32)]
     cases.append(((LM_T, LM_T, 1, 24, 128), bf16, dict(causal=True)))
+    cases.append(((LM_T, LM_T, LM_B, 40, 128), bf16, dict(causal=True)))
     for B, H, T, hd in ((1, 1, 8, 64), (2, 4, 16, 64), (1, 2, 128, 128),
                         (2, 2, 96, 80), (1, 4, 256, 112)):
         for dtype in (bf16, f32):
@@ -489,10 +535,11 @@ def _check_k4(report: dict, dev) -> None:
     bf16_err = max(e for e, dt in zip(errs, dtypes) if dt == bf16)
     print(f"[4] K4 ok on {len(dtypes)} cases ({n_bf16} bf16 on the "
           f"tensor-core kernel at 2e-2, {len(dtypes) - n_bf16} f32 on "
-          f"the SIMT kernel at 2e-5: LM prefill shape, hd 128, the JAX "
-          f"sweep, non-causal, window 16, decode offset, Tq != Tk, fused "
-          f"QKV views): max |err| bf16 LM shape {errs[0]:.3g}, f32 LM shape "
-          f"{errs[1]:.3g}, any bf16 case {bf16_err:.3g}")
+          f"the SIMT kernel at 2e-5: LM prefill shape, hd 128 at 24 and "
+          f"at llama4-scout's (4, 40) heads, the JAX sweep, non-causal, "
+          f"window 16, decode offset, Tq != Tk, fused QKV views): max |err| "
+          f"bf16 LM shape {errs[0]:.3g}, f32 LM shape {errs[1]:.3g}, "
+          f"llama4-scout's {errs[3]:.3g}, any bf16 case {bf16_err:.3g}")
 
     B, H, T, hd = LM_B, 16, LM_T, 64
     q, k, v = qkv(T, T, B, H, hd, bf16)
@@ -547,24 +594,27 @@ def _check_k4(report: dict, dev) -> None:
           f"{r['host_ms']:.4g} ms a call (1,000 unsynchronised at (1, 64, 1, "
           f"64)), events - device {_fmt(_sub(r['ms'], r['device_ms']))} ms")
 
-    B, H, T, hd = 1, 24, LM_T, 128
-    q, k, v = qkv(T, T, B, H, hd, bf16)
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    k4 = lambda: ops.flash_attention(q, k, v, causal=True)  # noqa: E731
-    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qt, kt, vt, is_causal=True)
-    b128 = _bound_ms(4 * B * T * H * hd * 2,
-                     4 * hd * B * H * T * (T + 1) // 2,
-                     BF16_TENSOR_FLOPS_PER_S)
-    t = dict(ms=_time_ms(k4, 20), dev=_device_ms(k4, 20),
-             lib=_time_ms(sdpa, 20), lib_dev=_device_ms(sdpa, 20))
-    r["hd128"] = dict(shape=[B, H, T, hd], ms=t["ms"], device_ms=t["dev"],
+    # hd 128: llama3.2-3b's heads, and llama4-scout's prefill (phase m).
+    for key, (B, H, T, hd) in (("hd128", (1, 24, LM_T, 128)),
+                               ("llama4", (LM_B, 40, LM_T, 128))):
+        q, k, v = qkv(T, T, B, H, hd, bf16)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        k4 = lambda: ops.flash_attention(q, k, v, causal=True)  # noqa: E731
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True)
+        b128 = _bound_ms(4 * B * T * H * hd * 2,
+                         4 * hd * B * H * T * (T + 1) // 2,
+                         BF16_TENSOR_FLOPS_PER_S)
+        t = dict(ms=_time_ms(k4, 20), dev=_device_ms(k4, 20),
+                 lib=_time_ms(sdpa, 20), lib_dev=_device_ms(sdpa, 20))
+        r[key] = dict(shape=[B, H, T, hd], ms=t["ms"], device_ms=t["dev"],
                       library_ms=t["lib"], library_device_ms=t["lib_dev"],
                       bound_ms=b128[0], bound_by=b128[1])
-    print(f"[4] K4 at ({B}, {H}, {T}, {hd}) bf16 causal: tensor cores "
-          f"{t['ms']:.4g} ms (device {_fmt(t['dev'])}); SDPA {t['lib']:.4g} "
-          f"ms (device {_fmt(t['lib_dev'])}); bound {b128[0]:.4g} ms by "
-          f"{b128[1]}")
+        print(f"[4] K4 at ({B}, {H}, {T}, {hd}) bf16 causal: tensor cores "
+              f"{t['ms']:.4g} ms (device {_fmt(t['dev'])}); SDPA "
+              f"{t['lib']:.4g} ms (device {_fmt(t['lib_dev'])}); bound "
+              f"{b128[0]:.4g} ms by {b128[1]}, "
+              f"{_fmt(_div(b128[0], t['dev']), '.4f')} of it")
 
 
 def _check_k5(report: dict, dev) -> None:
@@ -1546,6 +1596,223 @@ def _lm_path(dev) -> dict:
             "agree": agree, "n_layers": flash.n_layers}
 
 
+def _moe_bounds(cfg, B: int, T: int) -> dict:
+    """The least time of phase m's prefill and decode step at the card's
+    peaks.  The prefill's operations: B*T tokens through the attention
+    projections, the router and the shared expert, E x C capacity slots
+    through the routed experts, causal attention, the last position's head.
+    A decode step's bytes: every weight but the embedding (of which it
+    reads B rows) read once, and the KV cache of T positions."""
+    from repro_torch.models.moe import capacity
+
+    d, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    E, ff, fs, V, L = (cfg.n_experts, cfg.d_ff,
+                       cfg.d_ff * cfg.n_shared_experts, cfg.vocab,
+                       cfg.n_layers)
+    n = B * T
+    C = capacity(n, cfg.top_k, E, cfg.capacity_factor)
+    qkvo = d * (2 * H * hd + 2 * Hkv * hd)
+    layer_flops = (2 * n * qkvo + 4 * hd * B * H * T * (T + 1) // 2
+                   + 2 * n * d * E + 6 * E * C * d * ff + 6 * n * d * fs)
+    flops = L * layer_flops + 2 * B * d * V
+    width = cfg.dtype.itemsize
+    layer_bytes = width * (qkvo + d * E + 3 * E * d * ff + 3 * d * fs
+                           + 2 * d)
+    step_bytes = (L * layer_bytes + width * (d * V + d)
+                  + L * 2 * B * T * Hkv * hd * width)
+    prefill_ms = flops / BF16_TENSOR_FLOPS_PER_S * 1e3
+    step_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+    return dict(capacity=C, prefill_flops=flops, prefill_ms=prefill_ms,
+                step_bytes=step_bytes, step_ms=step_ms,
+                tok_per_s=B / step_ms * 1e3)
+
+
+def _moe_path(dev) -> dict:
+    """Phase m: the moe family through ``run_lm`` at llama4-scout's full
+    width and 12 layers, on K4; then, on the same weights, K4 against the
+    chunked route layer by layer, the dispatch on the card against the
+    CPU, and one traced prefill and four traced decode steps."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import run_lm
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import rms_norm
+
+    t_phase = time.perf_counter()
+    chunked = dataclasses.replace(configs.get(MOE_ARCH), n_layers=MOE_LAYERS)
+    flash = dataclasses.replace(chunked, attn_impl="pallas")
+    L, V, d, n = flash.n_layers, flash.vocab, flash.d_model, LM_B * LM_T
+    kw = dict(batch=LM_B, prompt_len=LM_T, seed=0, device=dev)
+    # One set of weights at a time: each run_lm frees its own on return.
+    run_lm(flash, new_tokens=2, **kw)             # warm-up: cold starts
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    a = run_lm(flash, new_tokens=LM_NEW, **kw)
+    torch.cuda.synchronize()
+    counts = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    _check(counts["flash_attention"] == L,
+           f"K4 launched {counts['flash_attention']} times in one prefill "
+           f"of {L} layers")
+    _check(counts["flash_attention_sm90"] == L,
+           f"only {counts['flash_attention_sm90']} of the moe prefill's K4 "
+           f"launches took the tensor-core kernel")
+    logits, toks = a["logits"].float(), a["tokens"]
+    _check(logits.shape == (LM_B, V) and bool(torch.isfinite(logits).all()),
+           "moe prefill logits: shape or non-finite values")
+    _check(toks.shape == (LM_B, LM_NEW + 1) and (toks >= 0).all()
+           and (toks < V).all(), "moe generated tokens")
+    bnd = _moe_bounds(flash, LM_B, LM_T)
+    step_ms = a["decode_s"] * 1e3 / LM_NEW
+    print(f"[m] {MOE_ARCH} at full width, {L} of 48 layers (d {d}, "
+          f"{flash.n_heads} heads of {flash.head_dim}, {flash.n_kv_heads} kv "
+          f"heads, d_ff {flash.d_ff}, {flash.n_experts} experts top-"
+          f"{flash.top_k} + {flash.n_shared_experts} shared, vocab {V}, "
+          f"{flash.dtype}), B = {LM_B}, prompt {LM_T}, {LM_NEW} new tokens, "
+          f"on K4")
+    print(f"[m] prefill {a['prefill_s'] * 1e3:.3f} ms (bound "
+          f"{bnd['prefill_ms']:.4g} ms: {bnd['prefill_flops']:.4g} flop at "
+          f"989 TFLOP/s; capacity {bnd['capacity']} per expert); decode "
+          f"{a['tok_per_s']:.2f} tok/s, {step_ms:.3f} ms a step (bound "
+          f"{bnd['step_ms']:.4g} ms: {bnd['step_bytes']:.4g} bytes at 3.35 "
+          f"TB/s, {bnd['tok_per_s']:.4g} tok/s); peak memory allocated "
+          f"{peak:,} bytes ({peak / 2 ** 30:.2f} GiB)")
+    print(f"[m] K4 launches in the run: {counts['flash_attention']} (one per "
+          f"layer of one prefill), {counts['flash_attention_sm90']} on the "
+          f"tensor cores; first sequence {toks[0][:12].tolist()}")
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    with torch.inference_mode():
+        # run_lm's weights and prompts again: the same generator sequence.
+        params = tf.init_params(flash, gen, dev)
+        batch = {"tokens": torch.randint(0, V, (LM_B, LM_T), generator=gen,
+                                         device=dev)}
+        # (b) Layer by layer on the K4 route's input: a flip of routing
+        # changes only its own layer's output.
+        x, positions, _ = tf.embed_inputs(flash, params, batch)
+        xc = x                        # the chunked route's own stream
+        blocks, layers, logits0 = params["blocks"], [], None
+        for i in range(L):
+            pa, pm = tf._layer(blocks["attn"], i), tf._layer(blocks["moe"], i)
+            out = []
+            for cfg in (flash, chunked):
+                xa, _ = tf._attn_apply(cfg, pa, x, positions=positions)
+                lr = (rms_norm(xa, pm["ln"]).reshape(1, n, d)
+                      @ pm["router"]).float()
+                out.append((tf._ffn_apply(cfg, pm, xa)[0], lr,
+                            moe_lib.route(lr, cfg.top_k,
+                                          cfg.capacity_factor)))
+            (yf, lf, rf), (yc, _, rc) = out
+            logits0 = lf if logits0 is None else logits0
+            same = (rf.expert_idx == rc.expert_idx).all(-1).reshape(n)
+            kept = (rf.keep == rc.keep).reshape(n, -1).all(-1)
+            delta = (yf.float() - yc.float()).abs().reshape(n, d)
+            scale = float(yc.float().abs().max())
+            rel = float(delta[same & kept].max()) / scale
+            layers.append(dict(rel=rel, rel_all=float(delta.max()) / scale,
+                               flips=int((~same).sum()),
+                               keep_flips=int((same & ~kept).sum()),
+                               dropped=int((~rf.keep).sum()),
+                               max_load=int(rf.load.max())))
+            _check(rel <= MOE_LAYER_RTOL,
+                   f"layer {i}: K4 and chunked outputs differ by {rel:.3g} "
+                   f"of max |x| on the tokens routed alike (limit "
+                   f"{MOE_LAYER_RTOL})")
+            xa, _ = tf._attn_apply(chunked, pa, xc, positions=positions)
+            xc = tf._ffn_apply(chunked, pm, xa)[0]
+            x = yf
+        lk = tf.unembed(flash, params, x[:, -1:])[:, 0].float()
+        lc = tf.unembed(chunked, params, xc[:, -1:])[:, 0].float()
+        gap = float((lk - lc).abs().max() / lc.abs().max())
+        same_top = float((lk.argmax(-1) == lc.argmax(-1)).float().mean())
+        rerun = float((lk - logits).abs().max())
+        for i, r in enumerate(layers):
+            print(f"[m] layer {i:2d}: K4 vs chunked max |delta| "
+                  f"{r['rel']:.4g} of max |x| on the tokens routed alike "
+                  f"(all tokens {r['rel_all']:.4g}; limit {MOE_LAYER_RTOL}); "
+                  f"top-1 flips {r['flips']} of {n}, keep flips "
+                  f"{r['keep_flips']}; K4 route: {r['dropped']} pairs "
+                  f"dropped, max load {r['max_load']}")
+        print(f"[m] whole model, each route on its own stream: last-position "
+              f"logits max |delta| {gap:.4g} of max |logit|, the same top "
+              f"token in {same_top:.4f} of sequences (information); the "
+              f"layer-by-layer K4 stream against run_lm's prefill logits: "
+              f"max |delta| {rerun:.4g}")
+
+        # (c) The dispatch on the card against the CPU, bitwise, on f32
+        # logits with rows of exact ties: layer 0's router logits (E 16,
+        # k 1) and bfloat16-grid draws at kimi-k2's E 384, k 8.
+        g = torch.Generator(device=dev).manual_seed(1)
+        l384 = torch.randn((1, n, 384), generator=g, device=dev).to(
+            torch.bfloat16).float()
+        for name, lg, k in (("llama4-scout", logits0.clone(), 1),
+                            ("kimi-k2", l384, 8)):
+            E = lg.shape[-1]
+            lg[0, 0] = 0.5
+            lg[0, 1, [0, E // 2, E - 1]] = float(lg[0, 1].max()) + 1.0
+            rg = moe_lib.route(lg, k, 1.25)
+            rh = moe_lib.route(lg.cpu(), k, 1.25)
+            _check(rg.capacity == rh.capacity, f"{name}: capacity")
+            for field in ("expert_idx", "pos", "keep", "load"):
+                _check(torch.equal(getattr(rg, field).cpu(),
+                                   getattr(rh, field)),
+                       f"{name}: {field} differs between the card and the "
+                       f"CPU")
+            top = torch.sort(rh.probs[0], -1, descending=True).values
+            ties = int((top[:, :k] == top[:, 1:k + 1]).any(-1).sum())
+            print(f"[m] dispatch {name} (E {E}, k {k}, {n} tokens): "
+                  f"expert_idx, pos, keep and load bitwise on the card and "
+                  f"the CPU; capacity {rg.capacity}, {ties} rows with an "
+                  f"exact tie at or across the k-th place, "
+                  f"{int((~rh.keep).sum())} pairs dropped")
+
+        # (d) One traced prefill and four traced decode steps.
+        prefill = tf.make_prefill_step(flash)
+        prefill(params, batch)
+        traced = {"prefill": {}, "decode": {}}
+        rows = _profile("[m]", "1 traced prefill on K4", lambda: prefill(
+            params, batch), traced["prefill"], MOE_RANGES)
+        traced["prefill"]["k4_ms"] = sum(
+            ms for ms, _, nm in rows if "flash_attention" in nm)
+        step_logits, cache = prefill(params, batch)
+        tok = torch.argmax(step_logits[:, -1], -1)[:, None]
+        serve_step = tf.make_serve_step(flash)
+
+        def decode(steps=4):
+            nonlocal cache, tok
+            for _ in range(steps):
+                step_logits, cache = serve_step(params, cache, tok)
+                tok = torch.argmax(step_logits[:, -1], -1)[:, None]
+
+        decode()
+        rows = _profile("[m]", "4 traced decode steps", decode,
+                        traced["decode"], MOE_RANGES)
+        traced["decode"]["k4_ms"] = sum(
+            ms for ms, _, nm in rows if "flash_attention" in nm)
+        for what, st in traced.items():
+            rg = st["ranges"]
+            rest = st["device_ms"] - sum(rg.values()) - st["k4_ms"]
+            print(f"[m] traced {what}: device {st['device_ms']:.3f} ms of "
+                  f"{st['wall_ms']:.3f} ms wall (busy share "
+                  f"{_fmt(_div(st['union_ms'], st['wall_ms']), '.4f')}); "
+                  f"router and dispatch {rg['moe.dispatch']:.3f} ms, expert "
+                  f"products {rg['moe.experts']:.3f} ms, combine "
+                  f"{rg['moe.combine']:.3f} ms, shared expert "
+                  f"{rg['moe.shared']:.3f} ms, K4 {st['k4_ms']:.3f} ms, the "
+                  f"rest {rest:.3f} ms")
+        del params, cache
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    print(f"[m] phase m: {seconds:.1f} s")
+    return {"counts": counts, "run": a, "peak_bytes": peak, "bounds": bnd,
+            "flips": [r["flips"] for r in layers], "seconds": seconds,
+            "n_layers": L}
+
+
 def main(argv: list[str]) -> int:
     kernels_only = "--kernels" in argv
     try:
@@ -1924,6 +2191,10 @@ def main(argv: list[str]) -> int:
     # ---- phase 8: the LM serving path ----------------------------------
     lm = _lm_path(dev)
 
+    # ---- phase m: the moe family at llama4-scout's full width ----------
+    torch.cuda.empty_cache()
+    mp = _moe_path(dev)
+
     # ---- phase t: TSIA, the baselines and the per-cell planner ---------
     tp = _tsia_path(dev, report, k2_tsia)
 
@@ -1972,6 +2243,12 @@ def main(argv: list[str]) -> int:
     for name in ("sroa_solve_lanes", "topk_moves_warp"):
         _check(h_counts[name] > 0, f"{name} never launched on phase h's "
                f"path")
+    moe_counts = _by_kernel(mp["counts"])
+    print(f"[9] kernels on phase m's path (llama4-scout at full width, "
+          f"{mp['n_layers']} layers): {json.dumps(moe_counts)}")
+    _check(moe_counts["flash_attention_sm90"] == mp["n_layers"],
+           "flash_attention_sm90 did not launch once a layer on phase m's "
+           "path")
     f_counts = _by_kernel(fp["counts"])
     print(f"[9] kernels on phase f's path (the training pipeline): "
           f"{json.dumps(f_counts)}")
@@ -1985,6 +2262,7 @@ def main(argv: list[str]) -> int:
         report[name]["launches_tsia_path"] = tsia_counts[name]
         report[name]["launches_h_path"] = h_counts[name]
         report[name]["launches_train_path"] = f_counts[name]
+        report[name]["launches_moe_path"] = moe_counts[name]
         r = report[name]
         lib = (f", library {r['library_ms']:.4g} ms"
                if r["library_ms"] is not None else "")
@@ -2028,6 +2306,13 @@ def main(argv: list[str]) -> int:
           f"{counts['flash_attention_sm90']} K4 launches on the tensor "
           f"cores; {L} x K4's phase-4 device time is "
           f"{_fmt(k4_share, '.4f')} of the prefill's wall time")
+    mr, mb = mp["run"], mp["bounds"]
+    print(f"[9] moe path: prefill {mr['prefill_s'] * 1e3:.3f} ms (bound "
+          f"{mb['prefill_ms']:.4g} ms), decode {mr['tok_per_s']:.2f} tok/s "
+          f"(bound {mb['tok_per_s']:.4g}); peak "
+          f"{mp['peak_bytes'] / 2 ** 30:.2f} GiB; {moe_counts['flash_attention_sm90']} K4 launches on the "
+          f"tensor cores; top-1 flips a layer {mp['flips']} "
+          f"({mp['seconds']:.1f} s)")
     print(json.dumps({"kernels": [report[k] for k in counts]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,7 @@ design and the streaming service), :mod:`repro_torch.fed` (the upload
 compression ladder and uplink transforms, Algorithm 1 batched over users,
 straggler deadlines), :mod:`repro_torch.data` (synthetic datasets and
 federated partitions), :mod:`repro_torch.models` (the paper's CNNs and the
-dense transformer family), :mod:`repro_torch.ckpt` (checkpoints in the JAX
+dense and moe transformer families), :mod:`repro_torch.ckpt` (checkpoints in the JAX
 package's format), :mod:`repro_torch.runtime` (failure detection and
 recovery), :mod:`repro_torch.kernels` (the hand-written Hopper kernels and
 their plain PyTorch versions) and :mod:`repro_torch.launch` (the ``serve``

@@ -2,11 +2,13 @@
 endpoint.
 
 ``--mode lm`` (default) prefills a batch of prompts and decodes greedily
-with the ring-buffer KV cache, for the dense family; a reduced config
-unless ``--full-size``:
+with the ring-buffer KV cache, for the dense and moe families (the moe
+family: llama4-scout-17b-a16e and kimi-k2-1t-a32b, top-k routed experts
+with capacity dispatch and a shared expert); a reduced config unless
+``--full-size``:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \
-      --arch qwen1.5-0.5b --batch 4 --prompt-len 32 --new-tokens 16
+      --arch llama4-scout-17b-a16e --batch 4 --prompt-len 32 --new-tokens 16
 
 ``--mode plan`` serves the fleet planning endpoint as a streaming control
 plane (:mod:`repro_torch.fleet.service`): each tick advances mobility,

@@ -1,14 +1,16 @@
-"""The architecture zoo's dense family: config, parameters, forward pass,
-KV-cache decode and the serving steps (the JAX package's
+"""The architecture zoo's dense and moe families: config, parameters,
+forward pass, KV-cache decode and the serving steps (the JAX package's
 ``models/transformer.py``).
 
 ``ArchConfig`` describes every architecture of the registry, but only the
-``dense`` family with token inputs runs here: ``moe``, ``mamba_hybrid``,
-``xlstm``, ``encoder`` and the embedding frontends raise
+``dense`` and ``moe`` families with token inputs run here:
+``mamba_hybrid``, ``xlstm``, ``encoder`` and the embedding frontends raise
 ``NotImplementedError`` (ROADMAP queue 1).  Parameters are nested dicts of
 tensors whose layer weights are stacked along a leading axis, as in the JAX
 package; the layer stack is a Python loop over that axis (no scan, no
-remat: this module serves, it does not train).
+remat: this module serves, it does not train).  A moe block's FFN is
+:func:`repro_torch.models.moe.moe_ffn`; ``forward`` returns its load-balance
+loss summed over the layers.
 
 ``decode_step`` writes the new key and value into the cache's ring buffer
 in place and returns the same tensors with ``pos + 1``: the JAX package's
@@ -24,10 +26,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import apply_rope, attention, rms_norm, swiglu
 
-_NOT_PORTED = ("the port runs only the dense family with token inputs; {} "
-               "is not ported yet (ROADMAP queue 1)")
+_PORTED_FAMILIES = ("dense", "moe")
+_NOT_PORTED = ("the port runs only the dense and moe families with token "
+               "inputs; {} is not ported yet (ROADMAP queue 1)")
 
 
 # ============================================================== config
@@ -98,8 +102,8 @@ class ParamDef(NamedTuple):
     scale: Optional[float] = None  # None -> 1/sqrt(fan_in)
 
 
-def _require_dense(cfg: ArchConfig) -> None:
-    if cfg.family != "dense":
+def _require_ported(cfg: ArchConfig) -> None:
+    if cfg.family not in _PORTED_FAMILIES:
         raise NotImplementedError(_NOT_PORTED.format(
             f"the {cfg.family} family ({cfg.name})"))
     if cfg.input_mode != "tokens":
@@ -134,15 +138,42 @@ def _mlp_defs(cfg: ArchConfig, L: int):
     }
 
 
+def _moe_defs(cfg: ArchConfig, L: int):
+    d, ff, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    defs = {
+        "ln": ParamDef((L, d), ("layers", "d_model")),
+        "router": ParamDef((L, d, E), ("layers", "d_model", None)),
+        "w_gate": ParamDef((L, E, d, ff), ("layers", "expert", "d_model",
+                                           None)),
+        "w_up": ParamDef((L, E, d, ff), ("layers", "expert", "d_model",
+                                         None)),
+        "w_down": ParamDef((L, E, ff, d), ("layers", "expert", None,
+                                           "d_model")),
+    }
+    if cfg.n_shared_experts:
+        fs = ff * cfg.n_shared_experts
+        defs["shared"] = {
+            "w_gate": ParamDef((L, d, fs), ("layers", "d_model", "ff")),
+            "w_up": ParamDef((L, d, fs), ("layers", "d_model", "ff")),
+            "w_down": ParamDef((L, fs, d), ("layers", "ff", "d_model")),
+        }
+    return defs
+
+
+def _ffn_key(cfg: ArchConfig) -> str:
+    return "moe" if cfg.family == "moe" else "mlp"
+
+
 def param_defs(cfg: ArchConfig):
-    _require_dense(cfg)
+    _require_ported(cfg)
     d, V, L = cfg.d_model, cfg.vocab, cfg.n_layers
     defs: dict = {"final_ln": ParamDef((d,), ("d_model",)),
                   "embed": ParamDef((V, d), ("vocab", "d_model"),
                                     scale=d ** -0.5)}
     if not cfg.tie_embeddings:
         defs["lm_head"] = ParamDef((d, V), ("d_model", "vocab"))
-    defs["blocks"] = {"attn": _attn_defs(cfg, L), "mlp": _mlp_defs(cfg, L)}
+    ffn = _moe_defs(cfg, L) if cfg.family == "moe" else _mlp_defs(cfg, L)
+    defs["blocks"] = {"attn": _attn_defs(cfg, L), _ffn_key(cfg): ffn}
     return defs
 
 
@@ -165,7 +196,9 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     """Random parameters with the JAX package's distribution: ones for norm
     scales, zeros for biases, else normal x 1/sqrt(fan_in) (or the def's
     scale), drawn from ``generator`` (on ``device``) in pytree order.  The
-    draws are not the JAX package's bits."""
+    draws are not the JAX package's bits.  Each leaf is drawn in place in
+    its own type, so a bfloat16 stack (llama4-scout's experts: 16 GB at
+    12 layers) never has a float32 copy."""
     def draw(name, d):
         dtype = d.dtype or cfg.dtype
         if name in _ONES_NAMES:
@@ -174,8 +207,8 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
             return torch.zeros(d.shape, dtype=dtype, device=device)
         fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
         scale = d.scale if d.scale is not None else 1.0 / np.sqrt(fan_in)
-        return (torch.randn(d.shape, generator=generator, device=device)
-                * scale).to(dtype)
+        return torch.empty(d.shape, dtype=dtype, device=device).normal_(
+            0.0, float(scale), generator=generator)
 
     return _map_defs(param_defs(cfg), draw)
 
@@ -257,19 +290,27 @@ def _attn_apply(cfg: ArchConfig, p, x, *, positions, kv_cache=None,
 
 
 def _ffn_apply(cfg: ArchConfig, p, x):
-    """Dense SwiGLU FFN with residual."""
+    """Dense SwiGLU or MoE FFN with residual; returns (x, aux)."""
     h = rms_norm(x, p["ln"])
-    return x + swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
+    if "router" in p:
+        y, aux = moe_lib.moe_ffn(p, h, top_k=cfg.top_k,
+                                 capacity_factor=cfg.capacity_factor,
+                                 dispatch_groups=cfg.moe_dispatch_groups)
+        return x + y, aux
+    return x + swiglu(h, p["w_gate"], p["w_up"], p["w_down"]), 0.0
 
 
 def _layer(stacked: dict, i: int) -> dict:
-    return {k: t[i] for k, t in stacked.items()}
+    """Layer ``i`` of a stacked block (nested dicts such as moe's
+    ``shared`` included)."""
+    return {k: _layer(t, i) if isinstance(t, dict) else t[i]
+            for k, t in stacked.items()}
 
 
 # ---------------------------------------------------------------- embed
 def embed_inputs(cfg: ArchConfig, params, batch):
     """Returns (x (B,T,d), positions (B,T), loss_mask None): tokens mode."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     tokens = batch["tokens"]
     x = params["embed"][tokens].to(cfg.dtype)
     B, T = tokens.shape
@@ -286,13 +327,15 @@ def unembed(cfg: ArchConfig, params, x):
 # ------------------------------------------------------------ stacks
 def _backbone(cfg: ArchConfig, params, batch, want_cache: bool):
     x, positions, loss_mask = embed_inputs(cfg, params, batch)
-    blocks = params["blocks"]
+    blocks, ffn = params["blocks"], _ffn_key(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     ks, vs = [], []
     for i in range(cfg.n_layers):
         x, (k, v) = _attn_apply(cfg, _layer(blocks["attn"], i), x,
                                 positions=positions, causal=cfg.causal,
                                 window=cfg.window)
-        x = _ffn_apply(cfg, _layer(blocks["mlp"], i), x)
+        x, a = _ffn_apply(cfg, _layer(blocks[ffn], i), x)
+        aux = aux + a
         if want_cache:
             ks.append(k)
             vs.append(v)
@@ -301,25 +344,25 @@ def _backbone(cfg: ArchConfig, params, batch, want_cache: bool):
         cache = {"k": torch.stack(ks), "v": torch.stack(vs),
                  "pos": torch.full((), x.shape[1], dtype=torch.int32,
                                    device=x.device)}
-    return x, cache, loss_mask
+    return x, cache, loss_mask, aux
 
 
 def forward(cfg: ArchConfig, params, batch, *, mode="train"):
     """Full-sequence forward. Returns (logits, aux, cache_out, loss_mask).
 
     cache_out is the prefill cache when mode='prefill', else None; aux is
-    0 (the dense family has no auxiliary loss).
+    the moe family's load-balance loss summed over the layers (0 for the
+    dense family).
     """
-    x, cache, loss_mask = _backbone(cfg, params, batch, mode == "prefill")
-    logits = unembed(cfg, params, x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return logits, aux, cache, loss_mask
+    x, cache, loss_mask, aux = _backbone(cfg, params, batch,
+                                         mode == "prefill")
+    return unembed(cfg, params, x), aux, cache, loss_mask
 
 
 # ============================================================ decode
 def cache_defs(cfg: ArchConfig, batch: int, context: int):
     """Decode-cache structure (shapes + logical axes)."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     B, S, L = batch, context, cfg.n_layers
     Hkv, hd = cfg.n_kv_heads, cfg.head_dim
     return {
@@ -346,7 +389,7 @@ def decode_step(cfg: ArchConfig, params, cache, tokens):
     """One decode step: tokens (B, 1) int -> (logits (B,1,V), new cache).
 
     The cache's k/v tensors are updated in place (see the module note)."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     B = tokens.shape[0]
     x = params["embed"][tokens].to(cfg.dtype)
     pos = cache["pos"]
@@ -357,7 +400,7 @@ def decode_step(cfg: ArchConfig, params, cache, tokens):
                            positions=positions,
                            kv_cache=(cache["k"][i], cache["v"][i]),
                            cache_pos=pos)
-        x = _ffn_apply(cfg, _layer(blocks["mlp"], i), x)
+        x, _ = _ffn_apply(cfg, _layer(blocks[_ffn_key(cfg)], i), x)
     logits = unembed(cfg, params, x)
     return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
 
@@ -370,7 +413,7 @@ def make_prefill_step(cfg: ArchConfig, *, pad_to: Optional[int] = None):
     unembedded: the step returns (logits (B, 1, V), cache)."""
 
     def prefill_step(params, batch):
-        x, cache, _ = _backbone(cfg, params, batch, True)
+        x, cache, _, _ = _backbone(cfg, params, batch, True)
         if pad_to is not None:
             for key in ("k", "v"):
                 pad = pad_to - cache[key].shape[2]

@@ -64,6 +64,92 @@ def params_to_torch(jax_params, cfg, device="cpu"):
     return params_from_numpy(numpy_tree(jax_params), cfg, device)
 
 
+def lm_pair(arch, dtype=None, **kw):
+    """(JAX config, port config, JAX params, port params) for a reduced
+    ``arch`` with ``kw`` replaced in both configs; ``dtype`` 'bf16'
+    switches both to bfloat16.  The weights are the JAX package's."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+
+    from repro import configs as jconfigs
+    from repro.models import transformer as jtf
+    from repro_torch import configs as tconfigs
+
+    jcfg = jconfigs.get(arch).reduced()
+    tcfg = tconfigs.get(arch).reduced()
+    if dtype == "bf16":
+        jcfg = dataclasses.replace(jcfg, dtype=jnp.bfloat16)
+        tcfg = dataclasses.replace(tcfg, dtype=torch.bfloat16)
+    jcfg = dataclasses.replace(jcfg, **kw)
+    tcfg = dataclasses.replace(tcfg, **kw)
+    jp = jtf.init_params(jcfg, jax.random.PRNGKey(7))
+    return jcfg, tcfg, jp, params_to_torch(jp, tcfg)
+
+
+def lm_tokens(B, T, vocab, seed=0):
+    return np.random.default_rng(seed).integers(0, vocab, (B, T),
+                                                dtype=np.int32)
+
+
+def greedy_decode_both(jcfg, tcfg, jp, tp, toks, steps: int = 8,
+                       tol: float = 1e-4):
+    """Prefill ``toks`` (no pad_to: the ring buffer evicts, as ``serve``
+    runs it) and decode ``steps`` greedy tokens in both packages; the
+    prefill cache and every step's logits agree to ``tol``.  Returns the
+    two token sequences (B, 1 + steps)."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.models import transformer as jtf
+    from repro_torch.models import transformer as ttf
+
+    jpre = jax.jit(jtf.make_prefill_step(jcfg))
+    jserve = jax.jit(jtf.make_serve_step(jcfg))
+    tpre, tserve = ttf.make_prefill_step(tcfg), ttf.make_serve_step(tcfg)
+
+    jl_, jc = jpre(jp, {"tokens": toks})
+    tl_, tc = tpre(tp, {"tokens": torch.tensor(toks)})
+    np.testing.assert_allclose(host(tl_), np.asarray(jl_), rtol=tol,
+                               atol=tol)
+    for key in ("k", "v"):
+        np.testing.assert_allclose(host(tc[key]), np.asarray(jc[key]),
+                                   rtol=tol, atol=tol)
+    assert int(tc["pos"]) == int(jc["pos"]) == toks.shape[1]
+    jtok = jnp.argmax(jl_[:, -1], -1)[:, None].astype(jnp.int32)
+    ttok = torch.argmax(tl_[:, -1], -1)[:, None]
+    jseq, tseq = [np.asarray(jtok)], [host(ttok)]
+    for _ in range(steps):
+        jl_, jc = jserve(jp, jc, jtok)
+        tl_, tc = tserve(tp, tc, ttok)
+        np.testing.assert_allclose(host(tl_), np.asarray(jl_), rtol=tol,
+                                   atol=tol)
+        jtok = jnp.argmax(jl_[:, -1], -1)[:, None].astype(jnp.int32)
+        ttok = torch.argmax(tl_[:, -1], -1)[:, None]
+        jseq.append(np.asarray(jtok))
+        tseq.append(host(ttok))
+    assert int(tc["pos"]) == toks.shape[1] + steps
+    return np.concatenate(tseq, 1), np.concatenate(jseq, 1)
+
+
+def tied_router_logits(E: int, tokens: int, seed: int = 0,
+                       device="cpu"):
+    """float32 router logits (1, tokens, E) as a bfloat16 router product
+    gives them (values on the bfloat16 grid, so equal values are common at
+    E = 384), with rows of exact ties: all equal, three-way ties at the
+    top, pairs of equal values (a tie across the k-th place), and the
+    pattern [1, 2, 2, 0, 2, ...]."""
+    x = np.random.default_rng(seed).normal(size=(1, tokens, E))
+    x = torch.tensor(x, dtype=torch.float32).to(torch.bfloat16).float()
+    x[0, 0] = 0.5
+    x[0, 1, [0, E // 2, E - 1]] = 9.0
+    x[0, 2] = torch.arange(E - 1, -1, -1) // 2
+    x[0, 3, :5] = torch.tensor([1.0, 2.0, 2.0, 0.0, 2.0])
+    x[0, 3, 5:] = -1.0
+    return x.to(device)
+
+
 def cnn_params_numpy(cfg, seed: int = 0, bias: float = 0.1) -> dict:
     """Parameters of the JAX package's CNN ``cfg`` (its ``CnnConfig``) in
     its layout, drawn with numpy: weights normal / sqrt(fan_in) as its

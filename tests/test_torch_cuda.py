@@ -1,8 +1,10 @@
 """The port's hand-written CUDA kernels (K1-K5) against their plain
 PyTorch twins, on a card (K2's and K3's two kernels and every speculation
-depth of K1 and K2 bitwise).  Every test here is marked ``cuda`` and skips itself when
-``torch.cuda.is_available()`` is false; this file imports neither JAX nor
-the JAX package, so it runs on a machine that has only PyTorch:
+depth of K1 and K2 bitwise), and the served paths on the card against the
+CPU (the trainer, the moe model and its dispatch).  Every test here is
+marked ``cuda`` and skips itself when ``torch.cuda.is_available()`` is
+false; this file imports neither JAX nor the JAX package, so it runs on a
+machine that has only PyTorch:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -412,10 +414,12 @@ def test_k4_masks_and_offsets(cuda, kw, Tq, Tk, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,T,H,hd", [(4, 1024, 16, 64), (1, 1024, 24, 128)])
+@pytest.mark.parametrize("B,T,H,hd", [(4, 1024, 16, 64), (1, 1024, 24, 128),
+                                     (4, 1024, 40, 128)])
 def test_k4_takes_the_tensor_cores_at_the_model_shapes(cuda, B, T, H, hd):
-    """qwen1.5-0.5b's prefill (hd 64) and llama3.2-3b's heads (hd 128): in
-    bf16 the wgmma kernel, held to the twin at 2e-2; in f32 the SIMT one."""
+    """qwen1.5-0.5b's prefill (hd 64), llama3.2-3b's heads and
+    llama4-scout's prefill (hd 128, 40 heads after the GQA repeat): in bf16
+    the wgmma kernel, held to the twin at 2e-2; in f32 the SIMT one."""
     q, k, v = (_randn((B, T, H, hd), torch.bfloat16, cuda, 7 + i)
                for i in range(3))
     got = _launched("flash_attention",
@@ -688,3 +692,62 @@ def test_train_main_plans_on_the_lanes_kernel(cuda, tmp_path):
     assert all(np.isfinite(run.history["acc"]))
     resumed = train.main(argv + ["--iters", "3", "--resume"])
     assert resumed.history["iter"] == [2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "kimi-k2-1t-a32b"])
+def test_moe_reduced_model_on_the_card_matches_the_cpu(cuda, arch):
+    """The reduced moe model in float32 on the same weights: forward's
+    logits and aux, and a prefill plus four greedy decode steps on K4
+    (``attn_impl="pallas"``: the SIMT kernel in f32), within 1e-4 of the
+    CPU's; the same tokens."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as tf
+
+    cfg = dataclasses.replace(configs.get(arch).reduced(),
+                              attn_impl="pallas")
+    params = tf.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    card = tf.params_from_numpy(_numpy_tree(params), cfg, cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 80),
+                         generator=torch.Generator().manual_seed(1))
+    want, want_aux, _, _ = tf.forward(cfg, params, {"tokens": toks})
+    got, aux, _, _ = tf.forward(cfg, card, {"tokens": toks.to(cuda)})
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-4, atol=1e-4)
+    seqs = []
+    for p, dev in ((params, "cpu"), (card, cuda)):
+        logits, cache = tf.make_prefill_step(cfg)(
+            p, {"tokens": toks[:, :12].to(dev)})
+        out = [logits.cpu()]
+        tok = torch.argmax(logits[:, -1], -1)[:, None]
+        for _ in range(4):
+            logits, cache = tf.decode_step(cfg, p, cache, tok)
+            out.append(logits.cpu())
+            tok = torch.argmax(logits[:, -1], -1)[:, None]
+        seqs.append(out)
+    for g, w in zip(seqs[1], seqs[0]):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+        assert torch.equal(g.argmax(-1), w.argmax(-1))
+
+
+def _numpy_tree(params):
+    return {k: _numpy_tree(v) if isinstance(v, dict) else v.numpy()
+            for k, v in params.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,top_k", [(16, 1), (384, 8)])
+def test_moe_dispatch_is_bitwise_on_both_devices(cuda, E, top_k):
+    """llama4-scout's and kimi-k2's routing of 4,096 tokens on float32
+    logits of the bfloat16 grid with rows of exact ties: the same expert
+    indices, positions, keep flags, loads and capacity on both devices."""
+    from _torch_parity import tied_router_logits
+    from repro_torch.models import moe
+
+    logits = tied_router_logits(E, 4096)
+    want = moe.route(logits, top_k, 1.25)
+    got = moe.route(logits.to(cuda), top_k, 1.25)
+    assert got.capacity == want.capacity
+    for field in ("expert_idx", "pos", "keep", "load"):
+        assert torch.equal(getattr(got, field).cpu(), getattr(want, field))
+    assert want.expert_idx[0, 0].tolist() == list(range(top_k))

@@ -26,7 +26,8 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from _torch_parity import host, params_to_torch  # noqa: E402
+from _torch_parity import (greedy_decode_both, host, lm_pair,  # noqa: E402
+                           lm_tokens)
 from repro import configs as jconfigs  # noqa: E402
 from repro.models import layers as jl  # noqa: E402
 from repro.models import transformer as jtf  # noqa: E402
@@ -41,25 +42,6 @@ DENSE = ["qwen1.5-0.5b", "llama3.2-3b", "qwen2.5-32b"]
 
 def _t(x):
     return torch.tensor(np.asarray(x))
-
-
-def _pair(arch, dtype=None, **kw):
-    """(JAX config, port config, JAX params, port params) for a reduced
-    ``arch``; ``dtype`` 'bf16' switches both to bfloat16."""
-    jcfg = jconfigs.get(arch).reduced()
-    tcfg = tconfigs.get(arch).reduced()
-    if dtype == "bf16":
-        jcfg = dataclasses.replace(jcfg, dtype=jnp.bfloat16)
-        tcfg = dataclasses.replace(tcfg, dtype=torch.bfloat16)
-    jcfg = dataclasses.replace(jcfg, **kw)
-    tcfg = dataclasses.replace(tcfg, **kw)
-    jp = jtf.init_params(jcfg, jax.random.PRNGKey(7))
-    return jcfg, tcfg, jp, params_to_torch(jp, tcfg)
-
-
-def _tokens(B, T, vocab, seed=0):
-    return np.random.default_rng(seed).integers(0, vocab, (B, T),
-                                                dtype=np.int32)
 
 
 # --------------------------------------------------------------- configs
@@ -152,9 +134,9 @@ def test_attention_impls_match_jax_chunked(impl, kw):
 def test_forward_logits_match(arch, impl):
     """80 positions: two key chunks of the reduced kv_chunk 64, and two
     query blocks of K4's 64."""
-    jcfg, tcfg, jp, tp = _pair(arch, attn_impl=impl)
+    jcfg, tcfg, jp, tp = lm_pair(arch, attn_impl=impl)
     jcfg = dataclasses.replace(jcfg, attn_impl="chunked")
-    toks = _tokens(2, 80, jcfg.vocab)
+    toks = lm_tokens(2, 80, jcfg.vocab)
     want = jax.jit(lambda p, t: jtf.forward(jcfg, p, {"tokens": t})[0])(
         jp, toks)
     got, aux, cache, mask = ttf.forward(tcfg, tp, {"tokens": _t(toks)})
@@ -168,35 +150,10 @@ def test_greedy_decode_matches_jax(arch):
     """Prefill (no pad_to: the ring buffer evicts, as ``serve`` runs it)
     then 8 greedy decode steps: the same tokens, and the prefill cache and
     last logits to the forward tolerance."""
-    jcfg, tcfg, jp, tp = _pair(arch)
-    toks = _tokens(2, 12, jcfg.vocab, seed=1)
-    jpre = jax.jit(jtf.make_prefill_step(jcfg))
-    jserve = jax.jit(jtf.make_serve_step(jcfg))
-    tpre, tserve = ttf.make_prefill_step(tcfg), ttf.make_serve_step(tcfg)
-
-    jl_, jc = jpre(jp, {"tokens": toks})
-    tl_, tc = tpre(tp, {"tokens": _t(toks)})
-    np.testing.assert_allclose(host(tl_), np.asarray(jl_), rtol=1e-4,
-                               atol=1e-4)
-    for key in ("k", "v"):
-        np.testing.assert_allclose(host(tc[key]), np.asarray(jc[key]),
-                                   rtol=1e-4, atol=1e-4)
-    assert int(tc["pos"]) == int(jc["pos"]) == 12
-    jtok = jnp.argmax(jl_[:, -1], -1)[:, None].astype(jnp.int32)
-    ttok = torch.argmax(tl_[:, -1], -1)[:, None]
-    jseq, tseq = [np.asarray(jtok)], [host(ttok)]
-    for _ in range(8):
-        jl_, jc = jserve(jp, jc, jtok)
-        tl_, tc = tserve(tp, tc, ttok)
-        np.testing.assert_allclose(host(tl_), np.asarray(jl_), rtol=1e-4,
-                                   atol=1e-4)
-        jtok = jnp.argmax(jl_[:, -1], -1)[:, None].astype(jnp.int32)
-        ttok = torch.argmax(tl_[:, -1], -1)[:, None]
-        jseq.append(np.asarray(jtok))
-        tseq.append(host(ttok))
-    np.testing.assert_array_equal(np.concatenate(tseq, 1),
-                                  np.concatenate(jseq, 1))
-    assert int(tc["pos"]) == 20
+    jcfg, tcfg, jp, tp = lm_pair(arch)
+    toks = lm_tokens(2, 12, jcfg.vocab, seed=1)
+    got, want = greedy_decode_both(jcfg, tcfg, jp, tp, toks, steps=8)
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("arch", DENSE)
@@ -206,7 +163,7 @@ def test_decode_matches_forward(arch):
     with a prefill padded to 16)."""
     tcfg = tconfigs.get(arch).reduced()
     tp = ttf.init_params(tcfg, torch.Generator().manual_seed(0), "cpu")
-    toks = _t(_tokens(2, 12, tcfg.vocab, seed=2))
+    toks = _t(lm_tokens(2, 12, tcfg.vocab, seed=2))
     full = ttf.forward(tcfg, tp, {"tokens": toks})[0]
     _, cache = ttf.make_prefill_step(tcfg, pad_to=16)(
         tp, {"tokens": toks[:, :11]})
@@ -222,13 +179,13 @@ def test_decode_from_init_cache_matches_jax(filled):
     """A zero cache of 16 slots, full (pos 16: every slot valid, the write
     wraps to slot 0) or empty (pos 0: one valid slot): the same structure
     as JAX's, and three decode steps give its logits."""
-    jcfg, tcfg, jp, tp = _pair("llama3.2-3b")
+    jcfg, tcfg, jp, tp = lm_pair("llama3.2-3b")
     jc = jtf.init_cache(jcfg, 2, 16, filled=filled)
     tc = ttf.init_cache(tcfg, 2, 16, filled=filled, device="cpu")
     assert {k: tuple(v.shape) for k, v in tc.items()} == \
         {k: v.shape for k, v in jc.items()}
     assert int(tc["pos"]) == int(jc["pos"]) == (16 if filled else 0)
-    toks = _tokens(2, 3, jcfg.vocab, seed=4)
+    toks = lm_tokens(2, 3, jcfg.vocab, seed=4)
     jserve = jax.jit(jtf.make_serve_step(jcfg))
     for i in range(3):
         jl_, jc = jserve(jp, jc, toks[:, i:i + 1])
@@ -240,8 +197,8 @@ def test_decode_from_init_cache_matches_jax(filled):
 
 
 def test_bf16_forward_close():
-    jcfg, tcfg, jp, tp = _pair("qwen1.5-0.5b", dtype="bf16")
-    toks = _tokens(2, 40, jcfg.vocab, seed=3)
+    jcfg, tcfg, jp, tp = lm_pair("qwen1.5-0.5b", dtype="bf16")
+    toks = lm_tokens(2, 40, jcfg.vocab, seed=3)
     want = np.asarray(jax.jit(
         lambda p, t: jtf.forward(jcfg, p, {"tokens": t})[0])(jp, toks),
         np.float32)
@@ -285,7 +242,7 @@ def test_params_from_numpy_checks_the_tree():
 
 @pytest.mark.parametrize("arch", sorted(
     n for n, c in jconfigs.ARCHS.items()
-    if c.family != "dense" or c.input_mode != "tokens"))
+    if c.family not in ("dense", "moe") or c.input_mode != "tokens"))
 def test_other_families_raise(arch):
     cfg = tconfigs.get(arch).reduced()
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
