@@ -52,8 +52,10 @@ Phases, each reported on its own lines:
    SIMT one.  At the LM shape in bf16 the tensor-core kernel is timed
    beside the SIMT kernel on the same tensors, beside
    ``scaled_dot_product_attention(is_causal=True)`` and against its bound;
-   at (1, 24, 1024, 128) and at llama4-scout's prefill shape (4, 40, 1024,
-   128) beside SDPA and its bound.
+   at (1, 24, 1024, 128), at llama4-scout's prefill shape (4, 40, 1024,
+   128) and at zamba2-7b's (4, 32, 1024, 112) with window 4,096 beside
+   SDPA and its bound.  zamba2's shape is also held to the plain version
+   with windows of 4,096 and 16.
 5. K5 (fused RMSNorm) against its plain version at the LM's hidden-state
    shape (4096, 1024) in bf16 and f32, bitwise (the twin adds in the
    kernel's order and rsqrtf is torch.rsqrt), timed with its f32 scale
@@ -91,8 +93,34 @@ m. The moe family (lines ``[m]``, run after phase 8, whose weights are
    decode steps: device time by kernel, busy share, and the device time in
    the router and dispatch, the expert products, the combine, the shared
    expert (``record_function`` ranges of ``models/moe.py``) and K4.
+s. The hybrid and xlstm families (lines ``[s]``, run after phase m, whose
+   weights are freed first), nothing cut: (a) ``run_lm`` on zamba2-7b at
+   full width and depth (81 Mamba2 layers, d 3584, ssm_state 64, the
+   shared block after every 6 layers: 32 heads of 112, window 4,096, d_ff
+   14,336; vocab 32,000, bf16, 13.5 GB of weights), ``attn_impl="pallas"``,
+   B = 4, 1024-token prompts, 32 greedy tokens, after a warm-up at 64
+   tokens: 13 K4 launches, all on the tensor-core kernel; finite logits,
+   tokens in range; prefill ms, decode tok/s and peak memory beside the
+   bounds of :func:`_ssm_bounds`.  (b) On the same weights, group by
+   group on the K4 route's stream: each shared block's output on K4
+   against the chunked route's within 5e-2 of max |x|; the whole model's
+   last-position logits of the two routes as information, beside a
+   control (the chunked route at key chunks of 512 against 1,024: bf16
+   rounding alone, amplified through 94 blocks of random weights, moves
+   the logits past 5e-2).  (c) The cache re-layout at full width and
+   depth in float32 (TF32 off): T tokens prefilled, re-laid for T + 1
+   positions, one decode step, against a prefill of the T + 1 tokens:
+   within 5e-2 of max |logit|.  (f) One Mamba2 layer's
+   prefill, one shared-attention group and four decode steps, timed
+   untraced and traced: device time by kernel, busy share, launches a time
+   step, and from these the whole prefill's split.  (d) In float32 at full
+   width, B = 1, T = 64, TF32 off: one zamba2 Mamba2 layer and one
+   xlstm-125m m/s pair on the card against the CPU, within 1e-4 of max
+   |leaf|.  (e) ``run_lm`` on xlstm-125m at full size (12 layers, d 768, 4
+   heads of 192, vocab 50,304), B = 4, T = 1,024, 32 tokens: finite, in
+   range, timed beside its bounds; it launches no kernel.
 t. TSIA, the RA baselines and the per-cell planner (lines ``[t]``, run
-   between phases m and 9): (a) ``tsia.solve(draw_scenario(0))`` at the
+   between phases s and 9): (a) ``tsia.solve(draw_scenario(0))`` at the
    paper's N = 50, M = 5 and full caps on K2, one lanes-kernel launch a
    score, its R the trace's minimum and ``evaluate``'s; K2 at TSIA's
    P = 1 and at the host loop's P = 1 + N (M - 1) = 201 (timed in phase 2,
@@ -135,10 +163,11 @@ f. The paper's training pipeline (lines ``[f]``, run after phase h): (a)
    traced global iteration: device time, busy share, the five longest
    kernels and the device events a global iteration.
 9. Launch counts of the main paths (every count reset to 0 right before
-   a path and read right after it; phase t's, phase h's, phase f's and
-   phase m's paths as each kernel's ``launches_tsia_path``,
-   ``launches_h_path``, ``launches_train_path`` and
-   ``launches_moe_path``), each
+   a path and read right after it; phase t's, phase h's, phase f's,
+   phase m's and phase s's paths as each kernel's ``launches_tsia_path``,
+   ``launches_h_path``, ``launches_train_path``, ``launches_moe_path`` and
+   ``launches_ssm_path``: only K4's tensor-core kernel may launch on
+   phase s's path), each
    kernel's time beside its plain
    version's, its bound and its library call, then the card and the
    result line; every K3 launch of the planning path must take the warp
@@ -196,6 +225,17 @@ MOE_ARCH, MOE_LAYERS = "llama4-scout-17b-a16e", 12
 # two routes round their probabilities in other orders).
 MOE_LAYER_RTOL = 5e-2
 MOE_RANGES = ("moe.dispatch", "moe.experts", "moe.combine", "moe.shared")
+
+# Phase s: the hybrid and xlstm families at full width and depth (nothing
+# cut): zamba2-7b (81 Mamba2 layers, d 3584, ssm_state 64, a shared block
+# of 32 heads of 112 with window 4,096 and a SwiGLU of 14,336 after every 6
+# layers, vocab 32,000, bf16: 13.5 GB of weights) and xlstm-125m; B = 4,
+# 1,024-token prompts, 32 tokens, zamba2 on K4.  The card against the CPU
+# in float32 (one Mamba2 layer, one xLSTM pair): max |delta| within this
+# share of max |leaf| (the same arithmetic in other summation orders).
+SSM_ARCH, XLSTM_ARCH = "zamba2-7b", "xlstm-125m"
+SSM_CPU_TOL = 1e-4
+SSM_RANGES = ("hybrid.mamba", "hybrid.shared")
 
 SERVE_CAPS = dict(b_iters=30, f_iters=24, p_iters=20, t_iters=28)
 DEVICE_MS_SESSIONS = 3        # profiler sessions before "not measured"
@@ -500,6 +540,11 @@ def _check_k4(report: dict, dev) -> None:
              for dtype in (bf16, f32)]
     cases.append(((LM_T, LM_T, 1, 24, 128), bf16, dict(causal=True)))
     cases.append(((LM_T, LM_T, LM_B, 40, 128), bf16, dict(causal=True)))
+    # zamba2-7b's shared attention (hd 112: the HD = 128 template, its
+    # second TMA box 16 columns past the row) at its window and at 16.
+    for window in (4096, 16):
+        cases.append(((LM_T, LM_T, LM_B, 32, 112), bf16,
+                      dict(causal=True, window=window)))
     for B, H, T, hd in ((1, 1, 8, 64), (2, 4, 16, 64), (1, 2, 128, 128),
                         (2, 2, 96, 80), (1, 4, 256, 112)):
         for dtype in (bf16, f32):
@@ -539,7 +584,9 @@ def _check_k4(report: dict, dev) -> None:
           f"at llama4-scout's (4, 40) heads, the JAX sweep, non-causal, "
           f"window 16, decode offset, Tq != Tk, fused QKV views): max |err| "
           f"bf16 LM shape {errs[0]:.3g}, f32 LM shape {errs[1]:.3g}, "
-          f"llama4-scout's {errs[3]:.3g}, any bf16 case {bf16_err:.3g}")
+          f"llama4-scout's {errs[3]:.3g}, zamba2's (4, 1024, 32, 112) at "
+          f"window 4096 {errs[4]:.3g} and 16 {errs[5]:.3g}, any bf16 case "
+          f"{bf16_err:.3g}")
 
     B, H, T, hd = LM_B, 16, LM_T, 64
     q, k, v = qkv(T, T, B, H, hd, bf16)
@@ -594,12 +641,17 @@ def _check_k4(report: dict, dev) -> None:
           f"{r['host_ms']:.4g} ms a call (1,000 unsynchronised at (1, 64, 1, "
           f"64)), events - device {_fmt(_sub(r['ms'], r['device_ms']))} ms")
 
-    # hd 128: llama3.2-3b's heads, and llama4-scout's prefill (phase m).
-    for key, (B, H, T, hd) in (("hd128", (1, 24, LM_T, 128)),
-                               ("llama4", (LM_B, 40, LM_T, 128))):
+    # hd 128: llama3.2-3b's heads, and llama4-scout's prefill (phase m);
+    # hd 112 at zamba2-7b's prefill (phase s: window 4,096 > T, so the
+    # causal bound and SDPA's causal mask compute the same function).
+    for key, (B, H, T, hd), window in (
+            ("hd128", (1, 24, LM_T, 128), None),
+            ("llama4", (LM_B, 40, LM_T, 128), None),
+            ("zamba2", (LM_B, 32, LM_T, 112), 4096)):
         q, k, v = qkv(T, T, B, H, hd, bf16)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        k4 = lambda: ops.flash_attention(q, k, v, causal=True)  # noqa: E731
+        k4 = lambda: ops.flash_attention(  # noqa: E731
+            q, k, v, causal=True, window=window)
         sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
             qt, kt, vt, is_causal=True)
         b128 = _bound_ms(4 * B * T * H * hd * 2,
@@ -607,10 +659,12 @@ def _check_k4(report: dict, dev) -> None:
                          BF16_TENSOR_FLOPS_PER_S)
         t = dict(ms=_time_ms(k4, 20), dev=_device_ms(k4, 20),
                  lib=_time_ms(sdpa, 20), lib_dev=_device_ms(sdpa, 20))
-        r[key] = dict(shape=[B, H, T, hd], ms=t["ms"], device_ms=t["dev"],
+        r[key] = dict(shape=[B, H, T, hd], window=window, ms=t["ms"],
+                      device_ms=t["dev"],
                       library_ms=t["lib"], library_device_ms=t["lib_dev"],
                       bound_ms=b128[0], bound_by=b128[1])
-        print(f"[4] K4 at ({B}, {H}, {T}, {hd}) bf16 causal: tensor cores "
+        print(f"[4] K4 at ({B}, {H}, {T}, {hd}) bf16 causal, window "
+              f"{window}: tensor cores "
               f"{t['ms']:.4g} ms (device {_fmt(t['dev'])}); SDPA "
               f"{t['lib']:.4g} ms (device {_fmt(t['lib_dev'])}); bound "
               f"{b128[0]:.4g} ms by {b128[1]}, "
@@ -1813,6 +1867,369 @@ def _moe_path(dev) -> dict:
             "n_layers": L}
 
 
+def _wall_ms(fn) -> float:
+    """Host-clock ms of one synchronised call of ``fn``, after one
+    warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _ssm_bounds(cfg, B: int, T: int) -> dict:
+    """The least time of phase s's prefill and decode step at the card's
+    peaks, for the hybrid and xlstm families.  The prefill's operations:
+    B*T tokens through every projection (bf16, tensor cores) and, for the
+    hybrid, causal attention in each of its L // attn_every shared blocks;
+    the time loops' float32 arithmetic on the states (per state element a
+    step: Mamba2 5, the decay, the rank-one update, the add and the
+    read-out's multiply-add; mLSTM 6; sLSTM its recurrence product) apart,
+    at the FP32 peak; the last position's head.  A decode step's bytes:
+    every weight but the embedding (of which it reads B rows) read once,
+    and the hybrid's shared block once for each of its G applications
+    (0.41 GB at zamba2's width: no cache holds it between groups); the
+    recurrent states read and written; the K/V ring of T positions read."""
+    from repro_torch.models import ssm
+
+    d, V, L, n = cfg.d_model, cfg.vocab, cfg.n_layers, B * T
+    w = cfg.dtype.itemsize
+    if cfg.family == "mamba_hybrid":
+        H, Hkv, hd, ds = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                          cfg.ssm_state)
+        d_inner, Hs = ssm.mamba2_dims(d, ds, cfg.ssm_headdim)
+        G = L // cfg.attn_every
+        proj = d * (2 * d_inner + 2 * ds + Hs) + d_inner * d
+        conv_c = d_inner + 2 * ds
+        shared = d * (2 * H * hd + 2 * Hkv * hd) + 3 * d * cfg.d_ff
+        mm_flops = (L * 2 * n * proj
+                    + G * (2 * n * shared + 4 * hd * B * H * T * (T + 1) // 2)
+                    + 2 * B * d * V)
+        state = Hs * ds * cfg.ssm_headdim               # a token, a layer
+        f32_flops = L * n * 5 * state
+        weights = w * (L * (proj + ssm.CONV_W * conv_c + d) + d * V + d) \
+            + 4 * 3 * L * Hs
+        shared_bytes = G * w * (shared + 2 * d)
+        states = 2 * L * B * (4 * state + w * (ssm.CONV_W - 1) * conv_c)
+        kv = G * 2 * B * min(cfg.window or T, T) * Hkv * hd * w
+    else:
+        H = cfg.n_heads
+        hd = d // H
+        L2 = L // 2
+        proj = 9 * d * d + 2 * d * H                    # an m/s pair
+        mm_flops = L2 * 2 * n * proj + 2 * B * d * V
+        f32_flops = L2 * n * (6 * H * hd * hd + 2 * H * hd * 4 * hd)
+        weights = w * (L2 * (proj + 4 * H * hd * hd + 2 * d) + d * V + d)
+        shared_bytes = 0
+        states = 2 * L2 * B * 4 * (H * hd * hd + H * hd + H + 4 * H * hd)
+        kv = 0
+    step_bytes = weights + shared_bytes + states + kv + B * d * w
+    mm_ms = mm_flops / BF16_TENSOR_FLOPS_PER_S * 1e3
+    f32_ms = f32_flops / FP32_FLOPS_PER_S * 1e3
+    step_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+    return dict(prefill_flops=mm_flops, prefill_f32_flops=f32_flops,
+                prefill_ms=max(mm_ms, f32_ms), prefill_mm_ms=mm_ms,
+                prefill_f32_ms=f32_ms, step_bytes=step_bytes,
+                step_weight_bytes=weights, step_shared_bytes=shared_bytes,
+                step_state_bytes=states, step_kv_bytes=kv, step_ms=step_ms,
+                tok_per_s=B / step_ms * 1e3)
+
+
+def _ssm_serve(cfg, dev, tag: str) -> dict:
+    """``run_lm`` at B = 4, T = 1,024, 32 tokens, after a warm-up at a
+    64-token prompt (a full-length warm-up would cost a whole prefill of
+    the time loop); launch counts from 0 and the peak memory of the
+    timed run.  Checks finite logits and tokens in range."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import run_lm
+
+    kw = dict(batch=LM_B, seed=0, device=dev)
+    run_lm(cfg, prompt_len=64, new_tokens=2, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    out = run_lm(cfg, prompt_len=LM_T, new_tokens=LM_NEW, **kw)
+    torch.cuda.synchronize()
+    counts = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    logits, toks = out["logits"].float(), out["tokens"]
+    _check(logits.shape == (LM_B, cfg.vocab)
+           and bool(torch.isfinite(logits).all()),
+           f"{tag} prefill logits: shape or non-finite values")
+    _check(toks.shape == (LM_B, LM_NEW + 1) and (toks >= 0).all()
+           and (toks < cfg.vocab).all(), f"{tag} generated tokens")
+    bnd = _ssm_bounds(cfg, LM_B, LM_T)
+    step_ms = out["decode_s"] * 1e3 / LM_NEW
+    print(f"[s] {tag}: prefill {out['prefill_s'] * 1e3:.3f} ms (bound "
+          f"{bnd['prefill_ms']:.4g} ms: {bnd['prefill_flops']:.4g} bf16 flop "
+          f"at 989 TFLOP/s = {bnd['prefill_mm_ms']:.4g} ms, the time loops' "
+          f"{bnd['prefill_f32_flops']:.4g} f32 flop at 67 TFLOP/s = "
+          f"{bnd['prefill_f32_ms']:.4g} ms); decode {out['tok_per_s']:.2f} "
+          f"tok/s, {step_ms:.3f} ms a step (bound {bnd['step_ms']:.4g} ms: "
+          f"{bnd['step_bytes']:.4g} bytes at 3.35 TB/s, weights "
+          f"{bnd['step_weight_bytes']:.4g}, shared block re-reads "
+          f"{bnd['step_shared_bytes']:.4g}, states "
+          f"{bnd['step_state_bytes']:.4g}, K/V {bnd['step_kv_bytes']:.4g}; "
+          f"{bnd['tok_per_s']:.4g} tok/s); peak memory allocated "
+          f"{peak:,} bytes ({peak / 2 ** 30:.2f} GiB); first sequence "
+          f"{toks[0][:12].tolist()}")
+    return {"run": out, "counts": counts, "peak_bytes": peak, "bounds": bnd,
+            "step_ms": step_ms}
+
+
+def _ssm_path(dev) -> dict:
+    """Phase s: the hybrid and xlstm families through ``run_lm`` at full
+    width and depth, on K4 (zamba2); on zamba2's weights the chunked route
+    group by group, a traced Mamba2 layer, shared group and four decode
+    steps, and the cache re-layout in f32; one Mamba2 layer and one xLSTM
+    pair in f32 on the card against the CPU."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.fed.hfl import f32_math
+    from repro_torch.kernels import ops
+    from repro_torch.models import ssm
+    from repro_torch.models import transformer as tf
+
+    t_phase = time.perf_counter()
+    chunked = configs.get(SSM_ARCH)
+    flash = dataclasses.replace(chunked, attn_impl="pallas")
+    L, V, G = flash.n_layers, flash.vocab, flash.n_layers // flash.attn_every
+    print(f"[s] {SSM_ARCH} at full width and depth ({L} Mamba2 layers, d "
+          f"{flash.d_model}, ssm_state {flash.ssm_state}, the shared block "
+          f"after every {flash.attn_every}: {G} applications of "
+          f"{flash.n_heads} heads of {flash.head_dim}, window "
+          f"{flash.window}, d_ff {flash.d_ff}; vocab {V}, {flash.dtype}), "
+          f"B = {LM_B}, prompt {LM_T}, {LM_NEW} new tokens, on K4")
+    # (a) The served path.
+    a = _ssm_serve(flash, dev, SSM_ARCH)
+    counts = a["counts"]
+    _check(counts["flash_attention"] == G,
+           f"K4 launched {counts['flash_attention']} times in one prefill "
+           f"of {G} shared-attention applications")
+    _check(counts["flash_attention_sm90"] == G,
+           f"only {counts['flash_attention_sm90']} of the hybrid prefill's "
+           f"K4 launches took the tensor-core kernel")
+    print(f"[s] K4 launches in the run: {counts['flash_attention']} (one "
+          f"per shared-attention application of one prefill), "
+          f"{counts['flash_attention_sm90']} on the tensor cores")
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    traced = {}
+    with torch.inference_mode():
+        # run_lm's weights and prompts again: the same generator sequence.
+        params = tf.init_params(flash, gen, dev)
+        toks = torch.randint(0, V, (LM_B, LM_T), generator=gen, device=dev)
+        extra = torch.randint(0, V, (LM_B, 1), generator=gen, device=dev)
+        lk = a["run"]["logits"].float()
+        # (b) K4 against the chunked route, group by group on the K4
+        # route's stream: each shared block's output from the same input.
+        x, positions, _ = tf.embed_inputs(flash, params, {"tokens": toks})
+        mm, ends = params["blocks"]["mamba"], tf._group_ends(flash)
+        groups = []
+        for i in range(L):
+            x, _ = tf._mamba_apply(flash, tf._layer(mm, i), x)
+            if i in ends:
+                yk = tf._shared_apply(flash, params, x, positions=positions)[0]
+                yc = tf._shared_apply(chunked, params, x,
+                                      positions=positions)[0]
+                rel = float((yk.float() - yc.float()).abs().max()
+                            / yc.float().abs().max())
+                groups.append(rel)
+                _check(rel <= LM_LOGIT_RTOL, f"{SSM_ARCH} group {len(groups)}: "
+                       f"K4 and chunked shared-block outputs differ by "
+                       f"{rel:.3g} of max |x| (limit {LM_LOGIT_RTOL})")
+                x = yk
+        stream = tf.unembed(flash, params, x[:, -1:])[:, 0].float()
+        rerun = float((stream - lk).abs().max())
+        del x, yk, yc
+        # The whole model on the chunked route, and as a control the same
+        # route with key chunks of 512 (another summation order of the
+        # same function): how far bf16 rounding alone moves the logits
+        # through 94 blocks of random weights.
+        lc, cache = tf.make_prefill_step(chunked)(params, {"tokens": toks})
+        lc512 = tf.make_prefill_step(dataclasses.replace(
+            chunked, kv_chunk=512))(params, {"tokens": toks})[0]
+        lc, lc512 = lc[:, 0].float(), lc512[:, 0].float()
+        scale = float(lc.abs().max())
+        gap = float((lk - lc).abs().max()) / scale
+        control = float((lc512 - lc).abs().max()) / scale
+        print(f"[s] (b) K4 against the chunked route, each of the {G} shared "
+              f"blocks on the K4 stream's input: max |delta| "
+              f"{max(groups):.4g} of max |x| (by group "
+              f"{json.dumps([float(f'{r:.3g}') for r in groups])}; limit "
+              f"{LM_LOGIT_RTOL}); the K4 stream's logits against run_lm's: "
+              f"max |delta| {rerun:.4g}")
+        print(f"[s] (b) whole model, last-position logits (information): K4 "
+              f"against chunked {gap:.4g} of max |logit| {scale:.4g}, the "
+              f"same top token in "
+              f"{float((lk.argmax(-1) == lc.argmax(-1)).float().mean()):.4f} "
+              f"of sequences; the control, chunked at key chunks of 512 "
+              f"against 1,024: {control:.4g}")
+
+        # (f) Traces: one Mamba2 layer's prefill, one shared group, four
+        # decode steps from the chunked prefill's cache (the whole prefill
+        # launches ~10^6 kernels).
+        x, positions, _ = tf.embed_inputs(flash, params, {"tokens": toks})
+        p0 = tf._layer(params["blocks"]["mamba"], 0)
+        walls = {"mamba": _wall_ms(lambda: tf._mamba_apply(flash, p0, x)),
+                 "shared": _wall_ms(lambda: tf._shared_apply(
+                     flash, params, x, positions=positions))}
+        traced["mamba"] = {}
+        _profile("[s]", "1 traced Mamba2 layer's prefill",
+                 lambda: tf._mamba_apply(flash, p0, x), traced["mamba"])
+        traced["shared"] = {}
+        rows = _profile("[s]", "1 traced shared-attention group (K4 + "
+                        "shared SwiGLU)", lambda: tf._shared_apply(
+                            flash, params, x, positions=positions),
+                        traced["shared"])
+        traced["shared"]["k4_ms"] = sum(
+            ms for ms, _, nm in rows if "flash_attention" in nm)
+        tok = lk.argmax(-1)[:, None]
+
+        def decode(steps=4):
+            nonlocal cache, tok
+            for _ in range(steps):
+                step_logits, cache = tf.decode_step(flash, params, cache, tok)
+                tok = torch.argmax(step_logits[:, -1], -1)[:, None]
+
+        decode()
+        traced["decode"] = {}
+        _profile("[s]", "4 traced decode steps", decode, traced["decode"],
+                 SSM_RANGES)
+        del cache, x, mm, p0
+
+        # (c) The re-layout at full width and depth, in float32 with TF32
+        # off (in bf16 the rounding of 94 blocks moves the logits further
+        # than the limit; see (b)'s control): T tokens prefilled and
+        # re-laid for T + 1 positions, one decode step on token T, against
+        # a prefill of the T + 1 tokens.
+        def widen(tree):
+            return {k: widen(v) if isinstance(v, dict) else v.float()
+                    for k, v in tree.items()}
+
+        f32cfg = dataclasses.replace(flash, dtype=torch.float32)
+        p32 = widen(params)
+        del params
+        with f32_math():
+            _, cache = tf.make_prefill_step(f32cfg, pad_to=LM_T + 1)(
+                p32, {"tokens": toks})
+            dec = tf.decode_step(f32cfg, p32, cache, extra)[0][:, 0]
+            del cache
+            full = tf.make_prefill_step(f32cfg)(
+                p32, {"tokens": torch.cat([toks, extra], 1)})[0][:, 0]
+        rel_c = float((dec - full).abs().max() / full.abs().max())
+        _check(rel_c <= LM_LOGIT_RTOL, f"{SSM_ARCH}: prefill T + re-layout + "
+               f"decode differs from a prefill of T + 1 by {rel_c:.3g} of "
+               f"max |logit| (limit {LM_LOGIT_RTOL})")
+        same_top = float((dec.argmax(-1) == full.argmax(-1)).float().mean())
+        print(f"[s] (c) the re-layout in f32: prefill {LM_T} tokens, re-lay "
+              f"for {LM_T + 1} positions, decode token {LM_T}, against a "
+              f"prefill of {LM_T + 1}: max |delta| {rel_c:.4g} of max "
+              f"|logit| {float(full.abs().max()):.4g} (limit "
+              f"{LM_LOGIT_RTOL}); the same top token in {same_top:.4f} of "
+              f"sequences")
+        del p32
+    torch.cuda.empty_cache()
+    tm, ts, td = traced["mamba"], traced["shared"], traced["decode"]
+    est_wall = L * walls["mamba"] + G * walls["shared"]
+    est_dev = L * tm["device_ms"] + G * ts["device_ms"]
+    print(f"[s] (f) one Mamba2 layer's prefill: {walls['mamba']:.2f} ms wall "
+          f"untraced ({tm['wall_ms']:.2f} traced), "
+          f"{tm['device_ms']:.3f} ms device, busy share "
+          f"{_fmt(_div(tm['union_ms'], tm['wall_ms']), '.4f')}, "
+          f"{tm['events']} device events ({tm['events'] / LM_T:.2f} a time "
+          f"step); one shared group: {walls['shared']:.2f} ms wall untraced "
+          f"({ts['wall_ms']:.2f} traced), "
+          f"{ts['device_ms']:.3f} ms device (K4 {ts['k4_ms']:.3f}), busy "
+          f"share {_fmt(_div(ts['union_ms'], ts['wall_ms']), '.4f')}, "
+          f"{ts['events']} device events")
+    print(f"[s] (f) the whole prefill from these: {L} x Mamba2 + {G} x "
+          f"shared = {est_wall:.1f} ms wall ({L * walls['mamba']:.1f} in "
+          f"the Mamba2 layers, {G * walls['shared']:.1f} in the shared "
+          f"groups) "
+          f"and {est_dev:.1f} ms of device time ({L * tm['device_ms']:.1f} "
+          f"Mamba2, {G * ts['device_ms']:.1f} shared, K4 "
+          f"{G * ts['k4_ms']:.2f}), against run_lm's "
+          f"{a['run']['prefill_s'] * 1e3:.1f} ms; launches about "
+          f"{L * tm['events'] + G * ts['events']:,}")
+    rg = td["ranges"]
+    print(f"[s] (f) 4 traced decode steps: {td['wall_ms'] / 4:.2f} ms wall "
+          f"and {td['device_ms'] / 4:.3f} ms device a step (busy share "
+          f"{_fmt(_div(td['union_ms'], td['wall_ms']), '.4f')}), "
+          f"{td['events'] / 4:.0f} device events a step; device time a "
+          f"step in the Mamba2 layers {rg['hybrid.mamba'] / 4:.3f} ms, in "
+          f"the shared blocks {rg['hybrid.shared'] / 4:.3f} ms, the rest "
+          f"{(td['device_ms'] - sum(rg.values())) / 4:.3f} ms")
+
+    # (d) The card against the CPU in f32 at full width, B = 1, T = 64: one
+    # zamba2 Mamba2 layer (A_log, D, dt_bias drawn too) and one xlstm-125m
+    # m/s pair, weights from the seed, TF32 off.
+    xcfg = configs.get(XLSTM_ARCH)
+    g = torch.Generator().manual_seed(3)
+    d, ds, hdm = flash.d_model, flash.ssm_state, flash.ssm_headdim
+    pm = ssm.init_mamba2(g, d, ds, hdm, device="cpu")
+    Hs = pm["A_log"].shape[0]
+    pm.update(A_log=0.5 * torch.randn(Hs, generator=g),
+              D=torch.randn(Hs, generator=g),
+              dt_bias=torch.randn(Hs, generator=g), ln=torch.ones(d))
+    xm = torch.randn((1, 64, d), generator=g)
+    px = {"m": dict(ssm.init_mlstm(g, xcfg.d_model, xcfg.n_heads,
+                                   device="cpu"), ln=torch.ones(xcfg.d_model)),
+          "s": dict(ssm.init_slstm(g, xcfg.d_model, xcfg.n_heads,
+                                   device="cpu"), ln=torch.ones(xcfg.d_model))}
+    xx = torch.randn((1, 64, xcfg.d_model), generator=g)
+    f32 = dict(dtype=torch.float32)
+    mcfg = dataclasses.replace(flash, **f32)
+    xcfg32 = dataclasses.replace(xcfg, **f32)
+    def card(tree):
+        return {k: card(v) if isinstance(v, dict) else v.to(dev)
+                for k, v in tree.items()}
+
+    def leaves(t):
+        return ([t] if isinstance(t, torch.Tensor)
+                else [y for z in t for y in leaves(z)])
+
+    errs = {}
+    with torch.inference_mode(), f32_math():
+        for name, fn in (
+                ("mamba2", lambda p, x: tf._mamba_apply(mcfg, p, x)),
+                ("xlstm pair", lambda p, x: tf._xlstm_pair(xcfg32, p, x))):
+            p, x = (pm, xm) if name == "mamba2" else (px, xx)
+            want = fn(p, x)
+            got = fn(card(p), x.to(dev))
+            for i, (gt, wt) in enumerate(zip(leaves(got), leaves(want))):
+                rel = float((gt.cpu() - wt).abs().max() / wt.abs().max())
+                errs[f"{name}[{i}]"] = rel
+                _check(rel <= SSM_CPU_TOL, f"{name} output {i} on the card "
+                       f"differs from the CPU by {rel:.3g} of its max (limit "
+                       f"{SSM_CPU_TOL})")
+    shown = {k: float(f"{v:.4g}") for k, v in errs.items()}
+    print(f"[s] (d) f32 at full width, B = 1, T = 64, the card against the "
+          f"CPU (TF32 off), max |delta| over max |leaf| of y and each "
+          f"state: {json.dumps(shown)} (limit {SSM_CPU_TOL})")
+    del pm, px
+
+    # (e) xlstm-125m at full size.
+    x_run = _ssm_serve(xcfg, dev, XLSTM_ARCH)
+    _check(sum(x_run["counts"].values()) == 0,
+           f"{XLSTM_ARCH} launched a kernel: {x_run['counts']}")
+    seconds = time.perf_counter() - t_phase
+    print(f"[s] phase s: {seconds:.1f} s")
+    path = {k: counts[k] + x_run["counts"][k] for k in counts}
+    return {"counts": path, "zamba2": a, "xlstm": x_run,
+            "rel_b": max(groups), "rel_b_groups": groups, "gap_b": gap,
+            "gap_b_control": control, "rel_c": rel_c, "cpu_errs": errs, "traced": traced,
+            "est_prefill_wall_ms": est_wall, "walls": walls,
+            "seconds": seconds,
+            "groups": G}
+
+
 def main(argv: list[str]) -> int:
     kernels_only = "--kernels" in argv
     try:
@@ -2195,6 +2612,10 @@ def main(argv: list[str]) -> int:
     torch.cuda.empty_cache()
     mp = _moe_path(dev)
 
+    # ---- phase s: the hybrid and xlstm families at full size ----------
+    torch.cuda.empty_cache()
+    sp = _ssm_path(dev)
+
     # ---- phase t: TSIA, the baselines and the per-cell planner ---------
     tp = _tsia_path(dev, report, k2_tsia)
 
@@ -2249,6 +2670,16 @@ def main(argv: list[str]) -> int:
     _check(moe_counts["flash_attention_sm90"] == mp["n_layers"],
            "flash_attention_sm90 did not launch once a layer on phase m's "
            "path")
+    ssm_counts = _by_kernel(sp["counts"])
+    print(f"[9] kernels on phase s's path (zamba2-7b and xlstm-125m at full "
+          f"size): {json.dumps(ssm_counts)}")
+    _check(ssm_counts["flash_attention_sm90"] == sp["groups"],
+           "flash_attention_sm90 did not launch once a shared-attention "
+           "application on phase s's path")
+    _check(all(n == 0 for k, n in ssm_counts.items()
+               if k != "flash_attention_sm90"),
+           f"a kernel other than K4's tensor-core kernel launched on phase "
+           f"s's path: {ssm_counts}")
     f_counts = _by_kernel(fp["counts"])
     print(f"[9] kernels on phase f's path (the training pipeline): "
           f"{json.dumps(f_counts)}")
@@ -2263,6 +2694,7 @@ def main(argv: list[str]) -> int:
         report[name]["launches_h_path"] = h_counts[name]
         report[name]["launches_train_path"] = f_counts[name]
         report[name]["launches_moe_path"] = moe_counts[name]
+        report[name]["launches_ssm_path"] = ssm_counts[name]
         r = report[name]
         lib = (f", library {r['library_ms']:.4g} ms"
                if r["library_ms"] is not None else "")
@@ -2313,6 +2745,19 @@ def main(argv: list[str]) -> int:
           f"{mp['peak_bytes'] / 2 ** 30:.2f} GiB; {moe_counts['flash_attention_sm90']} K4 launches on the "
           f"tensor cores; top-1 flips a layer {mp['flips']} "
           f"({mp['seconds']:.1f} s)")
+    for key, tag in (("zamba2", SSM_ARCH), ("xlstm", XLSTM_ARCH)):
+        r, b = sp[key], sp[key]["bounds"]
+        print(f"[9] ssm path, {tag}: prefill "
+              f"{r['run']['prefill_s'] * 1e3:.3f} ms (bound "
+              f"{b['prefill_ms']:.4g} ms), decode {r['run']['tok_per_s']:.2f} "
+              f"tok/s (bound {b['tok_per_s']:.4g}); peak "
+              f"{r['peak_bytes'] / 2 ** 30:.2f} GiB")
+    print(f"[9] ssm path: {ssm_counts['flash_attention_sm90']} K4 launches "
+          f"on the tensor cores; K4 against chunked {sp['rel_b']:.4g} of max "
+          f"|x| a shared block (whole model {sp['gap_b']:.4g}, control "
+          f"{sp['gap_b_control']:.4g} of max |logit|), re-layout in f32 "
+          f"{sp['rel_c']:.4g} of max |logit|; card against CPU at most "
+          f"{max(sp['cpu_errs'].values()):.3g} ({sp['seconds']:.1f} s)")
     print(json.dumps({"kernels": [report[k] for k in counts]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

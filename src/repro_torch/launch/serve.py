@@ -2,13 +2,18 @@
 endpoint.
 
 ``--mode lm`` (default) prefills a batch of prompts and decodes greedily
-with the ring-buffer KV cache, for the dense and moe families (the moe
-family: llama4-scout-17b-a16e and kimi-k2-1t-a32b, top-k routed experts
-with capacity dispatch and a shared expert); a reduced config unless
+from the decode cache, for the dense and moe families (the moe family:
+llama4-scout-17b-a16e and kimi-k2-1t-a32b, top-k routed experts with
+capacity dispatch and a shared expert; a ring-buffer KV cache) and the
+hybrid and xlstm families (zamba2-7b: Mamba2 layers and a shared
+sliding-window attention block; xlstm-125m: mLSTM/sLSTM pairs; recurrent
+states, and the shared block's ring buffer); a reduced config unless
 ``--full-size``:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \
       --arch llama4-scout-17b-a16e --batch 4 --prompt-len 32 --new-tokens 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \
+      --arch zamba2-7b --batch 2 --prompt-len 16 --new-tokens 4 --device cpu
 
 ``--mode plan`` serves the fleet planning endpoint as a streaming control
 plane (:mod:`repro_torch.fleet.service`): each tick advances mobility,
@@ -263,8 +268,9 @@ def _sync(device) -> None:
 def run_lm(cfg, *, batch: int, prompt_len: int, new_tokens: int, seed: int,
            device="cuda") -> dict:
     """Prefill ``batch`` random prompts of ``prompt_len`` tokens and decode
-    ``new_tokens`` greedy tokens with the ring-buffer KV cache (prefill
-    without ``pad_to``, as the JAX entry point does).
+    ``new_tokens`` greedy tokens from the decode cache (prefill without
+    ``pad_to``, as the JAX entry point does: the first decode step evicts
+    the oldest token of a ring buffer).
 
     Weights and prompts come from one ``torch.Generator`` seeded with
     ``seed`` on ``device``.  Returns the timings (host clock around

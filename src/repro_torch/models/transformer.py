@@ -1,21 +1,30 @@
-"""The architecture zoo's dense and moe families: config, parameters,
-forward pass, KV-cache decode and the serving steps (the JAX package's
+"""The architecture zoo's decoder families: config, parameters, forward
+pass, decode caches and the serving steps (the JAX package's
 ``models/transformer.py``).
 
-``ArchConfig`` describes every architecture of the registry, but only the
-``dense`` and ``moe`` families with token inputs run here:
-``mamba_hybrid``, ``xlstm``, ``encoder`` and the embedding frontends raise
+``ArchConfig`` describes every architecture of the registry.  The
+``dense``, ``moe``, ``mamba_hybrid`` and ``xlstm`` families with token
+inputs run here; the ``encoder`` family and the embedding frontends raise
 ``NotImplementedError`` (ROADMAP queue 1).  Parameters are nested dicts of
 tensors whose layer weights are stacked along a leading axis, as in the JAX
 package; the layer stack is a Python loop over that axis (no scan, no
 remat: this module serves, it does not train).  A moe block's FFN is
 :func:`repro_torch.models.moe.moe_ffn`; ``forward`` returns its load-balance
-loss summed over the layers.
+loss summed over the layers.  The hybrid family (zamba2) runs groups of
+``attn_every`` Mamba2 layers, each group followed by one shared attention
+block (sliding window ``cfg.window``) and one shared SwiGLU, then the
+tail's Mamba2 layers; the xlstm family runs mLSTM/sLSTM pairs
+(:mod:`repro_torch.models.ssm`).
+
+``forward(mode="prefill")`` returns the reference's prefill cache, whose
+layout the reference's ``decode_step`` cannot read for the hybrid and
+xlstm families; :func:`prefill_cache_to_decode` re-lays it, and
+``make_prefill_step`` returns the decode layout (ROADMAP queue 3).
 
 ``decode_step`` writes the new key and value into the cache's ring buffer
-in place and returns the same tensors with ``pos + 1``: the JAX package's
-update is functional, and copying a cache of L x B x S x Hkv x hd per token
-would buy nothing here.
+in place, and the recurrent states into theirs, and returns the same
+tensors with ``pos + 1``: the JAX package's update is functional, and
+copying a cache of L x B x S x Hkv x hd per token would buy nothing here.
 """
 from __future__ import annotations
 
@@ -25,13 +34,16 @@ from typing import Any, NamedTuple, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import apply_rope, attention, rms_norm, swiglu
 
-_PORTED_FAMILIES = ("dense", "moe")
-_NOT_PORTED = ("the port runs only the dense and moe families with token "
-               "inputs; {} is not ported yet (ROADMAP queue 1)")
+_PORTED_FAMILIES = ("dense", "moe", "mamba_hybrid", "xlstm")
+_NOT_PORTED = ("the port runs only the dense, moe, mamba_hybrid and xlstm "
+               "families with token inputs; {} is not ported yet (ROADMAP "
+               "queue 1)")
 
 
 # ============================================================== config
@@ -111,9 +123,14 @@ def _require_ported(cfg: ArchConfig) -> None:
             f"input_mode={cfg.input_mode!r} ({cfg.name})"))
 
 
-def _attn_defs(cfg: ArchConfig, L: int):
+def _attn_defs(cfg: ArchConfig, L: Optional[int]):
+    """Attention block defs; L=None means unstacked (the hybrid's shared
+    block)."""
     d, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    st = lambda s, a: ParamDef((L,) + s, ("layers",) + a)  # noqa: E731
+    if L:
+        st = lambda s, a: ParamDef((L,) + s, ("layers",) + a)  # noqa: E731
+    else:
+        st = lambda s, a: ParamDef(s, a)  # noqa: E731
     defs = {
         "ln": st((d,), ("d_model",)),
         "wq": st((d, H * hd), ("d_model", "qkv")),
@@ -160,6 +177,45 @@ def _moe_defs(cfg: ArchConfig, L: int):
     return defs
 
 
+def _mamba_defs(cfg: ArchConfig, L: int):
+    d, ds = cfg.d_model, cfg.ssm_state
+    d_inner, n_heads = ssm_lib.mamba2_dims(d, ds, cfg.ssm_headdim)
+    d_in_proj = 2 * d_inner + 2 * ds + n_heads
+    f32 = torch.float32
+    return {
+        "ln": ParamDef((L, d), ("layers", "d_model")),
+        "in_proj": ParamDef((L, d, d_in_proj), ("layers", "d_model", None)),
+        "conv_w": ParamDef((L, ssm_lib.CONV_W, d_inner + 2 * ds),
+                           ("layers", None, "ff"), scale=0.5),
+        "A_log": ParamDef((L, n_heads), ("layers", None), f32),
+        "D": ParamDef((L, n_heads), ("layers", None), f32),
+        "dt_bias": ParamDef((L, n_heads), ("layers", None), f32),
+        "out_proj": ParamDef((L, d_inner, d), ("layers", "ff", "d_model")),
+    }
+
+
+def _xlstm_defs(cfg: ArchConfig, L: int):
+    d, H = cfg.d_model, cfg.n_heads
+    hd = d // H
+    mk = lambda: ParamDef((L, d, d), ("layers", "d_model", "qkv"))  # noqa
+    rk = lambda: ParamDef((L, H, hd, hd),  # noqa: E731
+                          ("layers", "heads", None, None))
+    return {
+        "m": {  # mLSTM blocks
+            "ln": ParamDef((L, d), ("layers", "d_model")),
+            "wq": mk(), "wk": mk(), "wv": mk(), "wo": mk(),
+            "wi": ParamDef((L, d, H), ("layers", "d_model", None)),
+            "wf": ParamDef((L, d, H), ("layers", "d_model", None)),
+        },
+        "s": {  # sLSTM blocks
+            "ln": ParamDef((L, d), ("layers", "d_model")),
+            "wz": mk(), "wi": mk(), "wf": mk(), "wo": mk(),
+            "rz": rk(), "ri": rk(), "rf": rk(), "ro": rk(),
+            "w_out": mk(),
+        },
+    }
+
+
 def _ffn_key(cfg: ArchConfig) -> str:
     return "moe" if cfg.family == "moe" else "mlp"
 
@@ -172,8 +228,24 @@ def param_defs(cfg: ArchConfig):
                                     scale=d ** -0.5)}
     if not cfg.tie_embeddings:
         defs["lm_head"] = ParamDef((d, V), ("d_model", "vocab"))
-    ffn = _moe_defs(cfg, L) if cfg.family == "moe" else _mlp_defs(cfg, L)
-    defs["blocks"] = {"attn": _attn_defs(cfg, L), _ffn_key(cfg): ffn}
+    if cfg.family == "mamba_hybrid":
+        defs["blocks"] = {"mamba": _mamba_defs(cfg, L)}
+        defs["shared_attn"] = _attn_defs(cfg, None)      # one shared block
+        if cfg.d_ff:                                     # zamba2 shared MLP
+            defs["shared_mlp"] = {
+                "ln": ParamDef((d,), ("d_model",)),
+                "w_gate": ParamDef((d, cfg.d_ff), ("d_model", "ff")),
+                "w_up": ParamDef((d, cfg.d_ff), ("d_model", "ff")),
+                "w_down": ParamDef((cfg.d_ff, d), ("ff", "d_model")),
+            }
+    elif cfg.family == "xlstm":
+        if L % 2:
+            raise ValueError(f"the xlstm family stacks m/s pairs: n_layers "
+                             f"must be even, got {L}")
+        defs["blocks"] = _xlstm_defs(cfg, L // 2)
+    else:
+        ffn = _moe_defs(cfg, L) if cfg.family == "moe" else _mlp_defs(cfg, L)
+        defs["blocks"] = {"attn": _attn_defs(cfg, L), _ffn_key(cfg): ffn}
     return defs
 
 
@@ -327,8 +399,14 @@ def unembed(cfg: ArchConfig, params, x):
 # ------------------------------------------------------------ stacks
 def _backbone(cfg: ArchConfig, params, batch, want_cache: bool):
     x, positions, loss_mask = embed_inputs(cfg, params, batch)
-    blocks, ffn = params["blocks"], _ffn_key(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "mamba_hybrid":
+        x, cache = _hybrid_forward(cfg, params, x, positions, want_cache)
+        return x, cache, loss_mask, aux
+    if cfg.family == "xlstm":
+        x, cache = _xlstm_forward(cfg, params, x, want_cache)
+        return x, cache, loss_mask, aux
+    blocks, ffn = params["blocks"], _ffn_key(cfg)
     ks, vs = [], []
     for i in range(cfg.n_layers):
         x, (k, v) = _attn_apply(cfg, _layer(blocks["attn"], i), x,
@@ -342,17 +420,116 @@ def _backbone(cfg: ArchConfig, params, batch, want_cache: bool):
     cache = None
     if want_cache:
         cache = {"k": torch.stack(ks), "v": torch.stack(vs),
-                 "pos": torch.full((), x.shape[1], dtype=torch.int32,
-                                   device=x.device)}
+                 "pos": _pos(x.shape[1], x.device)}
     return x, cache, loss_mask, aux
+
+
+def _pos(n: int, device) -> torch.Tensor:
+    return torch.full((), n, dtype=torch.int32, device=device)
+
+
+def _mamba_apply(cfg: ArchConfig, p, x, state=None, conv_state=None):
+    """One Mamba2 layer with its residual; ``p`` holds one layer's weights.
+    Returns (x, (ssm, conv))."""
+    with record_function("hybrid.mamba"):
+        y, st = ssm_lib.mamba2_scan(p, rms_norm(x, p["ln"]), cfg.ssm_state,
+                                    cfg.ssm_headdim, state=state,
+                                    conv_state=conv_state)
+        return x + y, st
+
+
+def _shared_apply(cfg: ArchConfig, params, x, *, positions, kv_cache=None,
+                  cache_pos=None):
+    """The hybrid's shared attention block (window ``cfg.window``) and
+    shared SwiGLU, ending a group.  Returns (x, (k, v))."""
+    with record_function("hybrid.shared"):
+        x, kv = _attn_apply(cfg, params["shared_attn"], x,
+                            positions=positions, kv_cache=kv_cache,
+                            cache_pos=cache_pos, window=cfg.window)
+        if "shared_mlp" in params:
+            x, _ = _ffn_apply(cfg, params["shared_mlp"], x)
+        return x, kv
+
+
+def _group_ends(cfg: ArchConfig) -> dict:
+    """{layer index: group} for the Mamba2 layers that the shared block
+    follows: the last of each of the L // attn_every full groups."""
+    every = cfg.attn_every
+    return {g * every + every - 1: g for g in range(cfg.n_layers // every)}
+
+
+def _hybrid_forward(cfg: ArchConfig, params, x, positions, want_cache):
+    """Groups of ``attn_every`` Mamba2 layers, each followed by the shared
+    block, then the tail.  The cache is the reference's prefill layout:
+    ``groups`` (ssm, conv) stacked (G, attn_every, ...), ``attn_k``/
+    ``attn_v`` (G, B, T, Hkv, hd), ``tail`` (ssm, conv) stacked (tail, ...)
+    or None, ``pos``."""
+    mm, ends = params["blocks"]["mamba"], _group_ends(cfg)
+    ssm, conv, ks, vs = [], [], [], []
+    for i in range(cfg.n_layers):
+        x, (s, cs) = _mamba_apply(cfg, _layer(mm, i), x)
+        if i in ends:
+            x, (k, v) = _shared_apply(cfg, params, x, positions=positions)
+            if want_cache:
+                ks.append(k)
+                vs.append(v)
+        if want_cache:
+            ssm.append(s)
+            conv.append(cs)
+    if not want_cache:
+        return x, None
+    G, every = len(ends), cfg.attn_every
+    ssm, conv = torch.stack(ssm), torch.stack(conv)
+    head = G * every
+
+    def grouped(a):
+        return a[:head].reshape((G, every) + a.shape[1:])
+
+    cache = {"groups": (grouped(ssm), grouped(conv)),
+             "attn_k": torch.stack(ks), "attn_v": torch.stack(vs),
+             "tail": ((ssm[head:], conv[head:]) if cfg.n_layers > head
+                      else None),
+             "pos": _pos(x.shape[1], x.device)}
+    return x, cache
+
+
+_M_KEYS = ("m_C", "m_n", "m_m")
+_S_KEYS = ("s_c", "s_n", "s_m", "s_h")
+
+
+def _xlstm_pair(cfg: ArchConfig, blk, x, m_state=None, s_state=None):
+    """One mLSTM/sLSTM pair with their residuals: (x, m_state, s_state)."""
+    bm, bs = blk["m"], blk["s"]
+    y, m_state = ssm_lib.mlstm_scan(bm, rms_norm(x, bm["ln"]), cfg.n_heads,
+                                    state=m_state)
+    x = x + y
+    y, s_state = ssm_lib.slstm_scan(bs, rms_norm(x, bs["ln"]), cfg.n_heads,
+                                    state=s_state)
+    return x + y, m_state, s_state
+
+
+def _xlstm_forward(cfg: ArchConfig, params, x, want_cache):
+    """The m/s pairs; the cache is the reference's prefill layout:
+    ``states`` ((C, n, m), (c, n, m, h)), each stacked over the pairs, and
+    ``pos``."""
+    blocks, ms, ss = params["blocks"], [], []
+    for i in range(cfg.n_layers // 2):
+        x, m_state, s_state = _xlstm_pair(cfg, _layer(blocks, i), x)
+        ms.append(m_state)
+        ss.append(s_state)
+    if not want_cache:
+        return x, None
+    stack = lambda states: tuple(torch.stack(t) for t in zip(*states))  # noqa
+    return x, {"states": (stack(ms), stack(ss)),
+               "pos": _pos(x.shape[1], x.device)}
 
 
 def forward(cfg: ArchConfig, params, batch, *, mode="train"):
     """Full-sequence forward. Returns (logits, aux, cache_out, loss_mask).
 
-    cache_out is the prefill cache when mode='prefill', else None; aux is
-    the moe family's load-balance loss summed over the layers (0 for the
-    dense family).
+    cache_out is the prefill cache when mode='prefill' (the reference's
+    layout for each family), else None; aux is the moe family's
+    load-balance loss summed over the layers (0 for the other families).
     """
     x, cache, loss_mask, aux = _backbone(cfg, params, batch,
                                          mode == "prefill")
@@ -361,10 +538,40 @@ def forward(cfg: ArchConfig, params, batch, *, mode="train"):
 
 # ============================================================ decode
 def cache_defs(cfg: ArchConfig, batch: int, context: int):
-    """Decode-cache structure (shapes + logical axes)."""
+    """Decode-cache structure (shapes + logical axes) per family."""
     _require_ported(cfg)
     B, S, L = batch, context, cfg.n_layers
     Hkv, hd = cfg.n_kv_heads, cfg.head_dim
+    f32 = torch.float32
+    if cfg.family == "mamba_hybrid":
+        d_inner, H = ssm_lib.mamba2_dims(cfg.d_model, cfg.ssm_state,
+                                         cfg.ssm_headdim)
+        G = cfg.n_layers // cfg.attn_every
+        W = min(cfg.window or S, S)
+        return {
+            "ssm": ParamDef((L, B, H, cfg.ssm_state, cfg.ssm_headdim),
+                            ("layers", "kv_batch", "heads", None, None), f32),
+            "conv": ParamDef((L, B, ssm_lib.CONV_W - 1,
+                              d_inner + 2 * cfg.ssm_state),
+                             ("layers", "kv_batch", None, "ff")),
+            "attn_k": ParamDef((G, B, W, Hkv, hd),
+                               ("layers", "kv_batch", None, None, None)),
+            "attn_v": ParamDef((G, B, W, Hkv, hd),
+                               ("layers", "kv_batch", None, None, None)),
+            "pos": ParamDef((), (), torch.int32),
+        }
+    if cfg.family == "xlstm":
+        L2, H = cfg.n_layers // 2, cfg.n_heads
+        hd2 = cfg.d_model // H
+        axes = ("layers", "kv_batch", "heads", None, None)
+        return {
+            "m_C": ParamDef((L2, B, H, hd2, hd2), axes, f32),
+            "m_n": ParamDef((L2, B, H, hd2), axes[:4], f32),
+            "m_m": ParamDef((L2, B, H), axes[:3], f32),
+            **{k: ParamDef((L2, B, H, hd2), axes[:4], f32)
+               for k in _S_KEYS},
+            "pos": ParamDef((), (), torch.int32),
+        }
     return {
         "k": ParamDef((L, B, S, Hkv, hd),
                       ("layers", "kv_batch", "kv_seq", None, None)),
@@ -385,24 +592,104 @@ def init_cache(cfg: ArchConfig, batch: int, context: int, filled=True,
     return c
 
 
+def prefill_cache_to_decode(cfg: ArchConfig, cache, context=None):
+    """The prefill cache of ``forward(mode="prefill")`` in the decode
+    layout of :func:`cache_defs` for ``context`` positions (default: the
+    prefill's T, so the first decode step evicts the oldest token of a
+    ring buffer).  The dense and moe caches already have the decode
+    layout; their K/V are zero-padded to ``context`` positions.
+
+    The reference's two functions do not meet: its prefill returns
+    {groups, attn_k, attn_v, tail, pos} (hybrid) and {states, pos}
+    (xlstm), and its ``decode_step`` reads {ssm, conv, attn_k, attn_v,
+    pos} and {m_C, m_n, m_m, s_c, s_n, s_m, s_h, pos}, so ``python -m
+    repro.launch.serve --arch zamba2-7b`` stops at its first decode step
+    with ``KeyError: 'ssm'`` (xlstm-125m: ``KeyError: 'm_C'``; ROADMAP
+    queue 3).  The same tensors re-laid repair it: the groups' and the
+    tail's Mamba2 states stack into (L, ...); the shared attention's K/V
+    of the last W = min(window, context) tokens go into a ring buffer of W
+    slots, token t at slot t % W, where decode writes token t next; the
+    xLSTM state tuples go under the decode names.
+    """
+    if cfg.family == "xlstm":
+        (mC, mn, mm), (sc, sn, sm, sh) = cache["states"]
+        return dict(zip(_M_KEYS + _S_KEYS, (mC, mn, mm, sc, sn, sm, sh)),
+                    pos=cache["pos"])
+    if cfg.family != "mamba_hybrid":
+        pad = 0 if context is None else context - cache["k"].shape[2]
+        if pad > 0:
+            cache = dict(cache, **{key: F.pad(cache[key],
+                                              (0, 0, 0, 0, 0, pad))
+                                   for key in ("k", "v")})
+        return cache
+    ssm, conv = (t.flatten(0, 1) for t in cache["groups"])
+    if cache["tail"] is not None:
+        ssm = torch.cat([ssm, cache["tail"][0]])
+        conv = torch.cat([conv, cache["tail"][1]])
+    G, B, T = cache["attn_k"].shape[:3]
+    S = T if context is None else context
+    W = min(cfg.window or S, S)
+    tok = torch.arange(max(0, T - W), T, device=ssm.device)
+    out = {"ssm": ssm, "conv": conv, "pos": cache["pos"]}
+    for key in ("attn_k", "attn_v"):
+        kv = cache[key]
+        ring = kv.new_zeros((G, B, W) + kv.shape[3:])
+        ring[:, :, tok % W] = kv[:, :, tok]
+        out[key] = ring
+    return out
+
+
 def decode_step(cfg: ArchConfig, params, cache, tokens):
     """One decode step: tokens (B, 1) int -> (logits (B,1,V), new cache).
 
-    The cache's k/v tensors are updated in place (see the module note)."""
+    The cache's tensors are updated in place (see the module note)."""
     _require_ported(cfg)
     B = tokens.shape[0]
     x = params["embed"][tokens].to(cfg.dtype)
     pos = cache["pos"]
     positions = pos.expand(B, 1)
-    blocks = params["blocks"]
-    for i in range(cfg.n_layers):
-        x, _ = _attn_apply(cfg, _layer(blocks["attn"], i), x,
-                           positions=positions,
-                           kv_cache=(cache["k"][i], cache["v"][i]),
-                           cache_pos=pos)
-        x, _ = _ffn_apply(cfg, _layer(blocks[_ffn_key(cfg)], i), x)
+    if cfg.family == "mamba_hybrid":
+        x = _hybrid_decode(cfg, params, x, positions, cache)
+    elif cfg.family == "xlstm":
+        x = _xlstm_decode(cfg, params, x, cache)
+    else:
+        blocks = params["blocks"]
+        for i in range(cfg.n_layers):
+            x, _ = _attn_apply(cfg, _layer(blocks["attn"], i), x,
+                               positions=positions,
+                               kv_cache=(cache["k"][i], cache["v"][i]),
+                               cache_pos=pos)
+            x, _ = _ffn_apply(cfg, _layer(blocks[_ffn_key(cfg)], i), x)
     logits = unembed(cfg, params, x)
-    return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
+    return logits, dict(cache, pos=pos + 1)
+
+
+def _hybrid_decode(cfg: ArchConfig, params, x, positions, cache):
+    mm, ends, pos = params["blocks"]["mamba"], _group_ends(cfg), cache["pos"]
+    for i in range(cfg.n_layers):
+        x, (s, cs) = _mamba_apply(cfg, _layer(mm, i), x, cache["ssm"][i],
+                                  cache["conv"][i])
+        cache["ssm"][i].copy_(s)
+        cache["conv"][i].copy_(cs)
+        if i in ends:
+            g = ends[i]
+            x, _ = _shared_apply(cfg, params, x, positions=positions,
+                                 kv_cache=(cache["attn_k"][g],
+                                           cache["attn_v"][g]),
+                                 cache_pos=pos)
+    return x
+
+
+def _xlstm_decode(cfg: ArchConfig, params, x, cache):
+    blocks = params["blocks"]
+    for i in range(cfg.n_layers // 2):
+        m_state = tuple(cache[k][i] for k in _M_KEYS)
+        s_state = tuple(cache[k][i] for k in _S_KEYS)
+        x, m_new, s_new = _xlstm_pair(cfg, _layer(blocks, i), x, m_state,
+                                      s_state)
+        for key, new in zip(_M_KEYS + _S_KEYS, m_new + s_new):
+            cache[key][i].copy_(new)
+    return x
 
 
 # ============================================================== steps
@@ -410,15 +697,13 @@ def make_prefill_step(cfg: ArchConfig, *, pad_to: Optional[int] = None):
     """pad_to: allocate KV-cache headroom for subsequent decode steps
     (ring-buffer semantics mean an unpadded cache evicts the oldest
     context token on the first decode).  Only the last position is
-    unembedded: the step returns (logits (B, 1, V), cache)."""
+    unembedded: the step returns (logits (B, 1, V), cache), the cache in
+    the decode layout for ``pad_to`` positions
+    (:func:`prefill_cache_to_decode`)."""
 
     def prefill_step(params, batch):
         x, cache, _, _ = _backbone(cfg, params, batch, True)
-        if pad_to is not None:
-            for key in ("k", "v"):
-                pad = pad_to - cache[key].shape[2]
-                if pad > 0:
-                    cache[key] = F.pad(cache[key], (0, 0, 0, 0, 0, pad))
+        cache = prefill_cache_to_decode(cfg, cache, pad_to)
         return unembed(cfg, params, x[:, -1:]), cache
 
     return prefill_step

@@ -1,7 +1,8 @@
 """The port's hand-written CUDA kernels (K1-K5) against their plain
 PyTorch twins, on a card (K2's and K3's two kernels and every speculation
 depth of K1 and K2 bitwise), and the served paths on the card against the
-CPU (the trainer, the moe model and its dispatch).  Every test here is
+CPU (the trainer, the moe model and its dispatch, the hybrid and xlstm
+models).  Every test here is
 marked ``cuda`` and skips itself when ``torch.cuda.is_available()`` is
 false; this file imports neither JAX nor the JAX package, so it runs on a
 machine that has only PyTorch:
@@ -751,3 +752,93 @@ def test_moe_dispatch_is_bitwise_on_both_devices(cuda, E, top_k):
     for field in ("expert_idx", "pos", "keep", "load"):
         assert torch.equal(getattr(got, field).cpu(), getattr(want, field))
     assert want.expert_idx[0, 0].tolist() == list(range(top_k))
+
+
+# ------------------------------------------- the hybrid and xlstm families
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,changes", [
+    ("zamba2-7b", dict(n_layers=5, window=8)),
+    ("xlstm-125m", dict(n_layers=4))])
+def test_hybrid_and_xlstm_reduced_models_on_the_card_match_the_cpu(
+        cuda, arch, changes):
+    """The reduced model in float32 on the same weights (zamba2 at two
+    groups and a tail, window 8 < T so the ring wraps; on K4 through
+    ``attn_impl="pallas"``: the SIMT kernel in f32), TF32 off: forward's
+    logits and the prefill cache, then a prefill of 12 tokens and one
+    decode step from the re-laid cache, within 1e-4 of the CPU's."""
+    from repro_torch import configs
+    from repro_torch.fed.hfl import f32_math
+    from repro_torch.models import transformer as tf
+
+    cfg = dataclasses.replace(configs.get(arch).reduced(), attn_impl="pallas",
+                              **changes)
+    params = tf.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    card = tf.params_from_numpy(_numpy_tree(params), cfg, cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 13),
+                         generator=torch.Generator().manual_seed(1))
+    tol = dict(rtol=1e-4, atol=1e-4)
+    out = {}
+    with f32_math():
+        for p, dev in ((params, "cpu"), (card, cuda)):
+            t = toks.to(dev)
+            logits, _, cache, _ = tf.forward(cfg, p, {"tokens": t},
+                                             mode="prefill")
+            _, dcache = tf.make_prefill_step(cfg)(p, {"tokens": t[:, :12]})
+            step, dcache = tf.decode_step(cfg, p, dcache, t[:, 12:])
+            out[dev if dev == "cpu" else "cuda"] = (logits, cache, step,
+                                                     dcache)
+    for got, want in zip(_leaves(out["cuda"]), _leaves(out["cpu"])):
+        torch.testing.assert_close(got.cpu(), want, **tol)
+
+
+def _leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) if tree[k] is not None
+                for x in _leaves(tree[k])]
+    return [x for t in tree if t is not None for x in _leaves(t)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [4096, 16])
+def test_k4_at_zamba2s_shared_attention_shape(cuda, window):
+    """zamba2-7b's prefill attention, (4, 1024, 32, 112) in bf16 (hd 112:
+    the HD = 128 template), at its window and at 16: the tensor-core
+    kernel, within 2e-2 of the twin."""
+    q, k, v = (_randn((4, 1024, 32, 112), torch.bfloat16, cuda, 11 + i)
+               for i in range(3))
+    got = _launched("flash_attention", lambda: ops.flash_attention(
+        q, k, v, causal=True, window=window), wgmma=True)
+    torch.testing.assert_close(
+        got.float(), _attention_plain(q, k, v, causal=True,
+                                      window=window).float(),
+        rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_zamba2s_shared_block_takes_the_tensor_cores(cuda):
+    """zamba2-7b's shared attention block and SwiGLU at full width on
+    random bf16 weights, B = 4, T = 1,024: its q, k, v views go to K4's
+    tensor-core kernel (one launch), and the output is finite."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as tf
+
+    cfg = dataclasses.replace(configs.get("zamba2-7b"), attn_impl="pallas")
+    defs = tf.param_defs(cfg)
+    g = torch.Generator(device=cuda).manual_seed(0)
+
+    def draw(d):
+        fan_in = d.shape[-2] if len(d.shape) >= 2 else 1.0
+        return torch.randn(d.shape, generator=g, device=cuda).mul_(
+            fan_in ** -0.5).to(torch.bfloat16)
+
+    params = {k: {n: draw(d) for n, d in defs[k].items()}
+              for k in ("shared_attn", "shared_mlp")}
+    x = torch.randn((4, 1024, cfg.d_model), generator=g, device=cuda).to(
+        torch.bfloat16)
+    positions = torch.arange(1024, device=cuda).expand(4, 1024)
+    y, (k, v) = _launched("flash_attention", lambda: tf._shared_apply(
+        cfg, params, x, positions=positions), wgmma=True)
+    assert y.shape == x.shape and bool(torch.isfinite(y).all())
+    assert k.shape == (4, 1024, 32, 112)

@@ -242,7 +242,8 @@ def test_params_from_numpy_checks_the_tree():
 
 @pytest.mark.parametrize("arch", sorted(
     n for n, c in jconfigs.ARCHS.items()
-    if c.family not in ("dense", "moe") or c.input_mode != "tokens"))
+    if c.family not in ("dense", "moe", "mamba_hybrid", "xlstm")
+    or c.input_mode != "tokens"))
 def test_other_families_raise(arch):
     cfg = tconfigs.get(arch).reduced()
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):

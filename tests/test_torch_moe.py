@@ -261,12 +261,12 @@ def test_run_lm_flash_route_matches_chunked_on_cpu():
                                rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("arch", ["zamba2-7b", "xlstm-125m",
-                                  "internvl2-76b"])
+@pytest.mark.parametrize("arch", ["internvl2-76b"])
 def test_serve_lm_still_refuses_the_unported_families(arch):
-    """mamba_hybrid, xlstm and the mixed frontend raise the port's
-    refusal; the encoder (hubert) has no decode, which the CLI refuses
-    first (``tests/test_torch_models.py::test_serve_lm_rejects``)."""
+    """The mixed frontend raises the port's refusal; the encoder (hubert)
+    has no decode, which the CLI refuses first
+    (``tests/test_torch_models.py::test_serve_lm_rejects``).  The hybrid
+    and xlstm families are served (``tests/test_torch_ssm.py``)."""
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
         serve.main(["--mode", "lm", "--device", "cpu", "--arch", arch,
                     "--batch", "1", "--prompt-len", "4", "--new-tokens",

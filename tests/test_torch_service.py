@@ -420,10 +420,11 @@ def test_service_extended_modes_match_jax(mode):
 def test_serve_entry_point_refuses_what_is_not_ported():
     from repro_torch.launch import serve
 
-    # LM serving runs the dense family; the other families still raise.
+    # LM serving runs the decoder families on tokens; the mixed frontend
+    # (internvl2) still raises.
     with pytest.raises(NotImplementedError, match="not ported"):
         serve.main(["--mode", "lm", "--device", "cpu", "--arch",
-                    "zamba2-7b"])
+                    "internvl2-76b"])
 
 
 class _Built(Exception):
