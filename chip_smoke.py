@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's planning and LM serving paths on one
-NVIDIA card.
+"""Drive the PyTorch/CUDA port's planning, LM serving and LM training
+paths on one NVIDIA card.
 
     python3 chip_smoke.py             # every phase (one card)
     python3 chip_smoke.py --kernels   # build and check the kernels only
@@ -53,9 +53,11 @@ Phases, each reported on its own lines:
    beside the SIMT kernel on the same tensors, beside
    ``scaled_dot_product_attention(is_causal=True)`` and against its bound;
    at (1, 24, 1024, 128), at llama4-scout's prefill shape (4, 40, 1024,
-   128) and at zamba2-7b's (4, 32, 1024, 112) with window 4,096 beside
-   SDPA and its bound.  zamba2's shape is also held to the plain version
-   with windows of 4,096 and 16.
+   128), at zamba2-7b's (4, 32, 1024, 112) with window 4,096, at
+   hubert-xlarge's (4, 16, 1024, 80) non-causal and at internvl2-76b's
+   (4, 64, 1024, 128) beside SDPA and its bound.  zamba2's shape is also
+   held to the plain version with windows of 4,096 and 16, and hubert's
+   and internvl2's shapes are held to it too.
 5. K5 (fused RMSNorm) against its plain version at the LM's hidden-state
    shape (4096, 1024) in bf16 and f32, bitwise (the twin adds in the
    kernel's order and rsqrtf is torch.rsqrt), timed with its f32 scale
@@ -119,8 +121,37 @@ s. The hybrid and xlstm families (lines ``[s]``, run after phase m, whose
    |leaf|.  (e) ``run_lm`` on xlstm-125m at full size (12 layers, d 768, 4
    heads of 192, vocab 50,304), B = 4, T = 1,024, 32 tokens: finite, in
    range, timed beside its bounds; it launches no kernel.
+e. The encoder family and the mixed frontend (lines ``[e]``, run after
+   phase s, whose weights are freed first): (a) hubert-xlarge at full size
+   (48 layers, d 1280, 16 heads of 80, d_ff 5120, vocab 504, bf16: 0.946 B
+   parameters), B = 4, 1,024 frames of embeddings, through ``forward`` on
+   K4 (the CLIs refuse it: no decode): 48 launches, all on the
+   tensor-core kernel; finite logits; forward ms on K4 and on the chunked
+   route beside the bound of :func:`_dense_bounds`; each layer on K4
+   against the chunked route from the same input within 5e-2 of max |x|,
+   the whole-model logit gap as information; one traced forward.  (b)
+   internvl2-76b at full width (d 8192, 64 heads of 128, 8 KV heads, d_ff
+   28,672, vocab 128,256, bf16) cut to 32 of its 80 layers (59 GB of
+   weights), through ``run_lm``: B = 4, 256 patches + 768 tokens, 32
+   greedy tokens, on K4: 32 launches, all on the tensor cores; finite
+   logits, tokens in range, prefill ms and decode tok/s beside their
+   bounds; the same checks layer by layer; the prefill cache holds the
+   patches and the tokens; a traced prefill and four traced decode steps.
+l. LM training (lines ``[l]``, run after phase e): (a) one float32
+   ``make_train_step`` (SGD, a cosine schedule, the clip, remat) of each
+   kind of model at ``reduced()`` size (dense, moe, hybrid, xlstm,
+   encoder, mixed) on the card against the CPU, TF32 off: every new
+   parameter within 1e-4 of its max |leaf|; (b) qwen1.5-0.5b at full size
+   (464 M parameters, bf16, AdamW, the chunked route, remat on), B = 4,
+   T = 1,024, 4 steps on one batch: finite losses, every leaf changed; the
+   losses, ms a step and peak memory beside the bound (3 x the forward's
+   operations); one traced step; (c) ``make_hfl_lm_train_step`` at that
+   size, 2 pods x 2 local steps: every leaf bitwise equal across the pods
+   and to the float32 mean of the pods' own steps run apart; (d) K4 raises
+   under autograd on the card before any launch, and so does a train step
+   on ``attn_impl="pallas"``.  The training path launches no kernel.
 t. TSIA, the RA baselines and the per-cell planner (lines ``[t]``, run
-   between phases s and 9): (a) ``tsia.solve(draw_scenario(0))`` at the
+   between phases l and 9): (a) ``tsia.solve(draw_scenario(0))`` at the
    paper's N = 50, M = 5 and full caps on K2, one lanes-kernel launch a
    score, its R the trace's minimum and ``evaluate``'s; K2 at TSIA's
    P = 1 and at the host loop's P = 1 + N (M - 1) = 201 (timed in phase 2,
@@ -164,10 +195,12 @@ f. The paper's training pipeline (lines ``[f]``, run after phase h): (a)
    kernels and the device events a global iteration.
 9. Launch counts of the main paths (every count reset to 0 right before
    a path and read right after it; phase t's, phase h's, phase f's,
-   phase m's and phase s's paths as each kernel's ``launches_tsia_path``,
-   ``launches_h_path``, ``launches_train_path``, ``launches_moe_path`` and
-   ``launches_ssm_path``: only K4's tensor-core kernel may launch on
-   phase s's path), each
+   phase m's, phase s's and phase e's two paths as each kernel's
+   ``launches_tsia_path``, ``launches_h_path``, ``launches_train_path``,
+   ``launches_moe_path``, ``launches_ssm_path``,
+   ``launches_encoder_path`` and ``launches_vlm_path``: only K4's
+   tensor-core kernel may launch on phases s's and e's paths, and no
+   kernel on phase l's), each
    kernel's time beside its plain
    version's, its bound and its library call, then the card and the
    result line; every K3 launch of the planning path must take the warp
@@ -236,6 +269,32 @@ MOE_RANGES = ("moe.dispatch", "moe.experts", "moe.combine", "moe.shared")
 SSM_ARCH, XLSTM_ARCH = "zamba2-7b", "xlstm-125m"
 SSM_CPU_TOL = 1e-4
 SSM_RANGES = ("hybrid.mamba", "hybrid.shared")
+
+# Phase e: the encoder family and the mixed frontend.  hubert-xlarge at full
+# size (48 layers, d 1280, 16 heads of 80, d_ff 5120, vocab 504, bf16:
+# 0.946 B parameters, nothing cut) on B x T frames of embeddings; and
+# internvl2-76b at full width (d 8192, 64 heads of 128, 8 KV heads, d_ff
+# 28,672, vocab 128,256, bf16) cut to 32 of its 80 layers: 32 x 1.711 GB +
+# 4.20 GB of embedding and head, 59.0 GB of weights on one 80 GB card (the
+# whole model, 137 GB, fits on no single card, and sharding is not
+# ported).  Its prompts are the config's 256 patches and T - 256 tokens.
+# Layer by layer on the same input, K4's output against the chunked
+# route's within this share of the layer's max |x|, as in phases m and s.
+ENC_ARCH, VLM_ARCH, VLM_LAYERS = "hubert-xlarge", "internvl2-76b", 32
+ENC_LAYER_RTOL = 5e-2
+
+# Phase l: LM training.  One float32 train step of each kind of model at
+# ``reduced()`` size on the card against the CPU (TF32 off): every new
+# parameter within this share of its max |leaf| (the same arithmetic in
+# other summation orders).  Then qwen1.5-0.5b at full size (bf16, adamw,
+# the chunked route, remat on) for TRAIN_STEPS steps on one batch of B x T
+# tokens, and ``make_hfl_lm_train_step`` at that size with P pods of K
+# local steps.
+TRAIN_KINDS = (("qwen1.5-0.5b", {}), ("llama4-scout-17b-a16e", {}),
+               ("zamba2-7b", {"n_layers": 3}), ("xlstm-125m", {"n_layers": 4}),
+               ("hubert-xlarge", {}), ("internvl2-76b", {}))
+TRAIN_CPU_TOL = 1e-4
+TRAIN_STEPS, HFL_PODS, HFL_K = 4, 2, 2
 
 SERVE_CAPS = dict(b_iters=30, f_iters=24, p_iters=20, t_iters=28)
 DEVICE_MS_SESSIONS = 3        # profiler sessions before "not measured"
@@ -545,6 +604,11 @@ def _check_k4(report: dict, dev) -> None:
     for window in (4096, 16):
         cases.append(((LM_T, LM_T, LM_B, 32, 112), bf16,
                       dict(causal=True, window=window)))
+    # hubert-xlarge's non-causal attention (hd 80: the P.V product's n
+    # tile past the head reads TMA's zero fill) and internvl2-76b's prefill
+    # (64 heads of 128 after the GQA repeat), phase e.
+    cases.append(((LM_T, LM_T, LM_B, 16, 80), bf16, dict(causal=False)))
+    cases.append(((LM_T, LM_T, LM_B, 64, 128), bf16, dict(causal=True)))
     for B, H, T, hd in ((1, 1, 8, 64), (2, 4, 16, 64), (1, 2, 128, 128),
                         (2, 2, 96, 80), (1, 4, 256, 112)):
         for dtype in (bf16, f32):
@@ -585,8 +649,9 @@ def _check_k4(report: dict, dev) -> None:
           f"window 16, decode offset, Tq != Tk, fused QKV views): max |err| "
           f"bf16 LM shape {errs[0]:.3g}, f32 LM shape {errs[1]:.3g}, "
           f"llama4-scout's {errs[3]:.3g}, zamba2's (4, 1024, 32, 112) at "
-          f"window 4096 {errs[4]:.3g} and 16 {errs[5]:.3g}, any bf16 case "
-          f"{bf16_err:.3g}")
+          f"window 4096 {errs[4]:.3g} and 16 {errs[5]:.3g}, hubert's (4, "
+          f"1024, 16, 80) non-causal {errs[6]:.3g}, internvl2's (4, 1024, "
+          f"64, 128) {errs[7]:.3g}, any bf16 case {bf16_err:.3g}")
 
     B, H, T, hd = LM_B, 16, LM_T, 64
     q, k, v = qkv(T, T, B, H, hd, bf16)
@@ -643,27 +708,32 @@ def _check_k4(report: dict, dev) -> None:
 
     # hd 128: llama3.2-3b's heads, and llama4-scout's prefill (phase m);
     # hd 112 at zamba2-7b's prefill (phase s: window 4,096 > T, so the
-    # causal bound and SDPA's causal mask compute the same function).
-    for key, (B, H, T, hd), window in (
-            ("hd128", (1, 24, LM_T, 128), None),
-            ("llama4", (LM_B, 40, LM_T, 128), None),
-            ("zamba2", (LM_B, 32, LM_T, 112), 4096)):
+    # causal bound and SDPA's causal mask compute the same function);
+    # hubert-xlarge's non-causal forward and internvl2-76b's prefill
+    # (phase e).
+    for key, (B, H, T, hd), window, causal in (
+            ("hd128", (1, 24, LM_T, 128), None, True),
+            ("llama4", (LM_B, 40, LM_T, 128), None, True),
+            ("zamba2", (LM_B, 32, LM_T, 112), 4096, True),
+            ("hubert", (LM_B, 16, LM_T, 80), None, False),
+            ("internvl2", (LM_B, 64, LM_T, 128), None, True)):
         q, k, v = qkv(T, T, B, H, hd, bf16)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         k4 = lambda: ops.flash_attention(  # noqa: E731
-            q, k, v, causal=True, window=window)
+            q, k, v, causal=causal, window=window)
         sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qt, kt, vt, is_causal=True)
-        b128 = _bound_ms(4 * B * T * H * hd * 2,
-                         4 * hd * B * H * T * (T + 1) // 2,
+            qt, kt, vt, is_causal=causal)
+        keys = T * (T + 1) // 2 if causal else T * T
+        b128 = _bound_ms(4 * B * T * H * hd * 2, 4 * hd * B * H * keys,
                          BF16_TENSOR_FLOPS_PER_S)
         t = dict(ms=_time_ms(k4, 20), dev=_device_ms(k4, 20),
                  lib=_time_ms(sdpa, 20), lib_dev=_device_ms(sdpa, 20))
-        r[key] = dict(shape=[B, H, T, hd], window=window, ms=t["ms"],
-                      device_ms=t["dev"],
+        r[key] = dict(shape=[B, H, T, hd], window=window, causal=causal,
+                      ms=t["ms"], device_ms=t["dev"],
                       library_ms=t["lib"], library_device_ms=t["lib_dev"],
                       bound_ms=b128[0], bound_by=b128[1])
-        print(f"[4] K4 at ({B}, {H}, {T}, {hd}) bf16 causal, window "
+        print(f"[4] K4 at ({B}, {H}, {T}, {hd}) bf16 "
+              f"{'causal' if causal else 'non-causal'}, window "
               f"{window}: tensor cores "
               f"{t['ms']:.4g} ms (device {_fmt(t['dev'])}); SDPA "
               f"{t['lib']:.4g} ms (device {_fmt(t['lib_dev'])}); bound "
@@ -1750,8 +1820,8 @@ def _moe_path(dev) -> dict:
         x, positions, _ = tf.embed_inputs(flash, params, batch)
         xc = x                        # the chunked route's own stream
         blocks, layers, logits0 = params["blocks"], [], None
-        for i in range(L):
-            pa, pm = tf._layer(blocks["attn"], i), tf._layer(blocks["moe"], i)
+        for i, (pa, pm) in enumerate(zip(tf._layers(blocks["attn"]),
+                                         tf._layers(blocks["moe"]))):
             out = []
             for cfg in (flash, chunked):
                 xa, _ = tf._attn_apply(cfg, pa, x, positions=positions)
@@ -2030,10 +2100,10 @@ def _ssm_path(dev) -> dict:
         # (b) K4 against the chunked route, group by group on the K4
         # route's stream: each shared block's output from the same input.
         x, positions, _ = tf.embed_inputs(flash, params, {"tokens": toks})
-        mm, ends = params["blocks"]["mamba"], tf._group_ends(flash)
+        mm, ends = tf._layers(params["blocks"]["mamba"]), tf._group_ends(flash)
         groups = []
         for i in range(L):
-            x, _ = tf._mamba_apply(flash, tf._layer(mm, i), x)
+            x, _ = tf._mamba_apply(flash, mm[i], x)
             if i in ends:
                 yk = tf._shared_apply(flash, params, x, positions=positions)[0]
                 yc = tf._shared_apply(chunked, params, x,
@@ -2076,7 +2146,7 @@ def _ssm_path(dev) -> dict:
         # decode steps from the chunked prefill's cache (the whole prefill
         # launches ~10^6 kernels).
         x, positions, _ = tf.embed_inputs(flash, params, {"tokens": toks})
-        p0 = tf._layer(params["blocks"]["mamba"], 0)
+        p0 = tf._layers(params["blocks"]["mamba"])[0]
         walls = {"mamba": _wall_ms(lambda: tf._mamba_apply(flash, p0, x)),
                  "shared": _wall_ms(lambda: tf._shared_apply(
                      flash, params, x, positions=positions))}
@@ -2228,6 +2298,424 @@ def _ssm_path(dev) -> dict:
             "est_prefill_wall_ms": est_wall, "walls": walls,
             "seconds": seconds,
             "groups": G}
+
+
+def _dense_bounds(cfg, B: int, T: int, head_rows: int) -> dict:
+    """The least time of a dense or encoder model's forward over B x T
+    positions and of one decode step, at the card's peaks.  The forward's
+    operations: every position through each layer's attention projections
+    and MLP (the SwiGLU's three matrices, the encoder's GELU two), attention
+    over every key (non-causal) or the causal half, the embeds input's
+    projection, and the head over ``head_rows`` positions (all of them for
+    the encoder's forward and for training, the B last for a prefill).  A
+    decode step's bytes: every weight but the embedding (of which it reads
+    B rows) read once, and the K/V cache of T positions."""
+    d, H, Hkv, hd, ff, V, L = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                               cfg.head_dim, cfg.d_ff, cfg.vocab,
+                               cfg.n_layers)
+    n = B * T
+    qkvo = d * (2 * H * hd + 2 * Hkv * hd)
+    mlp = (2 if cfg.family == "encoder" else 3) * d * ff
+    keys = T * T if not cfg.causal else T * (T + 1) // 2
+    flops = (L * (2 * n * (qkvo + mlp) + 4 * hd * B * H * keys)
+             + 2 * head_rows * d * V
+             + (2 * n * d * d if cfg.input_mode == "embeds" else 0))
+    w = cfg.dtype.itemsize
+    weights = w * (L * (qkvo + mlp + 2 * d) + d * V + d)
+    step_bytes = weights + L * 2 * B * T * Hkv * hd * w + B * d * w
+    step_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+    return dict(flops=flops, ms=flops / BF16_TENSOR_FLOPS_PER_S * 1e3,
+                weight_bytes=weights, step_bytes=step_bytes, step_ms=step_ms,
+                tok_per_s=B / step_ms * 1e3)
+
+
+def _k4_layers(flash, chunked, params, x, positions, ffn: str) -> list:
+    """Layer by layer on K4's stream: each layer's output on K4 and on the
+    chunked route from the same input; max |delta| over the chunked
+    output's max |x| a layer, each checked against ENC_LAYER_RTOL.
+    Returns (the shares, the K4 stream's last hidden state)."""
+    from repro_torch.models import transformer as tf
+
+    rels = []
+    for i, (pa, pf) in enumerate(zip(tf._layers(params["blocks"]["attn"]),
+                                     tf._layers(params["blocks"][ffn]))):
+        ys = []
+        for cfg in (flash, chunked):
+            xa, _ = tf._attn_apply(cfg, pa, x, positions=positions,
+                                   causal=cfg.causal, window=cfg.window)
+            ys.append(tf._ffn_apply(cfg, pf, xa)[0])
+        yk, yc = (y.float() for y in ys)
+        rel = float((yk - yc).abs().max() / yc.abs().max())
+        _check(rel <= ENC_LAYER_RTOL, f"{flash.name} layer {i}: K4 and "
+               f"chunked outputs differ by {rel:.3g} of max |x| (limit "
+               f"{ENC_LAYER_RTOL})")
+        rels.append(rel)
+        x = ys[0]
+    return rels, x
+
+
+def _encoder_path(dev) -> dict:
+    """Phase e: hubert-xlarge at full size through ``forward`` on K4, and
+    internvl2-76b at full width, 32 of 80 layers, through ``run_lm`` on K4
+    (patches before the prompt); on each model's weights K4 against the
+    chunked route layer by layer, and a traced forward or prefill and
+    decode."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import run_lm
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.cnn import tree_leaves
+
+    t_phase = time.perf_counter()
+    # (a) hubert-xlarge, nothing cut.
+    chunked = configs.get(ENC_ARCH)
+    flash = dataclasses.replace(chunked, attn_impl="pallas")
+    L, V, d = flash.n_layers, flash.vocab, flash.d_model
+    gen = torch.Generator(device=dev).manual_seed(0)
+    enc = {}
+    with torch.inference_mode():
+        params = tf.init_params(flash, gen, dev)
+        n_params = sum(p.numel() for p in tree_leaves(params))
+        batch = {"embeds": torch.randn((LM_B, LM_T, d), generator=gen,
+                                       device=dev, dtype=flash.dtype)}
+
+        def fwd(cfg):
+            return tf.forward(cfg, params, batch)[0]
+
+        fwd(flash)                                # warm-up: cold starts
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        logits, counts = _counted(lambda: fwd(flash))
+        peak = torch.cuda.max_memory_allocated()
+        _check(counts["flash_attention"] == L,
+               f"K4 launched {counts['flash_attention']} times in one "
+               f"{ENC_ARCH} forward of {L} layers")
+        _check(counts["flash_attention_sm90"] == L,
+               f"only {counts['flash_attention_sm90']} of the {ENC_ARCH} "
+               f"forward's K4 launches took the tensor-core kernel")
+        _check(logits.shape == (LM_B, LM_T, V)
+               and bool(torch.isfinite(logits).all()),
+               f"{ENC_ARCH} logits: shape or non-finite values")
+        fwd_ms = _time_ms(lambda: fwd(flash), 5)
+        chunked_ms = _time_ms(lambda: fwd(chunked), 5)
+        bnd = _dense_bounds(flash, LM_B, LM_T, LM_B * LM_T)
+        x, positions, _ = tf.embed_inputs(flash, params, batch)
+        rels, _ = _k4_layers(flash, chunked, params, x, positions, "mlp")
+        lc = fwd(chunked).float()
+        gap = float((logits.float() - lc).abs().max() / lc.abs().max())
+        stats = {}
+        rows = _profile("[e]", f"1 traced {ENC_ARCH} forward on K4",
+                        lambda: fwd(flash), stats)
+        stats["k4_ms"] = sum(ms for ms, _, nm in rows
+                             if "flash_attention" in nm)
+        del params, batch, logits, lc, x
+    torch.cuda.empty_cache()
+    print(f"[e] {ENC_ARCH} at full size ({L} layers, d {d}, "
+          f"{flash.n_heads} heads of {flash.head_dim}, non-causal, d_ff "
+          f"{flash.d_ff}, vocab {V}, {flash.dtype}; {n_params:,} "
+          f"parameters), B = {LM_B}, {LM_T} frames of embeddings, through "
+          f"forward on K4")
+    print(f"[e] forward {fwd_ms:.3f} ms on K4, {chunked_ms:.3f} ms on the "
+          f"chunked route (CUDA events, median of 5); bound "
+          f"{bnd['ms']:.4g} ms ({bnd['flops']:.4g} flop at 989 TFLOP/s); "
+          f"peak memory allocated {peak:,} bytes ({peak / 2 ** 30:.2f} GiB)")
+    print(f"[e] K4 launches in one forward: {counts['flash_attention']}, "
+          f"{counts['flash_attention_sm90']} on the tensor cores; layer by "
+          f"layer K4 against chunked max |delta| {min(rels):.4g} to "
+          f"{max(rels):.4g} of max |x| (limit {ENC_LAYER_RTOL}); whole-model "
+          f"logits {gap:.4g} of max |logit| (information); traced: device "
+          f"{stats['device_ms']:.3f} ms, K4 {stats['k4_ms']:.3f} ms, busy "
+          f"share {_fmt(_div(stats['union_ms'], stats['wall_ms']), '.4f')}")
+    enc = dict(counts=counts, fwd_ms=fwd_ms, chunked_ms=chunked_ms,
+               bounds=bnd, peak_bytes=peak, rels=rels, gap=gap,
+               trace=stats, n_layers=L)
+
+    # (b) internvl2-76b at full width, 32 of 80 layers, through run_lm.
+    chunked = dataclasses.replace(configs.get(VLM_ARCH), n_layers=VLM_LAYERS)
+    flash = dataclasses.replace(chunked, attn_impl="pallas")
+    L, V, P = flash.n_layers, flash.vocab, flash.n_patches
+    kw = dict(batch=LM_B, prompt_len=LM_T - P, seed=0, device=dev)
+    run_lm(flash, new_tokens=2, **kw)             # warm-up: cold starts
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    a, vcounts = _counted(lambda: run_lm(flash, new_tokens=LM_NEW, **kw))
+    peak = torch.cuda.max_memory_allocated()
+    _check(vcounts["flash_attention"] == L,
+           f"K4 launched {vcounts['flash_attention']} times in one prefill "
+           f"of {L} layers")
+    _check(vcounts["flash_attention_sm90"] == L,
+           f"only {vcounts['flash_attention_sm90']} of the {VLM_ARCH} "
+           f"prefill's K4 launches took the tensor-core kernel")
+    vlogits, toks = a["logits"].float(), a["tokens"]
+    _check(vlogits.shape == (LM_B, V)
+           and bool(torch.isfinite(vlogits).all()),
+           f"{VLM_ARCH} prefill logits: shape or non-finite values")
+    _check(toks.shape == (LM_B, LM_NEW + 1) and (toks >= 0).all()
+           and (toks < V).all(), f"{VLM_ARCH} generated tokens")
+    vb = _dense_bounds(flash, LM_B, LM_T, LM_B)
+    step_ms = a["decode_s"] * 1e3 / LM_NEW
+    gen = torch.Generator(device=dev).manual_seed(0)
+    traced = {"prefill": {}, "decode": {}}
+    with torch.inference_mode():
+        # run_lm's weights, prompts and patches again: the same generator
+        # sequence.
+        params = tf.init_params(flash, gen, dev)
+        prompts = torch.randint(0, V, (LM_B, LM_T - P), generator=gen,
+                                device=dev)
+        batch = {"tokens": prompts, "patches": torch.randn(
+            (LM_B, P, flash.d_model), generator=gen, device=dev,
+            dtype=flash.dtype)}
+        x, positions, _ = tf.embed_inputs(flash, params, batch)
+        vrels, xk = _k4_layers(flash, chunked, params, x, positions, "mlp")
+        lk = tf.unembed(flash, params, xk[:, -1:])[:, 0].float()
+        rerun = float((lk - vlogits).abs().max() / vlogits.abs().max())
+        prefill = tf.make_prefill_step(flash)
+        rows = _profile("[e]", f"1 traced {VLM_ARCH} prefill on K4",
+                        lambda: prefill(params, batch), traced["prefill"])
+        traced["prefill"]["k4_ms"] = sum(ms for ms, _, nm in rows
+                                         if "flash_attention" in nm)
+        step_logits, cache = prefill(params, batch)
+        _check(int(cache["pos"]) == LM_T and cache["k"].shape[2] == LM_T,
+               f"the {VLM_ARCH} prefill cache holds {int(cache['pos'])} "
+               f"positions, not {P} patches + {LM_T - P} tokens")
+        tok = torch.argmax(step_logits[:, -1], -1)[:, None]
+        serve_step = tf.make_serve_step(flash)
+
+        def decode(steps=4):
+            nonlocal cache, tok
+            for _ in range(steps):
+                out, cache = serve_step(params, cache, tok)
+                tok = torch.argmax(out[:, -1], -1)[:, None]
+
+        decode()
+        _profile("[e]", "4 traced decode steps", decode, traced["decode"])
+        del params, cache, batch, x, xk
+    torch.cuda.empty_cache()
+    pre = traced["prefill"]
+    print(f"[e] {VLM_ARCH} at full width, {L} of 80 layers (d "
+          f"{flash.d_model}, {flash.n_heads} heads of {flash.head_dim}, "
+          f"{flash.n_kv_heads} kv heads, d_ff {flash.d_ff}, vocab {V}, "
+          f"{flash.dtype}; {vb['weight_bytes'] / 1e9:.4g} GB of weights), "
+          f"B = {LM_B}, {P} patches + {LM_T - P} tokens, {LM_NEW} new "
+          f"tokens, through run_lm on K4")
+    print(f"[e] prefill {a['prefill_s'] * 1e3:.3f} ms (bound "
+          f"{vb['ms']:.4g} ms: {vb['flops']:.4g} flop at 989 TFLOP/s); "
+          f"decode {a['tok_per_s']:.2f} tok/s, {step_ms:.3f} ms a step "
+          f"(bound {vb['step_ms']:.4g} ms: {vb['step_bytes']:.4g} bytes at "
+          f"3.35 TB/s, {vb['tok_per_s']:.4g} tok/s); peak memory allocated "
+          f"{peak:,} bytes ({peak / 2 ** 30:.2f} GiB)")
+    print(f"[e] K4 launches in the run: {vcounts['flash_attention']} (one "
+          f"per layer of one prefill), {vcounts['flash_attention_sm90']} on "
+          f"the tensor cores; layer by layer K4 against chunked "
+          f"{min(vrels):.4g} to {max(vrels):.4g} of max |x| (limit "
+          f"{ENC_LAYER_RTOL}); the layer-by-layer K4 stream against "
+          f"run_lm's prefill logits {rerun:.4g} of max |logit|; traced "
+          f"prefill device {traced['prefill']['device_ms']:.3f} ms (K4 "
+          f"{traced['prefill']['k4_ms']:.3f} ms), busy share "
+          f"{_fmt(_div(pre['union_ms'], pre['wall_ms']), '.4f')}; first "
+          f"sequence {toks[0][:12].tolist()}")
+    seconds = time.perf_counter() - t_phase
+    print(f"[e] phase e: {seconds:.1f} s")
+    return {"encoder": enc, "vlm": dict(
+        counts=vcounts, run=a, bounds=vb, peak_bytes=peak, rels=vrels,
+        rerun=rerun, trace=traced, step_ms=step_ms, n_layers=L),
+        "seconds": seconds}
+
+
+def _lm_train_inputs(cfg, B=2, T=16, seed=0):
+    """Parameters (every bias drawn non-zero) and a batch for ``cfg``'s
+    input mode, on the CPU."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+
+    g = torch.Generator().manual_seed(seed)
+    biases = {"ln_b", "final_ln_b", "bq", "bk", "bv", "b_in", "b_out"}
+
+    def biased(node):
+        return {k: biased(v) if isinstance(v, dict) else
+                (0.1 * torch.randn(v.shape, generator=g) if k in biases
+                 else v) for k, v in node.items()}
+
+    params = biased(tf.init_params(cfg, g, "cpu"))
+    V, d = cfg.vocab, cfg.d_model
+    if cfg.input_mode == "embeds":
+        batch = {"embeds": torch.randn((B, T, d), generator=g),
+                 "labels": torch.randint(0, V, (B, T), generator=g)}
+    elif cfg.input_mode == "mixed":
+        P = cfg.n_patches
+        batch = {"patches": torch.randn((B, P, d), generator=g),
+                 "tokens": torch.randint(0, V, (B, T - P), generator=g)}
+    else:
+        batch = {"tokens": torch.randint(0, V, (B, T), generator=g)}
+    return params, batch
+
+
+def _lm_train_path(dev) -> dict:
+    """Phase l: one float32 train step of each kind of model on the card
+    against the CPU; qwen1.5-0.5b's full-size train steps, timed and
+    traced; ``make_hfl_lm_train_step`` at that size; K4's refusal under
+    autograd."""
+    import torch
+
+    from repro_torch import configs, optim
+    from repro_torch.fed.hfl import f32_math
+    from repro_torch.fed.hfl_lm import make_hfl_lm_train_step
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.cnn import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    ops.reset_launches()
+    # (a) Each kind of model, reduced, float32: the card against the CPU.
+    errs = {}
+    for arch, changes in TRAIN_KINDS:
+        cfg = dataclasses.replace(configs.get(arch).reduced(), **changes)
+        params, batch = _lm_train_inputs(cfg)
+        opt = optim.sgd(lr=0.1)
+        step = tf.make_train_step(cfg, opt, lr_schedule=optim.cosine(10, 2))
+        with f32_math():
+            want = step(params, opt.init(params), batch)
+            card = tree_map(lambda t: t.to(dev), params)
+            got = step(card, opt.init(card),
+                       {k: v.to(dev) for k, v in batch.items()})
+        err = max(float((g.cpu() - w).abs().max() / w.abs().max())
+                  for g, w in zip(tree_leaves(got[0]), tree_leaves(want[0])))
+        loss_err = abs(float(got[2]["loss"]) - float(want[2]["loss"]))
+        _check(err <= TRAIN_CPU_TOL and loss_err <= TRAIN_CPU_TOL * max(
+            1.0, abs(float(want[2]["loss"]))), f"{arch}: the card's train "
+            f"step differs from the CPU's by {err:.3g} of max |leaf| (loss "
+            f"{loss_err:.3g}; limit {TRAIN_CPU_TOL})")
+        errs[arch] = err
+    shown = {k: float(f"{v:.4g}") for k, v in errs.items()}
+    print(f"[l] (a) one f32 train step (SGD, cosine schedule, clip, remat) "
+          f"of each kind at reduced() size, the card against the CPU (TF32 "
+          f"off), max |delta| over max |leaf|: {json.dumps(shown)} (limit "
+          f"{TRAIN_CPU_TOL})")
+
+    # (b) qwen1.5-0.5b at full size, adamw, B x T tokens, chunked, remat.
+    cfg = configs.get(LM_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = tf.init_params(cfg, gen, dev)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    batch = {"tokens": torch.randint(0, cfg.vocab, (LM_B, LM_T),
+                                     generator=gen, device=dev)}
+    opt = optim.get_optimizer(cfg.optimizer)
+    step = tf.make_train_step(cfg, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    p, s, losses, step_ms = params, opt.init(params), [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        p, s, met = step(p, s, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(met["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    _check(all(math.isfinite(x) for x in losses), f"non-finite losses "
+           f"{losses}")
+    # A norm scale of 1.0 in bf16 moves by less than half its ulp (2^-8)
+    # in 4 AdamW steps of lr 3e-4, in the reference as here; every other
+    # leaf must change.
+    names = tf._map_defs(params, lambda name, _: name)
+    still = [n for n, a, b in zip(tree_leaves(names), tree_leaves(p),
+                                  tree_leaves(params)) if torch.equal(a, b)]
+    _check(all(n in ("ln", "final_ln") for n in still),
+           f"parameter leaves unchanged after {TRAIN_STEPS} steps: {still}")
+    bnd = _dense_bounds(cfg, LM_B, LM_T, LM_B * LM_T)
+    train_flops = 3 * bnd["flops"]
+    train_bound = train_flops / BF16_TENSOR_FLOPS_PER_S * 1e3
+    stats = {}
+    _profile("[l]", "1 traced train step", lambda: step(p, s, batch), stats)
+    print(f"[l] (b) {LM_ARCH} at full size ({n_params:,} parameters, "
+          f"{cfg.dtype}, {cfg.optimizer}, remat {cfg.remat}, "
+          f"{cfg.attn_impl} attention), B = {LM_B}, T = {LM_T}: leaves "
+          f"unchanged {still}; losses "
+          f"{[float(f'{x:.6g}') for x in losses]}; ms a step "
+          f"{[float(f'{x:.4f}') for x in step_ms]} (host clock, "
+          f"synchronised; the first with cold starts); bound "
+          f"{train_bound:.4g} ms (3 x the forward's {bnd['flops']:.4g} flop "
+          f"at 989 TFLOP/s); peak memory allocated {peak:,} bytes "
+          f"({peak / 2 ** 30:.2f} GiB); traced step: device "
+          f"{stats['device_ms']:.3f} ms, busy share "
+          f"{_fmt(_div(stats['union_ms'], stats['wall_ms']), '.4f')}")
+    del p, s, met
+
+    # (c) make_hfl_lm_train_step at the same size: P pods, K local steps.
+    toks = torch.randint(0, cfg.vocab, (HFL_PODS, HFL_K, LM_B, LM_T),
+                         generator=gen, device=dev)
+    stacked = tree_map(lambda t: torch.stack([t] * HFL_PODS), params)
+    states = tree_map(lambda t: torch.stack([t] * HFL_PODS),
+                      opt.init(params))
+    hstep = make_hfl_lm_train_step(cfg, opt, K=HFL_K)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hp, hs, hm = hstep(stacked, states, {"tokens": toks})
+    torch.cuda.synchronize()
+    hfl_ms = (time.perf_counter() - t0) * 1e3
+    del stacked, states, hs
+    pods = []
+    for i in range(HFL_PODS):
+        q, st = params, opt.init(params)
+        for k in range(HFL_K):
+            g = tf.value_and_grad(cfg, q, {"tokens": toks[i, k]})[2]
+            q, st = opt.update(g, st, q)
+        pods.append(q)
+        del st
+    same = apart = 0
+    leaves = tree_leaves(hp)
+    for j, leaf in enumerate(leaves):
+        same += all(torch.equal(leaf[0], leaf[i])
+                    for i in range(1, HFL_PODS))
+        mean = torch.stack([tree_leaves(q)[j].float() for q in pods]
+                           ).mean(0).to(leaf.dtype)
+        apart += torch.equal(leaf[0], mean)
+    _check(same == len(leaves), f"hfl_lm: only {same} of {len(leaves)} "
+           f"leaves are bitwise equal across the pods")
+    _check(apart == len(leaves), f"hfl_lm: only {apart} of {len(leaves)} "
+           f"leaves equal the f32 mean of the pods' own steps, bitwise")
+    _check(math.isfinite(float(hm["ce"])), "hfl_lm: non-finite ce")
+    counts = dict(ops.LAUNCHES)
+    print(f"[l] (c) make_hfl_lm_train_step at full size, P = {HFL_PODS} "
+          f"pods x K = {HFL_K} local steps: {hfl_ms:.1f} ms, ce "
+          f"{float(hm['ce']):.6g}; every leaf bitwise equal across the pods "
+          f"and to the f32 mean of the pods' own steps run apart "
+          f"({len(leaves)} leaves)")
+    del hp, pods, params, batch, toks
+
+    # (d) K4 refuses to run under autograd on the card, before a launch.
+    q = torch.randn((1, 64, 2, 64), device=dev, dtype=torch.bfloat16,
+                    requires_grad=True)
+    n0 = ops.LAUNCHES["flash_attention"]
+    try:
+        ops.flash_attention(q, q.detach(), q.detach())
+        refused = False
+    except RuntimeError:
+        refused = True
+    _check(refused and ops.LAUNCHES["flash_attention"] == n0,
+           "K4 ran under autograd")
+    rcfg = dataclasses.replace(configs.get(LM_ARCH).reduced(),
+                               attn_impl="pallas")
+    rp, rb = _lm_train_inputs(rcfg)
+    rp = tree_map(lambda t: t.to(dev), rp)
+    try:
+        tf.make_train_step(rcfg, optim.sgd())(
+            rp, optim.sgd().init(rp), {k: v.to(dev) for k, v in rb.items()})
+        refused = False
+    except RuntimeError:
+        refused = True
+    _check(refused, "a train step on attn_impl='pallas' ran")
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    print(f"[l] (d) K4 raised under autograd on the card, before any "
+          f"launch, and so did a train step on attn_impl='pallas'; the "
+          f"training path's launches: {json.dumps(_by_kernel(counts))}")
+    print(f"[l] phase l: {seconds:.1f} s")
+    return {"cpu_errs": errs, "losses": losses, "step_ms": step_ms,
+            "bound_ms": train_bound, "peak_bytes": peak, "trace": stats,
+            "hfl_ms": hfl_ms, "counts": counts, "seconds": seconds}
 
 
 def main(argv: list[str]) -> int:
@@ -2616,6 +3104,13 @@ def main(argv: list[str]) -> int:
     torch.cuda.empty_cache()
     sp = _ssm_path(dev)
 
+    # ---- phase e: the encoder family and the mixed frontend ------------
+    torch.cuda.empty_cache()
+    ep = _encoder_path(dev)
+
+    # ---- phase l: LM training ------------------------------------------
+    lp = _lm_train_path(dev)
+
     # ---- phase t: TSIA, the baselines and the per-cell planner ---------
     tp = _tsia_path(dev, report, k2_tsia)
 
@@ -2680,6 +3175,20 @@ def main(argv: list[str]) -> int:
                if k != "flash_attention_sm90"),
            f"a kernel other than K4's tensor-core kernel launched on phase "
            f"s's path: {ssm_counts}")
+    enc_counts = _by_kernel(ep["encoder"]["counts"])
+    vlm_counts = _by_kernel(ep["vlm"]["counts"])
+    print(f"[9] kernels on phase e's paths: {ENC_ARCH}'s forward "
+          f"{json.dumps(enc_counts)}; {VLM_ARCH}'s run_lm "
+          f"{json.dumps(vlm_counts)}")
+    for tag, c, n in ((ENC_ARCH, enc_counts, ep["encoder"]["n_layers"]),
+                      (VLM_ARCH, vlm_counts, ep["vlm"]["n_layers"])):
+        _check(c["flash_attention_sm90"] == n and all(
+            v == 0 for k, v in c.items() if k != "flash_attention_sm90"),
+            f"{tag}'s path did not launch K4's tensor-core kernel once a "
+            f"layer, and nothing else: {c}")
+    train_counts = _by_kernel(lp["counts"])
+    _check(all(v == 0 for v in train_counts.values()),
+           f"a kernel launched on phase l's training path: {train_counts}")
     f_counts = _by_kernel(fp["counts"])
     print(f"[9] kernels on phase f's path (the training pipeline): "
           f"{json.dumps(f_counts)}")
@@ -2695,6 +3204,8 @@ def main(argv: list[str]) -> int:
         report[name]["launches_train_path"] = f_counts[name]
         report[name]["launches_moe_path"] = moe_counts[name]
         report[name]["launches_ssm_path"] = ssm_counts[name]
+        report[name]["launches_encoder_path"] = enc_counts[name]
+        report[name]["launches_vlm_path"] = vlm_counts[name]
         r = report[name]
         lib = (f", library {r['library_ms']:.4g} ms"
                if r["library_ms"] is not None else "")
@@ -2758,6 +3269,26 @@ def main(argv: list[str]) -> int:
           f"{sp['gap_b_control']:.4g} of max |logit|), re-layout in f32 "
           f"{sp['rel_c']:.4g} of max |logit|; card against CPU at most "
           f"{max(sp['cpu_errs'].values()):.3g} ({sp['seconds']:.1f} s)")
+    enc, vlm = ep["encoder"], ep["vlm"]
+    print(f"[9] encoder path, {ENC_ARCH}: forward {enc['fwd_ms']:.3f} ms "
+          f"(bound {enc['bounds']['ms']:.4g} ms), chunked route "
+          f"{enc['chunked_ms']:.3f} ms; K4 against chunked at most "
+          f"{max(enc['rels']):.4g} of max |x| a layer; peak "
+          f"{enc['peak_bytes'] / 2 ** 30:.2f} GiB")
+    print(f"[9] vlm path, {VLM_ARCH} ({vlm['n_layers']} layers): prefill "
+          f"{vlm['run']['prefill_s'] * 1e3:.3f} ms (bound "
+          f"{vlm['bounds']['ms']:.4g} ms), decode "
+          f"{vlm['run']['tok_per_s']:.2f} tok/s (bound "
+          f"{vlm['bounds']['tok_per_s']:.4g}); K4 against chunked at most "
+          f"{max(vlm['rels']):.4g} of max |x| a layer; peak "
+          f"{vlm['peak_bytes'] / 2 ** 30:.2f} GiB ({ep['seconds']:.1f} s)")
+    print(f"[9] training path, {LM_ARCH} full size: "
+          f"{sorted(lp['step_ms'])[len(lp['step_ms']) // 2]:.3f} ms a step "
+          f"(median of {len(lp['step_ms'])}; bound {lp['bound_ms']:.4g} "
+          f"ms), losses {lp['losses']}, peak "
+          f"{lp['peak_bytes'] / 2 ** 30:.2f} GiB; hfl_lm step "
+          f"{lp['hfl_ms']:.1f} ms; card against CPU at most "
+          f"{max(lp['cpu_errs'].values()):.3g} ({lp['seconds']:.1f} s)")
     print(json.dumps({"kernels": [report[k] for k in counts]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,8 @@ kernels), ``topk_moves`` (K3), ``flash_attention`` (K4, either of its
 kernels) and ``rmsnorm`` (K5); ``sroa_solve_lanes`` counts the K2 launches
 that took the one-thread-per-user kernel, ``topk_moves_warp`` the K3
 launches that took the one-warp-per-cell kernel and ``flash_attention_sm90``
-the K4 launches that took the tensor-core kernel.
+the K4 launches that took the tensor-core kernel.  K4 refuses to run
+under autograd (:func:`flash_attention`).
 """
 from __future__ import annotations
 
@@ -201,7 +202,17 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
     Heads are not repeated here: k and v carry q's head count (the model's
     ``attention`` repeats grouped heads first, as the JAX package does).
     On CUDA, ``flash_attention.takes_wgmma`` picks the kernel.
+
+    K4 has no backward: the kernel fills its output through ctypes, so a
+    gradient would stop at it.  Under autograd (grad mode on and any of
+    q, k, v requiring grad) the call raises on every device, the CPU's
+    plain version included, so that the CPU shows what the card would do.
     """
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention (K4) has no backward; train on the chunked "
+            "route (ArchConfig(attn_impl='chunked')), as the JAX package "
+            "does")
     cuda = _on_cuda(q, k, v)
     if q.dim() != 4 or k.shape != v.shape or k.shape[0] != q.shape[0] \
             or k.shape[2:] != q.shape[2:]:

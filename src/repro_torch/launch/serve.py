@@ -7,8 +7,11 @@ llama4-scout-17b-a16e and kimi-k2-1t-a32b, top-k routed experts with
 capacity dispatch and a shared expert; a ring-buffer KV cache) and the
 hybrid and xlstm families (zamba2-7b: Mamba2 layers and a shared
 sliding-window attention block; xlstm-125m: mLSTM/sLSTM pairs; recurrent
-states, and the shared block's ring buffer); a reduced config unless
-``--full-size``:
+states, and the shared block's ring buffer) and the dense family's
+``mixed`` frontend (internvl2-76b: the run draws patch embeddings and
+prefills them before the prompt's tokens); a reduced config unless
+``--full-size``.  The encoder (hubert-xlarge) has no decode and is
+refused; drive it through ``models.transformer.forward``:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \
       --arch llama4-scout-17b-a16e --batch 4 --prompt-len 32 --new-tokens 16
@@ -273,9 +276,15 @@ def run_lm(cfg, *, batch: int, prompt_len: int, new_tokens: int, seed: int,
     the oldest token of a ring buffer).
 
     Weights and prompts come from one ``torch.Generator`` seeded with
-    ``seed`` on ``device``.  Returns the timings (host clock around
-    synchronised work), the prefill's last-position logits (B, V) and the
-    generated tokens (B, 1 + new_tokens) as numpy.
+    ``seed`` on ``device``.  For ``mixed`` input (internvl2) the same
+    generator then draws ``patches`` (B, ``cfg.n_patches``, d), standard
+    normal in ``cfg.dtype``, and the prompt is the patches followed by the
+    ``prompt_len`` tokens: the prefill cache holds ``n_patches +
+    prompt_len`` positions.  (The JAX entry point passes only tokens and
+    stops with ``KeyError: 'patches'``; ROADMAP queue 3.)  Returns the
+    timings (host clock around synchronised work), the prefill's
+    last-position logits (B, V) and the generated tokens (B, 1 +
+    new_tokens) as numpy.
     """
     import torch
 
@@ -290,15 +299,23 @@ def run_lm(cfg, *, batch: int, prompt_len: int, new_tokens: int, seed: int,
         params = tf.init_params(cfg, gen, device)
         prompts = torch.randint(0, cfg.vocab, (B, T), generator=gen,
                                 device=device)
+        batch_in = {"tokens": prompts}
+        if cfg.input_mode == "mixed":
+            batch_in["patches"] = torch.randn(
+                (B, cfg.n_patches, cfg.d_model), generator=gen,
+                device=device, dtype=cfg.dtype)
         prefill = tf.make_prefill_step(cfg)
         serve = tf.make_serve_step(cfg)
 
         _sync(device)
         t0 = time.perf_counter()
-        logits, cache = prefill(params, {"tokens": prompts})
+        logits, cache = prefill(params, batch_in)
         _sync(device)
         t_prefill = time.perf_counter() - t0
-        print(f"[prefill] {B}x{T} tokens in {t_prefill * 1e3:.2f} ms")
+        patches = (f" after {cfg.n_patches} patches"
+                   if "patches" in batch_in else "")
+        print(f"[prefill] {B}x{T} tokens{patches} in "
+              f"{t_prefill * 1e3:.2f} ms")
 
         tok = torch.argmax(logits[:, -1], -1)[:, None]
         out_tokens = [tok]

@@ -1,20 +1,30 @@
-"""The architecture zoo's decoder families: config, parameters, forward
-pass, decode caches and the serving steps (the JAX package's
+"""The architecture zoo: config, parameters, forward pass, decode caches,
+the loss and the serving and training steps (the JAX package's
 ``models/transformer.py``).
 
-``ArchConfig`` describes every architecture of the registry.  The
-``dense``, ``moe``, ``mamba_hybrid`` and ``xlstm`` families with token
-inputs run here; the ``encoder`` family and the embedding frontends raise
-``NotImplementedError`` (ROADMAP queue 1).  Parameters are nested dicts of
-tensors whose layer weights are stacked along a leading axis, as in the JAX
-package; the layer stack is a Python loop over that axis (no scan, no
-remat: this module serves, it does not train).  A moe block's FFN is
-:func:`repro_torch.models.moe.moe_ffn`; ``forward`` returns its load-balance
-loss summed over the layers.  The hybrid family (zamba2) runs groups of
-``attn_every`` Mamba2 layers, each group followed by one shared attention
-block (sliding window ``cfg.window``) and one shared SwiGLU, then the
-tail's Mamba2 layers; the xlstm family runs mLSTM/sLSTM pairs
+``ArchConfig`` describes every architecture of the registry, and every
+family and input mode runs here: ``dense``, ``moe``, ``mamba_hybrid``,
+``xlstm`` and ``encoder`` (layer-norm blocks with biases, a GELU MLP,
+non-causal attention; no decode), on ``tokens``, ``embeds`` (frame
+embeddings through ``in_proj``) or ``mixed`` input (patch embeddings
+prepended to the token embeddings, with a loss mask that is False on the
+patches).  Parameters are nested dicts of tensors whose layer weights are
+stacked along a leading axis, as in the JAX package; the layer stack is a
+Python loop over that axis.  A moe block's FFN is
+:func:`repro_torch.models.moe.moe_ffn`; ``forward`` returns its
+load-balance loss summed over the layers.  The hybrid family (zamba2) runs
+groups of ``attn_every`` Mamba2 layers, each group followed by one shared
+attention block (sliding window ``cfg.window``) and one shared SwiGLU, then
+the tail's Mamba2 layers; the xlstm family runs mLSTM/sLSTM pairs
 (:mod:`repro_torch.models.ssm`).
+
+``loss_fn`` and ``make_train_step`` train every family on
+``torch.autograd``.  In a training forward with grad mode on and
+``cfg.remat``, each layer (each group for the hybrid, each pair for xlstm)
+runs under ``torch.utils.checkpoint``, the reference's ``jax.checkpoint``:
+less memory, the same numbers.  K4 has no backward, so a training step on
+``attn_impl="pallas"`` raises (:func:`repro_torch.kernels.ops.
+flash_attention`); the reference trains on the chunked route.
 
 ``forward(mode="prefill")`` returns the reference's prefill cache, whose
 layout the reference's ``decode_step`` cannot read for the hybrid and
@@ -35,15 +45,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.layers import apply_rope, attention, rms_norm, swiglu
-
-_PORTED_FAMILIES = ("dense", "moe", "mamba_hybrid", "xlstm")
-_NOT_PORTED = ("the port runs only the dense, moe, mamba_hybrid and xlstm "
-               "families with token inputs; {} is not ported yet (ROADMAP "
-               "queue 1)")
+from repro_torch.models.cnn import tree_leaves, tree_unflatten
+from repro_torch.models.layers import (apply_rope, attention, gelu_mlp,
+                                       layer_norm, rms_norm, swiglu)
 
 
 # ============================================================== config
@@ -114,15 +122,6 @@ class ParamDef(NamedTuple):
     scale: Optional[float] = None  # None -> 1/sqrt(fan_in)
 
 
-def _require_ported(cfg: ArchConfig) -> None:
-    if cfg.family not in _PORTED_FAMILIES:
-        raise NotImplementedError(_NOT_PORTED.format(
-            f"the {cfg.family} family ({cfg.name})"))
-    if cfg.input_mode != "tokens":
-        raise NotImplementedError(_NOT_PORTED.format(
-            f"input_mode={cfg.input_mode!r} ({cfg.name})"))
-
-
 def _attn_defs(cfg: ArchConfig, L: Optional[int]):
     """Attention block defs; L=None means unstacked (the hybrid's shared
     block)."""
@@ -138,6 +137,8 @@ def _attn_defs(cfg: ArchConfig, L: Optional[int]):
         "wv": st((d, Hkv * hd), ("d_model", "qkv")),
         "wo": st((H * hd, d), ("qkv", "d_model")),
     }
+    if cfg.family == "encoder":
+        defs["ln_b"] = st((d,), ("d_model",))
     if cfg.qkv_bias:
         defs["bq"] = st((H * hd,), ("qkv",))
         defs["bk"] = st((Hkv * hd,), ("qkv",))
@@ -147,6 +148,15 @@ def _attn_defs(cfg: ArchConfig, L: Optional[int]):
 
 def _mlp_defs(cfg: ArchConfig, L: int):
     d, ff = cfg.d_model, cfg.d_ff
+    if cfg.family == "encoder":             # GELU MLP with biases
+        return {
+            "ln": ParamDef((L, d), ("layers", "d_model")),
+            "ln_b": ParamDef((L, d), ("layers", "d_model")),
+            "w_in": ParamDef((L, d, ff), ("layers", "d_model", "ff")),
+            "b_in": ParamDef((L, ff), ("layers", "ff")),
+            "w_out": ParamDef((L, ff, d), ("layers", "ff", "d_model")),
+            "b_out": ParamDef((L, d), ("layers", "d_model")),
+        }
     return {
         "ln": ParamDef((L, d), ("layers", "d_model")),
         "w_gate": ParamDef((L, d, ff), ("layers", "d_model", "ff")),
@@ -221,13 +231,17 @@ def _ffn_key(cfg: ArchConfig) -> str:
 
 
 def param_defs(cfg: ArchConfig):
-    _require_ported(cfg)
     d, V, L = cfg.d_model, cfg.vocab, cfg.n_layers
-    defs: dict = {"final_ln": ParamDef((d,), ("d_model",)),
-                  "embed": ParamDef((V, d), ("vocab", "d_model"),
-                                    scale=d ** -0.5)}
+    defs: dict = {"final_ln": ParamDef((d,), ("d_model",))}
+    if cfg.input_mode in ("tokens", "mixed"):
+        defs["embed"] = ParamDef((V, d), ("vocab", "d_model"),
+                                 scale=d ** -0.5)
+    if cfg.input_mode == "embeds":
+        defs["in_proj"] = ParamDef((d, d), ("d_model", None))
     if not cfg.tie_embeddings:
         defs["lm_head"] = ParamDef((d, V), ("d_model", "vocab"))
+    if cfg.family == "encoder":
+        defs["final_ln_b"] = ParamDef((d,), ("d_model",))
     if cfg.family == "mamba_hybrid":
         defs["blocks"] = {"mamba": _mamba_defs(cfg, L)}
         defs["shared_attn"] = _attn_defs(cfg, None)      # one shared block
@@ -243,9 +257,11 @@ def param_defs(cfg: ArchConfig):
             raise ValueError(f"the xlstm family stacks m/s pairs: n_layers "
                              f"must be even, got {L}")
         defs["blocks"] = _xlstm_defs(cfg, L // 2)
-    else:
+    elif cfg.family in ("dense", "moe", "encoder"):
         ffn = _moe_defs(cfg, L) if cfg.family == "moe" else _mlp_defs(cfg, L)
         defs["blocks"] = {"attn": _attn_defs(cfg, L), _ffn_key(cfg): ffn}
+    else:
+        raise ValueError(cfg.family)
     return defs
 
 
@@ -323,7 +339,8 @@ def _attn_apply(cfg: ArchConfig, p, x, *, positions, kv_cache=None,
     """
     B, T, d = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    h = rms_norm(x, p["ln"])
+    h = rms_norm(x, p["ln"]) if "ln_b" not in p else \
+        layer_norm(x, p["ln"], p["ln_b"])
     q = h @ p["wq"] + (p["bq"] if "bq" in p else 0.0)
     k = h @ p["wk"] + (p["bk"] if "bk" in p else 0.0)
     v = h @ p["wv"] + (p["bv"] if "bv" in p else 0.0)
@@ -362,7 +379,11 @@ def _attn_apply(cfg: ArchConfig, p, x, *, positions, kv_cache=None,
 
 
 def _ffn_apply(cfg: ArchConfig, p, x):
-    """Dense SwiGLU or MoE FFN with residual; returns (x, aux)."""
+    """Dense (SwiGLU / GELU) or MoE FFN with residual; returns (x, aux)."""
+    if "b_in" in p:                                   # encoder GELU MLP
+        h = layer_norm(x, p["ln"], p["ln_b"])
+        return x + gelu_mlp(h, p["w_in"], p["b_in"], p["w_out"],
+                            p["b_out"]), 0.0
     h = rms_norm(x, p["ln"])
     if "router" in p:
         y, aux = moe_lib.moe_ffn(p, h, top_k=cfg.top_k,
@@ -372,47 +393,82 @@ def _ffn_apply(cfg: ArchConfig, p, x):
     return x + swiglu(h, p["w_gate"], p["w_up"], p["w_down"]), 0.0
 
 
-def _layer(stacked: dict, i: int) -> dict:
-    """Layer ``i`` of a stacked block (nested dicts such as moe's
-    ``shared`` included)."""
-    return {k: _layer(t, i) if isinstance(t, dict) else t[i]
-            for k, t in stacked.items()}
+def _layers(stacked: dict) -> list:
+    """Every layer of a stacked block (nested dicts such as moe's
+    ``shared`` included), from one ``unbind`` a leaf: under autograd each
+    leaf's gradient is then one stack, where indexing layer by layer would
+    add a zero-filled gradient of the whole stack for every layer."""
+    parts = {k: _layers(t) if isinstance(t, dict) else t.unbind(0)
+             for k, t in stacked.items()}
+    n = len(next(iter(parts.values())))
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
 
 # ---------------------------------------------------------------- embed
 def embed_inputs(cfg: ArchConfig, params, batch):
-    """Returns (x (B,T,d), positions (B,T), loss_mask None): tokens mode."""
-    _require_ported(cfg)
-    tokens = batch["tokens"]
-    x = params["embed"][tokens].to(cfg.dtype)
-    B, T = tokens.shape
-    pos = torch.arange(T, device=tokens.device).expand(B, T)
-    return x, pos, None
+    """Returns (x (B,T,d), positions (B,T), loss_mask (B,T) or None).
+
+    ``tokens``: ``batch["tokens"]`` (B, T) through the embedding.
+    ``embeds``: ``batch["embeds"]`` (B, T, d) @ ``in_proj``.  ``mixed``:
+    ``batch["patches"]`` (B, P, d) followed by the embedded
+    ``batch["tokens"]`` (B, T - P); the loss mask is False on the patches
+    (the only mode with a mask)."""
+    mask = None
+    if cfg.input_mode == "tokens":
+        x = params["embed"][batch["tokens"]].to(cfg.dtype)
+    elif cfg.input_mode == "embeds":                  # audio frontend stub
+        x = batch["embeds"].to(cfg.dtype) @ params["in_proj"]
+    else:                                             # mixed: VLM stub
+        tok = params["embed"][batch["tokens"]].to(cfg.dtype)
+        patches = batch["patches"].to(cfg.dtype)
+        x = torch.cat([patches, tok], 1)
+        mask = torch.arange(x.shape[1], device=x.device) >= patches.shape[1]
+        mask = mask.expand(x.shape[0], -1)
+    B, T = x.shape[:2]
+    pos = torch.arange(T, device=x.device).expand(B, T)
+    return x, pos, mask
 
 
 def unembed(cfg: ArchConfig, params, x):
-    x = rms_norm(x, params["final_ln"])
+    x = rms_norm(x, params["final_ln"]) if "final_ln_b" not in params else \
+        layer_norm(x, params["final_ln"], params["final_ln_b"])
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return x @ head.to(x.dtype)
 
 
 # ------------------------------------------------------------ stacks
-def _backbone(cfg: ArchConfig, params, batch, want_cache: bool):
+def _remat(on: bool, fn, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` when ``on`` (the
+    reference's ``jax.checkpoint`` of a training block): its activations
+    are recomputed in the backward pass instead of kept."""
+    return checkpoint(fn, *args, use_reentrant=False) if on else fn(*args)
+
+
+def _backbone(cfg: ArchConfig, params, batch, want_cache: bool,
+              train: bool = False):
+    """(x, cache, loss_mask, aux); ``train`` remats each layer when grad
+    mode is on and ``cfg.remat``."""
     x, positions, loss_mask = embed_inputs(cfg, params, batch)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = train and cfg.remat and torch.is_grad_enabled()
     if cfg.family == "mamba_hybrid":
-        x, cache = _hybrid_forward(cfg, params, x, positions, want_cache)
+        x, cache = _hybrid_forward(cfg, params, x, positions, want_cache,
+                                   remat)
         return x, cache, loss_mask, aux
     if cfg.family == "xlstm":
-        x, cache = _xlstm_forward(cfg, params, x, want_cache)
+        x, cache = _xlstm_forward(cfg, params, x, want_cache, remat)
         return x, cache, loss_mask, aux
     blocks, ffn = params["blocks"], _ffn_key(cfg)
     ks, vs = [], []
-    for i in range(cfg.n_layers):
-        x, (k, v) = _attn_apply(cfg, _layer(blocks["attn"], i), x,
-                                positions=positions, causal=cfg.causal,
-                                window=cfg.window)
-        x, a = _ffn_apply(cfg, _layer(blocks[ffn], i), x)
+
+    def block(x, pa, pf):
+        x, kv = _attn_apply(cfg, pa, x, positions=positions,
+                            causal=cfg.causal, window=cfg.window)
+        x, a = _ffn_apply(cfg, pf, x)
+        return x, a, kv
+
+    for pa, pf in zip(_layers(blocks["attn"]), _layers(blocks[ffn])):
+        x, a, (k, v) = _remat(remat, block, x, pa, pf)
         aux = aux + a
         if want_cache:
             ks.append(k)
@@ -458,29 +514,44 @@ def _group_ends(cfg: ArchConfig) -> dict:
     return {g * every + every - 1: g for g in range(cfg.n_layers // every)}
 
 
-def _hybrid_forward(cfg: ArchConfig, params, x, positions, want_cache):
+def _hybrid_forward(cfg: ArchConfig, params, x, positions, want_cache,
+                    remat=False):
     """Groups of ``attn_every`` Mamba2 layers, each followed by the shared
     block, then the tail.  The cache is the reference's prefill layout:
     ``groups`` (ssm, conv) stacked (G, attn_every, ...), ``attn_k``/
     ``attn_v`` (G, B, T, Hkv, hd), ``tail`` (ssm, conv) stacked (tail, ...)
-    or None, ``pos``."""
-    mm, ends = params["blocks"]["mamba"], _group_ends(cfg)
+    or None, ``pos``.  ``remat`` checkpoints each group and each tail
+    layer."""
+    mm, ends = _layers(params["blocks"]["mamba"]), _group_ends(cfg)
+    every = cfg.attn_every
     ssm, conv, ks, vs = [], [], [], []
-    for i in range(cfg.n_layers):
-        x, (s, cs) = _mamba_apply(cfg, _layer(mm, i), x)
-        if i in ends:
-            x, (k, v) = _shared_apply(cfg, params, x, positions=positions)
-            if want_cache:
-                ks.append(k)
-                vs.append(v)
+
+    def segment(x, first, last):
+        """Layers first..last, then the shared block if ``last`` ends a
+        group: (x, [(ssm, conv)], (k, v) or None)."""
+        states, kv = [], None
+        for i in range(first, last + 1):
+            x, st = _mamba_apply(cfg, mm[i], x)
+            states.append(st)
+        if last in ends:
+            x, kv = _shared_apply(cfg, params, x, positions=positions)
+        return x, states, kv
+
+    head = len(ends) * every
+    spans = [(g * every, g * every + every - 1) for g in range(len(ends))]
+    spans += [(i, i) for i in range(head, cfg.n_layers)]
+    for first, last in spans:
+        x, states, kv = _remat(remat, segment, x, first, last)
         if want_cache:
-            ssm.append(s)
-            conv.append(cs)
+            if kv is not None:
+                ks.append(kv[0])
+                vs.append(kv[1])
+            ssm.extend(s for s, _ in states)
+            conv.extend(cs for _, cs in states)
     if not want_cache:
         return x, None
-    G, every = len(ends), cfg.attn_every
+    G = len(ends)
     ssm, conv = torch.stack(ssm), torch.stack(conv)
-    head = G * every
 
     def grouped(a):
         return a[:head].reshape((G, every) + a.shape[1:])
@@ -508,13 +579,14 @@ def _xlstm_pair(cfg: ArchConfig, blk, x, m_state=None, s_state=None):
     return x + y, m_state, s_state
 
 
-def _xlstm_forward(cfg: ArchConfig, params, x, want_cache):
+def _xlstm_forward(cfg: ArchConfig, params, x, want_cache, remat=False):
     """The m/s pairs; the cache is the reference's prefill layout:
     ``states`` ((C, n, m), (c, n, m, h)), each stacked over the pairs, and
-    ``pos``."""
-    blocks, ms, ss = params["blocks"], [], []
-    for i in range(cfg.n_layers // 2):
-        x, m_state, s_state = _xlstm_pair(cfg, _layer(blocks, i), x)
+    ``pos``.  ``remat`` checkpoints each pair."""
+    ms, ss = [], []
+    for blk in _layers(params["blocks"]):
+        x, m_state, s_state = _remat(
+            remat, lambda x, blk: _xlstm_pair(cfg, blk, x), x, blk)
         ms.append(m_state)
         ss.append(s_state)
     if not want_cache:
@@ -532,14 +604,15 @@ def forward(cfg: ArchConfig, params, batch, *, mode="train"):
     load-balance loss summed over the layers (0 for the other families).
     """
     x, cache, loss_mask, aux = _backbone(cfg, params, batch,
-                                         mode == "prefill")
+                                         mode == "prefill", mode == "train")
     return unembed(cfg, params, x), aux, cache, loss_mask
 
 
 # ============================================================ decode
 def cache_defs(cfg: ArchConfig, batch: int, context: int):
     """Decode-cache structure (shapes + logical axes) per family."""
-    _require_ported(cfg)
+    if cfg.family == "encoder":
+        raise ValueError(f"{cfg.family} has no decode cache")
     B, S, L = batch, context, cfg.n_layers
     Hkv, hd = cfg.n_kv_heads, cfg.head_dim
     f32 = torch.float32
@@ -643,7 +716,8 @@ def decode_step(cfg: ArchConfig, params, cache, tokens):
     """One decode step: tokens (B, 1) int -> (logits (B,1,V), new cache).
 
     The cache's tensors are updated in place (see the module note)."""
-    _require_ported(cfg)
+    if cfg.family == "encoder":
+        raise ValueError(f"{cfg.family} does not decode")
     B = tokens.shape[0]
     x = params["embed"][tokens].to(cfg.dtype)
     pos = cache["pos"]
@@ -654,20 +728,20 @@ def decode_step(cfg: ArchConfig, params, cache, tokens):
         x = _xlstm_decode(cfg, params, x, cache)
     else:
         blocks = params["blocks"]
-        for i in range(cfg.n_layers):
-            x, _ = _attn_apply(cfg, _layer(blocks["attn"], i), x,
-                               positions=positions,
+        for i, (pa, pf) in enumerate(zip(_layers(blocks["attn"]),
+                                         _layers(blocks[_ffn_key(cfg)]))):
+            x, _ = _attn_apply(cfg, pa, x, positions=positions,
                                kv_cache=(cache["k"][i], cache["v"][i]),
                                cache_pos=pos)
-            x, _ = _ffn_apply(cfg, _layer(blocks[_ffn_key(cfg)], i), x)
+            x, _ = _ffn_apply(cfg, pf, x)
     logits = unembed(cfg, params, x)
     return logits, dict(cache, pos=pos + 1)
 
 
 def _hybrid_decode(cfg: ArchConfig, params, x, positions, cache):
-    mm, ends, pos = params["blocks"]["mamba"], _group_ends(cfg), cache["pos"]
-    for i in range(cfg.n_layers):
-        x, (s, cs) = _mamba_apply(cfg, _layer(mm, i), x, cache["ssm"][i],
+    ends, pos = _group_ends(cfg), cache["pos"]
+    for i, p in enumerate(_layers(params["blocks"]["mamba"])):
+        x, (s, cs) = _mamba_apply(cfg, p, x, cache["ssm"][i],
                                   cache["conv"][i])
         cache["ssm"][i].copy_(s)
         cache["conv"][i].copy_(cs)
@@ -681,18 +755,74 @@ def _hybrid_decode(cfg: ArchConfig, params, x, positions, cache):
 
 
 def _xlstm_decode(cfg: ArchConfig, params, x, cache):
-    blocks = params["blocks"]
-    for i in range(cfg.n_layers // 2):
+    for i, blk in enumerate(_layers(params["blocks"])):
         m_state = tuple(cache[k][i] for k in _M_KEYS)
         s_state = tuple(cache[k][i] for k in _S_KEYS)
-        x, m_new, s_new = _xlstm_pair(cfg, _layer(blocks, i), x, m_state,
-                                      s_state)
+        x, m_new, s_new = _xlstm_pair(cfg, blk, x, m_state, s_state)
         for key, new in zip(_M_KEYS + _S_KEYS, m_new + s_new):
             cache[key][i].copy_(new)
     return x
 
 
-# ============================================================== steps
+# ============================================================== loss/steps
+def loss_fn(cfg: ArchConfig, params, batch):
+    """The training loss and its parts: (loss, {"ce", "aux"}).
+
+    Cross-entropy in float32 (the logits are cast before the logsumexp):
+    against ``batch["labels"]`` at every position for the encoder and any
+    non-causal model, else next-token on ``batch["tokens"]`` (for ``mixed``
+    input the patches' logits are dropped first).  The moe load-balance
+    loss is added with weight 0.01."""
+    logits, aux, _, _ = forward(cfg, params, batch, mode="train")
+    logits = logits.float()
+    if cfg.family == "encoder" or not cfg.causal:
+        pred, gold_ids = logits, batch["labels"]
+    else:
+        if cfg.input_mode == "mixed":
+            logits = logits[:, cfg.n_patches:]
+        pred, gold_ids = logits[:, :-1], batch["tokens"][:, 1:]
+    gold = torch.gather(pred, -1, gold_ids[..., None].long())[..., 0]
+    ce = (torch.logsumexp(pred, -1) - gold).mean()
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
+
+
+def value_and_grad(cfg: ArchConfig, params, batch):
+    """(loss, metrics, grads) of :func:`loss_fn`: the gradient of every
+    leaf of ``params`` by ``torch.autograd.grad``, in ``params``'
+    structure.  ``params`` are not modified; grad mode is on inside
+    whatever the caller's mode."""
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    with torch.enable_grad():
+        loss, metrics = loss_fn(cfg, tree_unflatten(params, leaves), batch)
+        grads = torch.autograd.grad(loss, leaves)
+    metrics = {k: v.detach() if isinstance(v, torch.Tensor) else v
+               for k, v in metrics.items()}
+    return loss.detach(), metrics, tree_unflatten(params, list(grads))
+
+
+def make_train_step(cfg: ArchConfig, optimizer, *, lr_schedule=None,
+                    clip_norm: float = 1.0):
+    """``step(params, opt_state, batch) -> (params, opt_state, metrics)``:
+    the gradients of :func:`loss_fn`, clipped to ``clip_norm`` by their
+    global norm, then ``optimizer.update`` scaled by ``lr_schedule`` at
+    ``opt_state["step"]`` (read before the update).  Returns new parameter
+    dicts (the caller's stay as they were) and metrics ``loss``, ``ce``,
+    ``aux`` and ``grad_norm``.  ``attn_impl="pallas"`` raises: K4 has no
+    backward."""
+    from repro_torch.optim import clip_by_global_norm
+
+    def train_step(params, opt_state, batch):
+        loss, metrics, grads = value_and_grad(cfg, params, batch)
+        grads, gnorm = clip_by_global_norm(grads, clip_norm)
+        scale = (lr_schedule(opt_state["step"]) if lr_schedule is not None
+                 else 1.0)
+        params, opt_state = optimizer.update(grads, opt_state, params,
+                                             lr_scale=scale)
+        return params, opt_state, dict(metrics, loss=loss, grad_norm=gnorm)
+
+    return train_step
+
+
 def make_prefill_step(cfg: ArchConfig, *, pad_to: Optional[int] = None):
     """pad_to: allocate KV-cache headroom for subsequent decode steps
     (ring-buffer semantics mean an unpadded cache evicts the oldest

@@ -215,3 +215,60 @@ def tree_bitwise(got, want) -> None:
             tree_bitwise(g, w)
     else:
         assert_bitwise(got, want)
+
+
+_BIAS_NAMES = {"ln_b", "final_ln_b", "bq", "bk", "bv", "b_in", "b_out"}
+
+
+def with_random_biases(jax_params, seed: int = 0, scale: float = 0.1):
+    """A JAX model's parameters with every bias and layer-norm shift drawn
+    normal x ``scale`` and every norm scale (``ln``, ``final_ln``) 1 +
+    normal x ``scale``, from numpy's ``default_rng(seed)``: ``init_params``
+    sets them to zeros and ones, which would hide a missing bias or a
+    swapped scale and shift."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(seed)
+
+    def walk(node):
+        out = {}
+        for k in sorted(node):
+            v = node[k]
+            if isinstance(v, dict):
+                out[k] = walk(v)
+            elif k in _BIAS_NAMES:
+                out[k] = jnp.asarray(scale * rng.normal(size=v.shape),
+                                     v.dtype)
+            elif k in ("ln", "final_ln"):
+                out[k] = jnp.asarray(1.0 + scale * rng.normal(size=v.shape),
+                                     v.dtype)
+            else:
+                out[k] = v
+        return out
+
+    return walk(jax_params)
+
+
+def lm_batch(cfg, B: int, T: int, seed: int = 0) -> dict:
+    """A numpy batch of ``T`` positions for ``cfg``'s input mode: tokens
+    (B, T); embeds (B, T, d) and labels (B, T); or patches (B, n_patches,
+    d) and tokens (B, T - n_patches).  Normal float32 embeddings, int32
+    ids."""
+    rng = np.random.default_rng(seed)
+    d, V = cfg.d_model, cfg.vocab
+    if cfg.input_mode == "tokens":
+        return {"tokens": rng.integers(0, V, (B, T), dtype=np.int32)}
+    if cfg.input_mode == "embeds":
+        return {"embeds": rng.normal(size=(B, T, d)).astype(np.float32),
+                "labels": rng.integers(0, V, (B, T), dtype=np.int32)}
+    P = cfg.n_patches
+    return {"patches": rng.normal(size=(B, P, d)).astype(np.float32),
+            "tokens": rng.integers(0, V, (B, T - P), dtype=np.int32)}
+
+
+def batch_both(batch: dict):
+    """A numpy batch as (JAX arrays, torch tensors)."""
+    import jax.numpy as jnp
+
+    return ({k: jnp.asarray(v) for k, v in batch.items()},
+            {k: torch.tensor(v) for k, v in batch.items()})

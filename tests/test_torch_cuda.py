@@ -842,3 +842,101 @@ def test_zamba2s_shared_block_takes_the_tensor_cores(cuda):
         cfg, params, x, positions=positions), wgmma=True)
     assert y.shape == x.shape and bool(torch.isfinite(y).all())
     assert k.shape == (4, 1024, 32, 112)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,hd,causal", [(4, 1024, 16, 80, False),
+                                             (4, 1024, 64, 128, True)])
+def test_k4_at_the_encoder_and_vlm_prefill_shapes(cuda, B, T, H, hd, causal):
+    """hubert-xlarge's attention (16 heads of 80, non-causal: the P.V
+    product's n tile past hd 80 reads TMA's zero fill) and internvl2-76b's
+    prefill (64 heads of 128 after the GQA repeat, causal): the
+    tensor-core kernel, within 2e-2 of the twin."""
+    q, k, v = (_randn((B, T, H, hd), torch.bfloat16, cuda, 21 + i)
+               for i in range(3))
+    got = _launched("flash_attention",
+                    lambda: ops.flash_attention(q, k, v, causal=causal),
+                    wgmma=True)
+    torch.testing.assert_close(
+        got.float(), _attention_plain(q, k, v, causal=causal).float(),
+        rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_k4_refuses_to_run_under_autograd_on_the_card(cuda):
+    """K4 has no backward: with grad mode on and an operand that requires
+    grad the wrapper raises before any launch; without either it runs."""
+    q, k, v = (_randn((1, 64, 2, 64), torch.bfloat16, cuda, 30 + i)
+               for i in range(3))
+    q.requires_grad_(True)
+    n0 = ops.LAUNCHES["flash_attention"]
+    with pytest.raises(RuntimeError, match="no backward.*chunked"):
+        ops.flash_attention(q, k, v)
+    assert ops.LAUNCHES["flash_attention"] == n0
+    with torch.no_grad():
+        _launched("flash_attention", lambda: ops.flash_attention(q, k, v),
+                  wgmma=True)
+
+
+# One of each kind of model, reduced: (arch, config changes).
+TRAIN_KINDS = [("qwen1.5-0.5b", {}), ("llama4-scout-17b-a16e", {}),
+               ("zamba2-7b", {"n_layers": 3}), ("xlstm-125m", {"n_layers": 4}),
+               ("hubert-xlarge", {}), ("internvl2-76b", {})]
+_BIASES = {"ln_b", "final_ln_b", "bq", "bk", "bv", "b_in", "b_out"}
+
+
+def _lm_train_inputs(cfg, B=2, T=16, seed=0):
+    """Parameters (biases drawn non-zero) and a batch for ``cfg``'s input
+    mode, on the CPU."""
+    from repro_torch.models import transformer as tf
+
+    g = torch.Generator().manual_seed(seed)
+
+    def biased(node):
+        return {k: biased(v) if isinstance(v, dict) else
+                (0.1 * torch.randn(v.shape, generator=g) if k in _BIASES
+                 else v) for k, v in node.items()}
+
+    params = biased(tf.init_params(cfg, g, "cpu"))
+    V, d = cfg.vocab, cfg.d_model
+    if cfg.input_mode == "embeds":
+        batch = {"embeds": torch.randn((B, T, d), generator=g),
+                 "labels": torch.randint(0, V, (B, T), generator=g)}
+    elif cfg.input_mode == "mixed":
+        P = cfg.n_patches
+        batch = {"patches": torch.randn((B, P, d), generator=g),
+                 "tokens": torch.randint(0, V, (B, T - P), generator=g)}
+    else:
+        batch = {"tokens": torch.randint(0, V, (B, T), generator=g)}
+    return params, batch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,changes", TRAIN_KINDS,
+                         ids=[a for a, _ in TRAIN_KINDS])
+def test_train_step_on_the_card_matches_the_cpu(cuda, arch, changes):
+    """One float32 ``make_train_step`` (SGD, a cosine schedule, the clip)
+    with remat on, TF32 off: every new parameter within 1e-4 of its max
+    |leaf| of the CPU's, the metrics within 1e-4."""
+    from repro_torch import configs, optim
+    from repro_torch.fed.hfl import f32_math
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.cnn import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(configs.get(arch).reduced(), **changes)
+    params, batch = _lm_train_inputs(cfg)
+    opt = optim.sgd(lr=0.1)
+    step = tf.make_train_step(cfg, opt, lr_schedule=optim.cosine(10, 2))
+    with f32_math():
+        want = step(params, opt.init(params), batch)
+        card = tree_map(lambda t: t.to(cuda), params)
+        got = step(card, opt.init(card),
+                   {k: v.to(cuda) for k, v in batch.items()})
+    for g, w in zip(tree_leaves(got[0]), tree_leaves(want[0])):
+        assert g.device.type == "cuda"
+        assert float((g.cpu() - w).abs().max()) <= 1e-4 * float(
+            w.abs().max())
+    for k, w in want[2].items():
+        assert abs(float(got[2][k]) - float(w)) <= 1e-4 * max(abs(float(w)),
+                                                               1.0)
+    assert int(got[1]["step"]) == 1

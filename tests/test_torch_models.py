@@ -245,11 +245,23 @@ def test_params_from_numpy_checks_the_tree():
     if c.family not in ("dense", "moe", "mamba_hybrid", "xlstm")
     or c.input_mode != "tokens"))
 def test_other_families_raise(arch):
-    cfg = tconfigs.get(arch).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        ttf.init_params(cfg, torch.Generator(), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        ttf.cache_defs(cfg, 1, 8)
+    """The encoder family and the embeds/mixed frontends (refused before
+    they were ported): the port's parameter shapes are the JAX package's,
+    full size and reduced, and a model without decode raises for a decode
+    cache in both packages (``tests/test_torch_encoder.py`` holds their
+    numbers)."""
+    for jcfg, tcfg in ((jconfigs.get(arch), tconfigs.get(arch)),
+                       (jconfigs.get(arch).reduced(),
+                        tconfigs.get(arch).reduced())):
+        want = jax.tree.map(lambda d: tuple(d.shape), jtf.param_defs(jcfg),
+                            is_leaf=lambda d: isinstance(d, jtf.ParamDef))
+        got = ttf._map_defs(ttf.param_defs(tcfg), lambda _, d: tuple(d.shape))
+        assert got == want
+        if not tcfg.has_decode:
+            with pytest.raises(ValueError, match="no decode cache"):
+                jtf.cache_defs(jcfg, 1, 8)
+            with pytest.raises(ValueError, match="no decode cache"):
+                ttf.cache_defs(tcfg, 1, 8)
 
 
 # ------------------------------------------------------------ entry point

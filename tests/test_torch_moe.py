@@ -263,11 +263,18 @@ def test_run_lm_flash_route_matches_chunked_on_cpu():
 
 @pytest.mark.parametrize("arch", ["internvl2-76b"])
 def test_serve_lm_still_refuses_the_unported_families(arch):
-    """The mixed frontend raises the port's refusal; the encoder (hubert)
-    has no decode, which the CLI refuses first
-    (``tests/test_torch_models.py::test_serve_lm_rejects``).  The hybrid
-    and xlstm families are served (``tests/test_torch_ssm.py``)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        serve.main(["--mode", "lm", "--device", "cpu", "--arch", arch,
-                    "--batch", "1", "--prompt-len", "4", "--new-tokens",
-                    "1"])
+    """The mixed frontend (internvl2), refused until it was ported, is
+    served on the CPU: the run prefills its patches before the prompt
+    (``tests/test_torch_encoder.py`` holds its logits to JAX's).  The CLI
+    still refuses the encoder (hubert-xlarge), which has no decode, as the
+    JAX CLI does."""
+    before = dict(ops.LAUNCHES)
+    out = serve.main(["--mode", "lm", "--device", "cpu", "--arch", arch,
+                      "--batch", "1", "--prompt-len", "4", "--new-tokens",
+                      "1"])
+    assert ops.LAUNCHES == before
+    assert out["tokens"].shape == (1, 2)
+    assert np.isfinite(host(out["logits"])).all()
+    with pytest.raises(SystemExit, match="no decode"):
+        serve.main(["--mode", "lm", "--device", "cpu", "--arch",
+                    "hubert-xlarge"])

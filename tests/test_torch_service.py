@@ -420,11 +420,15 @@ def test_service_extended_modes_match_jax(mode):
 def test_serve_entry_point_refuses_what_is_not_ported():
     from repro_torch.launch import serve
 
-    # LM serving runs the decoder families on tokens; the mixed frontend
-    # (internvl2) still raises.
-    with pytest.raises(NotImplementedError, match="not ported"):
+    # LM serving runs every family with a decode step, the mixed frontend
+    # (internvl2) too; the encoder (hubert), which has none, is refused.
+    out = serve.main(["--mode", "lm", "--device", "cpu", "--arch",
+                      "internvl2-76b", "--batch", "1", "--prompt-len", "4",
+                      "--new-tokens", "2"])
+    assert out["tokens"].shape == (1, 3)
+    with pytest.raises(SystemExit, match="encoder-only"):
         serve.main(["--mode", "lm", "--device", "cpu", "--arch",
-                    "internvl2-76b"])
+                    "hubert-xlarge"])
 
 
 class _Built(Exception):
