@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's planning, LM serving and LM training
-paths on one NVIDIA card.
+paths, distributed HFL and the dry-run on one NVIDIA card.
 
     python3 chip_smoke.py             # every phase (one card)
     python3 chip_smoke.py --kernels   # build and check the kernels only
@@ -193,6 +193,22 @@ f. The paper's training pipeline (lines ``[f]``, run after phase h): (a)
    int8 compression of the same update bitwise on both devices; (c) one
    traced global iteration: device time, busy share, the five longest
    kernels and the device events a global iteration.
+d. The mesh, sharding and dry-run layer and distributed HFL (lines
+   ``[d]``, run after phase f, whose inputs it reuses): (a) Algorithm 1
+   on phase f's users (imagenette, N = 50, M = 5, L = K = 2, users
+   dropped, an edge emptied) split over ranks, NCCL at min(4, cards)
+   ranks one a card and, on one card, gloo at 2 ranks sharing it, each
+   held to phase f's single-process iteration on the card within 1e-4 of
+   max |leaf|, with the ms an iteration and the bytes all-reduced; (b)
+   ``launch.dryrun.run_cell`` on a 1 x 1 mesh for phase 8's prefill and
+   phase l's AdamW train step (qwen1.5-0.5b, B = 4, T = 1,024): its
+   argument bytes equal to what the same steps allocate on the card, its
+   predicted peak beside ``torch.cuda.max_memory_allocated`` (printed,
+   not held); (c) ``run_cell`` on the 16 x 16 mesh for qwen2.5-32b
+   ``train_4k`` and llama4-scout-17b-a16e ``decode_32k`` (per-device
+   bytes, FLOPs, collective bytes by kind, fits 80 GB); (d) with two or
+   more cards, ``solve_fleet_sharded`` over them bitwise one card's search
+   on ``draw_fleet(0, 128)``.  No kernel lies on this path.
 9. Launch counts of the main paths (every count reset to 0 right before
    a path and read right after it; phase t's, phase h's, phase f's,
    phase m's, phase s's and phase e's two paths as each kernel's
@@ -1629,6 +1645,8 @@ def _train_path(dev) -> dict:
     seconds = time.perf_counter() - t_phase
     print(f"[f] phase f: {seconds:.1f} s; launches {json.dumps(path)}")
     return {"counts": path, "scores": scores, "plan_ms": rep["plan_s"] * 1e3,
+            "hfl": dict(cfg=cfg, hcfg=hcfg, M=M, inputs=on["cpu"],
+                        card=card),
             "ms_per_iter": ms_iter, "acc": acc, "card_ms": card_ms,
             "cpu_ms": cpu_ms, "errs": errs, "trace": dict(stats, launches=
                                                           launches),
@@ -2718,6 +2736,198 @@ def _lm_train_path(dev) -> dict:
             "hfl_ms": hfl_ms, "counts": counts, "seconds": seconds}
 
 
+# Phase d: the mesh, sharding and dry-run layer and distributed HFL.  (a)
+# Algorithm 1 with phase f's users split over ranks, held to phase f's
+# single-process iteration on the card within TRAIN_TOL of max |leaf|;
+# (b) the dry-run on a 1 x 1 mesh against the same steps run for real:
+# phase 8's prefill and phase l's AdamW train step (qwen1.5-0.5b, B x T);
+# (c) two cells on the 16 x 16 production mesh (a fake process group of
+# 256 ranks, meta shards); (d) the fleet split over the cards.
+DRY_CELLS = (("qwen2.5-32b", "train_4k"),
+             ("llama4-scout-17b-a16e", "decode_32k"))
+
+
+def _dist_path(dev, hfl_run: dict) -> dict:
+    """Phase d: distributed HFL on NCCL (one rank a card) and, on one
+    card, on gloo at 2 ranks sharing it; the dry-run's arguments against
+    the bytes the same steps allocate on the card, its peak beside the
+    card's; two production-mesh cells; the fleet split over two or more
+    cards."""
+    import torch
+
+    from repro_torch.core import sroa
+    from repro_torch.fed import distributed as tdist
+    from repro_torch.fleet import batch as fbatch
+    from repro_torch.fleet import engine as fengine
+    from repro_torch.fleet.service import shard as fshard
+    from repro_torch.launch import dryrun
+    from repro_torch.models.cnn import tree_leaves
+
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    # (a) Distributed HFL against the single-process iteration on the card.
+    w, *data, part = hfl_run["inputs"]
+    want = tree_leaves(hfl_run["card"])
+    # Of the whole model's max |leaf|: cuDNN's weight gradients add in a
+    # run-dependent order, and a bias leaf two orders of magnitude below
+    # the weights has no room for that in a bound of its own (one NCCL
+    # rank and the single-process iteration, the same arithmetic, lay
+    # 1.4e-6 apart on a bias leaf of max 0.0101 on an H100).
+    scale = max(float(c.abs().max()) for c in want)
+    runs = [("nccl", min(4, n_cards))]
+    if n_cards == 1:
+        runs.append(("gloo", 2))
+    dist_runs = {}
+    for backend, world in runs:
+        t0 = time.perf_counter()
+        ranks = tdist.run_ranks(
+            world, backend, tdist.global_iteration_on_ranks, hfl_run["cfg"],
+            hfl_run["hcfg"], hfl_run["M"], False, w, tuple(data), [part], 3,
+            device="cuda")
+        spawn_s = time.perf_counter() - t0
+        err = 0.0
+        for out in ranks:
+            for g, c in zip(tree_leaves(out["w"][0]), want):
+                e = float((g - c.cpu()).abs().max())
+                _check(e <= TRAIN_TOL * scale, f"{backend} x {world}: "
+                       f"{e:.3g} from the single-process iteration, past "
+                       f"{TRAIN_TOL} x {scale:.3g}")
+                err = max(err, e / scale)
+        key = f"{backend}x{world}"
+        dist_runs[key] = dict(ms=ranks[0]["ms"], bytes=ranks[0]["bytes"],
+                              err=err, spawn_s=spawn_s)
+        print(f"[d] (a) distributed HFL, {backend} at {world} rank(s) "
+              f"({'one a card' if backend == 'nccl' else 'sharing card 0'}"
+              f"): {ranks[0]['ms']:.3f} ms an iteration (rank 0, host "
+              f"clock, mean of 3); {ranks[0]['bytes']:,} bytes all-reduced "
+              f"an iteration; max |delta| / max |leaf| against the "
+              f"single-process card run {err:.3g} (limit {TRAIN_TOL}); "
+              f"spawn and run {spawn_s:.1f} s")
+
+    # (b) The dry-run on a 1 x 1 mesh against the real steps on the card.
+    checks, cells = {}, {}
+    for kind in ("prefill", "train"):
+        checks[kind] = _dry_against_the_card(dev, kind)
+
+    # (c) Two cells on the production mesh (16 x 16, cuda device type).
+    for arch, name in DRY_CELLS:
+        rec = dryrun.run_cell(arch, name, False, device_type="cuda")
+        _check(rec["status"] == "ok", f"dry-run {arch} {name}: {rec}")
+        _check(rec["collectives"]["total"] > 0, f"{arch} {name}: no "
+               f"collective")
+        cells[f"{arch}/{name}"] = rec
+        m, c = rec["memory"], rec["collectives"]
+        print(f"[d] (c) dry-run {arch} x {name} x 16x16: per device "
+              f"arguments {m['argument_size_in_bytes']:,} B, temp "
+              f"{m['temp_size_in_bytes']:,} B, output "
+              f"{m['output_size_in_bytes']:,} B, fits 80 GB "
+              f"{rec['fits_80gb']}; {rec['flops_per_device']:.4g} matmul "
+              f"FLOPs a device; collectives {json.dumps(c)} (counts "
+              f"{json.dumps(rec['collective_counts'])}); roofline "
+              f"compute {rec['roofline']['compute_term_s']:.4g} s, memory "
+              f"{rec['roofline']['memory_term_s']:.4g} s, collective "
+              f"{rec['roofline']['collective_term_s']:.4g} s; traced in "
+              f"{rec['trace_s']:.1f} s")
+
+    # (d) The fleet split over the cards, bitwise one card's search.
+    split = None
+    if n_cards >= 2:
+        fleet = fbatch.draw_fleet(0, 128, device=dev)
+        kw = dict(lam=1.0, cfg=sroa.SroaConfig(**SERVE_CAPS, fused=True),
+                  max_rounds=12, escape_iters=2, top_k=TOP_K)
+        t0 = time.perf_counter()
+        whole = fengine.solve_fleet_assignments(fleet, **kw)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        devices = [f"cuda:{i}" for i in range(n_cards)]
+        parts = fshard.solve_fleet_sharded(fleet, devices=devices, **kw)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        a, b = list(_flat_tensors(whole)), list(_flat_tensors(parts))
+        _check(len(a) == len(b) and all(
+            x.shape == y.shape and torch.equal(x.cpu(), y.cpu())
+            for x, y in zip(a, b)), "the fleet split over the cards "
+            "differs from one card's search")
+        split = dict(cards=n_cards, one_ms=(t1 - t0) * 1e3,
+                     split_ms=(t2 - t1) * 1e3)
+        print(f"[d] (d) solve_fleet_sharded over {n_cards} cards on "
+              f"draw_fleet(0, 128): bitwise one card's search ({len(a)} "
+              f"tensors); one card {split['one_ms']:.1f} ms, split "
+              f"{split['split_ms']:.1f} ms")
+    else:
+        print("[d] (d) the fleet split over cards not run: one card "
+              "visible")
+    seconds = time.perf_counter() - t_phase
+    print(f"[d] phase d: {seconds:.1f} s")
+    return {"dist": dist_runs, "dry": checks, "cells": cells,
+            "split": split, "seconds": seconds}
+
+
+def _dry_against_the_card(dev, kind: str) -> dict:
+    """Phase d (b): the 1 x 1 dry-run of qwen1.5-0.5b's ``kind`` step at
+    B x T against the same step run on the card: the arguments exactly,
+    the predicted peak beside the card's."""
+    import torch
+
+    from repro_torch import configs, optim
+    from repro_torch.configs import shapes as shp
+    from repro_torch.launch import dryrun
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.cnn import tree_leaves
+
+    cfg = configs.get(LM_ARCH)
+    shape = shp.ShapeSpec(f"{kind}_{LM_T}", kind, LM_T, LM_B)
+    rec = dryrun.run_cell(LM_ARCH, shape, False, device_type="cuda",
+                          mesh_shape=((1, 1), ("data", "model")))
+    _check(rec["status"] == "ok", f"dry-run {kind}: {rec}")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = tf.init_params(cfg, gen, dev)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (LM_B, LM_T),
+                                     generator=gen, device=dev,
+                                     dtype=torch.int32)}
+    args = [params, batch]
+    if kind == "train":
+        opt = optim.get_optimizer(cfg.optimizer)
+        args.insert(1, opt.init(params))
+        step = tf.make_train_step(cfg, opt)
+    else:
+        step = tf.make_prefill_step(cfg)
+    storages = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                for a in args for t in tree_leaves(a)}
+    allocated = sum(storages.values())
+    mem = rec["memory"]
+    _check(mem["argument_size_in_bytes"] == allocated,
+           f"dry-run {kind}: arguments {mem['argument_size_in_bytes']:,} "
+           f"bytes, the card allocates {allocated:,}")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = step(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out, args, params, batch
+    torch.cuda.empty_cache()
+    print(f"[d] (b) dry-run of {LM_ARCH} {kind} (B = {LM_B}, T = {LM_T}) on "
+          f"a 1 x 1 mesh: arguments {allocated:,} bytes, equal to what the "
+          f"card allocates; predicted temp {mem['temp_size_in_bytes']:,} "
+          f"bytes beside the card's peak above the arguments {peak:,} "
+          f"(ratio {mem['temp_size_in_bytes'] / peak:.4f}; information); "
+          f"{rec['flops_per_device']:.4g} matmul FLOPs; traced in "
+          f"{rec['trace_s']:.1f} s")
+    return dict(arg=allocated, temp=mem["temp_size_in_bytes"], peak=peak,
+                trace_s=rec["trace_s"], flops=rec["flops_per_device"])
+
+
+def _flat_tensors(x):
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, tuple):
+        for y in x:
+            yield from _flat_tensors(y)
+
+
 def main(argv: list[str]) -> int:
     kernels_only = "--kernels" in argv
     try:
@@ -3120,6 +3330,9 @@ def main(argv: list[str]) -> int:
     # ---- phase f: the training pipeline --------------------------------
     fp = _train_path(dev)
 
+    # ---- phase d: distributed HFL, the dry-run, the fleet split --------
+    dp = _dist_path(dev, fp["hfl"])
+
     # ---- phase 9: launch counts and times ------------------------------
     # Four kernels lie on no path: K5 (no model calls it), K4's SIMT
     # kernel (the route for f32 and hd > 128; the LM path is bf16, hd 64)
@@ -3289,6 +3502,18 @@ def main(argv: list[str]) -> int:
           f"{lp['peak_bytes'] / 2 ** 30:.2f} GiB; hfl_lm step "
           f"{lp['hfl_ms']:.1f} ms; card against CPU at most "
           f"{max(lp['cpu_errs'].values()):.3g} ({lp['seconds']:.1f} s)")
+    print("[9] phase d: distributed HFL " + "; ".join(
+        f"{k} {r['ms']:.3f} ms an iteration ({r['err']:.3g} of max |leaf| "
+        f"from one process)" for k, r in dp["dist"].items())
+        + "; dry-run arguments exact, temp / the card's peak "
+        + ", ".join(f"{k} {r['temp'] / r['peak']:.4f}"
+                    for k, r in dp["dry"].items())
+        + "; production cells " + ", ".join(
+            f"{k} fits 80 GB {r['fits_80gb']}" for k, r in
+            dp["cells"].items())
+        + ("; fleet split not run (one card)" if dp["split"] is None else
+           f"; fleet split bitwise over {dp['split']['cards']} cards")
+        + f" ({dp['seconds']:.1f} s)")
     print(json.dumps({"kernels": [report[k] for k in counts]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

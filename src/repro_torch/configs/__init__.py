@@ -1,9 +1,10 @@
 """Architecture registry: --arch <id> resolves here.
 
 The JAX package's ten configurations, as data (``ArchConfig.dtype`` is a
-torch dtype).  The dry-run's input shapes (``configs/shapes.py``) are not
-ported.
+torch dtype), and the dry-run's input shapes (``SHAPES``, from
+:mod:`repro_torch.configs.shapes`).
 """
+from repro_torch.configs import shapes
 from repro_torch.configs.zamba2_7b import CONFIG as zamba2_7b
 from repro_torch.configs.llama4_scout_17b_a16e import \
     CONFIG as llama4_scout_17b_a16e
@@ -21,6 +22,8 @@ ARCHS = {c.name: c for c in [
     deepseek_67b, qwen1_5_0_5b, qwen2_5_32b, xlstm_125m, hubert_xlarge,
     internvl2_76b,
 ]}
+
+SHAPES = shapes.SHAPES
 
 
 def get(name: str):

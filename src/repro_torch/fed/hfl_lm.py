@@ -10,9 +10,10 @@ optimizer states are not averaged.  The local steps take neither gradient
 clipping nor a learning-rate schedule, as in the reference.
 
 The pods and their steps run as a Python loop on one device (the
-reference vmaps the pods and scans the steps).  The reference's
-``stacked_abstract`` and ``stacked_axes`` serve its dry-run only, which is
-not ported (ROADMAP queue 1).
+reference vmaps the pods and scans the steps).  ``stacked_abstract`` and
+``stacked_axes`` give the stacked parameters' ``meta`` tensors and logical
+axes (the pod axis on ``hfl_pod``) for the dry-run
+(:mod:`repro_torch.launch.dryrun`).
 """
 from __future__ import annotations
 
@@ -60,3 +61,15 @@ def make_hfl_lm_train_step(cfg: tf.ArchConfig, optimizer, *, K: int):
         return params, _stack(states), {"ce": torch.stack(ces).mean()}
 
     return step
+
+
+def stacked_abstract(cfg: tf.ArchConfig, pods: int):
+    """The parameters with a leading pod axis, as ``meta`` tensors."""
+    return tree_map(lambda t: torch.empty((pods,) + tuple(t.shape),
+                                          dtype=t.dtype, device="meta"),
+                    tf.abstract_params(cfg))
+
+
+def stacked_axes(cfg: tf.ArchConfig):
+    """The stacked parameters' logical axes: ``hfl_pod`` first."""
+    return tree_map(lambda a: ("hfl_pod",) + a, tf.logical_axes(cfg))

@@ -16,12 +16,13 @@ from repro_torch.fleet.service.control import (PlanningService,
 from repro_torch.fleet.service.drift import DriftConfig, DriftReport
 from repro_torch.fleet.service.loadgen import run_load
 from repro_torch.fleet.service.queue import CoalescingQueue, PlanRequest
-from repro_torch.fleet.service.shard import cell_devices, solve_fleet_sharded
+from repro_torch.fleet.service.shard import cell_mesh, solve_fleet_sharded
 from repro_torch.fleet.service.telemetry import Telemetry
 
 __all__ = [
     "PlanningService", "ServiceConfig", "TickRecord",
     "DriftConfig", "DriftReport",
     "CoalescingQueue", "PlanRequest",
-    "Telemetry", "run_load", "cell_devices", "solve_fleet_sharded",
+    "Telemetry", "run_load", "cell_mesh",
+    "solve_fleet_sharded",
 ]

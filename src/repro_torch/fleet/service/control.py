@@ -114,7 +114,7 @@ class PlanningService:
         # An explicit planner wins: its ladder is the one every solve uses.
         self.ladder = self.planner.ladder
         self._comp_on = fengine._comp_enabled(self.ladder)
-        self.devices = fshard.cell_devices(devices) if cfg.shard else None
+        self.devices = fshard.cell_mesh(devices) if cfg.shard else None
         fleet = fleet.to(self.device)
         self.state = dynamics.init_fleet_state(
             fleet, seed=seed, mean_speed=cfg.stream.mean_speed)

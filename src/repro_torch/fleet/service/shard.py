@@ -18,18 +18,7 @@ import torch
 from repro_torch.core import sroa
 from repro_torch.fleet import batch as fbatch
 from repro_torch.fleet import engine as fengine
-
-
-def cell_devices(devices=None) -> list[torch.device] | None:
-    """The devices to split the cell axis over, or None for one device.
-
-    Only an explicit list of at least two devices splits; None (the
-    default) keeps the whole search on the fleet's device.
-    """
-    if devices is None:
-        return None
-    devices = [torch.device(d) for d in devices]
-    return devices if len(devices) > 1 else None
+from repro_torch.runtime.sharding import cell_mesh  # noqa: F401 (re-export)
 
 
 def _concat(outs, dev):
@@ -48,7 +37,7 @@ def solve_fleet_sharded(fleet: fbatch.FleetScenario, init_assigns=None,
     """Fleet-wide assignment search, split over ``devices`` when given.
 
     ``devices`` is a list of at least two torch devices (see
-    :func:`cell_devices`); None runs the single-device path.  The per-cell
+    :func:`repro_torch.runtime.sharding.cell_mesh`); None runs the single-device path.  The per-cell
     operands of the horizon (``gain_stacks`` (C, K, N, M), ``incumbents``),
     the compression search (``init_comps``) and the warm starts
     (``tail_inits``) split with the cells.

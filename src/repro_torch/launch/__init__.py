@@ -1,2 +1,3 @@
 """Entry points of the port (``python -m repro_torch.launch.serve``,
-``python -m repro_torch.launch.train``)."""
+``python -m repro_torch.launch.train``, ``python -m
+repro_torch.launch.dryrun``) and the production meshes (``mesh``)."""

@@ -2,7 +2,8 @@
 PyTorch twins, on a card (K2's and K3's two kernels and every speculation
 depth of K1 and K2 bitwise), and the served paths on the card against the
 CPU (the trainer, the moe model and its dispatch, the hybrid and xlstm
-models).  Every test here is
+models), distributed HFL on NCCL and gloo against one process, and the
+dry-run's argument bytes against what the card allocates.  Every test here is
 marked ``cuda`` and skips itself when ``torch.cuda.is_available()`` is
 false; this file imports neither JAX nor the JAX package, so it runs on a
 machine that has only PyTorch:
@@ -940,3 +941,60 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, arch, changes):
         assert abs(float(got[2][k]) - float(w)) <= 1e-4 * max(abs(float(w)),
                                                                1.0)
     assert int(got[1]["step"]) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["nccl", "gloo"])
+def test_distributed_hfl_on_the_card_matches_one_process(cuda, backend):
+    """Algorithm 1 with the users split over ranks: NCCL at one rank a
+    card (up to 4 cards), gloo at 2 ranks sharing card 0 (CUDA tensors).
+    Every rank's new model within 1e-4 of the model's max |leaf| of the
+    single-process iteration on the card (cuDNN's weight gradients are
+    not bitwise from run to run)."""
+    from repro_torch.fed import distributed as tdist
+    from repro_torch.fed import hfl
+    from repro_torch.models import cnn
+
+    ccfg, host = _train_inputs("cpu")
+    _, card = _train_inputs(cuda)
+    hcfg = hfl.HflConfig(L=2, K=2, lr=0.2)
+    want = cnn.tree_leaves(hfl.global_iteration(ccfg, hcfg, *card))
+    world = min(4, torch.cuda.device_count()) if backend == "nccl" else 2
+    w, *data, part = host
+    ranks = tdist.run_ranks(world, backend, tdist.global_iteration_on_ranks,
+                            ccfg, hcfg, 3, False, w, tuple(data), [part], 0,
+                            device="cuda")
+    assert len(ranks) == world
+    scale = max(float(c.abs().max()) for c in want)
+    for out in ranks:
+        for g, c in zip(cnn.tree_leaves(out["w"][0]), want):
+            assert float((g - c.cpu()).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["prefill", "train"])
+def test_dryrun_arguments_equal_the_bytes_the_card_allocates(cuda, kind):
+    """The 1 x 1 dry-run of a reduced bf16 model: its argument bytes are
+    the bytes of the parameters, the optimizer state and the inputs that
+    the same step allocates on the card."""
+    from repro_torch import configs, optim
+    from repro_torch.configs import shapes as shp
+    from repro_torch.launch import dryrun
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.cnn import tree_leaves
+
+    cfg = dataclasses.replace(configs.get("qwen1.5-0.5b").reduced(),
+                              dtype=torch.bfloat16)
+    shape = shp.ShapeSpec("small", kind, 64, 4)
+    rec = dryrun.run_cell("qwen1.5-0.5b", shape, False, device_type="cuda",
+                          cfg=cfg, mesh_shape=((1, 1), ("data", "model")))
+    params = tf.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                            cuda)
+    args = [params, {"tokens": torch.zeros((4, 64), dtype=torch.int32,
+                                           device=cuda)}]
+    if kind == "train":
+        args.insert(1, optim.get_optimizer(cfg.optimizer).init(params))
+    storages = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                for a in args for t in tree_leaves(a)}
+    assert rec["memory"]["argument_size_in_bytes"] == sum(storages.values())
+    assert rec["status"] == "ok" and rec["collectives"]["total"] == 0

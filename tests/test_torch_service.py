@@ -273,10 +273,10 @@ def test_shard_split_over_devices_equals_one_device():
     _, tf = _fleets(seed=4, C=3, n_range=(8, 8))
     kw = dict(lam=1.0, cfg=TCFG, max_rounds=2, escape_iters=1, top_k=4)
     want = teng.solve_fleet_assignments(tf, **kw)
-    assert tsvc.cell_devices(None) is None
-    assert tsvc.cell_devices(["cpu"]) is None
+    assert tsvc.cell_mesh(None) is None
+    assert tsvc.cell_mesh(["cpu"]) is None
     one = tsvc.solve_fleet_sharded(tf, devices=None, **kw)
-    two = tsvc.solve_fleet_sharded(tf, devices=tsvc.cell_devices(
+    two = tsvc.solve_fleet_sharded(tf, devices=tsvc.cell_mesh(
         ["cpu", "cpu"]), **kw)
     for got in (one, two):
         for g, w in zip(_leaves(got), _leaves(want)):

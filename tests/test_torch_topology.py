@@ -96,7 +96,7 @@ def test_all_open_parity_fused_and_device_split(fleet0):
     kw = dict(lam=LAM, cfg=TCFG, max_rounds=2, escape_iters=1, top_k=4)
     masked = ttopo.with_edge_mask(tf, _closed(tf.C, tf.M))
     tree_bitwise(tshard.solve_fleet_sharded(
-        masked, init, devices=tshard.cell_devices(["cpu", "cpu"]), **kw),
+        masked, init, devices=tshard.cell_mesh(["cpu", "cpu"]), **kw),
         teng.solve_fleet_assignments(masked, init, **kw))
 
 
