@@ -33,11 +33,13 @@ Phases, each reported on its own lines:
    lies); the blocks an SM holds are printed.
 3. K3 (top-k move nomination): the routed call, the one-warp-per-cell
    kernel, the block kernel and the plain version give identical
-   user, dst and score at the planning shape (128, N_max, 5) and at
-   (128, 128, 4) and (16, 300, 7) (past the warp kernel's cap), k = 8 and
-   40, and the two kernels and the plain version at (128, N_max, 5) on
-   operands that leave the warp kernel's branch-free ranges (tiny and
-   huge gains and H, noise past 2^60 in every other cell).  The two
+   user, dst and score at the planning shape (128, N_max, 5); the routed
+   call, the cluster and block kernels and the plain version at (128,
+   128, 4) (the warp kernel's cap) and (16, 300, 7) (past it: the cluster
+   kernel's route), k = 8 and 40; and the three kernels and the plain
+   version at (128, N_max, 5) on operands that leave the branch-free
+   ranges (tiny and huge gains and H, noise past 2^60 in every other
+   cell).  The two
    kernels are timed on the same tensors in turns, beside ``torch.topk``
    on the twin's score tile (selection only), an empty kernel's launch
    (the floor), the bound and the wrapper's host cost; the warp kernel's
@@ -180,7 +182,26 @@ h. The planner's extended decision space (lines ``[h]``, run after phase
    (82 problems: comp-scaled loads, a predicted slot's gains, B over open
    sites) and K3 on the comp-aware upload bits at M = 8 (the routed call
    and both kernels) are held bitwise to their twins.
-f. The paper's training pipeline (lines ``[f]``, run after phase h): (a)
+x. The large-cell planning path (lines ``[x]``, run after phase h),
+   DESIGN.md D9's pruned candidate search at scale: (a)
+   ``engine.solve_assignment`` on ``draw_scenario(1)`` at N = 2,048 users,
+   M = 16 edges with the JAX package's ``bench_engine.run_scaling``
+   arguments (caps 24/16/12/20, fused, max_rounds 8, escape_iters 1,
+   top-16, 2 starts): wall ms, rounds, R no worse than the nearest-edge
+   init's, every K2 launch on the cluster kernel and every K3 launch on
+   the cluster kernel; (b) K2 on that search's first round's operands (P =
+   34, N = 2,048), and at N = 600 and 4,096 (one problem each): the
+   cluster kernel at every depth, the routed call, the one-warp kernel (up
+   to 3,632 users) and the twin bitwise, each kernel timed beside the bound
+   of the twin's counted work; (c) K3 on the first round's operands (2,
+   2,048, 16), k = 16, and at k = 40 with two active users a cell: the
+   cluster kernel, the block kernel and the twin bitwise, timed in turns
+   beside ``torch.topk`` on the twin's tile, an empty kernel and the
+   bound; (d) ``serve --mode plan`` through ``serve.build_service`` over 8
+   cells of up to 2,048 users and 16 edges at the serve caps with
+   ``--top-k 16`` for 2 ticks: every K2 and K3 launch on the cluster
+   kernels, R finite, assignments in range.
+f. The paper's training pipeline (lines ``[f]``, run after phase x): (a)
    ``launch.train.main`` on imagenette (the widest CNN, s = 899,912 bytes)
    at the paper's N = 50, M = 5 for 10 global iterations on the card
    (TSIA on K2 at full caps: one lanes-kernel launch a score, its R
@@ -210,13 +231,14 @@ d. The mesh, sharding and dry-run layer and distributed HFL (lines
    more cards, ``solve_fleet_sharded`` over them bitwise one card's search
    on ``draw_fleet(0, 128)``.  No kernel lies on this path.
 9. Launch counts of the main paths (every count reset to 0 right before
-   a path and read right after it; phase t's, phase h's, phase f's,
-   phase m's, phase s's and phase e's two paths as each kernel's
-   ``launches_tsia_path``, ``launches_h_path``, ``launches_train_path``,
-   ``launches_moe_path``, ``launches_ssm_path``,
+   a path and read right after it; phase t's, phase h's, phase x's, phase
+   f's, phase m's, phase s's and phase e's two paths as each kernel's
+   ``launches_tsia_path``, ``launches_h_path``, ``launches_x_path``,
+   ``launches_train_path``, ``launches_moe_path``, ``launches_ssm_path``,
    ``launches_encoder_path`` and ``launches_vlm_path``: only K4's
-   tensor-core kernel may launch on phases s's and e's paths, and no
-   kernel on phase l's), each
+   tensor-core kernel may launch on phases s's and e's paths, only the
+   cluster K2 and K3 on phase x's, and no kernel on phase l's; the two
+   cluster kernels' ``launches`` are phase x's), each
    kernel's time beside its plain
    version's, its bound and its library call, then the card and the
    result line; every K3 launch of the planning path must take the warp
@@ -443,8 +465,11 @@ def _ptxas(log: str) -> list[str]:
                     break
                 ident = mangled[i + n:i + n + int(digits)]
                 if ident.endswith("_kernel"):
-                    t = re.match(r"I(.*?)E", mangled[i + n + len(ident):])
-                    return ident + (f"<{t.group(1)}>" if t else "")
+                    t = re.match(r"I((?:Li\d+E)+)E",
+                                 mangled[i + n + len(ident):])
+                    args = ", ".join(re.findall(r"Li(\d+)E",
+                                                t.group(1) if t else ""))
+                    return ident + (f"<{args}>" if args else "")
         return mangled
 
     out, name, spill = [], None, ""
@@ -472,8 +497,9 @@ def _sass_rounds(sass: str) -> dict:
 
     out = {}
     for chunk in re.split(r"\n\s*Function : ", sass)[1:]:
-        m = re.search(r"(sroa_(?:solve_lanes|solve|invert_rate)_kernel)"
-                      r"(?:ILi(\d+)E)?", chunk.split("\n", 1)[0])
+        m = re.search(r"(sroa_(?:solve_lanes|solve_cluster|solve|"
+                      r"invert_rate)_kernel)(?:I((?:Li\d+E)+)E)?",
+                      chunk.split("\n", 1)[0])
         if not m:
             continue
         ins = [(int(a, 16), op) for a, op in re.findall(
@@ -493,8 +519,8 @@ def _sass_rounds(sass: str) -> dict:
                 kind = ("ieee" if any(o.startswith("FCHK") for o in body)
                         else "nb")
                 found.add(f"{len(body)} {kind}")
-        out[m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")] = \
-            sorted(found)
+        args = ", ".join(re.findall(r"Li(\d+)E", m.group(2) or ""))
+        out[m.group(1) + (f"<{args}>" if args else "")] = sorted(found)
     return out
 
 
@@ -809,6 +835,59 @@ def _check_k5(report: dict, dev) -> None:
           f"{d})), events - device {_fmt(_sub(r['ms'], r['device_ms']))} ms")
 
 
+K3_KERNELS = {"warp": "topk_moves_warp_kernel",
+              "cluster": "topk_moves_cluster_kernel",
+              "block": "topk_moves_kernel"}
+
+
+def _k3_times(args, k, want, pair):
+    """Two K3 kernels (routes ``pair``) on the same operands in turns (a,
+    b, b, a), beside ``torch.topk`` on the twin's tile (selection only,
+    its values held to the twin's scores ``want[2]``), an empty kernel's
+    launch (the floor) and the bytes bound: ({route: {"ms", "device_ms",
+    "turns"}}, the fields both kernels' report rows share)."""
+    import torch
+
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels import topk_moves as tk
+    from repro_torch.kernels.sroa_bisect import _stream
+
+    def on(route):
+        return lambda: tk.topk_moves_cuda(*args, k, _route=route)[0]
+
+    def mean(x):
+        return None if None in x else sum(x) / len(x)
+
+    turns = {r: {"ms": [], "device_ms": []} for r in pair}
+    for r in pair + pair[::-1]:
+        turns[r]["ms"].append(_time_ms(on(r), 50))
+        turns[r]["device_ms"].append(_device_ms(on(r), 50,
+                                                kernel=K3_KERNELS[r]))
+    C, N, M = args[0].shape
+    tile = ref.move_scores_plain(*args)
+    lib = lambda: torch.topk(tile, k, dim=1, largest=False,  # noqa: E731
+                             sorted=True)
+    _check(torch.equal(lib()[0], want[2]),
+           "torch.topk's values differ from the twin's scores")
+    empty = lambda: build.check(  # noqa: E731
+        build.load().topk_empty(_stream(tile)), "topk_empty")
+    nbytes = C * N * M * 4 + C * N * (4 + 4 + 4 + 1) + C * 8 + C * k * 12
+    bound = _bound_ms(nbytes, C * (12 + k) * N * M)
+    times = {r: dict(ms=mean(t["ms"]), device_ms=mean(t["device_ms"]),
+                     turns=t) for r, t in turns.items()}
+    common = dict(route="cuda",
+                  source="src/repro_torch/kernels/csrc/topk_moves.cu",
+                  replaces="src/repro/kernels/topk_moves.py:41",
+                  bound_ms=bound[0], bound_by=bound[1], nbytes=nbytes,
+                  library_ms=_time_ms(lib, 50),
+                  library_device_ms=_device_ms(lib, 50),
+                  library_is="torch.topk on the twin's (P, N*M) tile: "
+                             "selection only; the port never calls it",
+                  floor_ms=_time_ms(empty, 50),
+                  floor_device_ms=_device_ms(empty, 50, kernel="topk_empty"))
+    return times, common
+
+
 def _check_k3(report: dict, dev, cells, init, mask, sms: int) -> None:
     """Phase 3: K3's warp kernel, its block kernel and the plain twin,
     bitwise at the planning shape and at two synthetic ones; the two
@@ -819,7 +898,6 @@ def _check_k3(report: dict, dev, cells, init, mask, sms: int) -> None:
     from repro_torch.fleet import engine as fengine
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import topk_moves as tk
-    from repro_torch.kernels.sroa_bisect import _stream
 
     C, N, M = cells.gain.shape
     targs = [cells.gain.contiguous(), fengine._move_H(cells).contiguous(),
@@ -874,67 +952,43 @@ def _check_k3(report: dict, dev, cells, init, mask, sms: int) -> None:
         route = tk.topk_route(n, m, TOP_K)
         for k in (TOP_K, 40):
             want_s = ref.topk_moves_plain(*args, k=k)
+            c0 = ops.LAUNCHES[f"topk_moves_{route}"]
             _check(same(ops.topk_move_scores(*args, k=k), want_s)
-                   and same(on("block", args, k)(), want_s)
-                   and (route == "block" or same(on("warp", args, k)(),
-                                                 want_s)),
+                   and ops.LAUNCHES[f"topk_moves_{route}"] == c0 + 1
+                   and all(same(on(r, args, k)(), want_s)
+                           for r in ("block", "cluster", route)),
                    f"K3 at ({P}, {n}, {m}), k = {k} differs from its twin")
         cases.append(f"({P}, {n}, {m}) {route}")
+    # The three kernels on the same off-range operands (the cluster kernel
+    # forced onto the planning shape).
     args = off_range(C, N, M, 33)
     _check(not ref.move_scores_plain(*args).isnan().any(),
            "K3's off-range operands make a NaN score")
     for k in (TOP_K, 40):
         want_s = ref.topk_moves_plain(*args, k=k)
-        _check(same(on("warp", args, k)(), want_s)
-               and same(on("block", args, k)(), want_s),
+        _check(all(same(on(r, args, k)(), want_s)
+                   for r in ("warp", "cluster", "block")),
                f"K3 off the fast ranges at ({C}, {N}, {M}), k = {k} differs "
                f"from its twin")
-    cases.append(f"({C}, {N}, {M}) warp off the fast ranges")
+    cases.append(f"({C}, {N}, {M}) warp, cluster and block off the fast "
+                 f"ranges")
     torch.cuda.synchronize()
-    print(f"[3] K3 ok: the routed call, the warp kernel, the block "
-          f"kernel and the twin give identical user, dst and score at "
+    print(f"[3] K3 ok: the routed call, the cluster and block kernels and "
+          f"the twin give identical user, dst and score at "
           f"{', '.join(cases)} (k = {TOP_K} and 40); max |score err| {err}")
 
     # Both kernels on the same tensors, in turns (warp, block, block,
     # warp).
-    kname = {"warp": "topk_moves_warp_kernel", "block": "topk_moves_kernel"}
-    turns = {r: {"ms": [], "device_ms": []} for r in kname}
-    for r in ("warp", "block", "block", "warp"):
-        turns[r]["ms"].append(_time_ms(on(r, targs, TOP_K), 50))
-        turns[r]["device_ms"].append(_device_ms(on(r, targs, TOP_K), 50,
-                                                kernel=kname[r]))
+    times, common = _k3_times(targs, TOP_K, want, ("warp", "block"))
     S = tk.warp_slots(N, M)
     blocks = ctypes.c_int()
     build.check(build.load().topk_moves_warp_occupancy(
         S, N, M, ctypes.byref(blocks)), "topk_moves_warp_occupancy")
-    tile = ref.move_scores_plain(*targs)
-    lib = lambda: torch.topk(tile, TOP_K, dim=1, largest=False,  # noqa
-                             sorted=True)
-    _check(torch.equal(lib()[0], want[2]),
-           "torch.topk's values differ from the twin's scores")
-    empty = lambda: build.check(  # noqa: E731
-        build.load().topk_empty(_stream(tile)), "topk_empty")
-    nbytes = C * N * M * 4 + C * N * (4 + 4 + 4 + 1) + C * 8 + C * TOP_K * 12
-    bound = _bound_ms(nbytes, C * (12 + TOP_K) * N * M)
     plain_ms = _time_ms(k3p, 5)
-    common = dict(route="cuda",
-                  source="src/repro_torch/kernels/csrc/topk_moves.cu",
-                  replaces="src/repro/kernels/topk_moves.py:41",
-                  max_abs_err=err, plain_ms=plain_ms, bound_ms=bound[0],
-                  bound_by=bound[1], library_ms=_time_ms(lib, 50),
-                  library_device_ms=_device_ms(lib, 50),
-                  library_is="torch.topk on the twin's (P, N*M) tile: "
-                             "selection only; the port never calls it",
-                  floor_ms=_time_ms(empty, 50),
-                  floor_device_ms=_device_ms(empty, 50, kernel="topk_empty"))
-
-    def mean(x):
-        return None if None in x else sum(x) / len(x)
-
+    common.update(max_abs_err=err, plain_ms=plain_ms)
+    turns = {r: t["turns"] for r, t in times.items()}
     for r, name in (("warp", "topk_moves_warp"), ("block", "topk_moves")):
-        report[name] = dict(common, name=name, ms=mean(turns[r]["ms"]),
-                            device_ms=mean(turns[r]["device_ms"]),
-                            turns=turns[r])
+        report[name] = dict(common, name=name, **times[r])
     rw = report["topk_moves_warp"]
     rw.update(slots=S, blocks_per_sm=blocks.value,
               routed_ms=_time_ms(k3, 50), host_ms=_host_ms(k3))
@@ -953,8 +1007,9 @@ def _check_k3(report: dict, dev, cells, init, mask, sms: int) -> None:
           f"only) {common['library_ms']:.4g} ms (device "
           f"{common['library_device_ms']}); empty kernel (launch floor) "
           f"{common['floor_ms']:.4g} ms (device "
-          f"{common['floor_device_ms']}); bound {bound[0]:.4g} ms by "
-          f"{bound[1]} ({nbytes} bytes); ops.topk_move_scores "
+          f"{common['floor_device_ms']}); bound {common['bound_ms']:.4g} ms "
+          f"by {common['bound_by']} ({common['nbytes']} bytes); "
+          f"ops.topk_move_scores "
           f"{rw['routed_ms']:.4g} ms, host {rw['host_ms']:.4g} ms a call "
           f"(1,000 unsynchronised)")
 
@@ -980,13 +1035,17 @@ def _add(total: dict, counts: dict) -> None:
 def _by_kernel(c: dict) -> dict:
     """A path's ``ops.LAUNCHES`` as launches of each kernel: the routed
     counters (``sroa_solve``, ``topk_moves``, ``flash_attention``) count
-    both kernels of their op, so the other kernel's launches are the
-    difference."""
+    every kernel of their op, so the one-warp K2's, the block K3's and the
+    SIMT K4's launches are what the others leave."""
     return {"sroa_invert": c["sroa_invert"],
             "sroa_solve_lanes": c["sroa_solve_lanes"],
-            "sroa_solve": c["sroa_solve"] - c["sroa_solve_lanes"],
+            "sroa_solve_cluster": c["sroa_solve_cluster"],
+            "sroa_solve": (c["sroa_solve"] - c["sroa_solve_lanes"]
+                           - c["sroa_solve_cluster"]),
             "topk_moves_warp": c["topk_moves_warp"],
-            "topk_moves": c["topk_moves"] - c["topk_moves_warp"],
+            "topk_moves_cluster": c["topk_moves_cluster"],
+            "topk_moves": (c["topk_moves"] - c["topk_moves_warp"]
+                           - c["topk_moves_cluster"]),
             "flash_attention_sm90": c["flash_attention_sm90"],
             "flash_attention": (c["flash_attention"]
                                 - c["flash_attention_sm90"]),
@@ -1486,6 +1545,303 @@ def _plan_extensions_path(dev) -> dict:
     print(f"[h] phase h: {seconds:.1f} s; launches {json.dumps(path)}")
     return {"counts": path, "runs": runs, "check": check,
             "seconds": seconds}
+
+
+# Phase x: the large-cell planning path, DESIGN.md D9's pruned candidate
+# search at scale: the JAX package's `benchmarks/bench_engine.py`
+# `run_scaling` call (N = 2,048 users, M = 16 edges, top-16, 2 starts, 8
+# rounds, its trimmed caps, fused) and `serve --mode plan --cell-users 2048
+# --cell-edges 16 --top-k 16` over X_CELLS cells.  K2 runs there on its
+# cluster kernel and K3 on its cluster kernel.
+X_N, X_M, X_TOP_K, X_STARTS = 2048, 16, 16, 2
+X_CAPS = dict(b_iters=24, f_iters=16, p_iters=12, t_iters=20)
+X_CELLS, X_TICKS = 8, 2
+
+
+@contextlib.contextmanager
+def _first_operands(n_prob: int):
+    """Record the operands of the first K2 launch of ``n_prob`` problems
+    (flattened per-user and per-problem tensors and the keywords) and of
+    the first K3 launch, as the launchers receive them, inside the block."""
+    from repro_torch.kernels import sroa_bisect as sb
+    from repro_torch.kernels import topk_moves as tk
+
+    seen = {}
+    solve, launch = sb.solve_cuda, tk._launch
+
+    def solve_rec(per_user, per_problem, **kw):
+        if "k2" not in seen and per_user[0].shape[0] == n_prob:
+            seen["k2"] = ([x.clone() for x in per_user],
+                          [x.clone() for x in per_problem],
+                          {k: v for k, v in kw.items() if k != "_route"})
+        return solve(per_user, per_problem, **kw)
+
+    def launch_rec(*args, **kw):
+        if "k3" not in seen:
+            seen["k3"] = ([x.clone() for x in args[:7]], int(args[7]))
+        return launch(*args, **kw)
+
+    sb.solve_cuda, tk._launch = solve_rec, launch_rec
+    try:
+        yield seen
+    finally:
+        sb.solve_cuda, tk._launch = solve, launch
+
+
+def _once_ms(fn):
+    """fn's result and its CUDA-event time (ms) over this one call."""
+    import torch
+
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = fn()
+    e1.record()
+    e1.synchronize()
+    return out, e0.elapsed_time(e1)
+
+
+def _x_k2(dev, pu, pp, kw, one_warp: bool, reps: int = 3) -> dict:
+    """K2's cluster kernel at every depth, the routed call, the one-warp kernel
+    (where it runs) and the twin on the same (P, N) operands: bitwise, each
+    kernel timed (events and device time), the twin's work and the bound."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sroa_bisect as sb
+
+    P, N = pu[0].shape
+    caps = {k: kw[k] for k in X_CAPS}
+
+    def on(route):
+        return lambda: sb.solve_cuda(tuple(pu), tuple(pp), **kw,
+                                     _route=route)[0]
+
+    route = sb.solve_route(P, N, sb._sms(dev.index))
+    _check(route[0] == "cluster", f"K2 at P = {P}, N = {N} took {route}")
+    routed = lambda: sb.solve_cuda(tuple(pu), tuple(pp), **kw)[0]  # noqa
+    got = routed()
+    out = dict(P=P, N=N, route=list(route),
+               ms=_time_ms(routed, reps),
+               device_ms=_device_ms(routed, reps,
+                                    kernel="sroa_solve_cluster"),
+               depth_device_ms={d: _device_ms(on(("cluster", d)), reps,
+                                              kernel="sroa_solve_cluster")
+                                for d in sb.DEPTHS})
+    outs = [on(("cluster", d))() for d in sb.DEPTHS]
+    if one_warp:
+        old, out["one_warp_ms"] = _once_ms(on(("warp", 0)))
+        outs.append(old)
+        out["one_warp_device_ms"] = _device_ms(on(("warp", 0)), 2,
+                                           kernel="sroa_solve_kernel")
+    torch.cuda.synchronize()
+    work = {}
+    want, out["plain_ms"] = _once_ms(
+        lambda: ref.sroa_solve_plain(*pu, *pp, **kw, work=work))
+    for o in [got] + outs:
+        _check(all(torch.equal(a, b) for a, b in zip(o, want)),
+               f"K2 at P = {P}, N = {N} differs from its twin")
+    flops, (bms, by) = _k2_bound(work, P, N, caps)
+    out.update(work=work, flops=flops, bound_ms=bms, bound_by=by,
+               max_abs_err=_max_abs_err(got, want),
+               feasible=int(got[6].sum()),
+               # one problem's dependent step: an inversion and its
+               # reduction over the cluster
+               us_a_step=_div(out["device_ms"] and out["device_ms"] * 1e3,
+                              work["inversions"] / P))
+    return out
+
+
+def _x_k3(args, k) -> dict:
+    """K3's cluster kernel (routed), the block kernel and the twin on
+    the same operands, bitwise, also at k = 40 past the legal moves; both
+    kernels timed by :func:`_k3_times`."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import topk_moves as tk
+
+    def same(x, y):
+        return all(torch.equal(a, b) for a, b in zip(x, y))
+
+    C, N, M = args[0].shape
+    want = ref.topk_moves_plain(*args, k=k)
+    c0 = ops.LAUNCHES["topk_moves_cluster"]
+    got = ops.topk_move_scores(*args, k=k)
+    _check(ops.LAUNCHES["topk_moves_cluster"] == c0 + 1,
+           f"K3 at ({C}, {N}, {M}) did not take the cluster kernel")
+    _check(same(got, want)
+           and same(tk.topk_moves_cuda(*args, k, _route="block")[0], want),
+           f"K3 at ({C}, {N}, {M}), k = {k} differs from its twin")
+    # k = 40 on the same cells with two active users: 2 (M - 1) legal moves
+    # a cell, fewer than 40.
+    few = list(args)
+    few[4] = torch.zeros_like(args[4])
+    few[4][:, :2] = True
+    want40 = ref.topk_moves_plain(*few, k=40)
+    _check(bool((want40[2][:, 2 * (M - 1):] >= 1e29).all()),
+           "the two-user cells have more legal moves than expected")
+    _check(same(ops.topk_move_scores(*few, k=40), want40)
+           and same(tk.topk_moves_cuda(*few, 40, _route="block")[0],
+                    want40),
+           f"K3 at ({C}, {N}, {M}), k = 40 past the legal moves differs "
+           f"from its twin")
+    times, common = _k3_times(args, k, want, ("cluster", "block"))
+    return dict(common, shape=[C, N, M], k=k, **times["cluster"],
+                block_ms=times["block"]["ms"],
+                block_device_ms=times["block"]["device_ms"],
+                block_turns=times["block"]["turns"],
+                plain_ms=_time_ms(lambda: ref.topk_moves_plain(*args, k=k),
+                                  5),
+                max_abs_err=_max_abs_err(got[2:], want[2:]),
+                smem=tk.cluster_smem_bytes(N, M, k),
+                cluster=tk.cluster_shape(N, M, k))
+
+
+def _large_cell_path(dev) -> dict:
+    """Phase x: (a) ``engine.solve_assignment`` at the large-cell shape,
+    counted; (b) K2 on its first round's operands (and at N = 600 and
+    4,096, one problem each); (c) K3 on its first round's operands; (d)
+    ``serve.build_service`` over X_CELLS such cells for X_TICKS ticks,
+    counted.  Returns the path's launch counts ((a) and (d)) and the
+    measurements."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import sroa, wireless
+    from repro_torch.fleet import engine as fengine
+    from repro_torch.fleet.service import run_load
+    from repro_torch.launch import serve
+
+    t_phase = time.perf_counter()
+    path: dict = {}
+    spec = dataclasses.replace(wireless.ScenarioSpec(), N=X_N, M=X_M)
+    scn = wireless.draw_scenario(1, spec, device=dev)
+    cfg = sroa.SroaConfig(**X_CAPS, fused=True)
+    n_prob = X_STARTS * (1 + X_TOP_K)
+
+    def cluster_only(counts, what):
+        _check(counts["sroa_solve"] > 0
+               and counts["sroa_solve_cluster"] == counts["sroa_solve"],
+               f"{what}: {counts['sroa_solve']} K2 launches, "
+               f"{counts['sroa_solve_cluster']} on the cluster kernel")
+        _check(counts["topk_moves_cluster"] == counts["topk_moves"],
+               f"{what}: {counts['topk_moves']} K3 launches, "
+               f"{counts['topk_moves_cluster']} on the cluster kernel")
+
+    # (a) The search, and the nearest-edge init's R (max_rounds = 0).
+    init, counts = _counted(lambda: fengine.solve_assignment(
+        scn, cfg=cfg, max_rounds=0))
+    _add(path, counts)
+    cluster_only(counts, "the init's solve")
+    with _first_operands(n_prob) as first:
+        t0 = time.perf_counter()
+        res, counts = _counted(lambda: fengine.solve_assignment(
+            scn, cfg=cfg, max_rounds=8, escape_iters=1, top_k=X_TOP_K,
+            n_starts=X_STARTS))
+        search_ms = (time.perf_counter() - t0) * 1e3
+    _add(path, counts)
+    cluster_only(counts, "the search")
+    _check(counts["topk_moves"] > 0, "the search launched no K3")
+    R, R0 = float(res.R), float(init.R)
+    a = res.assign.cpu().numpy()
+    _check(math.isfinite(R) and R <= R0,
+           f"the search's R {R} is worse than the nearest-edge init's {R0}")
+    _check(((a >= 0) & (a < X_M)).all(), "assignment off the edge range")
+    search = dict(wall_ms=search_ms, rounds=int(res.rounds),
+                  escapes=int(res.escapes), R=R, R_init=R0, counts=counts)
+    print(f"[x] (a) solve_assignment(draw_scenario(1, N={X_N}, M={X_M}), "
+          f"caps {X_CAPS} fused, max_rounds=8, escape_iters=1, "
+          f"top_k={X_TOP_K}, n_starts={X_STARTS}): {search_ms:.1f} ms, "
+          f"{search['rounds']} rounds, {search['escapes']} escapes; R = "
+          f"{R:.6g} (nearest-edge init {R0:.6g}); launches "
+          f"{json.dumps(counts)}: every K2 launch on the cluster kernel, "
+          f"every K3 launch on the cluster kernel")
+
+    # (b) K2 on the first round's operands, and one problem at N = 600 and
+    # 4,096 (the one-warp kernel holds 3,632 users at most).
+    _check("k2" in first, f"no K2 launch of {n_prob} problems")
+    pu, pp, kw = first["k2"]
+    k2 = {"round": _x_k2(dev, pu, pp, kw, one_warp=True, reps=3)}
+    for n_users, one_warp in ((600, True), (4096, False)):
+        s1 = wireless.draw_scenario(n_users, dataclasses.replace(
+            spec, N=n_users), device=dev)
+        pu1, pp1 = _k2_operands(s1, [wireless.nearest_edge_assignment(s1)])
+        k2[f"N{n_users}"] = _x_k2(dev, pu1, pp1, dict(kw), one_warp,
+                                  reps=3)
+    for key, r in k2.items():
+        print(f"[x] (b) K2 {key} (P = {r['P']}, N = {r['N']}, route "
+              f"{r['route']}): cluster kernel {r['ms']:.4g} ms (device "
+              f"{_fmt(r['device_ms'])}), device ms by depth "
+              f"{json.dumps(r['depth_device_ms'])}; the one-warp kernel "
+              + (f"{r['one_warp_ms']:.4g} ms (device "
+                 f"{_fmt(r['one_warp_device_ms'])})" if "one_warp_ms" in r
+                 else "not run (N > 3632)")
+              + f"; the twin {r['plain_ms']:.0f} ms; bitwise; bound "
+              f"{r['bound_ms']:.4g} ms by {r['bound_by']} (work "
+              f"{json.dumps(r['work'])}); {_fmt(r['us_a_step'])} us a "
+              f"problem's inversion step; feasible {r['feasible']}/{r['P']}")
+
+    # (c) K3 on the first round's operands.
+    _check("k3" in first, "no K3 launch")
+    k3 = _x_k3(*first["k3"])
+    print(f"[x] (c) K3 at {tuple(k3['shape'])}, k = {k3['k']} "
+          f"({k3['cluster'][1]} blocks a cluster, {k3['cluster'][0]} "
+          f"slices, {k3['smem']} shared bytes a block): the routed call "
+          f"(cluster kernel), the block kernel and the twin identical, and "
+          f"at k = 40 with 2 active users a cell; in turns (cluster, block, "
+          f"block, cluster): cluster kernel {k3['ms']:.4g} ms (device "
+          f"{_fmt(k3['device_ms'])}), block kernel {k3['block_ms']:.4g} ms "
+          f"(device {_fmt(k3['block_device_ms'])}); turns "
+          f"{json.dumps([k3['turns'], k3['block_turns']])}; torch.topk on "
+          f"the twin's tile "
+          f"{k3['library_ms']:.4g} ms (device "
+          f"{_fmt(k3['library_device_ms'])}); empty kernel "
+          f"{k3['floor_ms']:.4g} ms (device {_fmt(k3['floor_device_ms'])}); "
+          f"plain {k3['plain_ms']:.4g} ms; bound {k3['bound_ms']:.4g} ms by "
+          f"{k3['bound_by']} ({k3['nbytes']} bytes)")
+
+    # (d) The served planner at that cell size.
+    argv = ["--mode", "plan", "--device", "cuda", "--cells", str(X_CELLS),
+            "--cell-users", str(X_N), "--cell-edges", str(X_M), "--top-k",
+            str(X_TOP_K), "--seed", "0"]
+    args = serve.build_parser().parse_args(argv)
+    recs = []
+
+    def run():
+        _, svc = serve.build_service(args)
+        torch.cuda.synchronize()
+        boot = (time.perf_counter() - t0) * 1e3
+        snap = run_load(svc, ticks=X_TICKS, req_per_tick=2.0, seed=7,
+                        on_tick=recs.append)
+        return svc, boot, snap
+
+    t0 = time.perf_counter()
+    (svc, boot_ms, snap), counts = _counted(run)
+    _add(path, counts)
+    cluster_only(counts, "serve")
+    _check(counts["topk_moves"] > 0, "serve launched no K3")
+    _check(len(recs) == X_TICKS and snap["unserved"] == 0,
+           "serve: unserved requests")
+    _check(all(math.isfinite(r.sum_R) for r in recs), "serve: non-finite R")
+    _check(np.isfinite(svc.alloc.R).all(), "serve: non-finite R")
+    _check(((svc.assigns >= 0) & (svc.assigns < X_M)).all(),
+           "serve: assignment off the edge range")
+    served = dict(cells=X_CELLS, ticks=X_TICKS, bootstrap_ms=boot_ms,
+                  plans_per_s=snap["plans_per_s"], tick_ms=snap["tick_ms"],
+                  sum_R=recs[-1].sum_R, counts=counts)
+    print(f"[x] (d) serve {' '.join(argv[2:])} (N_max = "
+          f"{svc.fleet.N_max}): bootstrap {boot_ms:.1f} ms; ticks "
+          + "; ".join(f"{r.tick}: changed {r.changed}, replanned "
+                      f"{r.replanned.size}, {r.tick_ms:.1f} ms"
+                      for r in recs)
+          + f"; {snap['plans_per_s']:.4g} plans/s; sum R "
+          f"{recs[-1].sum_R:.6g}; launches {json.dumps(counts)}")
+    del svc
+    seconds = time.perf_counter() - t_phase
+    print(f"[x] phase x: {seconds:.1f} s; launches {json.dumps(path)}")
+    return {"counts": path, "search": search, "k2": k2, "k3": k3,
+            "serve": served, "seconds": seconds}
 
 
 # Phase f: the paper's training pipeline through its entry point at the
@@ -2970,7 +3326,8 @@ def main(argv: list[str]) -> int:
     for line in ptxas:
         print(f"[0]   ptxas: {line}")
     print("[0] K2 registers: " + "; ".join(
-        line.split(",")[0] for line in ptxas if "sroa_solve" in line))
+        line.split(" registers")[0] for line in ptxas
+        if "sroa_solve" in line))
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     try:
         rounds = json.dumps(_sass_rounds(subprocess.run(
@@ -3228,6 +3585,18 @@ def main(argv: list[str]) -> int:
     print(f"[2] lanes kernel at N = {N}: one problem a block of "
           f"{32 * math.ceil(N / 32)} threads; blocks an SM by depth "
           f"{json.dumps(occ)} ({sms} SMs)")
+    cluster_occ = {}
+    for n_users in (600, X_N, 4096):
+        for d in sb.DEPTHS:
+            b, c, cs, w = (ctypes.c_int() for _ in range(4))
+            build.check(build.load().sroa_solve_cluster_occupancy(
+                d, n_users, *map(ctypes.byref, (b, c, cs, w))),
+                "sroa_solve_cluster_occupancy")
+            cluster_occ[f"N{n_users} depth {d}"] = dict(
+                blocks_a_cluster=cs.value, warps_a_block=w.value,
+                blocks_per_sm=b.value, clusters_at_once=c.value)
+    print(f"[2] cluster kernel (N > 512): one problem a cluster; "
+          f"{json.dumps(cluster_occ)} ({sms} SMs)")
     for key, t in t2.items():
         n_prob = shapes[key][0][0].shape[0]
         pr11_dev, dev_ms = t["pr11_device_ms"], t["device_ms"]
@@ -3327,6 +3696,9 @@ def main(argv: list[str]) -> int:
     # ---- phase h: restarts, horizon, compression, topology -------------
     hp = _plan_extensions_path(dev)
 
+    # ---- phase x: the large-cell planning path (N = 2,048, M = 16) -----
+    xp = _large_cell_path(dev)
+
     # ---- phase f: the training pipeline --------------------------------
     fp = _train_path(dev)
 
@@ -3336,20 +3708,22 @@ def main(argv: list[str]) -> int:
     # ---- phase 9: launch counts and times ------------------------------
     # Four kernels lie on no path: K5 (no model calls it), K4's SIMT
     # kernel (the route for f32 and hd > 128; the LM path is bf16, hd 64)
-    # and the one-warp-per-problem K2 and the block K3 kernels (the
-    # routes for N > 512 and for N*M > 512; the fleet's cells are 56 x 5).
-    # Their counts are those of their path's run, 0, and are not held to
-    # be positive.  ``flash_attention``, ``sroa_solve`` and ``topk_moves``
-    # count every K4, K2 and K3 launch, so those three kernels' launches
-    # are the ones that did not take the other kernel.
+    # and the one-warp-per-problem K2 and the block K3 kernels (no route
+    # takes them; they are the yardsticks).  Their counts are those of the
+    # planning path's run, 0, and are not held to be positive.
+    # ``flash_attention``, ``sroa_solve`` and ``topk_moves`` count every
+    # K4, K2 and K3 launch, so those three kernels' launches are the ones
+    # that took no other kernel.
     lmc = lm["counts"]
+    x_counts = _by_kernel(xp["counts"])
+    main_k = _by_kernel(main_counts)
     counts = {"sroa_invert": invert_count,
               "sroa_solve_lanes": main_counts["sroa_solve_lanes"],
-              "sroa_solve": (main_counts["sroa_solve"]
-                             - main_counts["sroa_solve_lanes"]),
+              "sroa_solve_cluster": x_counts["sroa_solve_cluster"],
+              "sroa_solve": main_k["sroa_solve"],
               "topk_moves_warp": main_counts["topk_moves_warp"],
-              "topk_moves": (main_counts["topk_moves"]
-                             - main_counts["topk_moves_warp"]),
+              "topk_moves_cluster": x_counts["topk_moves_cluster"],
+              "topk_moves": main_k["topk_moves"],
               "flash_attention_sm90": lmc["flash_attention_sm90"],
               "flash_attention": (lmc["flash_attention"]
                                   - lmc["flash_attention_sm90"]),
@@ -3372,6 +3746,13 @@ def main(argv: list[str]) -> int:
     for name in ("sroa_solve_lanes", "topk_moves_warp"):
         _check(h_counts[name] > 0, f"{name} never launched on phase h's "
                f"path")
+    print(f"[9] kernels on phase x's path (the large-cell search and "
+          f"serve at N = {X_N}, M = {X_M}, top-{X_TOP_K}): "
+          f"{json.dumps(x_counts)}")
+    _check(all(n == 0 for k, n in x_counts.items()
+               if k not in ("sroa_solve_cluster", "topk_moves_cluster")),
+           f"a kernel other than the cluster K2 and K3 launched on phase "
+           f"x's path: {x_counts}")
     moe_counts = _by_kernel(mp["counts"])
     print(f"[9] kernels on phase m's path (llama4-scout at full width, "
           f"{mp['n_layers']} layers): {json.dumps(moe_counts)}")
@@ -3407,6 +3788,26 @@ def main(argv: list[str]) -> int:
           f"{json.dumps(f_counts)}")
     _check(f_counts["sroa_solve_lanes"] > 0,
            "sroa_solve_lanes never launched on phase f's path")
+    k2x, k3x = xp["k2"]["round"], xp["k3"]
+    report["sroa_solve_cluster"] = dict(
+        name="sroa_solve_cluster", route="cuda",
+        source="src/repro_torch/kernels/csrc/sroa_bisect.cu",
+        replaces="src/repro/kernels/sroa_bisect.py:167",
+        max_abs_err=k2x["max_abs_err"], ms=k2x["ms"],
+        plain_ms=k2x["plain_ms"], device_ms=k2x["device_ms"],
+        bound_ms=k2x["bound_ms"], bound_by=k2x["bound_by"], library_ms=None,
+        path="phase x: P = 34, N = 2,048 (the search's first round)",
+        shapes=xp["k2"], occupancy=cluster_occ)
+    report["topk_moves_cluster"] = dict(
+        k3x, name="topk_moves_cluster",
+        path="phase x: (2, 2,048, 16), k = 16 (the search's first round)")
+    report["sroa_solve"]["large_cell"] = {
+        key: {f: r.get(f)
+              for f in ("P", "N", "one_warp_ms", "one_warp_device_ms")}
+        for key, r in xp["k2"].items()}
+    report["topk_moves"]["large_cell"] = dict(
+        shape=k3x["shape"], ms=k3x["block_ms"],
+        device_ms=k3x["block_device_ms"])
     for name, n in counts.items():
         _check(n > 0 or name in ("rmsnorm", "flash_attention",
                                  "sroa_solve", "topk_moves"),
@@ -3419,6 +3820,7 @@ def main(argv: list[str]) -> int:
         report[name]["launches_ssm_path"] = ssm_counts[name]
         report[name]["launches_encoder_path"] = enc_counts[name]
         report[name]["launches_vlm_path"] = vlm_counts[name]
+        report[name]["launches_x_path"] = x_counts[name]
         r = report[name]
         lib = (f", library {r['library_ms']:.4g} ms"
                if r["library_ms"] is not None else "")
@@ -3444,6 +3846,18 @@ def main(argv: list[str]) -> int:
         f"{k} {r['plans_per_s']:.4g} plans/s, p50 {r['tick_ms']['p50']:.4g} "
         f"ms, K2 {_fmt(r['traced']['k2_ms_a_launch'])} ms a launch"
         for k, r in hp["runs"].items()) + f" ({hp['seconds']:.1f} s)")
+    xs, xk2 = xp["search"], xp["k2"]
+    print(f"[9] phase x: the search {xs['wall_ms']:.1f} ms, {xs['rounds']} "
+          f"rounds, R {xs['R']:.6g} (init {xs['R_init']:.6g}); K2 "
+          + "; ".join(f"{key} cluster {_fmt(r['device_ms'])} ms device"
+                      + (f", one-warp {_fmt(r['one_warp_device_ms'])}"
+                         if "one_warp_ms" in r else "")
+                      for key, r in xk2.items())
+          + f"; K3 cluster {_fmt(k3x['device_ms'])} ms device, block "
+          f"{_fmt(k3x['block_device_ms'])}, torch.topk "
+          f"{_fmt(k3x['library_device_ms'])}; serve "
+          f"{xp['serve']['plans_per_s']:.4g} plans/s "
+          f"({xp['seconds']:.1f} s)")
     tr = fp["trace"]
     print(f"[9] phase f: plan {fp['plan_ms']:.1f} ms ({fp['scores']} K2 "
           f"launches), {fp['ms_per_iter']:.2f} ms a global iteration in the "

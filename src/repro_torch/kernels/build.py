@@ -92,10 +92,15 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sroa_solve_lanes.argtypes = ([p] * 19 + [i] * 6 + [f] * 5
                                      + [i, p])
     lib.sroa_solve_lanes_occupancy.argtypes = [i, i, p]
+    lib.sroa_solve_cluster.argtypes = ([p] * 19 + [i] * 6 + [f] * 5
+                                       + [i, p])
+    lib.sroa_solve_cluster_occupancy.argtypes = [i, i, p, p, p, p]
     lib.sroa_math_check.argtypes = [p, ll, p]
     lib.topk_moves.argtypes = [p] * 10 + [i] * 4 + [p]
     lib.topk_moves_warp.argtypes = [p] * 10 + [i] * 5 + [p]
     lib.topk_moves_warp_occupancy.argtypes = [i] * 3 + [p]
+    lib.topk_moves_cluster.argtypes = [p] * 10 + [i] * 4 + [p]
+    lib.topk_moves_cluster_smem.argtypes = [i] * 3
     lib.topk_empty.argtypes = [p]
     lib.flash_attention.argtypes = ([p] * 4 + [i] * 6 + [ll] * 12 + [i] * 4
                                     + [f, p])
@@ -103,10 +108,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                                          + [i] * 4 + [f, p])
     lib.flash_attention_sm90_occupancy.argtypes = [i, p, p]
     lib.rmsnorm.argtypes = [p, p, p, i, ll, i, f, p]
+    lib.topk_moves_cluster_smem.restype = ctypes.c_longlong
     for fn in (lib.sroa_invert_rate, lib.sroa_solve, lib.sroa_solve_lanes,
-               lib.sroa_solve_lanes_occupancy, lib.sroa_math_check,
+               lib.sroa_solve_lanes_occupancy, lib.sroa_solve_cluster,
+               lib.sroa_solve_cluster_occupancy, lib.sroa_math_check,
                lib.topk_moves, lib.topk_moves_warp,
-               lib.topk_moves_warp_occupancy, lib.topk_empty,
+               lib.topk_moves_warp_occupancy, lib.topk_moves_cluster,
+               lib.topk_empty,
                lib.flash_attention, lib.flash_attention_sm90,
                lib.flash_attention_sm90_occupancy, lib.rmsnorm):
         fn.restype = ctypes.c_int

@@ -16,11 +16,12 @@
 // Bound: a cell reads N*M + 4N floats and writes 3k words, and does a
 // log1pf and a few divisions per entry: at the engine's shape (128 cells of
 // 56 x 5, k = 8) that is ~0.07 us of bytes on the whole card, far below one
-// kernel launch.  What bounds K3 is the launch and one cell's dependent
-// chain of latencies (loads, counts, scores, k selection rounds), so both
-// designs attack the chain, not bytes or operations.
+// kernel launch, and ~0.09 us at the large-cell path's (2, 2048, 16).  What
+// bounds K3 is the launch and one cell's dependent chain of latencies
+// (loads, counts, scores, k selection rounds), so the designs attack the
+// chain, not bytes or operations.
 //
-// Two kernels compute it, bit for bit (built with --fmad=false, as the
+// Three kernels compute it, bit for bit (built with --fmad=false, as the
 // plain twin `ref.topk_moves_plain` computes):
 //
 // * `topk_moves_warp_kernel<S>` (N*M <= 32 * 16): one warp per cell, one
@@ -44,14 +45,25 @@
 //     branch-free knock-out by the owner lane and a log2(S)-deep tree
 //     rescan; lane r % 32 keeps round r's result and the warp stores 32
 //     results at a time, coalesced.
-// * `topk_moves_kernel` (the first port's design; any N*M whose tile fits
-//   in 227 KB of shared memory): one block of 128 threads per cell, the
-//   tile in shared memory, per-edge loads by shared atomics and k
-//   block-wide argmins with two barriers each.  It is the route past the
-//   warp kernel's cap and the yardstick the redesign is timed against.
+// * `topk_moves_cluster_kernel` (larger cells, up to 227 KB of shared
+//   memory a block: 196,608 entries at k >= 512, ~1.8 million at k = 16):
+//   one cell a thread block cluster of up to 8 blocks of 8 warps.  Each
+//   warp scores slices of 512 entries into registers (16 a lane, the warp
+//   kernel's arithmetic, each entry's own source term computed in place)
+//   and keeps each slice's legal moves in order by the warp kernel's
+//   rounds; one warp merges the lists (their heads through distributed
+//   shared memory) and writes the padding rounds by their rule, so k
+//   rounds cost no barrier; a cell takes up to 8 SMs where the block
+//   kernel took one.  See the kernel's note.
+// * `topk_moves_kernel` (the first port's design): one block of 128
+//   threads per
+//   cell, the tile in shared memory (N*M + M floats and 36 static bytes in
+//   227 KB), per-edge loads by shared atomics and k block-wide argmins with
+//   two barriers each.  No route takes it; it is the yardstick.
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "cluster.cuh"
 #include "fast_math.cuh"
 
 namespace {
@@ -161,6 +173,54 @@ __global__ void topk_moves_kernel(const float* __restrict__ gain,
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// What the warp and cluster kernels share.
+
+__device__ __forceinline__ bool fast_num(float a) {
+  return (__float_as_uint(a) == 0u) | ((a >= kFastA0) & (a <= kFastA1));
+}
+
+// The noise term of a cell and its 2^t scaling into div_rn_fast's range.
+struct Noise {
+  float noise, scale, scaled;
+  bool fast;
+};
+
+__device__ __forceinline__ Noise cell_noise(float Bq, float N0q,
+                                            float n_act) {
+  Noise c;
+  const float b_ref = fast_num(Bq) ? div_rn_fast(Bq, n_act) : Bq / n_act;
+  c.noise = fmaxf(N0q * b_ref, 1e-30f);
+  c.scale = 1.0f;
+  if (c.noise < kFastB0)
+    c.scale = __int_as_float(
+        (254 - ((__float_as_int(c.noise) >> 23) & 0xff)) << 23);
+  c.scaled = c.noise * c.scale;
+  c.fast = (c.scaled >= kFastB0) & (c.scaled <= kFastB1);
+  return c;
+}
+
+// The airtime H / max(log1pf(g pm / noise) / ln 2, 1e-9) on the
+// branch-free division and log1pf (fast_math.cuh), g pm / noise taken as
+// (g pm 2^t) / (noise 2^t), the same quotient; `fast` is false where the
+// operands leave those functions' ranges (the caller then takes
+// `airtime_slow`, the toolkit's functions: the same bits).
+__device__ __forceinline__ float airtime_fast(float g, float H, float pm,
+                                              const Noise& c, bool& fast) {
+  const float a1 = g * pm * c.scale;
+  const float x = div_rn_fast(a1, c.scaled);
+  const float L = log1pf_pos(x);
+  const float se = div_rn_fast(L, kLn2);
+  fast = c.fast & fast_num(a1) & fast_num(L) & fast_num(H) &
+         (__float_as_uint(x) < 0x7f800000u);
+  return div_rn_fast(H, fmaxf(se, 1e-9f));
+}
+
+__device__ __forceinline__ float airtime_slow(float g, float H, float pm,
+                                              float noise) {
+  return H / fmaxf(log1pf(g * pm / noise) / kLn2, 1e-9f);
+}
 
 // ---------------------------------------------------------------------------
 // The warp kernel: one cell a warp.
@@ -303,12 +363,8 @@ topk_moves_warp_kernel(const float* __restrict__ gain,
   // Each edge's two weights, lanes over edges (in place of its count).
   // Counts and n_act are integers in [0, 512] and [1, 512], inside
   // div_rn_fast's range (fast_math.cuh); B is checked.
-  auto fast_num = [](float a) {
-    return (__float_as_uint(a) == 0u) | ((a >= kFastA0) & (a <= kFastA1));
-  };
   const float n_act = fmaxf((float)n_active, 1.0f);
-  const float b_ref = fast_num(Bq) ? div_rn_fast(Bq, n_act) : Bq / n_act;
-  const float noise = fmaxf(N0q * b_ref, 1e-30f);
+  const Noise nz = cell_noise(Bq, N0q, n_act);
   for (int m = lane; m < M; m += 32) {
     const float c = (float)cnt[m];
     wgt[m] = 1.0f + div_rn_fast(c + 1.0f, n_act);
@@ -329,19 +385,10 @@ topk_moves_warp_kernel(const float* __restrict__ gain,
     }
   };
 
-  // The airtime a(n, m) = H / max(log1pf(g pm / noise) / ln 2, 1e-9) of
-  // every entry with the branch-free division and log1pf (fast_math.cuh),
-  // so that the slots' chains interleave.  g pm / noise is taken as
-  // (g pm 2^t) / (noise 2^t), the same quotient, with 2^t bringing a noise
-  // below div_rn_fast's range into [1, 2).  A slot whose operands leave
-  // the fast ranges takes the toolkit's division and log1pf after: the
+  // The airtime a(n, m) of every entry on the branch-free path
+  // (`airtime_fast`), so that the slots' chains interleave; a slot whose
+  // operands leave its ranges takes the toolkit's functions after: the
   // same bits either way.
-  float scale = 1.0f;
-  if (noise < kFastB0)
-    scale = __int_as_float((254 - ((__float_as_int(noise) >> 23) & 0xff))
-                           << 23);
-  const float noise_s = noise * scale;
-  const bool noise_fast = (noise_s >= kFastB0) & (noise_s <= kFastB1);
   int s_[S];
   unsigned slow = 0u;
   {
@@ -350,14 +397,9 @@ topk_moves_warp_kernel(const float* __restrict__ gain,
     for (int j = 0; j < S; ++j) {
       const bool in = lane + 32 * j < NM;
       const WarpUser u = users[in ? n : 0];
-      const float a1 = v[j] * u.pm * scale;
-      const float x = div_rn_fast(a1, noise_s);
-      const float L = log1pf_pos(x);
-      const float se = div_rn_fast(L, kLn2);
-      v[j] = div_rn_fast(u.H, fmaxf(se, 1e-9f));
+      bool fast;
+      v[j] = airtime_fast(v[j], u.H, u.pm, nz, fast);
       s_[j] = u.s;
-      const bool fast = noise_fast & fast_num(a1) & fast_num(L) &
-                        fast_num(u.H) & (__float_as_uint(x) < 0x7f800000u);
       slow |= (unsigned)(in & !fast) << j;
       next(n, m);
     }
@@ -368,8 +410,8 @@ topk_moves_warp_kernel(const float* __restrict__ gain,
     for (int j = 0; j < S; ++j) {
       if (slow & (1u << j)) {
         const WarpUser u = users[n];
-        const float g = __ldg(g_cell + lane + 32 * j);
-        v[j] = u.H / fmaxf(log1pf(g * u.pm / noise) / kLn2, 1e-9f);
+        v[j] = airtime_slow(__ldg(g_cell + lane + 32 * j), u.H, u.pm,
+                            nz.noise);
       }
       next(n, m);
     }
@@ -457,6 +499,347 @@ int warp_occupancy(int N, int M, int* blocks) {
       blocks, topk_moves_warp_kernel<S>, 32, warp_smem_bytes(N, M));
 }
 
+// ---------------------------------------------------------------------------
+// The cluster kernel: one cell a thread block cluster.
+
+constexpr int kSliceSlots = 16;                    // entries a lane
+constexpr int kSliceEntries = 32 * kSliceSlots;    // 512 entries a slice
+constexpr int kClusterWarps = 8;                   // warps a block
+constexpr int kClusterBlocks = 8;                  // the portable size
+constexpr int kHeadCache = 4;       // entries of each list the merger holds
+constexpr int kClusterStatic = 16;  // static shared bytes a block
+constexpr unsigned kGone = 0xffffffffu;  // above every score's key
+
+// A cell of N*M entries: NS slices of 512, C blocks of 8 warps, slice s on
+// warp s % (8C) of the cluster in pass s / (8C); each slice's list holds
+// at most L = min(k, 512) moves.
+struct TopkCluster {
+  int NS, C, passes, L;
+};
+
+__host__ __device__ inline TopkCluster topk_cluster(int N, int M, int k) {
+  TopkCluster t;
+  t.NS = (int)(((long long)N * M + kSliceEntries - 1) / kSliceEntries);
+  t.C = (t.NS + kClusterWarps - 1) / kClusterWarps;
+  if (t.C > kClusterBlocks) t.C = kClusterBlocks;
+  const int G = t.C * kClusterWarps;
+  t.passes = (t.NS + G - 1) / G;
+  t.L = k < kSliceEntries ? k : kSliceEntries;
+  return t;
+}
+
+// A block's shared bytes: first 8-byte words, the lists of its warps'
+// slices (passes x 8 lists of L (key, entry) pairs), then, used in the
+// cluster's first block only, the first kHeadCache entries of every list
+// and the merge's current head of each; then 4-byte words, the M edge
+// counts, the block's list lengths, and every list's length and position
+// for the merge; then the static words.
+__host__ __device__ inline size_t topk_cluster_smem(const TopkCluster& t,
+                                                    int M) {
+  return (size_t)8 * ((size_t)t.passes * kClusterWarps * t.L +
+                      (size_t)t.NS * (kHeadCache + 1)) +
+         (size_t)4 * ((size_t)M + t.passes * kClusterWarps + 2 * t.NS) +
+         kClusterStatic;
+}
+
+// A slot's operands: its user's source edge s (M for an active user whose
+// edge lies outside [0, M), -1 for a masked user) and the entries' gains.
+struct Slot {
+  float g, gs, H, pm;
+  int s;
+};
+
+__device__ __forceinline__ Slot load_slot(const float* g_cell,
+                                          const float* H, const float* p_max,
+                                          const int* assign, const bool* mask,
+                                          size_t urow, int e, int n, int M,
+                                          bool in) {
+  Slot o;
+  const int nc = in ? n : 0;
+  const size_t u = urow + nc;
+  const int a = __ldg(assign + u);
+  o.s = mask[u] ? ((a >= 0 && a < M) ? a : M) : -1;
+  o.g = in ? __ldg(g_cell + e) : 0.0f;
+  o.gs = __ldg(g_cell + (size_t)nc * M + (o.s >= 0 && o.s < M ? o.s : 0));
+  o.H = __ldg(H + u);
+  o.pm = __ldg(p_max + u);
+  return o;
+}
+
+// A move's score from its two airtimes, the edge weights of the warp
+// kernel (1 + (c_m + 1)/n_act at m, 1 + c_s/n_act at s) computed from the
+// counts.
+__device__ __forceinline__ float slot_score(float at, float as, int m, int s,
+                                            int M, const int* cnt,
+                                            float n_act) {
+  const bool own = s >= 0 && s < M;
+  const float wgt = 1.0f + div_rn_fast((float)cnt[m] + 1.0f, n_act);
+  const float wsrc = 1.0f + div_rn_fast((float)cnt[own ? s : 0], n_act);
+  return at * wgt - (own ? as * wsrc : 0.0f);
+}
+
+// Cell q on one cluster of C blocks of 8 warps (the launch's cluster size
+// is topk_cluster's C):
+// 1. every block counts the cell's active users and edge loads itself
+//    (shared integer atomics: exact in any order);
+// 2. each warp scores its slices, 16 entries a lane in registers (the warp
+//    kernel's arithmetic: the same bits), and keeps each slice's legal
+//    moves (score < 1e30) in (score, entry) order, at most L of them, by
+//    the warp kernel's rounds (two redux.sync minima, an owner knock-out);
+//    it also takes the slice's smallest (key, entry) and its lowest entry
+//    of score <= 1e30, into the block's two words;
+// 3. each list's first kHeadCache moves and its length go to the first
+//    block (stores into its shared memory), and a cluster barrier;
+// 4. one warp of the first block merges the lists, a head a list, by the
+//    same rounds, reading past a list's first kHeadCache moves from the
+//    block that holds it; then writes the padding rounds;
+// 5. a last cluster barrier, so that no block leaves while the merge reads.
+// The sequential argmin-and-knock-out takes the legal moves in (score,
+// entry) order; once they run out, every later round takes the lowest
+// entry of score <= 1e30 (the knocked-out picks included) with score
+// 1e30, again and again; where no score is <= 1e30 the first round takes
+// the smallest (score, entry) and the later ones that entry with 1e30.
+__global__ void __launch_bounds__(32 * kClusterWarps, 1)
+topk_moves_cluster_kernel(const float* __restrict__ gain,
+                          const float* __restrict__ H,
+                          const float* __restrict__ p_max,
+                          const int* __restrict__ assign,
+                          const bool* __restrict__ mask,
+                          const float* __restrict__ N0,
+                          const float* __restrict__ B,
+                          int* __restrict__ user_out,
+                          int* __restrict__ dst_out,
+                          float* __restrict__ score_out,
+                          int N, int M, int k) {
+  extern __shared__ uint2 csm[];
+  __shared__ unsigned long long s_min;   // the block's smallest (key, entry)
+  __shared__ unsigned s_i0;    // the block's lowest entry of score <= 1e30
+  __shared__ int s_active;
+  const TopkCluster t = topk_cluster(N, M, k);
+  const unsigned rank = cluster_rank();
+  const int q = blockIdx.x / t.C;
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int NM = N * M;
+  uint2* lists = csm;
+  uint2* heads = lists + t.passes * kClusterWarps * t.L;
+  uint2* cur = heads + t.NS * kHeadCache;
+  int* cnt = reinterpret_cast<int*>(cur + t.NS);
+  int* lens = cnt + M;
+  int* hlen = lens + t.passes * kClusterWarps;
+  int* hpos = hlen + t.NS;
+
+  for (int m = tid; m < M; m += blockDim.x) cnt[m] = 0;
+  if (tid == 0) {
+    s_min = ~0ull;
+    s_i0 = kGone;
+    s_active = 0;
+  }
+  __syncthreads();
+  cluster_arrive_relaxed();   // waited for before the first remote access
+
+  // 1. Counts, eight users a thread a trip, every load issued before the
+  // first use (a load behind the mask's branch would wait for the mask).
+  const size_t urow = (size_t)q * N;
+  int act = 0;
+  for (int n0 = tid; n0 < N; n0 += 8 * blockDim.x) {
+    bool mk[8];
+    int a[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int n = n0 + i * blockDim.x;
+      const size_t u = urow + (n < N ? n : 0);
+      mk[i] = (n < N) & mask[u];
+      a[i] = __ldg(assign + u);
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      act += mk[i];
+      if (mk[i] && a[i] >= 0 && a[i] < M) atomicAdd(&cnt[a[i]], 1);
+    }
+  }
+  act = __reduce_add_sync(kFull, act);
+  if (lane == 0) atomicAdd(&s_active, act);
+  __syncthreads();
+  const float n_act = fmaxf((float)s_active, 1.0f);
+  const Noise nz = cell_noise(__ldg(B + q), __ldg(N0 + q), n_act);
+
+  // 2. Slices.
+  const float* g_cell = gain + urow * M;
+  const unsigned big_key = order_key(kBig);
+  const int G = t.C * kClusterWarps;
+  const int dn = 32 / M, dm = 32 - dn * M;
+  auto next = [&](int& n, int& m) {
+    m += dm;
+    n += dn;
+    if (m >= M) {
+      m -= M;
+      ++n;
+    }
+  };
+  for (int p = 0; p < t.passes; ++p) {
+    const int sl = p * G + (int)rank * kClusterWarps + w;
+    if (sl >= t.NS) break;                 // uniform over the warp
+    const int e0 = sl * kSliceEntries;
+    const int n0 = (e0 + lane) / M, m0 = e0 + lane - n0 * M;
+    unsigned key[kSliceSlots];
+    unsigned slow = 0u;
+    {
+      int n = n0, m = m0;
+#pragma unroll
+      for (int j = 0; j < kSliceSlots; ++j) {
+        const int e = e0 + lane + 32 * j;
+        const bool in = e < NM;
+        const Slot o = load_slot(g_cell, H, p_max, assign, mask, urow, e, n,
+                                 M, in);
+        bool f1, f2;
+        const float at = airtime_fast(o.g, o.H, o.pm, nz, f1);
+        const float as = airtime_fast(o.gs, o.H, o.pm, nz, f2);
+        const bool own = o.s >= 0 && o.s < M;
+        const bool move = (o.s >= 0) & (m != o.s);
+        const float sc = slot_score(at, as, m, o.s, M, cnt, n_act);
+        key[j] = in ? (move ? order_key(sc) : big_key) : kGone;
+        slow |= (unsigned)(in & move & !(f1 & (f2 | !own))) << j;
+        next(n, m);
+      }
+    }
+    if (slow) {
+      int n = n0, m = m0;
+#pragma unroll
+      for (int j = 0; j < kSliceSlots; ++j) {
+        if (slow & (1u << j)) {
+          const Slot o = load_slot(g_cell, H, p_max, assign, mask, urow,
+                                   e0 + lane + 32 * j, n, M, true);
+          const float at = airtime_slow(o.g, o.H, o.pm, nz.noise);
+          const float as = o.s >= 0 && o.s < M
+                               ? airtime_slow(o.gs, o.H, o.pm, nz.noise)
+                               : 0.0f;
+          key[j] = order_key(slot_score(at, as, m, o.s, M, cnt, n_act));
+        }
+        next(n, m);
+      }
+    }
+    unsigned i0 = kGone;
+#pragma unroll
+    for (int j = kSliceSlots - 1; j >= 0; --j)
+      if (key[j] <= big_key) i0 = e0 + lane + 32 * j;
+    i0 = __reduce_min_sync(kFull, i0);
+
+    uint2* list = lists + (p * kClusterWarps + w) * t.L;
+    unsigned lk, le;
+    unsigned long long first = 0ull;
+    int len = 0;
+    lane_min<kSliceSlots>(key, lane, lk, le);
+    for (int r = 0; r < t.L; ++r) {
+      const unsigned wk = __reduce_min_sync(kFull, lk);
+      const unsigned we = __reduce_min_sync(kFull, lk == wk ? le : ~0u);
+      if (r == 0) first = (unsigned long long)wk << 32 | (unsigned)(e0 + we);
+      if (wk >= big_key) break;
+      if (lane == 0) list[r] = make_uint2(wk, e0 + we);
+      const unsigned hit = lane == (int)(we & 31u) ? (we >> 5) : 0xffu;
+#pragma unroll
+      for (int j = 0; j < kSliceSlots; ++j)
+        key[j] = (unsigned)j == hit ? kGone : key[j];
+      lane_min<kSliceSlots>(key, lane, lk, le);
+      len = r + 1;
+    }
+    if (lane == 0) {
+      lens[p * kClusterWarps + w] = len;
+      atomicMin(&s_min, first);
+      atomicMin(&s_i0, i0);
+    }
+  }
+  __syncwarp();
+
+  // 3. Each list's head and length to the first block.
+  cluster_wait();
+  for (int p = 0; p < t.passes; ++p) {
+    const int sl = p * G + (int)rank * kClusterWarps + w;
+    if (sl >= t.NS) break;
+    const int li = p * kClusterWarps + w;
+    const int len = lens[li];
+    if (lane < kHeadCache && lane < len)
+      st_cluster(&heads[sl * kHeadCache + lane], 0u, lists[li * t.L + lane]);
+    if (lane == 0) st_cluster(&hlen[sl], 0u, len);
+  }
+  cluster_sync();
+
+  // 4. The merge.
+  if (rank == 0 && w == 0) {
+    const size_t o = (size_t)q * k;
+    unsigned lk = kGone, le = kGone;
+    int ls = 0;
+    auto rescan = [&]() {
+      lk = kGone;
+      le = kGone;
+      for (int sl = lane; sl < t.NS; sl += 32) {
+        const uint2 v = cur[sl];
+        if (v.x < lk || (v.x == lk && v.y < le)) {
+          lk = v.x;
+          le = v.y;
+          ls = sl;
+        }
+      }
+    };
+    for (int sl = lane; sl < t.NS; sl += 32) {
+      hpos[sl] = 0;
+      cur[sl] = hlen[sl] > 0 ? heads[sl * kHeadCache]
+                             : make_uint2(kGone, kGone);
+    }
+    rescan();
+    int r = 0;
+    for (; r < k; ++r) {
+      const unsigned wk = __reduce_min_sync(kFull, lk);
+      const unsigned we = __reduce_min_sync(kFull, lk == wk ? le : ~0u);
+      if (wk >= big_key) break;           // every list is spent
+      if (lane == 0) {
+        const int u = (int)(we / (unsigned)M);
+        user_out[o + r] = u;
+        dst_out[o + r] = (int)we - u * M;
+        score_out[o + r] = key_value(wk);
+      }
+      if (lk == wk && le == we) {         // the owner lane advances list ls
+        const int pos = ++hpos[ls];
+        uint2 v = make_uint2(kGone, kGone);
+        if (pos < hlen[ls]) {
+          if (pos < kHeadCache) {
+            v = heads[ls * kHeadCache + pos];
+          } else {
+            const int gw = ls % G;
+            const int li = (ls / G) * kClusterWarps + gw % kClusterWarps;
+            v = ld_cluster(&lists[li * t.L + pos],
+                           (unsigned)(gw / kClusterWarps));
+          }
+        }
+        cur[ls] = v;
+        rescan();
+      }
+    }
+    if (r < k) {
+      // The padding rounds: the lowest entry of score <= 1e30 with 1e30;
+      // where there is none, the smallest (score, entry), then its entry
+      // with 1e30.
+      unsigned i0 = kGone;
+      unsigned long long mn = ~0ull;
+      if (lane < t.C) {
+        i0 = ld_cluster(&s_i0, (unsigned)lane);
+        mn = ld_cluster(&s_min, (unsigned)lane);
+      }
+      i0 = __reduce_min_sync(kFull, i0);
+      const unsigned mk = __reduce_min_sync(kFull, (unsigned)(mn >> 32));
+      const unsigned me = __reduce_min_sync(
+          kFull, (unsigned)(mn >> 32) == mk ? (unsigned)mn : ~0u);
+      const unsigned pe = i0 != kGone ? i0 : me;
+      const int u = (int)(pe / (unsigned)M);
+      for (int rr = r + lane; rr < k; rr += 32) {
+        user_out[o + rr] = u;
+        dst_out[o + rr] = (int)pe - u * M;
+        score_out[o + rr] = (i0 == kGone && rr == 0) ? key_value(mk) : kBig;
+      }
+    }
+  }
+  cluster_sync();   // 5. no block leaves while the merge may read it
+}
+
 // The launch floor: the same library's launch of a kernel that does
 // nothing, timed beside K3.
 __global__ void topk_empty_kernel() {}
@@ -520,6 +903,51 @@ int topk_moves_warp_occupancy(int S, int N, int M, int* blocks) {
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// K3 on the cluster kernel: one cell a cluster of up to 8 blocks of 8
+// warps, any N*M whose shared memory (topk_moves_cluster_smem) fits 227 KB.
+int topk_moves_cluster(const float* gain, const float* H, const float* p_max,
+                       const int* assign, const bool* mask, const float* N0,
+                       const float* B, int* user_out, int* dst_out,
+                       float* score_out, int P, int N, int M, int k,
+                       cudaStream_t stream) {
+  if (P <= 0 || k <= 0) return 0;
+  if (N <= 0 || M <= 0 || (long long)N * M >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  const TopkCluster t = topk_cluster(N, M, k);
+  const size_t total = topk_cluster_smem(t, M);
+  if (total > 232448) return (int)cudaErrorInvalidValue;
+  const size_t smem = total - kClusterStatic;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        topk_moves_cluster_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(P * t.C));
+  cfg.blockDim = dim3(32 * kClusterWarps);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = (unsigned)t.C;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(
+      &cfg, topk_moves_cluster_kernel, gain, H, p_max, assign, mask, N0, B,
+      user_out, dst_out, score_out, N, M, k);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The cluster kernel's shared bytes a block (dynamic and static) for cells
+// of N x M and k moves: what topk_moves.cluster_smem_bytes computes.
+long long topk_moves_cluster_smem(int N, int M, int k) {
+  return (long long)topk_cluster_smem(topk_cluster(N, M, k), M);
 }
 
 int topk_empty(cudaStream_t stream) {

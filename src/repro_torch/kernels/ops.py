@@ -9,10 +9,12 @@ kernel, or raise.  Every tensor operand of a call must lie on one device
 ``LAUNCHES`` counts kernel launches (only launches: the plain version never
 counts) under ``sroa_invert`` (K1), ``sroa_solve`` (K2, either of its
 kernels), ``topk_moves`` (K3), ``flash_attention`` (K4, either of its
-kernels) and ``rmsnorm`` (K5); ``sroa_solve_lanes`` counts the K2 launches
-that took the one-thread-per-user kernel, ``topk_moves_warp`` the K3
-launches that took the one-warp-per-cell kernel and ``flash_attention_sm90``
-the K4 launches that took the tensor-core kernel.  K4 refuses to run
+kernels) and ``rmsnorm`` (K5); ``sroa_solve_lanes`` and
+``sroa_solve_cluster`` count the K2 launches that took the one-block and the
+one-cluster one-thread-per-user kernels, ``topk_moves_warp`` and
+``topk_moves_cluster`` the K3 launches that took the one-warp-per-cell and
+the one-cluster-per-cell kernels, and ``flash_attention_sm90`` the K4
+launches that took the tensor-core kernel.  K4 refuses to run
 under autograd (:func:`flash_attention`).
 """
 from __future__ import annotations
@@ -24,7 +26,8 @@ import torch
 from repro_torch.kernels import ref
 
 LAUNCHES = {"sroa_invert": 0, "sroa_solve": 0, "sroa_solve_lanes": 0,
-            "topk_moves": 0, "topk_moves_warp": 0, "flash_attention": 0,
+            "sroa_solve_cluster": 0, "topk_moves": 0, "topk_moves_warp": 0,
+            "topk_moves_cluster": 0, "flash_attention": 0,
             "flash_attention_sm90": 0, "rmsnorm": 0}
 
 
@@ -127,8 +130,8 @@ def sroa_solve_batched(A, J, H, delta, h, f_max, p_max, B, b_max, N0, lam,
             tuple(x.contiguous() for x in per_user),
             tuple(x.contiguous() for x in per_problem), **kw)
         LAUNCHES["sroa_solve"] += 1
-        if kernel == "lanes":
-            LAUNCHES["sroa_solve_lanes"] += 1
+        if kernel != "warp":
+            LAUNCHES[f"sroa_solve_{kernel}"] += 1
     else:
         out = ref.sroa_solve_plain(*per_user, *per_problem, **kw)
     b, f, p, t, R, b_sum, feas = out
@@ -185,8 +188,8 @@ def topk_move_scores(gain, H, p_max, assign, mask, N0, B, *, k: int):
         from repro_torch.kernels import topk_moves
         out, route = topk_moves._launch(*args, k)
         LAUNCHES["topk_moves"] += 1
-        if route == "warp":
-            LAUNCHES["topk_moves_warp"] += 1
+        if route != "block":
+            LAUNCHES[f"topk_moves_{route}"] += 1
     else:
         out = ref.topk_moves_plain(*args, k=k)
     if len(lead) == 1:

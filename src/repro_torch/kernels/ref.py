@@ -13,8 +13,9 @@ numbers:
 * :func:`topk_moves_plain`  — K3 (``csrc/topk_moves.cu``, both kernels):
   the score tile (:func:`move_scores_plain`) and k rounds of argmin and
   knock-out.  :func:`topk_select_lanes_plain` models the warp kernel's
-  selection (lanes, slots, cached minima, owner knock-outs); the CPU tests
-  hold it to the twin's bitwise.
+  selection (lanes, slots, cached minima, owner knock-outs) and
+  :func:`topk_select_slices_plain` the cluster kernel's (slice lists, one
+  merge, the padding rule); the CPU tests hold both to the twin's bitwise.
 * :func:`attention_plain`   — K4 (``csrc/flash_attention_sm90.cu`` and
   ``csrc/flash_attention.cu``): the TPU kernel's blockwise online softmax
   in f32, with its finite ``NEG_INF``, its key-padding mask and its causal
@@ -332,6 +333,61 @@ def topk_select_lanes_plain(tile: torch.Tensor, k: int, S: int):
         hit = own[..., None] & (slot == (we >> 5)[..., None])
         slots = torch.where(hit, _BIG, slots)
         lv, le = lane_min(slots)
+    return torch.stack(idx, dim=1), torch.stack(val, dim=1)
+
+
+def topk_select_slices_plain(tile: torch.Tensor, k: int,
+                             slice_entries: int = 512):
+    """The selection of K3's cluster kernel (``topk_moves_cluster_kernel``)
+    over a (P, E) score tile: (flat index (P, k) int64, score (P, k)).
+
+    The tile splits into slices of ``slice_entries`` (+inf past E).  Each
+    slice keeps its legal moves (score < 1e30) in (score, entry) order, at
+    most L = min(k, slice_entries) of them, its smallest (score, entry) and
+    its lowest entry of score <= 1e30.  The merge takes the smallest head
+    of the lists, (score, entry), round by round, until k moves or until
+    every list is spent; each later round takes the cell's lowest entry of
+    score <= 1e30 with score 1e30, or, where no score is <= 1e30, the
+    cell's smallest (score, entry) in round 0 and that entry with 1e30
+    after.  The twin's sequential knock-outs give the same: once the legal
+    moves run out, the lowest entry equal to 1e30 (a knocked-out pick or an
+    original 1e30) wins every round and stays 1e30."""
+    P, E = tile.shape
+    dev = tile.device
+    NS = -(-E // slice_entries)
+    L = min(k, slice_entries)
+    pad = torch.full((P, NS * slice_entries), math.inf, dtype=tile.dtype,
+                     device=dev)
+    pad[:, :E] = tile
+    sl = pad.reshape(P, NS, slice_entries)
+    base = slice_entries * torch.arange(NS, device=dev)[:, None]
+    vals, pos = torch.sort(sl, dim=2, stable=True)      # (score, entry)
+    ents = pos + base
+    lens = torch.clamp((vals < _BIG).sum(2), max=L)     # (P, NS)
+    first_v, first_e = vals[..., 0], ents[..., 0]
+    entry = torch.arange(NS * slice_entries, device=dev).reshape(NS, -1)
+    none = NS * slice_entries
+    i0 = torch.where(sl <= _BIG, entry, none).amin(2).amin(1)      # (P,)
+    mv = first_v.amin(1, keepdim=True)
+    me = torch.where(first_v == mv, first_e, none).amin(1)
+    mv = mv[:, 0]
+    pad_e = torch.where(i0 < none, i0, me)
+    hpos = torch.zeros((P, NS), dtype=torch.long, device=dev)
+    spent = torch.zeros(P, dtype=torch.bool, device=dev)
+    idx, val = [], []
+    for r in range(k):
+        live = hpos < lens
+        at = torch.clamp(hpos, max=slice_entries - 1)[..., None]
+        hv = torch.where(live, vals.gather(2, at)[..., 0], math.inf)
+        he = torch.where(live, ents.gather(2, at)[..., 0], none)
+        wv = hv.amin(1, keepdim=True)
+        we = torch.where(hv == wv, he, none).amin(1, keepdim=True)
+        spent = spent | ~(wv[:, 0] < _BIG)
+        pv = torch.where((i0 == none) & (r == 0), mv,
+                         torch.full_like(mv, _BIG))
+        idx.append(torch.where(spent, pad_e, we[:, 0]))
+        val.append(torch.where(spent, pv, wv[:, 0]))
+        hpos = hpos + ((he == we) & ~spent[:, None]).long()
     return torch.stack(idx, dim=1), torch.stack(val, dim=1)
 
 

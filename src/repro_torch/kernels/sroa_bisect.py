@@ -6,16 +6,21 @@
   scalar-budget form, a per-element one the fleet-batched form.
 * K2 replaces ``_solve_kernel``: the whole Algorithm 2-4 nest for P
   problems, on one of two kernels that :func:`solve_route` picks from
-  (P, N) alone: ``sroa_solve_lanes`` (one thread per user, N <= 512) or
-  PR 11's ``sroa_solve`` (one warp per problem, any N).
+  (P, N) alone, both one thread per user: ``sroa_solve_lanes`` (a problem
+  a block, N <= 512) and ``sroa_solve_cluster`` (a problem a thread block
+  cluster of up to 8 blocks, N <= 4096).  The one-warp ``sroa_solve`` (one
+  warp per problem, N <= 3632) is taken only when forced, as the
+  yardstick.
 
-Both are bound by the latency of their dependent bisection chains, not by
-memory: see the source notes in ``csrc/sroa_bisect.cu``.  K1 and the lanes
-kernel evaluate 2^D - 1 bisection midpoints at once (speculation depth D,
-1 or 2); every depth gives the same bits, and :func:`spec_depth` picks it from
-how many warps each SM scheduler would hold.  These launchers check device,
-dtype, contiguity and shape, allocate the outputs, launch on the current
-stream and raise on a launch error; they never synchronize.
+All are bound by the latency of their dependent bisection chains, not by
+memory: see the source notes in ``csrc/sroa_bisect.cu``.  K1 and the two
+one-thread-per-user K2 kernels evaluate 2^D - 1 bisection midpoints at once
+(speculation depth D, 1 or 2); every depth gives the same bits, and
+:func:`spec_depth` picks it from how many warps each SM scheduler would
+hold.  These launchers check device,
+dtype, contiguity, shape and each kernel's cap, then allocate the outputs,
+launch on the current stream and raise on a launch error; they never
+synchronize.
 """
 from __future__ import annotations
 
@@ -27,6 +32,8 @@ import torch
 from repro_torch.kernels import build
 
 LANES_MAX_N = 512        # 16 warps a problem: 512 threads at 96 registers
+CLUSTER_MAX_N = 4096     # 8 blocks of 16 warps: the portable cluster size
+WARP_MAX_N = 232_448 // 64   # the one-warp kernel's 64 bytes a user: 3632
 SCHEDULERS_PER_SM = 4    # warp schedulers of a Hopper SM
 DEPTHS = (1, 2)
 
@@ -45,11 +52,40 @@ def spec_depth(warps: int, sms: int) -> int:
 
 def solve_route(P: int, N: int, sms: int) -> tuple[str, int]:
     """K2's kernel and speculation depth for P problems of N users on a
-    card of ``sms`` SMs: ("lanes", depth) for N <= 512, else ("warp", 0)
-    (PR 11's kernel, which has no depth).  A pure function: no card."""
-    if N > LANES_MAX_N:
-        return "warp", 0
-    return "lanes", spec_depth(P * math.ceil(N / 32), sms)
+    card of ``sms`` SMs: ("lanes", depth) for N <= 512, ("cluster", depth)
+    up to 4096.  Raises ValueError past that, before any launch.  A pure
+    function: no card."""
+    if N > CLUSTER_MAX_N:
+        raise ValueError(
+            f"the fused SROA solve (K2) takes N <= {CLUSTER_MAX_N} users a "
+            f"problem (one thread a user over a cluster of 8 blocks), got "
+            f"N = {N}; SroaConfig(fused=False) runs the un-fused nest, "
+            f"which has no cap")
+    kernel = "lanes" if N <= LANES_MAX_N else "cluster"
+    return kernel, spec_depth(P * math.ceil(N / 32), sms)
+
+
+def _check_route(kernel: str, depth: int, N: int) -> None:
+    """Raise unless K2's kernel ``kernel`` takes N users at ``depth``."""
+    caps = {"lanes": LANES_MAX_N, "cluster": CLUSTER_MAX_N,
+            "warp": WARP_MAX_N}
+    if kernel not in caps:
+        raise ValueError(f"no K2 kernel {kernel!r}")
+    if N > caps[kernel]:
+        raise ValueError(f"the {kernel} K2 takes N <= {caps[kernel]}, got "
+                         f"N = {N}")
+    if depth not in (DEPTHS if kernel != "warp" else (0,)):
+        raise ValueError(f"the {kernel} K2 has no speculation depth "
+                         f"{depth}")
+
+
+def cluster_shape(N: int) -> tuple[int, int]:
+    """The cluster K2's (blocks a cluster, warps a block) for N users, as
+    its launcher computes them: ceil(W / 8) blocks, at most 8, share the W =
+    ceil(N/32) warps evenly."""
+    W = math.ceil(N / 32)
+    C = min(math.ceil(W / 8), 8)
+    return C, math.ceil(W / C)
 
 
 def invert_depth(n: int, sms: int) -> int:
@@ -141,9 +177,10 @@ def solve_cuda(per_user: tuple, per_problem: tuple, *, b_iters: int,
     (B, b_max, N0, lam, E_cloud_total) (P,) float32 tensors.  Returns
     (b, f, p, t, R, b_sum, feasible) and the (kernel, depth) that ran.
 
-    ``_route`` overrides :func:`solve_route` (("warp", 0) or ("lanes", D)),
-    for timing the two kernels and every depth on the same tensors; the
-    lanes kernel raises for N > 512."""
+    ``_route`` overrides :func:`solve_route` (("warp", 0), ("lanes", D) or
+    ("cluster", D)), for timing the kernels and every depth on the same
+    tensors.  Each kernel's cap (N <= 512, 4096 and 3632) raises
+    ValueError before anything is allocated."""
     P, N = per_user[0].shape
     dev = per_user[0].device
     for name, x in zip(("A", "J", "H", "delta", "h", "f_max", "p_max"),
@@ -154,27 +191,25 @@ def solve_cuda(per_user: tuple, per_problem: tuple, *, b_iters: int,
         _check(name, x, (P,))
     if any(x.device != dev for x in per_user + per_problem):
         raise ValueError("K2 operands must share one device")
+    sms = _sms(dev.index)
+    kernel, depth = solve_route(P, N, sms) if _route is None else _route
+    _check_route(kernel, depth, N)
     b, f, p = (torch.empty((P, N), dtype=torch.float32, device=dev)
                for _ in range(3))
     t, R, b_sum = (torch.empty((P,), dtype=torch.float32, device=dev)
                    for _ in range(3))
     feas = torch.empty((P,), dtype=torch.bool, device=dev)
-    sms = _sms(dev.index)
-    kernel, depth = solve_route(P, N, sms) if _route is None else _route
-    if kernel == "lanes" and (N > LANES_MAX_N or depth not in DEPTHS):
-        raise ValueError(f"the lanes K2 takes N <= {LANES_MAX_N} and a "
-                         f"depth in {DEPTHS}, got N = {N}, depth {depth}")
-    if kernel not in ("lanes", "warp"):
-        raise ValueError(f"no K2 kernel {kernel!r}")
     args = (*map(_ptr, per_user + per_problem),
             *map(_ptr, (b, f, p, t, R, b_sum, feas)),
             P, N, int(b_iters), int(f_iters), int(p_iters), int(t_iters),
             float(eps0), float(eps1), float(eps2), float(t_low),
             float(t_up))
     lib = build.load()
-    if kernel == "lanes":
-        err = _call(dev, lib.sroa_solve_lanes, *args, depth, _stream(b))
-    else:
+    if kernel == "warp":
         err = _call(dev, lib.sroa_solve, *args, _stream(b))
+    else:
+        fn = lib.sroa_solve_lanes if kernel == "lanes" else \
+            lib.sroa_solve_cluster
+        err = _call(dev, fn, *args, depth, _stream(b))
     build.check(err, f"sroa_solve ({kernel})")
     return (b, f, p, t, R, b_sum, feas), (kernel, depth)

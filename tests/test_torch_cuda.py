@@ -165,6 +165,52 @@ def test_k2_lanes_alone_equals_in_batch(fleet, depth):
             assert torch.equal(g[q:q + 1], a)
 
 
+def _k2_cell(N, seed, device, P=2):
+    """K2's (P, N) and (P,) operands: draw_scenario's nearest-edge pattern
+    at M = 16, the second problem with a scaled energy weight."""
+    spec = dataclasses.replace(wireless.ScenarioSpec(), N=N, M=16)
+    scn = wireless.draw_scenario(seed, spec, device=device)
+    c = sroa_constants(scn, wireless.nearest_edge_assignment(scn))
+    scale = torch.linspace(1.0, 1.7, P, device=device)[:, None]
+    per_user = [(c.A * scale).contiguous()] + [
+        x.expand(P, N).contiguous() for x in (c.J, c.H, c.delta, c.h,
+                                               scn.f_max, scn.p_max)]
+    one = torch.ones(P, device=device)
+    per_problem = [scn.B_open * one, scn.B_open * one, scn.N0 * one, one,
+                   c.E_cloud_total * one]
+    return per_user, per_problem
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [513, 600, 2048, 4096])
+def test_k2_cluster_matches_its_twin(cuda, N):
+    """The cluster K2 at every speculation depth gives the twin's bits, and
+    the one-warp kernel's where it runs (N <= 3632); the routed call takes it
+    and counts it."""
+    from repro_torch.kernels import sroa_bisect
+
+    per_user, per_problem = _k2_cell(N, N, cuda)
+    kw = dict(SWEEP_CAPS, eps0=1e-4, eps1=1e-4, eps2=1e-4, t_low=1.0,
+              t_up=3e7)
+    want = ref.sroa_solve_plain(*per_user, *per_problem, **kw)
+    routes = [("cluster", d) for d in sroa_bisect.DEPTHS]
+    if N <= sroa_bisect.WARP_MAX_N:
+        routes.append(("warp", 0))
+    for route in routes:
+        got, ran = sroa_bisect.solve_cuda(tuple(per_user),
+                                          tuple(per_problem), **kw,
+                                          _route=route)
+        assert ran == route
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), route
+    c0 = ops.LAUNCHES["sroa_solve_cluster"]
+    got = _launched("sroa_solve", lambda: ops.sroa_solve_batched(
+        *per_user, *per_problem, **SWEEP_CAPS))
+    assert ops.LAUNCHES["sroa_solve_cluster"] == c0 + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("iters", [30, 31, 42, 1])
 @pytest.mark.parametrize("depth", [1, 2])
@@ -204,7 +250,7 @@ def test_k2_routes_by_shape_and_refuses_bad_routes(cuda):
     kw = dict(b_iters=2, f_iters=1, p_iters=1, t_iters=1, eps0=1e-4,
               eps1=1e-4, eps2=1e-4, t_low=1.0, t_up=3e7)
     _, ran = sroa_bisect.solve_cuda(per_user, per_problem, **kw)
-    assert ran == ("warp", 0)
+    assert ran == ("cluster", 2)
     with pytest.raises(ValueError, match="lanes"):
         sroa_bisect.solve_cuda(per_user, per_problem, **kw,
                                _route=("lanes", 1))
@@ -213,6 +259,15 @@ def test_k2_routes_by_shape_and_refuses_bad_routes(cuda):
         sroa_bisect.solve_cuda(small, per_problem, **kw, _route=("lanes", 3))
     with pytest.raises(ValueError, match="depth"):
         sroa_bisect.invert_rate_cuda(one[0], one[0], one[0], 8, _depth=3)
+    # Each kernel's cap raises before anything is allocated or launched.
+    big = torch.ones((1, 4097), device=cuda)
+    with pytest.raises(ValueError, match="4096.*fused=False"):
+        sroa_bisect.solve_cuda((big,) * 7, (big[:, 0].contiguous(),) * 5,
+                               **kw)
+    mid = tuple(x[..., :3633].contiguous() for x in (big,) * 7)
+    with pytest.raises(ValueError, match="3632"):
+        sroa_bisect.solve_cuda(mid, (big[:, 0].contiguous(),) * 5, **kw,
+                               _route=("warp", 0))
 
 
 @pytest.mark.cuda
@@ -255,14 +310,16 @@ def _k3_operands(P, N, M, seed, device):
 @pytest.mark.parametrize("M", [1, 2, 5, 8])
 @pytest.mark.parametrize("N", [1, 6, 31, 32, 33, 56, 64, 65, 128])
 def test_k3_warp_and_block_kernels_match_the_twin(cuda, N, M, P):
-    """Both kernels give the twin's user, dst and score (torch.equal) for
-    every k, past the legal moves too (the warp kernel up to N*M = 512)."""
+    """Every kernel gives the twin's user, dst and score (torch.equal) for
+    every k, past the legal moves too (the warp kernel up to N*M = 512;
+    the cluster kernel on one block's cluster here)."""
     from repro_torch.kernels import topk_moves as tk
 
     args = _k3_operands(P, N, M, 10 * N + M, cuda)
     for k in (1, 8, 32, 33, N * M + 3):
         want = ref.topk_moves_plain(*args, k=k)
-        outs = [tk.topk_moves_cuda(*args, k, _route="block")]
+        outs = [tk.topk_moves_cuda(*args, k, _route=r)
+                for r in ("block", "cluster")]
         if N * M <= tk.WARP_MAX_ENTRIES:
             outs.append(tk.topk_moves_cuda(*args, k, _route="warp"))
         torch.cuda.synchronize()
@@ -313,9 +370,71 @@ def test_k3_warp_kernel_off_its_fast_ranges(cuda, N, M, P, case):
         want = ref.topk_moves_plain(*args, k=k)
         warp, route = tk.topk_moves_cuda(*args, k, _route="warp")
         blk, _ = tk.topk_moves_cuda(*args, k, _route="block")
+        clu, _ = tk.topk_moves_cuda(*args, k, _route="cluster")
         assert route == "warp"
-        for g, b, w in zip(warp, blk, want):
-            assert torch.equal(g, w) and torch.equal(b, w), (k, case)
+        for g, b, c, w in zip(warp, blk, clu, want):
+            assert torch.equal(g, w) and torch.equal(b, w) \
+                and torch.equal(c, w), (k, case)
+
+
+def _k3_large(P, N, M, seed, device, active=None):
+    """Ordinary K3 operands made with numpy; ``active`` users of each cell
+    active, the rest masked (fewer legal moves than k)."""
+    rng = np.random.default_rng(seed)
+    gain = (np.abs(rng.normal(size=(P, N, M))) * 1e-7 + 1e-9).astype(
+        np.float32)
+    H = rng.uniform(1e5, 4e5, (P, N)).astype(np.float32)
+    assign = rng.integers(0, M, (P, N)).astype(np.int32)
+    mask = rng.random((P, N)) < 0.9
+    if active is not None:
+        mask[:] = False
+        mask[:, :active] = True
+    arrays = (gain, H, np.full((P, N), 0.2, np.float32), assign, mask,
+              np.full((P,), 1e-17, np.float32), np.full((P,), 1e7, np.float32))
+    return [torch.from_numpy(x).to(device) for x in arrays]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,N,M", [(2, 2048, 16), (128, 128, 5),
+                                   (1, 58111, 1)])
+def test_k3_cluster_matches_its_twin(cuda, P, N, M):
+    """The cluster K3 (the route past N*M = 512) gives the twin's user, dst
+    and score and the block kernel's (where its tile fits: not at 58,111
+    entries, whose 36 static bytes it never counted), at k = 16 and past
+    the legal moves (a tie-heavy cell of one active user, an all-masked
+    one, and cells of two active users); the routed call counts it."""
+    from repro_torch.kernels import topk_moves as tk
+
+    cases = [(_k3_large(P, N, M, N + M, cuda), 16),
+             (_k3_large(P, N, M, N + M + 1, cuda, active=2), 2 * M + 3)]
+    if P > 2:
+        cases.append((_k3_operands(P, N, M, N + M, cuda), 40))
+    for args, k in cases:
+        want = ref.topk_moves_plain(*args, k=k)
+        c0 = ops.LAUNCHES["topk_moves_cluster"]
+        got = _launched("topk_moves",
+                        lambda: ops.topk_move_scores(*args, k=k))
+        assert ops.LAUNCHES["topk_moves_cluster"] == c0 + 1
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), k
+        if tk.block_smem_bytes(N, M) <= tk.SMEM_MAX:
+            blk, _ = tk.topk_moves_cuda(*args, k, _route="block")
+            for b, w in zip(blk, want):
+                assert torch.equal(b, w), k
+
+
+@pytest.mark.cuda
+def test_k3_cluster_shared_memory_is_the_routes(cuda):
+    """The launcher's shared bytes a block equal cluster_smem_bytes, the
+    figure the route's cap reads."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import topk_moves as tk
+
+    lib = build.load()
+    for N, M, k in ((2048, 16, 16), (65, 8, 1), (58111, 1, 40),
+                    (1, 29056, 10 ** 6), (196_608, 1, 512), (600, 4, 40)):
+        assert lib.topk_moves_cluster_smem(N, M, k) == \
+            tk.cluster_smem_bytes(N, M, k)
 
 
 @pytest.mark.cuda
@@ -349,10 +468,15 @@ def test_k3_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="no K3 kernel"):
         tk.topk_moves_cuda(*args, 4, _route="lanes")
     _, route = tk.topk_moves_cuda(*args, 4)
-    assert route == "block"
+    assert route == "cluster"
     big = _k3_operands(1, 58112, 1, 0, cuda)        # 232,452 bytes of tile
     with pytest.raises(ValueError, match="232448"):
-        tk.topk_moves_cuda(*big, 4)
+        tk.topk_moves_cuda(*big, 4, _route="block")
+    _, route = tk.topk_moves_cuda(*big, 4)
+    assert route == "cluster"
+    huge = _k3_operands(1, 196_609, 1, 0, cuda)     # past the cluster cap
+    with pytest.raises(ValueError, match="232448"):
+        tk.topk_moves_cuda(*huge, 512)
     small = _k3_operands(2, 6, 5, 0, cuda)
     with pytest.raises(ValueError, match="assign"):
         tk.topk_moves_cuda(*small[:3], small[3].long(), *small[4:], 4)

@@ -376,8 +376,8 @@ def test_rate_threshold_window_is_the_walk():
     (529, 56, 132, ("lanes", 1)),
     (4, 12, 132, ("lanes", 2)),
     (1, 512, 132, ("lanes", 2)),
-    (1, 513, 132, ("warp", 0)),         # past 16 warps a problem
-    (2000, 1024, 132, ("warp", 0)),
+    (1, 513, 132, ("cluster", 2)),      # past 16 warps a problem
+    (2000, 1024, 132, ("cluster", 1)),
     (128, 56, 114, ("lanes", 2)),       # an H100 PCIe
 ])
 def test_k2_kernel_and_depth_pick(P, N, sms, route):
@@ -385,6 +385,17 @@ def test_k2_kernel_and_depth_pick(P, N, sms, route):
     from repro_torch.kernels import sroa_bisect
 
     assert sroa_bisect.solve_route(P, N, sms) == route
+
+
+def test_k2_route_refuses_past_4096_users():
+    """Past the cluster kernel's 4,096 users the route raises before any
+    launch and names the un-fused route, which has no cap."""
+    from repro_torch.kernels import sroa_bisect
+
+    assert sroa_bisect.solve_route(1, 4096, 132)[0] == "cluster"
+    for P in (1, 34):
+        with pytest.raises(ValueError, match="4096.*fused=False"):
+            sroa_bisect.solve_route(P, 4097, 132)
 
 
 @pytest.mark.parametrize("n,sms,depth", [
@@ -528,12 +539,15 @@ def test_warp_selection_model_is_the_twins_selection(N, M):
     (56, 5, "warp"),            # the planning shape
     (1, 1, "warp"), (64, 8, "warp"), (512, 1, "warp"), (1, 512, "warp"),
     (128, 4, "warp"),           # at the cap: 16 entries a lane
-    (65, 8, "block"), (513, 1, "block"), (129, 4, "block"),
-    (300, 7, "block"),
-    (58111, 1, "block"),        # (N*M + M) * 4 = 232,448 bytes: fits
+    (65, 8, "cluster"), (513, 1, "cluster"), (129, 4, "cluster"),
+    (300, 7, "cluster"),
+    (58111, 1, "cluster"),      # the largest tile the block route took
+    (2048, 16, "cluster"),      # the large-cell path
+    (58112, 1, "cluster"), (4000, 15, "cluster"),   # past the block kernel
 ])
 def test_k3_route(N, M, route):
-    """A pure function of (N, M): no card; k does not choose."""
+    """A pure function of (N, M): no card; k does not choose (below the
+    cluster kernel's cap)."""
     from repro_torch.kernels import topk_moves
 
     for k in (1, 8, N * M + 3):
@@ -541,12 +555,26 @@ def test_k3_route(N, M, route):
 
 
 def test_k3_block_route_refuses_past_227_kb():
+    """The route raises before any launch where the cluster kernel's
+    shared memory passes 227 KB: 196,608 moves a cell at k >= 512, about
+    1.8 million at k = 16.  Every tile the block kernel took fits, at any
+    k; the block kernel, forced, still refuses past its own tile."""
     from repro_torch.kernels import topk_moves
 
+    assert topk_moves.cluster_smem_bytes(196_608, 1, 512) <= 232_448
     with pytest.raises(ValueError, match="232448"):
-        topk_moves.topk_route(58112, 1, 8)
+        topk_moves.topk_route(196_609, 1, 512)
     with pytest.raises(ValueError, match="232448"):
-        topk_moves.topk_route(4000, 15, 8)
+        topk_moves.topk_route(2_000_000, 1, 16)
+    for N, M in ((58111, 1), (1, 29056), (29055, 2), (3873, 15)):
+        assert (N * M + M) * 4 <= 232_448
+        assert topk_moves.cluster_smem_bytes(N, M, N * M + 3) <= 232_448
+    # The block kernel's 36 static bytes: its largest cell is 58,102.
+    topk_moves._plan(58102, 1, 8, "block")
+    with pytest.raises(ValueError, match="232448"):
+        topk_moves._plan(58103, 1, 8, "block")
+    with pytest.raises(ValueError, match="232448"):
+        topk_moves._plan(4000, 15, 8, "block")
     for bad in ((0, 5, 8), (56, 0, 8), (56, 5, 0)):
         with pytest.raises(ValueError, match=">= 1"):
             topk_moves.topk_route(*bad)
@@ -781,7 +809,8 @@ def test_build_names_the_library_by_source_and_flags(tmp_path):
     assert d1 == build._digest(srcs, list(build.NVCC_FLAGS))
     assert d1 != build._digest(srcs, build.NVCC_FLAGS + ["-G"])
     # The shared header is hashed with the sources (it is not compiled).
-    assert [h.name for h in build.headers()] == ["fast_math.cuh"]
+    assert [h.name for h in build.headers()] == ["cluster.cuh",
+                                                 "fast_math.cuh"]
     assert d1 != build._digest(srcs + build.headers(), build.NVCC_FLAGS)
     assert build.build_dir().parts[-2:] == ("build", "repro_torch_kernels")
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
