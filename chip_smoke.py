@@ -44,22 +44,29 @@ Phases, each reported on its own lines:
    on the twin's score tile (selection only), an empty kernel's launch
    (the floor), the bound and the wrapper's host cost; the warp kernel's
    blocks an SM and K3's ``-Xptxas -v`` lines are printed.
-4. K4 (flash attention) against its plain version: at the LM prefill's
-   (B, H, T, hd) = (4, 16, 1024, 64) in bf16 and f32, at hd 128
-   (llama3.2-3b's heads), at the JAX sweep's odd shapes, non-causal, with
-   a window of 16, at Tq = 1 with q_offset = S - 1, at Tq != Tk with
-   q_offset 100 and on strided views of one fused QKV tensor: 2e-5 in f32,
-   2e-2 in bf16 (exp, P's bf16 rounding and the summation order differ).
-   Every bf16 case must take the tensor-core kernel, every f32 case the
-   SIMT one.  At the LM shape in bf16 the tensor-core kernel is timed
-   beside the SIMT kernel on the same tensors, beside
-   ``scaled_dot_product_attention(is_causal=True)`` and against its bound;
-   at (1, 24, 1024, 128), at llama4-scout's prefill shape (4, 40, 1024,
-   128), at zamba2-7b's (4, 32, 1024, 112) with window 4,096, at
-   hubert-xlarge's (4, 16, 1024, 80) non-causal and at internvl2-76b's
-   (4, 64, 1024, 128) beside SDPA and its bound.  zamba2's shape is also
-   held to the plain version with windows of 4,096 and 16, and hubert's
-   and internvl2's shapes are held to it too.
+4. K4 (flash attention), its three kernels, against its plain version:
+   at the LM prefill's (B, H, T, hd) = (4, 16, 1024, 64) in bf16 and f32,
+   at hd 128 (llama3.2-3b's heads) in bf16 and f32, at hd 256 and 192 in
+   bf16, at the JAX sweep's odd shapes and at hd 160 and 256, non-causal,
+   with windows of 16 and 48, at Tq = 1 with q_offset = S - 1, at Tq != Tk
+   with q_offset 100 and on strided views of one fused QKV tensor: 2e-5 in
+   f32, 2e-2 in bf16 (exp, P's bf16 rounding and the summation order
+   differ).  Every bf16 case must take the wgmma kernel, every f32 case
+   with hd <= 128 the 3xTF32 kernel, and f32 at hd 256 and an f32 view
+   whose strides TMA cannot take the SIMT one.  Each route is timed at its
+   own operands, (4, 1024, 16, 64) bf16 and f32, (1, 1024, 24, 128) f32,
+   (4, 1024, 8, 256) and (4, 1024, 8, 192) bf16, causal: events and device
+   ms, the bound (bytes at 3.35 TB/s, products at 989 TFLOP/s bf16 or 495
+   TF32) and its share, the SIMT kernel on the same tensors, and
+   ``scaled_dot_product_attention`` as PyTorch picks its backend and with
+   each backend forced (the picked one named).  The bf16 hd-64 kernel is
+   also timed with a cold L2 and for its host cost; at (1, 24, 1024, 128),
+   at llama4-scout's prefill shape (4, 40, 1024, 128), at zamba2-7b's (4,
+   32, 1024, 112) with window 4,096, at hubert-xlarge's (4, 16, 1024, 80)
+   non-causal and at internvl2-76b's (4, 64, 1024, 128) beside SDPA and
+   its bound.  zamba2's shape is also held to the plain version with
+   windows of 4,096 and 16, and hubert's and internvl2's shapes are held
+   to it too.
 5. K5 (fused RMSNorm) against its plain version at the LM's hidden-state
    shape (4096, 1024) in bf16 and f32, bitwise (the twin adds in the
    kernel's order and rsqrtf is torch.rsqrt), timed with its f32 scale
@@ -79,7 +86,14 @@ Phases, each reported on its own lines:
    probabilities to bf16 before the PV product, in other orders).  One
    more prefill on K4 and four decode steps run under ``torch.profiler``
    (lines ``[q]``).
-m. The moe family (lines ``[m]``, run after phase 8, whose weights are
+a. The LM path in float32 (lines ``[a]``, run after phase 8): ``run_lm``
+   at qwen1.5-0.5b's full width and depth with ``dtype=float32`` and
+   ``attn_impl="pallas"``, B = 4, 1024-token prompts, 8 greedy tokens,
+   TF32 off: all 24 K4 launches take the 3xTF32 kernel; the last-position
+   prefill logits lie within 1e-4 of max |logit| of the chunked route's in
+   float32 and the greedy tokens are equal; prefill ms on both routes and
+   K4's share of one traced prefill's device time.
+m. The moe family (lines ``[m]``, run after phase a, whose weights are
    freed first): (a) ``run_lm`` on llama4-scout-17b-a16e at full width (40
    heads of 128, 8 KV heads, d 5120, d_ff 8192, 16 experts top-1 + 1
    shared, vocab 202,048, bf16) cut to 12 of its 48 layers (57 GB of
@@ -232,13 +246,15 @@ d. The mesh, sharding and dry-run layer and distributed HFL (lines
    on ``draw_fleet(0, 128)``.  No kernel lies on this path.
 9. Launch counts of the main paths (every count reset to 0 right before
    a path and read right after it; phase t's, phase h's, phase x's, phase
-   f's, phase m's, phase s's and phase e's two paths as each kernel's
-   ``launches_tsia_path``, ``launches_h_path``, ``launches_x_path``,
-   ``launches_train_path``, ``launches_moe_path``, ``launches_ssm_path``,
+   f's, phase a's, phase m's, phase s's and phase e's two paths as each
+   kernel's ``launches_tsia_path``, ``launches_h_path``,
+   ``launches_x_path``, ``launches_train_path``, ``launches_f32_path``,
+   ``launches_moe_path``, ``launches_ssm_path``,
    ``launches_encoder_path`` and ``launches_vlm_path``: only K4's
-   tensor-core kernel may launch on phases s's and e's paths, only the
-   cluster K2 and K3 on phase x's, and no kernel on phase l's; the two
-   cluster kernels' ``launches`` are phase x's), each
+   wgmma kernel may launch on phases s's and e's paths, only its 3xTF32
+   kernel on phase a's, only the cluster K2 and K3 on phase x's, and no
+   kernel on phase l's; the two cluster kernels' ``launches`` are phase
+   x's and the 3xTF32 kernel's phase a's), each
    kernel's time beside its plain
    version's, its bound and its library call, then the card and the
    result line; every K3 launch of the planning path must take the warp
@@ -276,12 +292,19 @@ SRC = ROOT / "src"
 # Published H100 SXM peaks (NVIDIA data sheet), for the bound of each kernel.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+# TF32 on the tensor cores, dense: the fastest unit that reads f32 operands,
+# so the bound of f32 work that may run there (K4's f32 route).
+TF32_TENSOR_FLOPS_PER_S = 495e12
 BF16_TENSOR_FLOPS_PER_S = 989e12
 L2_FLUSH_BYTES = 2 * 50 * 2 ** 20      # twice the H100's 50 MB L2
 
 # The LM path: qwen1.5-0.5b at full size, B prompts of T tokens.
 LM_ARCH, LM_B, LM_T, LM_NEW = "qwen1.5-0.5b", 4, 1024, 32
 LM_LOGIT_RTOL = 5e-2
+# Phase a: the same model in float32 on K4's 3xTF32 kernel against the
+# chunked route in float32 (TF32 off), F32_NEW greedy tokens: the last
+# logits within F32_LOGIT_RTOL of max |logit|.
+F32_NEW, F32_LOGIT_RTOL = 8, 1e-4
 
 # Phase m: the moe family at llama4-scout-17b-a16e's full width (40 heads
 # of 128, 8 KV heads, d 5120, d_ff 8192, 16 experts top-1 + 1 shared, vocab
@@ -621,12 +644,151 @@ def _attn_plain(q, k, v, **kw):
     return t(ref.attention_plain(t(q), t(k), t(v), **kw))
 
 
-def _check_k4(report: dict, dev) -> None:
-    """Phase 4: K4's two kernels against their plain version, and times."""
+def _k4_bound(B: int, H: int, T: int, hd: int, dtype, causal: bool = True):
+    """K4's least time at (B, H, T, hd) self-attention: q, k, v read once
+    and the output written once at 3.35 TB/s, or 4 hd flop a (query, key)
+    pair that the mask keeps (causal: T (T + 1) / 2 a head) at the tensor
+    cores' peak for the operands' type (989 TFLOP/s bf16, 495 TF32 for
+    f32).  Returns (ms, "bytes" | "operations", bytes, flop)."""
+    import torch
+
+    nbytes = 4 * B * T * H * hd * (2 if dtype == torch.bfloat16 else 4)
+    keys = T * (T + 1) // 2 if causal else T * T
+    flops = 4 * hd * B * H * keys
+    peak = (BF16_TENSOR_FLOPS_PER_S if dtype == torch.bfloat16
+            else TF32_TENSOR_FLOPS_PER_S)
+    return (*_bound_ms(nbytes, flops, peak), nbytes, flops)
+
+
+def _queued_ms(fn, n: int = 20) -> float:
+    """Device time of one call of ``fn`` without the profiler and without
+    the host's launch overhead: a spin kernel (``torch.cuda._sleep``)
+    holds the stream while ``n`` calls queue behind it, and CUDA events
+    around them time the calls back to back.  The median of three rounds.
+    (The profiler's device events proved unreliable late in this script:
+    sums and even medians of one kernel's events came out at half the
+    time of the same call earlier.)"""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    rounds = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(2e6 * (3 + 0.5 * n)))    # ~(3 + n / 2) ms
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        rounds.append(start.elapsed_time(end) / n)
+    return sorted(rounds)[1]
+
+
+def _sdpa_times(qt, kt, vt, causal: bool, reps: int = 20) -> dict:
+    """``scaled_dot_product_attention`` on (B, H, T, hd) tensors as
+    PyTorch picks its backend (events and device ms, :func:`_queued_ms`),
+    the backend it picks (its dispatcher's own choice,
+    ``torch._fused_sdp_choice``), and every backend forced in turn through
+    ``torch.nn.attention.sdpa_kernel`` (device ms, or "refused" where the
+    backend does not take the operands)."""
+    import warnings
+
     import torch
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
 
+    def call():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+
+    out = dict(ms=_time_ms(call, reps), device_ms=_queued_ms(call, reps),
+               backend=SDPBackend(torch._fused_sdp_choice(
+                   qt, kt, vt, is_causal=causal)).name, backends={})
+    for be in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+               SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        def forced(be=be):
+            with sdpa_kernel([be]):
+                return call()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            try:
+                forced()
+            except RuntimeError:
+                out["backends"][be.name] = "refused"
+                continue
+        out["backends"][be.name] = _queued_ms(forced, reps)
+    return out
+
+
+def _sdpa_text(t: dict) -> str:
+    return (f"SDPA {t['ms']:.4g} ms (device {_fmt(t['device_ms'])}, backend "
+            f"{t['backend']}; forced: " + ", ".join(
+                f"{k} {v if isinstance(v, str) else _fmt(v)}"
+                for k, v in t["backends"].items()) + ")")
+
+
+def _k4_route_of(dtype, hd: int) -> str:
+    """The kernel K4's rule picks for contiguous operands."""
+    import torch
+
+    if dtype == torch.bfloat16:
+        return "wgmma"
+    return "tf32" if hd <= 128 else "simt"
+
+
+# ops.LAUNCHES counter of each K4 route's kernel (the SIMT kernel's count
+# is what the routed counter ``flash_attention`` leaves).
+K4_COUNTERS = {"wgmma": "flash_attention_sm90",
+               "tf32": "flash_attention_sm90_f32"}
+
+
+def _k4_row(q, k, v, causal: bool = True, window=None) -> dict:
+    """K4 on (B, T, H, hd) operands as the rule routes them, timed (events
+    and device ms, :func:`_queued_ms`) beside the SIMT kernel on the
+    same tensors, SDPA
+    (:func:`_sdpa_times`), the plain twin (events) and the bound
+    (:func:`_k4_bound`)."""
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    B, T, H, hd = q.shape
+    kw = dict(causal=causal, q_offset=0, window=window)
+    k4 = lambda: ops.flash_attention(q, k, v, causal=causal,  # noqa: E731
+                                     window=window)
+    simt = lambda: fa.flash_attention_cuda(  # noqa: E731
+        q, k, v, _route="simt", **kw)[0]
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    bound = _k4_bound(B, H, T, hd, q.dtype, causal)
+    row = dict(shape=[B, T, H, hd], dtype=str(q.dtype).replace("torch.", ""),
+               causal=causal, window=window,
+               route=_k4_route_of(q.dtype, hd), ms=_time_ms(k4, 20),
+               device_ms=_queued_ms(k4), simt_ms=_time_ms(simt, 10),
+               simt_device_ms=_queued_ms(simt, 10), bound_ms=bound[0],
+               bound_by=bound[1], sdpa=_sdpa_times(qt, kt, vt, causal),
+               plain_ms=_time_ms(lambda: _attn_plain(
+                   q, k, v, causal=causal, window=window), 5))
+    row["share"] = _div(bound[0], row["device_ms"])
+    return row
+
+
+def _k4_row_text(r: dict) -> str:
+    B, T, H, hd = r["shape"]
+    return (f"[4] K4 {r['route']} at (B, T, H, hd) = ({B}, {T}, {H}, {hd}) "
+            f"{r['dtype']} {'causal' if r['causal'] else 'non-causal'}"
+            f"{'' if r['window'] is None else ', window ' + str(r['window'])}"
+            f": {r['ms']:.4g} ms (device {_fmt(r['device_ms'])}); bound "
+            f"{r['bound_ms']:.4g} ms by {r['bound_by']}, "
+            f"{_fmt(r['share'], '.4f')} of it; the SIMT kernel "
+            f"{r['simt_ms']:.4g} ms (device {_fmt(r['simt_device_ms'])}), "
+            f"{_fmt(_div(r['simt_device_ms'], r['device_ms']), '.3g')}x; "
+            f"plain {r['plain_ms']:.4g} ms; " + _sdpa_text(r["sdpa"]))
+
+
+def _check_k4(report: dict, dev) -> None:
+    """Phase 4: K4's three kernels against their plain version, and times."""
+    import torch
+
     from repro_torch.kernels import ops
 
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -651,8 +813,14 @@ def _check_k4(report: dict, dev) -> None:
     # (64 heads of 128 after the GQA repeat), phase e.
     cases.append(((LM_T, LM_T, LM_B, 16, 80), bf16, dict(causal=False)))
     cases.append(((LM_T, LM_T, LM_B, 64, 128), bf16, dict(causal=True)))
+    # The operands the tensor-core kernels took over from the SIMT kernel:
+    # f32 at hd 128 (3xTF32) and bf16 heads of 256 and 192 (wgmma).
+    cases.append(((LM_T, LM_T, 1, 24, 128), f32, dict(causal=True)))
+    cases.append(((LM_T, LM_T, LM_B, 8, 256), bf16, dict(causal=True)))
+    cases.append(((LM_T, LM_T, LM_B, 8, 192), bf16, dict(causal=True)))
     for B, H, T, hd in ((1, 1, 8, 64), (2, 4, 16, 64), (1, 2, 128, 128),
-                        (2, 2, 96, 80), (1, 4, 256, 112)):
+                        (2, 2, 96, 80), (1, 4, 256, 112), (1, 2, 70, 256),
+                        (2, 3, 200, 160)):
         for dtype in (bf16, f32):
             cases.append(((T, T, B, H, hd), dtype, dict(causal=True)))
     for dtype in (bf16, f32):
@@ -662,91 +830,114 @@ def _check_k4(report: dict, dev) -> None:
                   ((1, 64, 1, 2, 64), dtype, dict(causal=True, q_offset=63)),
                   ((30, 130, 2, 3, 64), dtype,
                    dict(causal=True, q_offset=100))]
-    errs = []
+    for hd in (160, 256):
+        cases += [((160, 160, 1, 2, hd), bf16, dict(causal=True, window=48)),
+                  ((30, 130, 2, 3, hd), bf16,
+                   dict(causal=True, q_offset=100))]
+    errs, routes = [], []
 
-    def check(q, k, v, dtype, kw):
-        w0 = ops.LAUNCHES["flash_attention_sm90"]
+    def check(q, k, v, dtype, kw, route):
+        before = dict(ops.LAUNCHES)
         got = ops.flash_attention(q, k, v, **kw)
-        wgmma = ops.LAUNCHES["flash_attention_sm90"] - w0
-        _check(wgmma == int(dtype == bf16 and q.shape[-1] <= 128),
-               f"K4 took the wrong kernel on {tuple(q.shape)} {dtype}")
+        took = "simt"
+        for r, counter in K4_COUNTERS.items():
+            if ops.LAUNCHES[counter] > before[counter]:
+                took = r
+        _check(took == route and ops.LAUNCHES["flash_attention"]
+               == before["flash_attention"] + 1,
+               f"K4 took {took}, not {route}, on {tuple(q.shape)} {dtype}")
         want = _attn_plain(q, k, v, **kw)
         torch.testing.assert_close(got.float(), want.float(),
                                    rtol=tol[dtype], atol=tol[dtype])
         errs.append(_max_abs_err([got.float()], [want.float()]))
+        routes.append(route)
 
     for shape, dtype, kw in cases:
-        check(*qkv(*shape, dtype), dtype, kw)
+        check(*qkv(*shape, dtype), dtype, kw,
+              _k4_route_of(dtype, shape[-1]))
     fused = torch.randn((2, 70, 3, 4, 64), generator=gen, device=dev
                         ).to(bf16)
-    check(*fused.unbind(2), bf16, dict(causal=True))
+    check(*fused.unbind(2), bf16, dict(causal=True), "wgmma")
+    # An f32 fused projection cut to hd 64 from rows of 65: a time stride of
+    # 780 elements is no multiple of 16 bytes, so the SIMT kernel takes it.
+    odd = torch.randn((2, 70, 3, 4, 65), generator=gen, device=dev)[..., :64]
+    check(*odd.unbind(2), f32, dict(causal=True), "simt")
     torch.cuda.synchronize()
-    dtypes = [dtype for _, dtype, _ in cases] + [bf16]
-    n_bf16 = dtypes.count(bf16)
-    bf16_err = max(e for e, dt in zip(errs, dtypes) if dt == bf16)
-    print(f"[4] K4 ok on {len(dtypes)} cases ({n_bf16} bf16 on the "
-          f"tensor-core kernel at 2e-2, {len(dtypes) - n_bf16} f32 on "
-          f"the SIMT kernel at 2e-5: LM prefill shape, hd 128 at 24 and "
-          f"at llama4-scout's (4, 40) heads, the JAX sweep, non-causal, "
-          f"window 16, decode offset, Tq != Tk, fused QKV views): max |err| "
-          f"bf16 LM shape {errs[0]:.3g}, f32 LM shape {errs[1]:.3g}, "
-          f"llama4-scout's {errs[3]:.3g}, zamba2's (4, 1024, 32, 112) at "
-          f"window 4096 {errs[4]:.3g} and 16 {errs[5]:.3g}, hubert's (4, "
-          f"1024, 16, 80) non-causal {errs[6]:.3g}, internvl2's (4, 1024, "
-          f"64, 128) {errs[7]:.3g}, any bf16 case {bf16_err:.3g}")
+    worst = {r: max((e for e, x in zip(errs, routes) if x == r), default=0.0)
+             for r in ("wgmma", "tf32", "simt")}
+    print(f"[4] K4 ok on {len(routes)} cases ({routes.count('wgmma')} bf16 "
+          f"on the wgmma kernel at 2e-2, {routes.count('tf32')} f32 on the "
+          f"3xTF32 kernel and {routes.count('simt')} on the SIMT kernel at "
+          f"2e-5: LM prefill shape, hd 128 at 24 and at llama4-scout's (4, "
+          f"40) heads, hd 192 and 256, the JAX sweep, non-causal, windows, "
+          f"decode offset, Tq != Tk, fused QKV views): max |err| bf16 LM "
+          f"shape {errs[0]:.3g}, f32 LM shape {errs[1]:.3g}, llama4-scout's "
+          f"{errs[3]:.3g}, zamba2's (4, 1024, 32, 112) at window 4096 "
+          f"{errs[4]:.3g} and 16 {errs[5]:.3g}, hubert's (4, 1024, 16, 80) "
+          f"non-causal {errs[6]:.3g}, internvl2's (4, 1024, 64, 128) "
+          f"{errs[7]:.3g}, f32 (1, 1024, 24, 128) {errs[8]:.3g}, bf16 (4, "
+          f"1024, 8, 256) {errs[9]:.3g} and 192 {errs[10]:.3g}; worst by "
+          f"route {json.dumps(worst)}")
 
-    B, H, T, hd = LM_B, 16, LM_T, 64
-    q, k, v = qkv(T, T, B, H, hd, bf16)
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    kw = dict(causal=True, q_offset=0, window=None)
-    k4 = lambda: ops.flash_attention(q, k, v, causal=True)  # noqa: E731
-    simt = lambda: fa.flash_attention_cuda(  # noqa: E731
-        q, k, v, _route="simt", **kw)
-    k4p = lambda: _attn_plain(q, k, v, causal=True)  # noqa: E731
-    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qt, kt, vt, is_causal=True)
-    lib_err = _max_abs_err([sdpa().transpose(1, 2).float()], [k4().float()])
-    simt_err = _max_abs_err([simt()[0].float()], [k4p().float()])
-    nbytes = 4 * B * T * H * hd * 2
-    flops = 4 * hd * B * H * T * (T + 1) // 2
-    bound = _bound_ms(nbytes, flops, BF16_TENSOR_FLOPS_PER_S)
-    small = [torch.randn((1, 64, 1, 64), generator=gen, device=dev).to(bf16)
-             for _ in range(3)]
-    plain_ms = _time_ms(k4p, 5)
-    lib_ms, lib_dev = _time_ms(sdpa, 20), _device_ms(sdpa, 20)
-    report["flash_attention_sm90"] = dict(
-        name="flash_attention_sm90", route="cuda",
-        source="src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
-        replaces="src/repro/kernels/flash_attention.py:26",
-        max_abs_err=errs[0], ms=_time_ms(k4, 20), plain_ms=plain_ms,
-        bound_ms=bound[0], bound_by=bound[1], library_ms=lib_ms,
-        device_ms=_device_ms(k4, 20), library_device_ms=lib_dev,
-        device_ms_cold=_device_ms(k4, 20, cold=True),
-        library_device_ms_cold=_device_ms(sdpa, 20, cold=True),
-        host_ms=_host_ms(lambda: ops.flash_attention(*small, causal=True)))
-    # The SIMT kernel (K4's route for f32 and hd > 128) on the same bf16
-    # tensors, through the wrapper's private route argument.
-    report["flash_attention"] = dict(
-        name="flash_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:26",
-        max_abs_err=simt_err, ms=_time_ms(simt, 10), plain_ms=plain_ms,
-        bound_ms=bound[0], bound_by=bound[1], library_ms=lib_ms,
-        device_ms=_device_ms(simt, 10), library_device_ms=lib_dev)
-    r, rs = report["flash_attention_sm90"], report["flash_attention"]
-    print(f"[4] K4 at ({B}, {H}, {T}, {hd}) bf16 causal: tensor cores "
-          f"{r['ms']:.4g} ms (device {_fmt(r['device_ms'])}); SIMT "
-          f"{rs['ms']:.4g} ms (device {_fmt(rs['device_ms'])}), "
-          f"{_fmt(_div(rs['device_ms'], r['device_ms']), '.3g')}x the tensor cores' "
-          f"device time; plain {r['plain_ms']:.4g} ms; SDPA "
-          f"{r['library_ms']:.4g} ms (device {_fmt(r['library_device_ms'])}; "
-          f"|K4 - SDPA| max {lib_err:.3g}); bound {bound[0]:.4g} ms by "
-          f"{bound[1]} ({flops:.4g} flop, {nbytes} bytes), "
-          f"{_fmt(_div(bound[0], r['device_ms']), '.4f')} of it; with a cold L2 "
+    # Each route at its own operands: bf16 hd 64 (the LM path's), f32 at
+    # qwen1.5-0.5b's prefill (phase a's) and at hd 128, bf16 at hd 256 and
+    # 192; each beside the SIMT kernel on the same tensors and SDPA.
+    rows = {}
+    for key, (B, H, hd, dtype) in (
+            ("bf16_hd64", (LM_B, 16, 64, bf16)),
+            ("f32_hd64", (LM_B, 16, 64, f32)),
+            ("f32_hd128", (1, 24, 128, f32)),
+            ("bf16_hd256", (LM_B, 8, 256, bf16)),
+            ("bf16_hd192", (LM_B, 8, 192, bf16))):
+        q, k, v = qkv(LM_T, LM_T, B, H, hd, dtype)
+        rows[key] = _k4_row(q, k, v)
+        if key == "bf16_hd64":
+            small = [torch.randn((1, 64, 1, 64), generator=gen, device=dev
+                                 ).to(bf16) for _ in range(3)]
+            rows[key]["host_ms"] = _host_ms(
+                lambda: ops.flash_attention(*small, causal=True))
+            rows[key]["device_ms_cold"] = _device_ms(
+                lambda: ops.flash_attention(q, k, v, causal=True), 20,
+                cold=True)
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            rows[key]["library_device_ms_cold"] = _device_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True), 20, cold=True)
+        print(_k4_row_text(rows[key]))
+    r = rows["bf16_hd64"]
+    print(f"[4] K4 wgmma at the LM shape: with a cold L2 "
           f"{_fmt(r['device_ms_cold'])} ms (SDPA "
-          f"{_fmt(r['library_device_ms_cold'])}); host "
-          f"{r['host_ms']:.4g} ms a call (1,000 unsynchronised at (1, 64, 1, "
-          f"64)), events - device {_fmt(_sub(r['ms'], r['device_ms']))} ms")
+          f"{_fmt(r['library_device_ms_cold'])}); host {r['host_ms']:.4g} ms "
+          f"a call (1,000 unsynchronised at (1, 64, 1, 64)), events - device "
+          f"{_fmt(_sub(r['ms'], r['device_ms']))} ms")
+
+    def entry(name, source, row, err, **extra):
+        return dict(
+            name=name, route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{source}",
+            replaces="src/repro/kernels/flash_attention.py:26",
+            max_abs_err=err, ms=row["ms"], plain_ms=row["plain_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=row["sdpa"]["ms"], device_ms=row["device_ms"],
+            library_device_ms=row["sdpa"]["device_ms"],
+            library_backend=row["sdpa"]["backend"], **extra)
+
+    report["flash_attention_sm90"] = entry(
+        "flash_attention_sm90", "flash_attention_sm90.cu", r, errs[0],
+        device_ms_cold=r["device_ms_cold"],
+        library_device_ms_cold=r["library_device_ms_cold"],
+        host_ms=r["host_ms"], hd256=rows["bf16_hd256"],
+        hd192=rows["bf16_hd192"])
+    rf = rows["f32_hd64"]
+    report["flash_attention_sm90_f32"] = entry(
+        "flash_attention_sm90_f32", "flash_attention_sm90_f32.cu", rf,
+        errs[1], hd128=rows["f32_hd128"])
+    # The SIMT kernel (now the route of layouts TMA does not address,
+    # and of f32 with hd > 128) on phase a's f32 tensors.
+    report["flash_attention"] = dict(
+        entry("flash_attention", "flash_attention.cu", rf, worst["simt"]),
+        ms=rf["simt_ms"], device_ms=rf["simt_device_ms"],
+        at_bf16_lm_shape=dict(ms=r["simt_ms"], device_ms=r["simt_device_ms"]))
 
     # hd 128: llama3.2-3b's heads, and llama4-scout's prefill (phase m);
     # hd 112 at zamba2-7b's prefill (phase s: window 4,096 > T, so the
@@ -763,17 +954,16 @@ def _check_k4(report: dict, dev) -> None:
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         k4 = lambda: ops.flash_attention(  # noqa: E731
             q, k, v, causal=causal, window=window)
-        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa
             qt, kt, vt, is_causal=causal)
-        keys = T * (T + 1) // 2 if causal else T * T
-        b128 = _bound_ms(4 * B * T * H * hd * 2, 4 * hd * B * H * keys,
-                         BF16_TENSOR_FLOPS_PER_S)
+        b128 = _k4_bound(B, H, T, hd, bf16, causal)
         t = dict(ms=_time_ms(k4, 20), dev=_device_ms(k4, 20),
                  lib=_time_ms(sdpa, 20), lib_dev=_device_ms(sdpa, 20))
-        r[key] = dict(shape=[B, H, T, hd], window=window, causal=causal,
-                      ms=t["ms"], device_ms=t["dev"],
-                      library_ms=t["lib"], library_device_ms=t["lib_dev"],
-                      bound_ms=b128[0], bound_by=b128[1])
+        report["flash_attention_sm90"][key] = dict(
+            shape=[B, H, T, hd], window=window, causal=causal, ms=t["ms"],
+            device_ms=t["dev"], library_ms=t["lib"],
+            library_device_ms=t["lib_dev"], bound_ms=b128[0],
+            bound_by=b128[1])
         print(f"[4] K4 at ({B}, {H}, {T}, {hd}) bf16 "
               f"{'causal' if causal else 'non-causal'}, window "
               f"{window}: tensor cores "
@@ -1047,8 +1237,10 @@ def _by_kernel(c: dict) -> dict:
             "topk_moves": (c["topk_moves"] - c["topk_moves_warp"]
                            - c["topk_moves_cluster"]),
             "flash_attention_sm90": c["flash_attention_sm90"],
+            "flash_attention_sm90_f32": c["flash_attention_sm90_f32"],
             "flash_attention": (c["flash_attention"]
-                                - c["flash_attention_sm90"]),
+                                - c["flash_attention_sm90"]
+                                - c["flash_attention_sm90_f32"]),
             "rmsnorm": c["rmsnorm"]}
 
 
@@ -2092,6 +2284,79 @@ def _lm_path(dev) -> dict:
         _profile("[q]", "4 traced decode steps", decode)
     return {"counts": counts, "flash": a, "chunked": b, "rel": rel,
             "agree": agree, "n_layers": flash.n_layers}
+
+
+def _f32_lm_path(dev) -> dict:
+    """Phase a: qwen1.5-0.5b at full size in float32 on K4 (every launch on
+    the 3xTF32 kernel) against the chunked route in float32, TF32 off."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.fed.hfl import f32_math
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import run_lm
+    from repro_torch.models import transformer as tf
+
+    t0 = time.perf_counter()
+    chunked = dataclasses.replace(configs.get(LM_ARCH), dtype=torch.float32)
+    flash = dataclasses.replace(chunked, attn_impl="pallas")
+    kw = dict(batch=LM_B, prompt_len=LM_T, seed=0, device=dev)
+    with f32_math():
+        run_lm(flash, new_tokens=1, **kw)             # warm-up
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        a = run_lm(flash, new_tokens=F32_NEW, **kw)
+        torch.cuda.synchronize()
+        counts = dict(ops.LAUNCHES)
+        b = run_lm(chunked, new_tokens=F32_NEW, **kw)
+        torch.cuda.synchronize()
+    L = flash.n_layers
+    _check(counts["flash_attention"] == L
+           and counts["flash_attention_sm90_f32"] == L,
+           f"of {counts['flash_attention']} K4 launches in the f32 prefill "
+           f"of {L} layers, {counts['flash_attention_sm90_f32']} took the "
+           f"3xTF32 kernel")
+    la, lb = a["logits"].float(), b["logits"].float()
+    _check(la.shape == (LM_B, flash.vocab) and bool(
+        torch.isfinite(la).all() & torch.isfinite(lb).all()),
+        "f32 prefill logits not finite or of the wrong shape")
+    rel = float((la - lb).abs().max() / lb.abs().max())
+    _check(rel <= F32_LOGIT_RTOL, f"f32 K4 and chunked prefill logits differ "
+           f"by {rel:.3g} of max |logit| (limit {F32_LOGIT_RTOL})")
+    _check(np.array_equal(a["tokens"], b["tokens"]),
+           "f32 greedy tokens differ between K4 and the chunked route")
+    print(f"[a] LM {LM_ARCH} full size in float32 ({L} layers, TF32 off), "
+          f"B = {LM_B}, prompt {LM_T}, {F32_NEW} new tokens: K4 prefill "
+          f"{a['prefill_s'] * 1e3:.3f} ms, decode {a['tok_per_s']:.1f} "
+          f"tok/s; chunked prefill {b['prefill_s'] * 1e3:.3f} ms, decode "
+          f"{b['tok_per_s']:.1f} tok/s")
+    print(f"[a] K4 launches: {counts['flash_attention']} (one a layer), "
+          f"{counts['flash_attention_sm90_f32']} on the 3xTF32 kernel; last "
+          f"logits max |delta| {rel:.4g} of max |logit| "
+          f"{float(lb.abs().max()):.4g} (limit {F32_LOGIT_RTOL}); greedy "
+          f"tokens identical")
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    with torch.inference_mode(), f32_math():
+        params = tf.init_params(flash, gen, dev)
+        batch = {"tokens": torch.randint(0, flash.vocab, (LM_B, LM_T),
+                                         generator=gen, device=dev)}
+        prefill = tf.make_prefill_step(flash)
+        prefill(params, batch)
+        stats = {}
+        rows = _profile("[a]", "1 traced f32 prefill on K4",
+                        lambda: prefill(params, batch), stats)
+        del params
+    k4_ms = sum(ms for ms, _, name in rows if "flash_attention" in name)
+    k4_n = sum(n for _, n, name in rows if "flash_attention" in name)
+    share = _div(k4_ms, stats["device_ms"] or None)
+    print(f"[a] K4 share of the traced f32 prefill's device time: "
+          f"{_fmt(share, '.4f')} ({k4_ms:.3f} of {stats['device_ms']:.3f} ms "
+          f"in {k4_n} launches; {time.perf_counter() - t0:.1f} s)")
+    return {"counts": counts, "flash": a, "chunked": b, "rel": rel,
+            "k4_share": share, "k4_ms": k4_ms, "n_layers": L,
+            "seconds": time.perf_counter() - t0}
 
 
 def _moe_bounds(cfg, B: int, T: int) -> dict:
@@ -3338,13 +3603,18 @@ def main(argv: list[str]) -> int:
     print(f"[0] SASS instructions of the innermost bisection loops (with "
           f"MUFU.RCP; 'nb' branch-free, two rounds of D steps; 'ieee' one "
           f"step with the division's FCHK branch): {rounds}")
-    for hd in (64, 128):
-        smem, ctas = ctypes.c_int(), ctypes.c_int()
-        build.check(build.load().flash_attention_sm90_occupancy(
-            hd, ctypes.byref(smem), ctypes.byref(ctas)), "occupancy")
-        print(f"[0]   flash_attention_sm90_kernel<{hd}>: {smem.value} bytes "
-              f"of dynamic shared memory a CTA of 128 threads, "
-              f"{ctas.value} CTAs an SM")
+    for entry, kernel, hds in (
+            ("flash_attention_sm90_occupancy", "flash_attention_sm90_kernel",
+             (64, 128, 192, 256)),
+            ("flash_attention_sm90_f32_occupancy",
+             "flash_attention_tf32x3_kernel", (64, 128))):
+        for hd in hds:
+            smem, ctas = ctypes.c_int(), ctypes.c_int()
+            build.check(getattr(build.load(), entry)(
+                hd, ctypes.byref(smem), ctypes.byref(ctas)), entry)
+            print(f"[0]   {kernel}<{hd}>: {smem.value} bytes of dynamic "
+                  f"shared memory a CTA of 128 threads, {ctas.value} CTAs "
+                  f"an SM")
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     fleet = fbatch.draw_fleet(0, 128, device=dev)
@@ -3675,6 +3945,10 @@ def main(argv: list[str]) -> int:
     # ---- phase 8: the LM serving path ----------------------------------
     lm = _lm_path(dev)
 
+    # ---- phase a: the LM serving path in float32 (3xTF32 K4) -----------
+    torch.cuda.empty_cache()
+    ap = _f32_lm_path(dev)
+
     # ---- phase m: the moe family at llama4-scout's full width ----------
     torch.cuda.empty_cache()
     mp = _moe_path(dev)
@@ -3707,14 +3981,17 @@ def main(argv: list[str]) -> int:
 
     # ---- phase 9: launch counts and times ------------------------------
     # Four kernels lie on no path: K5 (no model calls it), K4's SIMT
-    # kernel (the route for f32 and hd > 128; the LM path is bf16, hd 64)
+    # kernel (the route of layouts TMA does not address and of f32 with
+    # hd > 128; every served model's operands go to a tensor-core kernel)
     # and the one-warp-per-problem K2 and the block K3 kernels (no route
     # takes them; they are the yardsticks).  Their counts are those of the
     # planning path's run, 0, and are not held to be positive.
     # ``flash_attention``, ``sroa_solve`` and ``topk_moves`` count every
     # K4, K2 and K3 launch, so those three kernels' launches are the ones
-    # that took no other kernel.
+    # that took no other kernel.  K4's 3xTF32 kernel's launches are phase
+    # a's.
     lmc = lm["counts"]
+    a_counts = _by_kernel(ap["counts"])
     x_counts = _by_kernel(xp["counts"])
     main_k = _by_kernel(main_counts)
     counts = {"sroa_invert": invert_count,
@@ -3725,11 +4002,17 @@ def main(argv: list[str]) -> int:
               "topk_moves_cluster": x_counts["topk_moves_cluster"],
               "topk_moves": main_k["topk_moves"],
               "flash_attention_sm90": lmc["flash_attention_sm90"],
-              "flash_attention": (lmc["flash_attention"]
-                                  - lmc["flash_attention_sm90"]),
+              "flash_attention_sm90_f32": a_counts["flash_attention_sm90_f32"],
+              "flash_attention": _by_kernel(lmc)["flash_attention"],
               "rmsnorm": lmc["rmsnorm"]}
     print(f"[9] kernels: {json.dumps(counts)} (ops.LAUNCHES of the LM run: "
           f"{json.dumps(lmc)})")
+    print(f"[9] kernels on phase a's path ({LM_ARCH} in float32): "
+          f"{json.dumps(a_counts)}")
+    _check(all(n == 0 for k, n in a_counts.items()
+               if k != "flash_attention_sm90_f32"),
+           f"a kernel other than K4's 3xTF32 kernel launched on phase a's "
+           f"path: {a_counts}")
     _check(main_counts["topk_moves_warp"] == main_counts["topk_moves"] > 0,
            f"{main_counts['topk_moves'] - main_counts['topk_moves_warp']} "
            f"of the planning path's {main_counts['topk_moves']} K3 launches "
@@ -3821,6 +4104,7 @@ def main(argv: list[str]) -> int:
         report[name]["launches_encoder_path"] = enc_counts[name]
         report[name]["launches_vlm_path"] = vlm_counts[name]
         report[name]["launches_x_path"] = x_counts[name]
+        report[name]["launches_f32_path"] = a_counts[name]
         r = report[name]
         lib = (f", library {r['library_ms']:.4g} ms"
                if r["library_ms"] is not None else "")
@@ -3876,6 +4160,13 @@ def main(argv: list[str]) -> int:
           f"{counts['flash_attention_sm90']} K4 launches on the tensor "
           f"cores; {L} x K4's phase-4 device time is "
           f"{_fmt(k4_share, '.4f')} of the prefill's wall time")
+    af, ac = ap["flash"], ap["chunked"]
+    print(f"[9] f32 LM path: prefill {af['prefill_s'] * 1e3:.3f} ms on K4's "
+          f"3xTF32 kernel ({a_counts['flash_attention_sm90_f32']} launches), "
+          f"{ac['prefill_s'] * 1e3:.3f} ms on the chunked route; K4 "
+          f"{_fmt(ap['k4_share'], '.4f')} of the traced prefill's device "
+          f"time; logits {ap['rel']:.4g} of max |logit| apart "
+          f"({ap['seconds']:.1f} s)")
     mr, mb = mp["run"], mp["bounds"]
     print(f"[9] moe path: prefill {mr['prefill_s'] * 1e3:.3f} ms (bound "
           f"{mb['prefill_ms']:.4g} ms), decode {mr['tok_per_s']:.2f} tok/s "

@@ -68,10 +68,9 @@ def _compile(sources: list[Path], out: Path, verbose: bool) -> str:
             procs.append(subprocess.Popen(
                 [nvcc, *flags, "-c", str(src), "-o", str(obj)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        logs = []
-        for src, proc in zip(sources, procs):
-            text, _ = proc.communicate()
-            logs.append(text)
+        # Every nvcc ends before a failure is raised: none is left running.
+        logs = [proc.communicate()[0] for proc in procs]
+        for src, proc, text in zip(sources, procs, logs):
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed on {src.name}:\n{text}")
         part = Path(tmp) / out.name
@@ -107,6 +106,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.flash_attention_sm90.argtypes = ([p] * 4 + [i] * 5 + [ll] * 12
                                          + [i] * 4 + [f, p])
     lib.flash_attention_sm90_occupancy.argtypes = [i, p, p]
+    lib.flash_attention_sm90_f32.argtypes = lib.flash_attention_sm90.argtypes
+    lib.flash_attention_sm90_f32_occupancy.argtypes = [i, p, p]
     lib.rmsnorm.argtypes = [p, p, p, i, ll, i, f, p]
     lib.topk_moves_cluster_smem.restype = ctypes.c_longlong
     for fn in (lib.sroa_invert_rate, lib.sroa_solve, lib.sroa_solve_lanes,
@@ -116,7 +117,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                lib.topk_moves_warp_occupancy, lib.topk_moves_cluster,
                lib.topk_empty,
                lib.flash_attention, lib.flash_attention_sm90,
-               lib.flash_attention_sm90_occupancy, lib.rmsnorm):
+               lib.flash_attention_sm90_occupancy,
+               lib.flash_attention_sm90_f32,
+               lib.flash_attention_sm90_f32_occupancy, lib.rmsnorm):
         fn.restype = ctypes.c_int
     return lib
 

@@ -1,10 +1,11 @@
-// K4, tensor-core route: flash attention forward for Hopper (sm_90a) with
-// wgmma and TMA, for bf16 operands with head dims up to 128.  Plain C
+// K4, bf16 tensor-core route: flash attention forward for Hopper (sm_90a)
+// with wgmma and TMA, for bf16 operands with head dims up to 256.  Plain C
 // interface for ctypes.
 //
 // Replaces src/repro/kernels/flash_attention.py `_flash_kernel` (the same
-// function as csrc/flash_attention.cu, which stays the route for f32 and
-// for hd in (128, 256]): for every (batch, head) and query row,
+// function as csrc/flash_attention_sm90_f32.cu, the f32 route, and
+// csrc/flash_attention.cu, the route of layouts TMA does not address): for
+// every (batch, head) and query row,
 // softmax(q k^T / sqrt(hd)) v with causal masking shifted by `q_offset`, an
 // optional sliding `window`, keys past Tk masked with the finite -1e30, f32
 // running (max, sum) and accumulator, acc / max(sum, 1e-30) last, and key
@@ -21,9 +22,10 @@
 // under causal masking, so no long block finishes alone at the end).
 //   * TMA: one 4-D tensor map per operand over the (B, T, H, hd) tensor,
 //     dims {hd, H, T, B}, boxes of 64 rows x 64 columns (128 bytes, the
-//     widest box the 128-byte swizzle takes; hd 128 is two boxes).  TMA
-//     fills rows past T and columns past hd with zeros, so the Tq / Tk
-//     tails and an hd padded to 64 or 128 need no code.  Q is loaded once;
+//     widest box the 128-byte swizzle takes; hd 128, 192 and 256 are two,
+//     three and four boxes).  TMA fills rows past T and columns past hd
+//     with zeros, so the Tq / Tk tails and an hd padded to 64, 128, 192 or
+//     256 need no code.  Q is loaded once;
 //     K and V go through a ring of kStages stages, each with its own
 //     mbarrier, and the next tiles' copies run while this tile is computed.
 //   * S = Q K^T: wgmma m64n64k16, Q and K from shared memory (K-major,
@@ -35,7 +37,14 @@
 //     masked entry (the causal diagonal, the window's edge, the Tk tail).
 //   * O += P V: P, rounded to bf16, is wgmma's register A operand (the
 //     accumulator's layout is the A fragment's); V is read from shared
-//     memory as an MN-major B operand.  O is rescaled only by alpha.
+//     memory as an MN-major B operand, a pair of 64-column boxes an n128
+//     product and an odd last box an n64 one, each into its slice of O's
+//     accumulator.  O is rescaled only by alpha.
+//   * Registers: O takes HD / 2 floats a thread (128 at HD 256) beside
+//     S's 32 and P's 16; one warpgroup holds them without a spill (ptxas:
+//     194 registers at HD 256, 158 at 192), so O is not split between
+//     warpgroups.  Shared memory: HD 256 takes 160 KB (Q 32, two stages of
+//     K and V 2 x 64), one CTA an SM; the cap is checked before launch.
 //   * The output is normalised, staged as bf16 in Q's buffer in the
 //     128-byte swizzle, and written with a TMA store, which clips at Tq and
 //     hd.
@@ -48,6 +57,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
 
 constexpr int kBlockQ = 64;       // query rows per CTA (wgmma's M)
@@ -59,86 +70,6 @@ constexpr int kBoxBytes = 64 * 128;   // one 64-row box
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 static_assert(kBlockQ == kBlockK, "one TMA box shape serves Q, K, V and O");
-
-// ---------------------------------------------------------------- PTX
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
-                                          int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
-      " [%0, {%2, %3, %4, %5}], [%1];\n"
-      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor for a 128-byte-swizzled tile whose
-// swizzle atoms (8 rows of 128 bytes) start at 1024-byte boundaries.
-// K-major (Q, K): lbo unused (16), sbo = 1024 (next 8 rows).  MN-major (V):
-// lbo = the next 64-column box, sbo = 1024 (next 8 keys).
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Keep the compiler from moving register reads or writes across the
-// asynchronous wgmma that owns them.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
 
 // D (64 x 64, f32) += A (64 x 16, shared, K-major) . B (16 x 64, shared,
 // K-major); scale_d = 0 overwrites D.
@@ -164,11 +95,13 @@ __device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// D (64 x 64, f32) += A (64 x 16, bf16 registers) . B (16 x 64, shared,
-// MN-major).
-__device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32],
-                                                  const uint32_t (&a)[4],
-                                                  uint64_t db) {
+// D (64 x 64, f32; the accumulator's floats OFF .. OFF + 31) += A (64 x
+// 16, bf16 registers) . B (16 x 64, shared, MN-major).
+template <int OFF, int N>
+__device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[N],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  static_assert(OFF + 32 <= N, "accumulator slice out of range");
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -178,22 +111,24 @@ __device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32],
       "%24, %25, %26, %27, %28, %29, %30, %31"
       "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        "+f"(d[OFF + 0]), "+f"(d[OFF + 1]), "+f"(d[OFF + 2]), "+f"(d[OFF + 3]),
+        "+f"(d[OFF + 4]), "+f"(d[OFF + 5]), "+f"(d[OFF + 6]), "+f"(d[OFF + 7]),
+        "+f"(d[OFF + 8]), "+f"(d[OFF + 9]), "+f"(d[OFF + 10]), "+f"(d[OFF + 11]),
+        "+f"(d[OFF + 12]), "+f"(d[OFF + 13]), "+f"(d[OFF + 14]), "+f"(d[OFF + 15]),
+        "+f"(d[OFF + 16]), "+f"(d[OFF + 17]), "+f"(d[OFF + 18]), "+f"(d[OFF + 19]),
+        "+f"(d[OFF + 20]), "+f"(d[OFF + 21]), "+f"(d[OFF + 22]), "+f"(d[OFF + 23]),
+        "+f"(d[OFF + 24]), "+f"(d[OFF + 25]), "+f"(d[OFF + 26]), "+f"(d[OFF + 27]),
+        "+f"(d[OFF + 28]), "+f"(d[OFF + 29]), "+f"(d[OFF + 30]), "+f"(d[OFF + 31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// D (64 x 128, f32) += A (64 x 16, bf16 registers) . B (16 x 128, shared,
-// MN-major).
-__device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64],
-                                                  const uint32_t (&a)[4],
-                                                  uint64_t db) {
+// D (64 x 128, f32; the accumulator's floats OFF .. OFF + 63) += A (64 x
+// 16, bf16 registers) . B (16 x 128, shared, MN-major).
+template <int OFF, int N>
+__device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[N],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  static_assert(OFF + 64 <= N, "accumulator slice out of range");
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -207,30 +142,23 @@ __device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64],
       "%56, %57, %58, %59, %60, %61, %62, %63"
       "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
       :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        "+f"(d[OFF + 0]), "+f"(d[OFF + 1]), "+f"(d[OFF + 2]), "+f"(d[OFF + 3]),
+        "+f"(d[OFF + 4]), "+f"(d[OFF + 5]), "+f"(d[OFF + 6]), "+f"(d[OFF + 7]),
+        "+f"(d[OFF + 8]), "+f"(d[OFF + 9]), "+f"(d[OFF + 10]), "+f"(d[OFF + 11]),
+        "+f"(d[OFF + 12]), "+f"(d[OFF + 13]), "+f"(d[OFF + 14]), "+f"(d[OFF + 15]),
+        "+f"(d[OFF + 16]), "+f"(d[OFF + 17]), "+f"(d[OFF + 18]), "+f"(d[OFF + 19]),
+        "+f"(d[OFF + 20]), "+f"(d[OFF + 21]), "+f"(d[OFF + 22]), "+f"(d[OFF + 23]),
+        "+f"(d[OFF + 24]), "+f"(d[OFF + 25]), "+f"(d[OFF + 26]), "+f"(d[OFF + 27]),
+        "+f"(d[OFF + 28]), "+f"(d[OFF + 29]), "+f"(d[OFF + 30]), "+f"(d[OFF + 31]),
+        "+f"(d[OFF + 32]), "+f"(d[OFF + 33]), "+f"(d[OFF + 34]), "+f"(d[OFF + 35]),
+        "+f"(d[OFF + 36]), "+f"(d[OFF + 37]), "+f"(d[OFF + 38]), "+f"(d[OFF + 39]),
+        "+f"(d[OFF + 40]), "+f"(d[OFF + 41]), "+f"(d[OFF + 42]), "+f"(d[OFF + 43]),
+        "+f"(d[OFF + 44]), "+f"(d[OFF + 45]), "+f"(d[OFF + 46]), "+f"(d[OFF + 47]),
+        "+f"(d[OFF + 48]), "+f"(d[OFF + 49]), "+f"(d[OFF + 50]), "+f"(d[OFF + 51]),
+        "+f"(d[OFF + 52]), "+f"(d[OFF + 53]), "+f"(d[OFF + 54]), "+f"(d[OFF + 55]),
+        "+f"(d[OFF + 56]), "+f"(d[OFF + 57]), "+f"(d[OFF + 58]), "+f"(d[OFF + 59]),
+        "+f"(d[OFF + 60]), "+f"(d[OFF + 61]), "+f"(d[OFF + 62]), "+f"(d[OFF + 63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -245,6 +173,9 @@ constexpr int smem_bytes() {
   return kBlockQ * HD * 2 + 2 * kStages * kBlockK * HD * 2 +
          8 * (1 + 2 * kStages) + 1024;
 }
+// A block's shared memory on the card (227 KB): HD 256 takes 164,904 bytes.
+constexpr int kSmemCap = 232448;
+static_assert(smem_bytes<256>() <= kSmemCap, "HD 256 exceeds 227 KB");
 
 template <int HD>
 __global__ void __launch_bounds__(kThreads) flash_attention_sm90_kernel(
@@ -425,12 +356,18 @@ __global__ void __launch_bounds__(kThreads) flash_attention_sm90_kernel(
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      const uint64_t dv =
-          smem_desc(sV + st * kTile + kk * 16 * 128, kBoxBytes, 1024);
-      if constexpr (HD == 64)
-        wgmma_rs_m64n64k16(o, p[kk], dv);
-      else
-        wgmma_rs_m64n128k16(o, p[kk], dv);
+      // Pairs of 64-column boxes as one n128 product each, an odd last
+      // box as an n64 one; each writes its slice of O's accumulator.
+      const uint32_t v0 = sV + st * kTile + kk * 16 * 128;
+      if constexpr (kBoxes >= 2)
+        wgmma_rs_m64n128k16<0>(o, p[kk], smem_desc(v0, kBoxBytes, 1024));
+      if constexpr (kBoxes >= 4)
+        wgmma_rs_m64n128k16<64>(
+            o, p[kk], smem_desc(v0 + 2 * kBoxBytes, kBoxBytes, 1024));
+      if constexpr (kBoxes % 2 == 1)
+        wgmma_rs_m64n64k16<(kBoxes / 2) * 64>(
+            o, p[kk],
+            smem_desc(v0 + (kBoxes - 1) * kBoxBytes, kBoxBytes, 1024));
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -475,65 +412,12 @@ __global__ void __launch_bounds__(kThreads) flash_attention_sm90_kernel(
 }
 
 // ------------------------------------------------------------- host side
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up once through the runtime's entry-point
-// query so that the library needs no -lcuda.
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A 4-D map over a (B, T, H, hd) bf16 tensor: dims {hd, H, T, B}, byte
-// strides from its element strides, 64 x 64 boxes in the 128-byte swizzle.
-bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int B, int T,
-            int H, int hd, long long sb, long long st, long long sh) {
-  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)H, (cuuint64_t)T,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)st * 2,
-                                 (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {kBox, 1, kBlockQ, 1};   // kBlockQ == kBlockK
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// Raise the kernel's shared-memory cap to what it uses, once per device
-// and template instance (not per launch).
+// Raise the kernel's shared-memory cap once per device and instance.
 template <int HD>
 cudaError_t prepare() {
   static unsigned set_on = 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= 32 || !(set_on & (1u << dev))) {
-    err = cudaFuncSetAttribute(flash_attention_sm90_kernel<HD>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem_bytes<HD>());
-    if (err != cudaSuccess) return err;
-    if (dev < 32) set_on |= 1u << dev;
-  }
-  return cudaSuccess;
+  return raise_smem_cap(flash_attention_sm90_kernel<HD>, smem_bytes<HD>(),
+                        set_on);
 }
 
 template <int HD>
@@ -578,29 +462,40 @@ int flash_attention_sm90(const void* q, const void* k, const void* v,
                          int causal, int q_offset, int has_window, int window,
                          float scale, cudaStream_t stream) {
   if (B <= 0 || H <= 0 || Tq <= 0) return 0;
-  if (Tk <= 0 || hd <= 0 || hd > 128 || (Tq + kBlockQ - 1) / kBlockQ > 65535)
+  if (Tk <= 0 || hd <= 0 || hd > 256 || (Tq + kBlockQ - 1) / kBlockQ > 65535)
     return (int)cudaErrorInvalidValue;
   EncodeTiled fn = encode_fn();
   if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
   CUtensorMap tq, tk, tv, to;
-  if (!encode(fn, &tq, q, B, Tq, H, hd, q_sb, q_st, q_sh) ||
-      !encode(fn, &tk, k, B, Tk, H, hd, k_sb, k_st, k_sh) ||
-      !encode(fn, &tv, v, B, Tk, H, hd, v_sb, v_st, v_sh) ||
-      !encode(fn, &to, o, B, Tq, H, hd, o_sb, o_st, o_sh))
+  const CUtensorMapDataType bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  // kBlockQ == kBlockK: one box shape serves Q, K, V and O.
+  if (!encode(fn, &tq, bf16, 2, kBox, kBlockQ, q, B, Tq, H, hd, q_sb, q_st,
+              q_sh) ||
+      !encode(fn, &tk, bf16, 2, kBox, kBlockQ, k, B, Tk, H, hd, k_sb, k_st,
+              k_sh) ||
+      !encode(fn, &tv, bf16, 2, kBox, kBlockQ, v, B, Tk, H, hd, v_sb, v_st,
+              v_sh) ||
+      !encode(fn, &to, bf16, 2, kBox, kBlockQ, o, B, Tq, H, hd, o_sb, o_st,
+              o_sh))
     return (int)cudaErrorInvalidValue;
   const float scale_log2 = (float)((double)scale * 1.4426950408889634);
-  if (hd <= 64)
-    return launch<64>(tq, tk, tv, to, B, H, Tq, Tk, causal, q_offset,
-                      has_window, window, scale_log2, stream);
-  return launch<128>(tq, tk, tv, to, B, H, Tq, Tk, causal, q_offset,
-                     has_window, window, scale_log2, stream);
+#define FA_LAUNCH(HD)                                                   \
+  launch<HD>(tq, tk, tv, to, B, H, Tq, Tk, causal, q_offset, has_window, \
+             window, scale_log2, stream)
+  if (hd <= 64) return FA_LAUNCH(64);
+  if (hd <= 128) return FA_LAUNCH(128);
+  if (hd <= 192) return FA_LAUNCH(192);
+  return FA_LAUNCH(256);
+#undef FA_LAUNCH
 }
 
 // The dynamic shared memory a CTA of the hd template takes, and how many
 // CTAs fit on one SM (for the build report).
 int flash_attention_sm90_occupancy(int hd, int* smem, int* ctas_per_sm) {
-  return hd <= 64 ? occupancy<64>(smem, ctas_per_sm)
-                  : occupancy<128>(smem, ctas_per_sm);
+  if (hd <= 64) return occupancy<64>(smem, ctas_per_sm);
+  if (hd <= 128) return occupancy<128>(smem, ctas_per_sm);
+  if (hd <= 192) return occupancy<192>(smem, ctas_per_sm);
+  return occupancy<256>(smem, ctas_per_sm);
 }
 
 }  // extern "C"

@@ -13,9 +13,10 @@ kernels) and ``rmsnorm`` (K5); ``sroa_solve_lanes`` and
 ``sroa_solve_cluster`` count the K2 launches that took the one-block and the
 one-cluster one-thread-per-user kernels, ``topk_moves_warp`` and
 ``topk_moves_cluster`` the K3 launches that took the one-warp-per-cell and
-the one-cluster-per-cell kernels, and ``flash_attention_sm90`` the K4
-launches that took the tensor-core kernel.  K4 refuses to run
-under autograd (:func:`flash_attention`).
+the one-cluster-per-cell kernels, and ``flash_attention_sm90`` and
+``flash_attention_sm90_f32`` the K4 launches that took the bf16 and the
+f32 tensor-core kernels.  K4 refuses to run under autograd
+(:func:`flash_attention`).
 """
 from __future__ import annotations
 
@@ -28,7 +29,8 @@ from repro_torch.kernels import ref
 LAUNCHES = {"sroa_invert": 0, "sroa_solve": 0, "sroa_solve_lanes": 0,
             "sroa_solve_cluster": 0, "topk_moves": 0, "topk_moves_warp": 0,
             "topk_moves_cluster": 0, "flash_attention": 0,
-            "flash_attention_sm90": 0, "rmsnorm": 0}
+            "flash_attention_sm90": 0, "flash_attention_sm90_f32": 0,
+            "rmsnorm": 0}
 
 
 def reset_launches() -> None:
@@ -204,7 +206,7 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
 
     Heads are not repeated here: k and v carry q's head count (the model's
     ``attention`` repeats grouped heads first, as the JAX package does).
-    On CUDA, ``flash_attention.takes_wgmma`` picks the kernel.
+    On CUDA, ``flash_attention.route`` picks the kernel.
 
     K4 has no backward: the kernel fills its output through ctypes, so a
     gradient would stop at it.  Under autograd (grad mode on and any of
@@ -227,11 +229,12 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             causal=causal, q_offset=q_offset, window=window).transpose(1, 2)
     from repro_torch.kernels import flash_attention as fa
-    out, wgmma = fa.flash_attention_cuda(q, k, v, causal=causal,
+    out, route = fa.flash_attention_cuda(q, k, v, causal=causal,
                                          q_offset=q_offset, window=window)
     LAUNCHES["flash_attention"] += 1
-    if wgmma:
-        LAUNCHES["flash_attention_sm90"] += 1
+    if route != "simt":
+        LAUNCHES["flash_attention_sm90" + ("_f32" if route == "tf32"
+                                           else "")] += 1
     return out
 
 

@@ -16,10 +16,13 @@ numbers:
   selection (lanes, slots, cached minima, owner knock-outs) and
   :func:`topk_select_slices_plain` the cluster kernel's (slice lists, one
   merge, the padding rule); the CPU tests hold both to the twin's bitwise.
-* :func:`attention_plain`   — K4 (``csrc/flash_attention_sm90.cu`` and
-  ``csrc/flash_attention.cu``): the TPU kernel's blockwise online softmax
-  in f32, with its finite ``NEG_INF``, its key-padding mask and its causal
-  skip of key blocks.
+* :func:`attention_plain`   — K4 (``csrc/flash_attention_sm90.cu``,
+  ``csrc/flash_attention_sm90_f32.cu`` and ``csrc/flash_attention.cu``):
+  the TPU kernel's blockwise online softmax in f32, with its finite
+  ``NEG_INF``, its key-padding mask and its causal skip of key blocks.
+  :func:`attention_tf32x3_plain` is the same algorithm with both products
+  taken as the f32 kernel takes them, three TF32 passes over operands
+  split by :func:`tf32_round`: a model of that kernel's precision.
 * :func:`rmsnorm_plain`     — K5 (``csrc/rmsnorm.cu``): the sum of squares
   in the kernel's chunk-and-warp order (:func:`chunk_sum_plain`; bitwise
   up to ``rsqrt``).
@@ -404,6 +407,57 @@ def attention_plain(q, k, v, *, causal: bool = True, q_offset: int = 0,
     past Tk are masked, and key blocks past a query block's causal limit
     ``last`` leave its running (m, denom, acc) untouched.
     """
+    return _attention_blocks(q, k, v, causal, q_offset, window, block_q,
+                             block_k, torch.matmul)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to TF32 (a 10-bit mantissa) to nearest, ties away from
+    zero, as ``cvt.rna.tf32.f32`` rounds: half a TF32 unit (bit 12) added
+    to the magnitude's bits, the low 13 bits cleared.  Infinities and NaNs
+    pass unchanged."""
+    bits = x.float().contiguous().view(torch.int32)
+    rounded = (bits + 0x1000) & ~0x1FFF
+    return torch.where(torch.isfinite(x), rounded, bits).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor):
+    """x = hi + lo (to about 2^-22 |x|): hi = x to TF32, lo = the rest to
+    TF32 (x - hi is exact in f32)."""
+    x = x.float()
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+def matmul_tf32x3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the f32 tensor-core kernel takes it: hi.hi + hi.lo + lo.hi
+    over split operands (lo.lo dropped), summed exactly (in f64) and
+    rounded to f32 once."""
+    (ah, al), (bh, bl) = tf32_split(a), tf32_split(b)
+    ah, al, bh, bl = (t.double() for t in (ah, al, bh, bl))
+    return (ah @ bh + (ah @ bl + al @ bh)).float()
+
+
+def matmul_tf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in one TF32 pass (operands rounded once), summed in f64."""
+    return (tf32_round(a).double() @ tf32_round(b).double()).float()
+
+
+def attention_tf32x3_plain(q, k, v, *, causal: bool = True,
+                           q_offset: int = 0, window=None,
+                           mm=matmul_tf32x3) -> torch.Tensor:
+    """:func:`attention_plain` with both products (S = q k^T and P V) taken
+    by ``mm``: the 3xTF32 split (:func:`matmul_tf32x3`) by default, or
+    one TF32 pass (:func:`matmul_tf32`), to show that one pass misses K4's
+    f32 tolerance where the split meets it."""
+    return _attention_blocks(q, k, v, causal, q_offset, window,
+                             FLASH_BLOCK_Q, FLASH_BLOCK_K, mm)
+
+
+def _attention_blocks(q, k, v, causal, q_offset, window, block_q, block_k,
+                      mm) -> torch.Tensor:
+    """The blockwise online softmax of :func:`attention_plain`, its two
+    products taken by ``mm``."""
     *lead, Tq, hd = q.shape
     Tk = k.shape[-2]
     nqb, nkb = -(-Tq // block_q), -(-Tk // block_k)
@@ -427,7 +481,7 @@ def attention_plain(q, k, v, *, causal: bool = True, q_offset: int = 0,
     for kb in range(int(last.max())):
         sl = slice(kb * block_k, (kb + 1) * block_k)
         kblk, vblk = kf[..., None, sl, :], vf[..., None, sl, :]
-        s = qf @ kblk.transpose(-1, -2)            # (..., nqb, bq, bk)
+        s = mm(qf, kblk.transpose(-1, -2))         # (..., nqb, bq, bk)
         k_pos = kb * block_k + torch.arange(block_k, device=dev)
         mask = (k_pos < Tk).expand(nqb, block_q, block_k)
         if causal:
@@ -440,8 +494,8 @@ def attention_plain(q, k, v, *, causal: bool = True, q_offset: int = 0,
         p = torch.exp(s - m_new[..., None])
         live = (kb < last)[:, None]                 # (nqb, 1)
         denom = torch.where(live, denom * alpha + p.sum(-1), denom)
-        acc = torch.where(live[..., None], acc * alpha[..., None] + p @ vblk,
-                          acc)
+        acc = torch.where(live[..., None],
+                          acc * alpha[..., None] + mm(p, vblk), acc)
         m = torch.where(live, m_new, m)
     out = acc / torch.clamp_min(denom, 1e-30)[..., None]
     return out.reshape(*lead, nqb * block_q, hd)[..., :Tq, :].to(q.dtype)

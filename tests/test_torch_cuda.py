@@ -40,17 +40,30 @@ def fleet(cuda):
     return batch.draw_fleet(3, 4, SPEC, n_range=(6, 12), device=cuda)
 
 
-def _launched(name, fn, wgmma=None):
+_K4_ROUTES = {"wgmma": "flash_attention_sm90",
+              "tf32": "flash_attention_sm90_f32"}
+
+
+def _launched(name, fn, route=None):
     """fn's result; fn launched kernel ``name`` once and, for K4, took the
-    tensor-core kernel when ``wgmma`` is True and the SIMT one when it is
-    False."""
-    n0, w0 = ops.LAUNCHES[name], ops.LAUNCHES["flash_attention_sm90"]
+    kernel of ``route``: "wgmma" (bf16 tensor cores), "tf32" (f32 tensor
+    cores) or "simt"."""
+    n0 = ops.LAUNCHES[name]
+    k4 = {r: ops.LAUNCHES[c] for r, c in _K4_ROUTES.items()}
     out = fn()
     torch.cuda.synchronize()
     assert ops.LAUNCHES[name] == n0 + 1
-    if wgmma is not None:
-        assert ops.LAUNCHES["flash_attention_sm90"] == w0 + int(wgmma)
+    if route is not None:
+        for r, c in _K4_ROUTES.items():
+            assert ops.LAUNCHES[c] == k4[r] + int(route == r), (route, c)
     return out
+
+
+def _k4_route(dt, hd):
+    """The kernel K4's rule picks for contiguous operands."""
+    if dt == torch.bfloat16:
+        return "wgmma"
+    return "tf32" if hd <= 128 else "simt"
 
 
 @pytest.mark.cuda
@@ -502,12 +515,14 @@ def _attention_plain(q, k, v, **kw):
 ])
 def test_k4_matches_its_twin(cuda, B, H, T, hd, dtype):
     """The JAX flash sweep's shapes plus hd 256: 2e-5 in f32, 2e-2 in bf16
-    (exp and the summation order differ from the twin's)."""
+    (exp and the summation order differ from the twin's).  bf16 takes the
+    wgmma kernel at every hd, f32 the 3xTF32 one up to hd 128 and the SIMT
+    one at hd 256."""
     dt = getattr(torch, dtype)
     q, k, v = (_randn((B, T, H, hd), dt, cuda, T + hd + i) for i in range(3))
     got = _launched("flash_attention",
                     lambda: ops.flash_attention(q, k, v, causal=True),
-                    wgmma=dt == torch.bfloat16 and hd <= 128)
+                    route=_k4_route(dt, hd))
     assert got.dtype == dt and got.shape == (B, T, H, hd)
     tol = 2e-2 if dt == torch.bfloat16 else 2e-5
     torch.testing.assert_close(got.float(),
@@ -524,15 +539,15 @@ def test_k4_matches_its_twin(cuda, B, H, T, hd, dtype):
     (dict(causal=True, q_offset=100), 30, 130),
 ])
 def test_k4_masks_and_offsets(cuda, kw, Tq, Tk, dtype):
-    """f32 runs on the SIMT kernel (2e-5), bf16 on the tensor-core kernel
-    (2e-2): its non-causal, window, q_offset and Tq != Tk paths."""
+    """f32 runs on the 3xTF32 kernel (2e-5), bf16 on the wgmma kernel
+    (2e-2): their non-causal, window, q_offset and Tq != Tk paths."""
     dt = getattr(torch, dtype)
     q = _randn((2, Tq, 3, 64), dt, cuda, 1)
     k = _randn((2, Tk, 3, 64), dt, cuda, 2)
     v = _randn((2, Tk, 3, 64), dt, cuda, 3)
     got = _launched("flash_attention",
                     lambda: ops.flash_attention(q, k, v, **kw),
-                    wgmma=dt == torch.bfloat16)
+                    route=_k4_route(dt, 64))
     tol = 2e-2 if dt == torch.bfloat16 else 2e-5
     torch.testing.assert_close(got.float(),
                                _attention_plain(q, k, v, **kw).float(),
@@ -545,18 +560,19 @@ def test_k4_masks_and_offsets(cuda, kw, Tq, Tk, dtype):
 def test_k4_takes_the_tensor_cores_at_the_model_shapes(cuda, B, T, H, hd):
     """qwen1.5-0.5b's prefill (hd 64), llama3.2-3b's heads and
     llama4-scout's prefill (hd 128, 40 heads after the GQA repeat): in bf16
-    the wgmma kernel, held to the twin at 2e-2; in f32 the SIMT one."""
+    the wgmma kernel, held to the twin at 2e-2; in f32 the 3xTF32 one."""
     q, k, v = (_randn((B, T, H, hd), torch.bfloat16, cuda, 7 + i)
                for i in range(3))
     got = _launched("flash_attention",
                     lambda: ops.flash_attention(q, k, v, causal=True),
-                    wgmma=True)
+                    route="wgmma")
     torch.testing.assert_close(
         got.float(), _attention_plain(q, k, v, causal=True).float(),
         rtol=2e-2, atol=2e-2)
     f = q[:1, :128].float()
     _launched("flash_attention",
-              lambda: ops.flash_attention(f, f, f, causal=True), wgmma=False)
+              lambda: ops.flash_attention(f, f, f, causal=True),
+              route="tf32")
 
 
 @pytest.mark.cuda
@@ -568,10 +584,64 @@ def test_k4_reads_strided_operands(cuda):
     assert not q.is_contiguous()
     got = _launched("flash_attention",
                     lambda: ops.flash_attention(q, k, v, causal=True),
-                    wgmma=True)
+                    route="wgmma")
     want = ops.flash_attention(q.contiguous(), k.contiguous(),
                                v.contiguous(), causal=True)
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,hd", [(4, 1024, 16, 64), (1, 1024, 24, 128)])
+def test_k4_f32_takes_the_tensor_cores_at_the_model_shapes(cuda, B, T, H,
+                                                            hd):
+    """qwen1.5-0.5b's prefill and llama3.2-3b's heads in f32: the 3xTF32
+    kernel, held to the twin at 2e-5."""
+    q, k, v = (_randn((B, T, H, hd), torch.float32, cuda, 11 + i)
+               for i in range(3))
+    got = _launched("flash_attention",
+                    lambda: ops.flash_attention(q, k, v, causal=True),
+                    route="tf32")
+    torch.testing.assert_close(got, _attention_plain(q, k, v, causal=True),
+                               rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [160, 192, 256])
+@pytest.mark.parametrize("kw,Tq,Tk", [
+    (dict(causal=True), 200, 200),
+    (dict(causal=True, window=48), 160, 160),
+    (dict(causal=True, q_offset=100), 30, 130),
+])
+def test_k4_bf16_wide_heads_on_the_tensor_cores(cuda, hd, kw, Tq, Tk):
+    """bf16 with hd in (128, 256] on the wgmma kernel (hd 160 pads to the
+    192 template through TMA's zero fill), at 2e-2 against the twin: the
+    causal tail, a window and a query offset with Tq != Tk."""
+    q = _randn((2, Tq, 3, hd), torch.bfloat16, cuda, 21)
+    k = _randn((2, Tk, 3, hd), torch.bfloat16, cuda, 22)
+    v = _randn((2, Tk, 3, hd), torch.bfloat16, cuda, 23)
+    got = _launched("flash_attention",
+                    lambda: ops.flash_attention(q, k, v, **kw),
+                    route="wgmma")
+    assert got.shape == (2, Tq, 3, hd)
+    torch.testing.assert_close(got.float(),
+                               _attention_plain(q, k, v, **kw).float(),
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_k4_f32_unaligned_views_take_the_simt_kernel(cuda):
+    """f32 q, k, v as views of one fused (B, T, 3, H, 65) tensor cut to hd
+    64: a time stride of 780 elements is no multiple of 16 bytes, so the
+    rule sends them to the SIMT kernel, which reads them through their
+    strides (2e-5 against the twin)."""
+    qkv = _randn((2, 70, 3, 4, 65), torch.float32, cuda, 31)[..., :64]
+    q, k, v = qkv.unbind(2)
+    assert q.stride(1) == 780
+    got = _launched("flash_attention",
+                    lambda: ops.flash_attention(q, k, v, causal=True),
+                    route="simt")
+    torch.testing.assert_close(got, _attention_plain(q, k, v, causal=True),
+                               rtol=2e-5, atol=2e-5)
 
 
 @pytest.mark.cuda
@@ -607,12 +677,18 @@ def test_k4_k5_refuse_what_they_do_not_take(cuda):
     with pytest.raises(TypeError):
         flash_attention.flash_attention_cuda(h, h, h, causal=True,
                                              q_offset=0, window=None)
-    # The tensor-core kernel refuses f32 when asked for by name.
+    # The tensor-core kernels refuse what the rule does not send them,
+    # when asked for by name: f32 on the bf16 kernel, hd 160 on the f32 one.
     f = x[..., :64]
     with pytest.raises(ValueError, match="tensor-core"):
         flash_attention.flash_attention_cuda(f, f, f, causal=True,
                                              q_offset=0, window=None,
                                              _route="wgmma")
+    w = torch.ones((1, 4, 1, 160), device=cuda)
+    with pytest.raises(ValueError, match="tensor-core"):
+        flash_attention.flash_attention_cuda(w, w, w, causal=True,
+                                             q_offset=0, window=None,
+                                             _route="tf32")
     with pytest.raises(TypeError):
         rmsnorm.rmsnorm_cuda(h[0, :, 0], torch.ones(64, device=cuda), 1e-6)
 
@@ -934,7 +1010,7 @@ def test_k4_at_zamba2s_shared_attention_shape(cuda, window):
     q, k, v = (_randn((4, 1024, 32, 112), torch.bfloat16, cuda, 11 + i)
                for i in range(3))
     got = _launched("flash_attention", lambda: ops.flash_attention(
-        q, k, v, causal=True, window=window), wgmma=True)
+        q, k, v, causal=True, window=window), route="wgmma")
     torch.testing.assert_close(
         got.float(), _attention_plain(q, k, v, causal=True,
                                       window=window).float(),
@@ -964,7 +1040,7 @@ def test_zamba2s_shared_block_takes_the_tensor_cores(cuda):
         torch.bfloat16)
     positions = torch.arange(1024, device=cuda).expand(4, 1024)
     y, (k, v) = _launched("flash_attention", lambda: tf._shared_apply(
-        cfg, params, x, positions=positions), wgmma=True)
+        cfg, params, x, positions=positions), route="wgmma")
     assert y.shape == x.shape and bool(torch.isfinite(y).all())
     assert k.shape == (4, 1024, 32, 112)
 
@@ -981,7 +1057,7 @@ def test_k4_at_the_encoder_and_vlm_prefill_shapes(cuda, B, T, H, hd, causal):
                for i in range(3))
     got = _launched("flash_attention",
                     lambda: ops.flash_attention(q, k, v, causal=causal),
-                    wgmma=True)
+                    route="wgmma")
     torch.testing.assert_close(
         got.float(), _attention_plain(q, k, v, causal=causal).float(),
         rtol=2e-2, atol=2e-2)
@@ -1000,7 +1076,7 @@ def test_k4_refuses_to_run_under_autograd_on_the_card(cuda):
     assert ops.LAUNCHES["flash_attention"] == n0
     with torch.no_grad():
         _launched("flash_attention", lambda: ops.flash_attention(q, k, v),
-                  wgmma=True)
+                  route="wgmma")
 
 
 # One of each kind of model, reduced: (arch, config changes).

@@ -746,33 +746,45 @@ def test_chunk_sum_plain_adds_in_the_kernels_order(N, vec):
 _CONTIG = (4096, 1024, 64)     # (B, T, H, hd) = (., 64, 16, 64) strides
 
 
-@pytest.mark.parametrize("dtype,hd,strides,ptrs,wgmma", [
-    (torch.bfloat16, 64, _CONTIG * 4, (0, 1 << 20, 2 << 20, 3 << 20), True),
-    (torch.bfloat16, 128, _CONTIG * 4, (256,) * 4, True),
-    (torch.bfloat16, 80, (7680, 480, 80) * 4, (512,) * 4, True),
-    (torch.bfloat16, 112, (7168, 448, 112) * 4, (512,) * 4, True),
-    (torch.bfloat16, 8, (512, 64, 8) * 4, (512,) * 4, True),
+@pytest.mark.parametrize("dtype,hd,strides,ptrs,route", [
+    (torch.bfloat16, 64, _CONTIG * 4, (0, 1 << 20, 2 << 20, 3 << 20),
+     "wgmma"),
+    (torch.bfloat16, 128, _CONTIG * 4, (256,) * 4, "wgmma"),
+    (torch.bfloat16, 80, (7680, 480, 80) * 4, (512,) * 4, "wgmma"),
+    (torch.bfloat16, 112, (7168, 448, 112) * 4, (512,) * 4, "wgmma"),
+    (torch.bfloat16, 8, (512, 64, 8) * 4, (512,) * 4, "wgmma"),
     # the fused (B, T, 3, H, hd) projection's views: strides of 3 H hd
     (torch.bfloat16, 64, (3 * 70 * 256, 768, 64) * 3 + (70 * 256, 256, 64),
-     (512, 512 + 512, 512 + 1024, 4096), True),
-    (torch.float32, 64, _CONTIG * 4, (512,) * 4, False),
-    (torch.float16, 64, _CONTIG * 4, (512,) * 4, False),
-    (torch.bfloat16, 136, (8704, 544, 136) * 4, (512,) * 4, False),
-    (torch.bfloat16, 256, _CONTIG * 4, (512,) * 4, False),
-    (torch.bfloat16, 0, _CONTIG * 4, (512,) * 4, False),
-    (torch.bfloat16, 36, (2304, 144, 36) * 4, (512,) * 4, False),
-    (torch.bfloat16, 64, (4096, 1028, 64) + _CONTIG * 3, (512,) * 4, False),
-    (torch.bfloat16, 64, (4096, 1024, 0) + _CONTIG * 3, (512,) * 4, False),
-    (torch.bfloat16, 64, _CONTIG * 4, (512, 520, 512, 512), False),
-    (torch.bfloat16, 64, _CONTIG * 4, (512, 512, 512, 514), False),
+     (512, 512 + 512, 512 + 1024, 4096), "wgmma"),
+    (torch.float32, 64, _CONTIG * 4, (512,) * 4, "tf32"),
+    (torch.float16, 64, _CONTIG * 4, (512,) * 4, "simt"),
+    (torch.bfloat16, 136, (8704, 544, 136) * 4, (512,) * 4, "wgmma"),
+    (torch.bfloat16, 256, _CONTIG * 4, (512,) * 4, "wgmma"),
+    (torch.bfloat16, 0, _CONTIG * 4, (512,) * 4, "simt"),
+    (torch.bfloat16, 36, (2304, 144, 36) * 4, (512,) * 4, "simt"),
+    (torch.bfloat16, 64, (4096, 1028, 64) + _CONTIG * 3, (512,) * 4, "simt"),
+    (torch.bfloat16, 64, (4096, 1024, 0) + _CONTIG * 3, (512,) * 4, "simt"),
+    (torch.bfloat16, 64, _CONTIG * 4, (512, 520, 512, 512), "simt"),
+    (torch.bfloat16, 64, _CONTIG * 4, (512, 512, 512, 514), "simt"),
+    # f32: 16-byte strides are multiples of 4 elements; hd up to 128.
+    (torch.float32, 64, (4096, 1026, 64) + _CONTIG * 3, (512,) * 4, "simt"),
+    (torch.float32, 36, (2304, 144, 36) * 4, (512,) * 4, "tf32"),
+    (torch.float32, 128, (24 * 128, 128, 128) * 4, (512,) * 4, "tf32"),
+    (torch.float32, 160, (2560, 320, 160) * 4, (512,) * 4, "simt"),
+    (torch.float32, 64, _CONTIG * 4, (512, 520, 512, 512), "simt"),
+    (torch.bfloat16, 192, (6144, 1536, 192) * 4, (512,) * 4, "wgmma"),
+    (torch.bfloat16, 257, (8224, 2056, 257) * 4, (512,) * 4, "simt"),
 ])
-def test_k4_routing_rule(dtype, hd, strides, ptrs, wgmma):
-    """The tensor-core kernel takes bf16, 0 < hd <= 128, every non-head-dim
-    stride a positive multiple of 16 bytes and 16-byte-aligned bases;
-    everything else goes to the SIMT kernel.  A pure function: no card."""
+def test_k4_routing_rule(dtype, hd, strides, ptrs, route):
+    """bf16 with 0 < hd <= 256 takes the wgmma kernel and f32 with 0 < hd
+    <= 128 the 3xTF32 one, each when every non-head-dim stride is a
+    positive multiple of 16 bytes and every base 16-byte aligned;
+    everything else goes to the SIMT kernel (hd 257 then raises before any
+    launch: ``MAX_HEAD_DIM``).  A pure function: no card."""
     from repro_torch.kernels import flash_attention as fa
 
-    assert fa.takes_wgmma(dtype, hd, strides, ptrs) is wgmma
+    assert fa.route(dtype, hd, strides, ptrs) == route
+    assert fa.MAX_HEAD_DIM == 256
 
 
 # ------------------------------------------------------------- dispatch
@@ -803,14 +815,17 @@ def test_wrappers_refuse_devices_without_a_kernel_route():
 def test_build_names_the_library_by_source_and_flags(tmp_path):
     srcs = sorted(build.CSRC.glob("*.cu"))
     assert [s.name for s in srcs] == ["flash_attention.cu",
-                                      "flash_attention_sm90.cu", "rmsnorm.cu",
-                                      "sroa_bisect.cu", "topk_moves.cu"]
+                                      "flash_attention_sm90.cu",
+                                      "flash_attention_sm90_f32.cu",
+                                      "rmsnorm.cu", "sroa_bisect.cu",
+                                      "topk_moves.cu"]
     d1 = build._digest(srcs, build.NVCC_FLAGS)
     assert d1 == build._digest(srcs, list(build.NVCC_FLAGS))
     assert d1 != build._digest(srcs, build.NVCC_FLAGS + ["-G"])
     # The shared header is hashed with the sources (it is not compiled).
     assert [h.name for h in build.headers()] == ["cluster.cuh",
-                                                 "fast_math.cuh"]
+                                                 "fast_math.cuh",
+                                                 "sm90.cuh"]
     assert d1 != build._digest(srcs + build.headers(), build.NVCC_FLAGS)
     assert build.build_dir().parts[-2:] == ("build", "repro_torch_kernels")
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS

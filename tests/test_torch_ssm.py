@@ -348,7 +348,7 @@ def test_serve_lm_runs_the_family_on_cpu(arch, family, capsys):
 
 
 def test_zamba2s_shared_attention_views_take_the_tensor_cores(monkeypatch):
-    """``flash_attention.takes_wgmma`` (a pure function) on the q, k, v that
+    """``flash_attention.route`` (a pure function) on the q, k, v that
     zamba2-7b's shared block hands K4 at full width, B = 4, T = 1,024: the
     block runs on the meta device (shapes and strides, no data) with K4's
     wrapper replaced by a recorder.  (4, 1024, 32, 112) bf16 with the
@@ -379,4 +379,4 @@ def test_zamba2s_shared_attention_views_take_the_tensor_cores(monkeypatch):
                and t.storage_offset() == 0 for t in (q, k, v))
     strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                T * H * hd, H * hd, hd)
-    assert fa.takes_wgmma(q.dtype, hd, strides, (512,) * 4)
+    assert fa.route(q.dtype, hd, strides, (512,) * 4) == "wgmma"
