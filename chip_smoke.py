@@ -117,9 +117,14 @@ s. The hybrid and xlstm families (lines ``[s]``, run after phase m, whose
    shared block after every 6 layers: 32 heads of 112, window 4,096, d_ff
    14,336; vocab 32,000, bf16, 13.5 GB of weights), ``attn_impl="pallas"``,
    B = 4, 1024-token prompts, 32 greedy tokens, after a warm-up at 64
-   tokens: 13 K4 launches, all on the tensor-core kernel; finite logits,
-   tokens in range; prefill ms, decode tok/s and peak memory beside the
-   bounds of :func:`_ssm_bounds`.  (b) On the same weights, group by
+   tokens: 13 K4 launches, all on the tensor-core kernel, and 81 S1
+   launches (the Mamba2 recurrence, ``csrc/ssm_scan.cu``) in the prefill
+   and in each decode step; finite logits, tokens in range; prefill ms,
+   decode tok/s and peak memory beside the bounds of :func:`_ssm_bounds`;
+   the same ``run_lm`` on the recurrences' plain twins (the route before
+   the ops), its prefill ms and decode tok/s beside the kernels', its
+   logits' gap and greedy tokens as information.  (b) On the same weights,
+   group by
    group on the K4 route's stream: each shared block's output on K4
    against the chunked route's within 5e-2 of max |x|; the whole model's
    last-position logits of the two routes as information, beside a
@@ -134,9 +139,20 @@ s. The hybrid and xlstm families (lines ``[s]``, run after phase m, whose
    step, and from these the whole prefill's split.  (d) In float32 at full
    width, B = 1, T = 64, TF32 off: one zamba2 Mamba2 layer and one
    xlstm-125m m/s pair on the card against the CPU, within 1e-4 of max
-   |leaf|.  (e) ``run_lm`` on xlstm-125m at full size (12 layers, d 768, 4
-   heads of 192, vocab 50,304), B = 4, T = 1,024, 32 tokens: finite, in
-   range, timed beside its bounds; it launches no kernel.
+   |leaf|, the recurrences on S1-S3.  (e) ``run_lm`` on xlstm-125m at
+   full size (12 layers, d 768, 4 heads of 192, vocab 50,304), B = 4,
+   T = 1,024, 32 tokens: finite, in range, timed beside its bounds; 6 S2
+   and 6 S3 launches in the prefill and in each decode step and no other
+   kernel; the same on the twins, as for zamba2.  (g) Each recurrence
+   kernel against its twin on the card on the operands of the first layer
+   of its kind (zamba2's first Mamba2 layer, xlstm's first pair, at B = 4,
+   T = 1,024 of ``run_lm``'s prompt), a state carried in (the one the
+   kernel leaves after the T steps), over all T steps and over the first
+   step alone (the decode shape): max |delta| / max |.| of y and of each
+   state within 1e-4, and whether the states are bitwise the twin's; each
+   timed (events and device ms) beside the twin and the bound (operands
+   read and outputs written once, phase s's float32 count at 67
+   TFLOP/s).
 e. The encoder family and the mixed frontend (lines ``[e]``, run after
    phase s, whose weights are freed first): (a) hubert-xlarge at full size
    (48 layers, d 1280, 16 heads of 80, d_ff 5120, vocab 504, bf16: 0.946 B
@@ -251,7 +267,8 @@ d. The mesh, sharding and dry-run layer and distributed HFL (lines
    ``launches_x_path``, ``launches_train_path``, ``launches_f32_path``,
    ``launches_moe_path``, ``launches_ssm_path``,
    ``launches_encoder_path`` and ``launches_vlm_path``: only K4's
-   wgmma kernel may launch on phases s's and e's paths, only its 3xTF32
+   wgmma kernel may launch on phase e's paths, only it and S1-S3 on phase
+   s's (whose counts are S1-S3's ``launches``), only its 3xTF32
    kernel on phase a's, only the cluster K2 and K3 on phase x's, and no
    kernel on phase l's; the two cluster kernels' ``launches`` are phase
    x's and the 3xTF32 kernel's phase a's), each
@@ -325,8 +342,9 @@ MOE_RANGES = ("moe.dispatch", "moe.experts", "moe.combine", "moe.shared")
 # of 32 heads of 112 with window 4,096 and a SwiGLU of 14,336 after every 6
 # layers, vocab 32,000, bf16: 13.5 GB of weights) and xlstm-125m; B = 4,
 # 1,024-token prompts, 32 tokens, zamba2 on K4.  The card against the CPU
-# in float32 (one Mamba2 layer, one xLSTM pair): max |delta| within this
-# share of max |leaf| (the same arithmetic in other summation orders).
+# in float32 (one Mamba2 layer, one xLSTM pair, the recurrences on S1-S3):
+# max |delta| within this share of max |leaf| (the same arithmetic in other
+# summation orders).
 SSM_ARCH, XLSTM_ARCH = "zamba2-7b", "xlstm-125m"
 SSM_CPU_TOL = 1e-4
 SSM_RANGES = ("hybrid.mamba", "hybrid.shared")
@@ -1241,7 +1259,9 @@ def _by_kernel(c: dict) -> dict:
             "flash_attention": (c["flash_attention"]
                                 - c["flash_attention_sm90"]
                                 - c["flash_attention_sm90_f32"]),
-            "rmsnorm": c["rmsnorm"]}
+            "rmsnorm": c["rmsnorm"],
+            "mamba2_scan": c["mamba2_scan"], "mlstm_scan": c["mlstm_scan"],
+            "slstm_scan": c["slstm_scan"]}
 
 
 def _k2_operands(scn, assigns):
@@ -2691,6 +2711,170 @@ def _ssm_serve(cfg, dev, tag: str) -> dict:
             "step_ms": step_ms}
 
 
+# S1-S3 (csrc/ssm_scan.cu): each op's name, its kernel's name in a trace,
+# the ``lax.scan`` it replaces, and how many of its leading operands run
+# along the time axis (sLSTM's R and every state follow them).
+SSM_SCANS = {
+    "mamba2_scan": ("mamba2_scan_kernel", "src/repro/models/ssm.py:103", 4),
+    "mlstm_scan": ("mlstm_scan_kernel", "src/repro/models/ssm.py:159", 5),
+    "slstm_scan": ("slstm_scan_kernel", "src/repro/models/ssm.py:205", 4),
+}
+# Each kernel against its twin: max |delta| within this share of max |.|
+# of y and of each state (the read-outs and sLSTM's h . R add in other
+# orders; phase s (d)'s limit).
+SSM_KERNEL_TOL = 1e-4
+
+
+def _scan_operands(fn) -> dict:
+    """A copy of the operands of each recurrence op's first call in
+    ``fn()``, by op name ("mamba2_scan", ...)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Capture(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.args = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.namespace == "repro_torch" and \
+                    func._opname not in self.args:
+                self.args[func._opname] = tuple(a.clone() for a in args)
+            return func(*args, **(kwargs or {}))
+
+    with Capture() as cap:
+        fn()
+    return cap.args
+
+
+def _ssm_f32_flops(name: str, B: int, T: int, H: int, hd: int,
+                   ds: int = 0) -> int:
+    """Phase s's float32 count of one recurrence (``_ssm_bounds``'s per
+    layer): Mamba2 5 a state element a step, mLSTM 6, sLSTM its h . R."""
+    if name == "mamba2_scan":
+        return B * T * 5 * H * ds * hd
+    if name == "mlstm_scan":
+        return B * T * 6 * H * hd * hd
+    return B * T * 2 * H * hd * 4 * hd
+
+
+def _ssm_kernel_row(name: str, args: tuple, tag: str, time_it: bool = True,
+                    carry: bool = True) -> dict:
+    """One recurrence kernel against its plain twin on the same operands
+    ``args`` (each op's own order): with ``carry`` the state the kernel
+    leaves after the T steps from the given one is carried in, then the
+    kernel and the twin run from it over all T steps and over the first
+    step alone (the decode shape).  Raises past ``SSM_KERNEL_TOL`` of max
+    |.| on y or any state.  With ``time_it`` at all T: CUDA-event ms of
+    one call, its device ms (``_queued_ms``), the twin's ms and the bound
+    (operands read and outputs written once; ``_ssm_f32_flops`` at the
+    FP32 peak)."""
+    import torch
+
+    from repro_torch.kernels import ops, ref, ssm_scan
+
+    op = getattr(ssm_scan, name)
+    twin = getattr(ref, name.replace("_scan", "_recurrence_plain"))
+    kernel, replaces, n_time = SSM_SCANS[name]
+    first = op(*args)
+    if carry:
+        args = args[:-(len(first) - 1)] + tuple(first[1:])
+    torch.cuda.synchronize()
+    B, T, H, hd = first[0].shape
+    step = tuple(a[:, :1] for a in args[:n_time]) + args[n_time:]
+    row = {"name": name, "shape": [B, T, H, hd]}
+    for key, ops_ in (("T", args), ("T1", step)):
+        before = ops.LAUNCHES[name]
+        got = op(*ops_)
+        torch.cuda.synchronize()
+        _check(ops.LAUNCHES[name] == before + 1, f"{name} did not launch")
+        want = twin(*ops_)
+        rels = [float((g - w).abs().max() / w.abs().max())
+                for g, w in zip(got, want)]
+        _check(all(g.shape == w.shape for g, w in zip(got, want))
+               and max(rels) <= SSM_KERNEL_TOL,
+               f"{tag} {name} at T = {ops_[0].shape[1]}: max |delta| / max "
+               f"|.| of (y, states) {rels} (limit {SSM_KERNEL_TOL})")
+        row[f"rel_{key}"] = rels
+        row[f"state_bitwise_{key}"] = all(
+            torch.equal(g, w) for g, w in zip(got[1:], want[1:]))
+        if key == "T":
+            row["max_abs_err"] = _max_abs_err(got, want)
+    if time_it:
+        call = lambda: op(*args)  # noqa: E731
+        ds = args[1].shape[-1] if name == "mamba2_scan" else 0
+        flops = _ssm_f32_flops(name, B, T, H, hd, ds)
+        nbytes = sum(a.numel() * 4 for a in args) + sum(
+            y.numel() * 4 for y in op(*args))
+        bound, by = _bound_ms(nbytes, flops)
+        row.update(ms=_time_ms(call, 10), device_ms=_queued_ms(call, 10),
+                   plain_ms=_time_ms(lambda: twin(*args), 1), bound_ms=bound,
+                   bound_by=by, f32_flops=flops, nbytes=nbytes)
+    print(f"{tag} {name} ({kernel}) at (B, T, H, hd) = {row['shape']}"
+          + (f", ds {args[1].shape[-1]}" if name == "mamba2_scan" else "")
+          + f", a state carried in: max |delta| / max |.| of (y, states) "
+          f"{json.dumps([float(f'{r:.3g}') for r in row['rel_T']])} over "
+          f"T = {T} and "
+          f"{json.dumps([float(f'{r:.3g}') for r in row['rel_T1']])} at "
+          f"T = 1 (limit {SSM_KERNEL_TOL}); states bitwise the twin's: "
+          f"{row['state_bitwise_T']} and {row['state_bitwise_T1']}"
+          + (f"; {row['ms']:.4g} ms events, {row['device_ms']:.4g} ms "
+             f"device, twin {row['plain_ms']:.4g} ms, bound "
+             f"{row['bound_ms']:.4g} ms by {row['bound_by']} "
+             f"({row['f32_flops']:.4g} f32 flop, {row['nbytes']:.4g} bytes)"
+             if time_it else ""))
+    return row
+
+
+@contextlib.contextmanager
+def _twin_recurrences():
+    """``models.ssm``'s recurrences on their plain twins (the route before
+    the ops: each step a few eager kernels), for timing that route on the
+    same card."""
+    import types
+
+    from repro_torch.kernels import ref
+    from repro_torch.models import ssm
+
+    saved = ssm.ssm_scan
+    ssm.ssm_scan = types.SimpleNamespace(
+        mamba2_scan=ref.mamba2_recurrence_plain,
+        mlstm_scan=ref.mlstm_recurrence_plain,
+        slstm_scan=ref.slstm_recurrence_plain)
+    try:
+        yield
+    finally:
+        ssm.ssm_scan = saved
+
+
+def _twin_route(cfg, dev, kernels: dict, tag: str) -> dict:
+    """``run_lm`` as ``_ssm_serve`` runs it, on the twins: its prefill ms
+    beside the kernels' run ``kernels``, the last-position logits' gap
+    and the greedy tokens that agree (information: bf16 rounds each
+    layer's output, and the kernels' read-outs add in other orders)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import run_lm
+
+    ops.reset_launches()
+    with _twin_recurrences():
+        out = run_lm(cfg, batch=LM_B, prompt_len=LM_T, new_tokens=LM_NEW,
+                     seed=0, device=dev)
+    torch.cuda.synchronize()
+    _check(ops.LAUNCHES["ssm_scan"] == 0, f"{tag}: a recurrence kernel "
+           f"launched on the twins' route")
+    lt, lk = out["logits"].float(), kernels["run"]["logits"].float()
+    gap = float((lt - lk).abs().max() / lt.abs().max())
+    same = float((out["tokens"] == kernels["run"]["tokens"]).mean())
+    print(f"[s] {tag} on the twins (the route before the ops): prefill "
+          f"{out['prefill_s'] * 1e3:.3f} ms, decode {out['tok_per_s']:.2f} "
+          f"tok/s, against {kernels['run']['prefill_s'] * 1e3:.3f} ms and "
+          f"{kernels['run']['tok_per_s']:.2f} tok/s on the kernels; "
+          f"last-position logits {gap:.4g} of max |logit| apart, "
+          f"{same:.4f} of the greedy tokens equal (information)")
+    return {"run": out, "gap": gap, "same_tokens": same}
+
+
 def _ssm_path(dev) -> dict:
     """Phase s: the hybrid and xlstm families through ``run_lm`` at full
     width and depth, on K4 (zamba2); on zamba2's weights the chunked route
@@ -2727,6 +2911,15 @@ def _ssm_path(dev) -> dict:
     print(f"[s] K4 launches in the run: {counts['flash_attention']} (one "
           f"per shared-attention application of one prefill), "
           f"{counts['flash_attention_sm90']} on the tensor cores")
+    per_run = L * (1 + LM_NEW)
+    _check(counts["mamba2_scan"] == counts["ssm_scan"] == per_run
+           and counts["mlstm_scan"] == counts["slstm_scan"] == 0,
+           f"{SSM_ARCH}'s run launched S1 {counts['mamba2_scan']} times "
+           f"(want {L} a prefill and {L} a decode step: {per_run}), S2 "
+           f"{counts['mlstm_scan']} and S3 {counts['slstm_scan']} times")
+    print(f"[s] S1 launches in the run: {counts['mamba2_scan']} ({L} in the "
+          f"prefill and {L} in each of {LM_NEW} decode steps)")
+    a_twin = _twin_route(flash, dev, a, SSM_ARCH)
 
     gen = torch.Generator(device=dev).manual_seed(0)
     traced = {}
@@ -2782,8 +2975,7 @@ def _ssm_path(dev) -> dict:
               f"against 1,024: {control:.4g}")
 
         # (f) Traces: one Mamba2 layer's prefill, one shared group, four
-        # decode steps from the chunked prefill's cache (the whole prefill
-        # launches ~10^6 kernels).
+        # decode steps from the chunked prefill's cache.
         x, positions, _ = tf.embed_inputs(flash, params, {"tokens": toks})
         p0 = tf._layers(params["blocks"]["mamba"])[0]
         walls = {"mamba": _wall_ms(lambda: tf._mamba_apply(flash, p0, x)),
@@ -2811,6 +3003,11 @@ def _ssm_path(dev) -> dict:
         traced["decode"] = {}
         _profile("[s]", "4 traced decode steps", decode, traced["decode"],
                  SSM_RANGES)
+        # (g) S1 against its twin on the first Mamba2 layer's operands of
+        # the prompt, a state carried in.
+        rows = {"mamba2_scan": _ssm_kernel_row(
+            "mamba2_scan", _scan_operands(lambda: tf._mamba_apply(
+                flash, p0, x))["mamba2_scan"], "[s] (g)")}
         del cache, x, mm, p0
 
         # (c) The re-layout at full width and depth, in float32 with TF32
@@ -2924,14 +3121,40 @@ def _ssm_path(dev) -> dict:
           f"state: {json.dumps(shown)} (limit {SSM_CPU_TOL})")
     del pm, px
 
-    # (e) xlstm-125m at full size.
+    # (e) xlstm-125m at full size: S2 and S3 once a pair a prefill and a
+    # decode step, no other kernel.
     x_run = _ssm_serve(xcfg, dev, XLSTM_ARCH)
-    _check(sum(x_run["counts"].values()) == 0,
-           f"{XLSTM_ARCH} launched a kernel: {x_run['counts']}")
+    xc, pairs = x_run["counts"], xcfg.n_layers // 2
+    per_run = pairs * (1 + LM_NEW)
+    _check(xc["mlstm_scan"] == xc["slstm_scan"] == per_run
+           and xc["ssm_scan"] == 2 * per_run and all(
+               n == 0 for k, n in xc.items()
+               if k not in ("ssm_scan", "mlstm_scan", "slstm_scan")),
+           f"{XLSTM_ARCH}'s run: want S2 and S3 {pairs} times a prefill and "
+           f"a decode step ({per_run} each) and nothing else, got {xc}")
+    print(f"[s] S2 and S3 launches in the run: {xc['mlstm_scan']} and "
+          f"{xc['slstm_scan']} ({pairs} each in the prefill and in each of "
+          f"{LM_NEW} decode steps)")
+    x_twin = _twin_route(xcfg, dev, x_run, XLSTM_ARCH)
+    # (g) S2 and S3 against their twins on the first pair's operands of
+    # run_lm's prompt (its weights and prompt: the same generator), a
+    # state carried in.
+    gen = torch.Generator(device=dev).manual_seed(0)
+    with torch.inference_mode():
+        params = tf.init_params(xcfg, gen, dev)
+        toks = torch.randint(0, xcfg.vocab, (LM_B, LM_T), generator=gen,
+                             device=dev)
+        x = tf.embed_inputs(xcfg, params, {"tokens": toks})[0]
+        blk = tf._layers(params["blocks"])[0]
+        got = _scan_operands(lambda: tf._xlstm_pair(xcfg, blk, x))
+        for name in ("mlstm_scan", "slstm_scan"):
+            rows[name] = _ssm_kernel_row(name, got[name], "[s] (g)")
+        del params, x, blk, got
     seconds = time.perf_counter() - t_phase
     print(f"[s] phase s: {seconds:.1f} s")
     path = {k: counts[k] + x_run["counts"][k] for k in counts}
-    return {"counts": path, "zamba2": a, "xlstm": x_run,
+    return {"counts": path, "zamba2": a, "xlstm": x_run, "kernels": rows,
+            "twins": {"zamba2": a_twin, "xlstm": x_twin},
             "rel_b": max(groups), "rel_b_groups": groups, "gap_b": gap,
             "gap_b_control": control, "rel_c": rel_c, "cpu_errs": errs, "traced": traced,
             "est_prefill_wall_ms": est_wall, "walls": walls,
@@ -4005,6 +4228,9 @@ def main(argv: list[str]) -> int:
               "flash_attention_sm90_f32": a_counts["flash_attention_sm90_f32"],
               "flash_attention": _by_kernel(lmc)["flash_attention"],
               "rmsnorm": lmc["rmsnorm"]}
+    ssm_counts = _by_kernel(sp["counts"])
+    for name in SSM_SCANS:
+        counts[name] = ssm_counts[name]
     print(f"[9] kernels: {json.dumps(counts)} (ops.LAUNCHES of the LM run: "
           f"{json.dumps(lmc)})")
     print(f"[9] kernels on phase a's path ({LM_ARCH} in float32): "
@@ -4042,16 +4268,26 @@ def main(argv: list[str]) -> int:
     _check(moe_counts["flash_attention_sm90"] == mp["n_layers"],
            "flash_attention_sm90 did not launch once a layer on phase m's "
            "path")
-    ssm_counts = _by_kernel(sp["counts"])
     print(f"[9] kernels on phase s's path (zamba2-7b and xlstm-125m at full "
           f"size): {json.dumps(ssm_counts)}")
     _check(ssm_counts["flash_attention_sm90"] == sp["groups"],
            "flash_attention_sm90 did not launch once a shared-attention "
            "application on phase s's path")
     _check(all(n == 0 for k, n in ssm_counts.items()
-               if k != "flash_attention_sm90"),
-           f"a kernel other than K4's tensor-core kernel launched on phase "
-           f"s's path: {ssm_counts}")
+               if k != "flash_attention_sm90" and k not in SSM_SCANS),
+           f"a kernel other than K4's tensor-core kernel and S1-S3 launched "
+           f"on phase s's path: {ssm_counts}")
+    for name, (kernel, replaces, _) in SSM_SCANS.items():
+        r = sp["kernels"][name]
+        report[name] = dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/ssm_scan.cu",
+            replaces=replaces, max_abs_err=r["max_abs_err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], device_ms=r["device_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
+            kernel=kernel, shape=r["shape"], rel_err=r["rel_T"],
+            rel_err_T1=r["rel_T1"], state_bitwise=r["state_bitwise_T"],
+            path="phase s: run_lm, B = 4, T = 1,024, 32 tokens")
     enc_counts = _by_kernel(ep["encoder"]["counts"])
     vlm_counts = _by_kernel(ep["vlm"]["counts"])
     print(f"[9] kernels on phase e's paths: {ENC_ARCH}'s forward "
@@ -4181,8 +4417,18 @@ def main(argv: list[str]) -> int:
               f"{b['prefill_ms']:.4g} ms), decode {r['run']['tok_per_s']:.2f} "
               f"tok/s (bound {b['tok_per_s']:.4g}); peak "
               f"{r['peak_bytes'] / 2 ** 30:.2f} GiB")
+    for key, tag in (("zamba2", SSM_ARCH), ("xlstm", XLSTM_ARCH)):
+        r, t = sp[key]["run"], sp["twins"][key]
+        print(f"[9] ssm path, {tag} on the twins: prefill "
+              f"{t['run']['prefill_s'] * 1e3:.3f} ms against "
+              f"{r['prefill_s'] * 1e3:.3f} ms on the kernels, decode "
+              f"{t['run']['tok_per_s']:.2f} against {r['tok_per_s']:.2f} "
+              f"tok/s; logits {t['gap']:.4g} of max |logit| apart, "
+              f"{t['same_tokens']:.4f} of the greedy tokens equal")
     print(f"[9] ssm path: {ssm_counts['flash_attention_sm90']} K4 launches "
-          f"on the tensor cores; K4 against chunked {sp['rel_b']:.4g} of max "
+          f"on the tensor cores, S1 {ssm_counts['mamba2_scan']}, S2 "
+          f"{ssm_counts['mlstm_scan']}, S3 {ssm_counts['slstm_scan']}; K4 "
+          f"against chunked {sp['rel_b']:.4g} of max "
           f"|x| a shared block (whole model {sp['gap_b']:.4g}, control "
           f"{sp['gap_b_control']:.4g} of max |logit|), re-layout in f32 "
           f"{sp['rel_c']:.4g} of max |logit|; card against CPU at most "

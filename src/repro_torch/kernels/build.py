@@ -109,6 +109,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.flash_attention_sm90_f32.argtypes = lib.flash_attention_sm90.argtypes
     lib.flash_attention_sm90_f32_occupancy.argtypes = [i, p, p]
     lib.rmsnorm.argtypes = [p, p, p, i, ll, i, f, p]
+    lib.mamba2_scan.argtypes = [p] * 7 + [i] * 5 + [p]
+    lib.mlstm_scan.argtypes = [p] * 12 + [i] * 4 + [p]
+    lib.slstm_scan.argtypes = [p] * 14 + [i] * 4 + [p]
     lib.topk_moves_cluster_smem.restype = ctypes.c_longlong
     for fn in (lib.sroa_invert_rate, lib.sroa_solve, lib.sroa_solve_lanes,
                lib.sroa_solve_lanes_occupancy, lib.sroa_solve_cluster,
@@ -119,7 +122,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                lib.flash_attention, lib.flash_attention_sm90,
                lib.flash_attention_sm90_occupancy,
                lib.flash_attention_sm90_f32,
-               lib.flash_attention_sm90_f32_occupancy, lib.rmsnorm):
+               lib.flash_attention_sm90_f32_occupancy, lib.rmsnorm,
+               lib.mamba2_scan, lib.mlstm_scan, lib.slstm_scan):
         fn.restype = ctypes.c_int
     return lib
 

@@ -16,7 +16,9 @@ one-cluster one-thread-per-user kernels, ``topk_moves_warp`` and
 the one-cluster-per-cell kernels, and ``flash_attention_sm90`` and
 ``flash_attention_sm90_f32`` the K4 launches that took the bf16 and the
 f32 tensor-core kernels.  K4 refuses to run under autograd
-(:func:`flash_attention`).
+(:func:`flash_attention`).  The recurrences' ops (:mod:`ssm_scan`: S1-S3,
+no Pallas counterpart) count under ``ssm_scan`` (any of the three) and
+under ``mamba2_scan``, ``mlstm_scan`` and ``slstm_scan``.
 """
 from __future__ import annotations
 
@@ -30,7 +32,8 @@ LAUNCHES = {"sroa_invert": 0, "sroa_solve": 0, "sroa_solve_lanes": 0,
             "sroa_solve_cluster": 0, "topk_moves": 0, "topk_moves_warp": 0,
             "topk_moves_cluster": 0, "flash_attention": 0,
             "flash_attention_sm90": 0, "flash_attention_sm90_f32": 0,
-            "rmsnorm": 0}
+            "rmsnorm": 0, "ssm_scan": 0, "mamba2_scan": 0, "mlstm_scan": 0,
+            "slstm_scan": 0}
 
 
 def reset_launches() -> None:

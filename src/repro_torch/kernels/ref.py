@@ -26,6 +26,14 @@ numbers:
 * :func:`rmsnorm_plain`     — K5 (``csrc/rmsnorm.cu``): the sum of squares
   in the kernel's chunk-and-warp order (:func:`chunk_sum_plain`; bitwise
   up to ``rsqrt``).
+* :func:`mamba2_recurrence_plain`, :func:`mlstm_recurrence_plain` and
+  :func:`slstm_recurrence_plain` — S1, S2 and S3 (``csrc/ssm_scan.cu``):
+  the time loops of ``models/ssm.py``, from the first state-dependent
+  operation to the last, one step at a time in float32.  They have no
+  Pallas counterpart: each replaces a ``lax.scan`` of the JAX package's
+  ``models/ssm.py``.  The kernels take each state update in the twin's
+  rounding order; the read-outs and the sLSTM's recurrence product are
+  sums in other orders.
 """
 from __future__ import annotations
 
@@ -544,3 +552,80 @@ def rmsnorm_plain(x: torch.Tensor, scale: torch.Tensor,
         xf, float(d))
     y = xf * torch.rsqrt(var + eps)
     return (y * scale.float()).to(x.dtype).reshape(x.shape)
+
+
+# ------------------------------------------------ the recurrences (S1-S3)
+def softplus(x):
+    """``jax.nn.softplus``: max(x, 0) + log1p(exp(-|x|))."""
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def log_sigmoid(x):
+    """``jax.nn.log_sigmoid``: -softplus(-x)."""
+    return -softplus(-x)
+
+
+def mamba2_recurrence_plain(decay, Bm, Cm, dtx, s0):
+    """The Mamba2 time loop (S1): decay (B, T, H), Bm and Cm (B, T, ds),
+    dtx (B, T, H, hd) and s0 (B, H, ds, hd), all float32 ->
+    (y (B, T, H, hd), s_T).  A step: s = s * decay + B_t * (dt x)_t, then
+    y_t = C_t . s, a (1, ds) @ (ds, hd) product a head."""
+    s = s0
+    ys = []
+    for dec, Bt, Ct, ut in zip(decay.unbind(1), Bm.unbind(1), Cm.unbind(1),
+                               dtx.unbind(1)):
+        s = s * dec[:, :, None, None] + Bt[:, None, :, None] * ut[:, :, None]
+        # einsum("bs,bhsd->bhd", C_t, s) as a (1, ds) @ (ds, hd) product
+        # a head.
+        ys.append(torch.matmul(Ct[:, None, None, :], s))          # (B,H,1,hd)
+    y = torch.cat(ys, dim=2).transpose(1, 2)                      # (B,T,H,hd)
+    return y, s
+
+
+def mlstm_recurrence_plain(q, k, v, log_i, log_f, C0, n0, m0):
+    """The mLSTM time loop (S2): q, k, v (B, T, H, hd) (q and k already
+    scaled), log_i, log_f (B, T, H), C0 (B, H, hd, hd), n0 (B, H, hd), m0
+    (B, H), all float32 -> (y = num / den (B, T, H, hd), C, n, m)."""
+    C, n, m = C0, n0, m0
+    ys = []
+    for qt, kt, vt, li, lf in zip(q.unbind(1), k.unbind(1), v.unbind(1),
+                                  log_i.unbind(1), log_f.unbind(1)):
+        lfm = lf + m
+        m_new = torch.maximum(lfm, li)                            # (B,H)
+        f_ = torch.exp(lfm - m_new)
+        i_ = torch.exp(li - m_new)
+        C = C * f_[..., None, None] + i_[..., None, None] * (
+            kt[..., :, None] * vt[..., None, :])
+        n = n * f_[..., None] + i_[..., None] * kt
+        num = torch.matmul(qt[..., None, :], C)[..., 0, :]        # bhk,bhkv
+        den = torch.clamp_min(torch.abs((qt * n).sum(-1)), 1.0)
+        ys.append(num / den[..., None])
+        m = m_new
+    return torch.stack(ys, dim=1), C, n, m
+
+
+def slstm_recurrence_plain(zx, ix, fx, ox, R, c0, n0, m0, h0):
+    """The sLSTM time loop (S3): the gates' input terms zx, ix, fx, ox
+    (B, T, H, hd), the four recurrences R = [rz | ri | rf | ro] (H, hd,
+    4 hd) and c0, n0, m0, h0 (B, H, hd), all float32 -> (y (B, T, H, hd),
+    c, n, m, h); y holds h after each step."""
+    hd = zx.shape[-1]
+    c, n, m, h = c0, n0, m0, h0
+    ys = []
+    for zt, it, ft, ot in zip(zx.unbind(1), ix.unbind(1), fx.unbind(1),
+                              ox.unbind(1)):
+        # The four recurrences h @ r (einsum "bhd,hde->bhe") in one product.
+        rz, ri, rf, ro = torch.einsum("bhd,hde->bhe", h, R).split(hd, -1)
+        z = torch.tanh(zt + rz)
+        li = it + ri
+        lf = log_sigmoid(ft + rf)
+        o = torch.sigmoid(ot + ro)
+        lfm = lf + m
+        m_new = torch.maximum(lfm, li)
+        f_, i_ = torch.exp(lfm - m_new), torch.exp(li - m_new)
+        c = c * f_ + i_ * z
+        n = n * f_ + i_
+        h = o * c / torch.clamp_min(torch.abs(n), 1.0)
+        m = m_new
+        ys.append(h)
+    return torch.stack(ys, dim=1), c, n, m, h

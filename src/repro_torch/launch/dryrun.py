@@ -33,7 +33,12 @@ its cache in place), ``compile_s`` and ``generated_code_size_in_bytes``
 ``bytes_per_device`` (no cost analysis).  The reference's HLO parser
 (``collective_bytes`` with its loop trip counts) has no counterpart: torch
 emits no HLO and runs its layer and time loops eagerly, so every
-collective is seen as often as it runs.  The peak is eager PyTorch's:
+collective is seen as often as it runs.  The recurrences of the hybrid
+and xlstm families are one op a layer (:mod:`repro_torch.kernels.
+ssm_scan`), which the ``meta`` run takes through its fake implementation
+and its FLOP formula, as the reference's ``lax.scan`` is one loop; only
+their backward passes (train cells) still run as Python loops over the
+time steps.  The peak is eager PyTorch's:
 no fusion, no rematerialisation beyond ``cfg.remat``'s checkpoints, and
 DTensor's sharding propagation, not GSPMD's, decides the layouts between
 the constraints.
@@ -82,8 +87,9 @@ _COLLECTIVE_OPS = {
     "reduce_scatter_tensor_coalesced": "reduce-scatter",
     "all_to_all_single": "all-to-all", "shard_dim_alltoall": "all-to-all",
 }
-# A scan's time steps (sequence length x scanned layers) beyond which a
-# cell is skipped: the recurrences run as Python loops of ~8 ops a step.
+# A train cell's recurrence time steps (sequence length x scanned layers)
+# beyond which it is skipped: the backward passes of the recurrences run
+# as Python loops of ~8 ops a step (the forward is one op a layer).
 MAX_SCAN_STEPS = 1 << 12
 
 
@@ -305,9 +311,9 @@ def apply_variant(cfg, rules, variant: str, n_devices: int, multi_pod: bool):
 
 
 def scan_steps(cfg: tf.ArchConfig, shape: shp.ShapeSpec) -> int:
-    """Time steps the cell's recurrences run as Python loops: sequence
-    length x scanned layers for the hybrid and xlstm families (0 for the
-    attention families, 1 token a layer at decode)."""
+    """Time steps of the cell's recurrences: sequence length x scanned
+    layers for the hybrid and xlstm families (0 for the attention
+    families, 1 token a layer at decode)."""
     if cfg.family not in ("mamba_hybrid", "xlstm"):
         return 0
     return cfg.n_layers * (1 if shape.kind == "decode" else shape.seq_len)
@@ -477,10 +483,12 @@ def run_cell(arch: str, shape_name, multi_pod: bool,
     ok, reason = shp.applicable(cfg, shape)
     rules = rules or sh.default_rules(multi_pod=multi_pod)
     cfg, rules = apply_variant(cfg, rules, variant, n_devices, multi_pod)
-    if ok and scan_steps(cfg, shape) > MAX_SCAN_STEPS:
+    if ok and shape.kind == "train" and \
+            scan_steps(cfg, shape) > MAX_SCAN_STEPS:
         ok, reason = False, (
             f"{scan_steps(cfg, shape):,} recurrence time steps (seq_len x "
-            f"layers) run as Python loops, beyond {MAX_SCAN_STEPS:,}")
+            f"layers): the backward recurrences still run as Python loops, "
+            f"beyond {MAX_SCAN_STEPS:,} steps")
     if not ok:
         rec.update(status="skipped", reason=reason)
         return rec

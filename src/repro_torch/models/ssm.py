@@ -1,13 +1,24 @@
 """State-space and recurrent blocks: Mamba2 (zamba2) and xLSTM (mLSTM,
 sLSTM), the JAX package's ``models/ssm.py``.
 
-Every block has one form for a whole sequence and for one decode step: an
-explicit Python loop over T that carries the recurrent state, float32
-states, and an optional initial state, so that a step at T = 1 from a
-decode cache is the same function as the prefill.  The reference's time
-scan is its paper-faithful baseline (its chunked SSD form is a hillclimb
-item), and the port keeps it: on the card each step is a handful of
-small eager kernels, so the loop is bound by the host's launches.
+Every block has one form for a whole sequence and for one decode step:
+float32 states and an optional initial state, so that a step at T = 1
+from a decode cache is the same function as the prefill.  The reference's
+time scan is its paper-faithful baseline (its chunked SSD form is a
+hillclimb item), and the port keeps its sequential recurrence.  As the
+reference runs each recurrence as one ``lax.scan``, the port runs it as
+one op (:mod:`repro_torch.kernels.ssm_scan`: S1 Mamba2, S2 mLSTM, S3
+sLSTM): the plain twin's time loop on the CPU, one kernel launch with the
+state on the chip on a card, shapes only on ``meta`` (the dry-run).  The
+work that does not depend on the state (the projections, the causal conv,
+the decay exp(dt A), dt * x, the gates' input terms) is done for all T
+before the op, the output projection after it.
+
+The route (:func:`_recurrence`) is a pure function of the operands: with
+grad mode on and an operand that requires grad, the scan calls the twin
+itself on either device (the ops have no autograd formula; the gradient
+flows through the twin's loop); else it calls the op, whose CUDA
+implementation launches the kernel or raises.
 
 Where the two frameworks could round differently, the reference's
 formulas are copied rather than PyTorch's shortcuts:
@@ -22,29 +33,27 @@ formulas are copied rather than PyTorch's shortcuts:
 * the Mamba2 update ``einsum("bs,bh,bhd->bhsd")`` is written as the
   product B_t * (dt_t * x_t): the same three factors, one rounding order
   (the reference leaves its order to the einsum's contraction path).
-
-Elementwise work that does not depend on the state (the decay exp(dt A),
-dt * x, the casts) is done for all T before the loop.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ref, ssm_scan
+from repro_torch.kernels.ref import log_sigmoid, softplus
 from repro_torch.models.layers import init_dense
 
 CONV_W = 4  # causal depthwise conv width used by Mamba2
 NEG_INIT = -1e30  # the xLSTM stabilisers' initial value
 
 
-def softplus(x):
-    """``jax.nn.softplus``: max(x, 0) + log1p(exp(-|x|))."""
-    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
-
-
-def log_sigmoid(x):
-    """``jax.nn.log_sigmoid``: -softplus(-x)."""
-    return -softplus(-x)
+def _recurrence(op, twin, *operands):
+    """``twin(*operands)`` when grad mode is on and an operand requires
+    grad (the training route: the op has no backward), else
+    ``op(*operands)``."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
+        return twin(*operands)
+    return op(*operands)
 
 
 # =========================================================== Mamba2 (SSD)
@@ -124,14 +133,8 @@ def mamba2_scan(params, x, d_state, headdim=64, state=None, conv_state=None):
 
     s = (torch.zeros((B_, n_heads, d_state, headdim), dtype=torch.float32,
                      device=x.device) if state is None else state)
-    ys = []
-    for dec, Bt, Ct, ut in zip(decay.unbind(1), Bm.float().unbind(1),
-                               Cm.float().unbind(1), dtx.unbind(1)):
-        s = s * dec[:, :, None, None] + Bt[:, None, :, None] * ut[:, :, None]
-        # einsum("bs,bhsd->bhd", C_t, s) as a (1, ds) @ (ds, hd) product
-        # a head.
-        ys.append(torch.matmul(Ct[:, None, None, :], s))          # (B,H,1,hd)
-    y = torch.cat(ys, dim=2).transpose(1, 2)                      # (B,T,H,hd)
+    y, s = _recurrence(ssm_scan.mamba2_scan, ref.mamba2_recurrence_plain,
+                       decay, Bm.float(), Cm.float(), dtx, s)   # (B,T,H,hd)
     y = y + params["D"][None, None, :, None] * xh
     y = (y.reshape(B_, T, d_inner) * F.silu(z.float())).to(x.dtype)
     return y @ params["out_proj"], (s, conv_state)
@@ -165,23 +168,10 @@ def mlstm_scan(params, x, n_heads, state=None):
         state = (torch.zeros((B, n_heads, hd, hd), **f32),
                  torch.zeros((B, n_heads, hd), **f32),
                  torch.full((B, n_heads), NEG_INIT, **f32))
-    C, n, m = state
-    ys = []
-    for qt, kt, vt, li, lf in zip(q.float().unbind(1), k.float().unbind(1),
-                                  v.float().unbind(1), log_i.unbind(1),
-                                  log_f.unbind(1)):
-        lfm = lf + m
-        m_new = torch.maximum(lfm, li)                            # (B,H)
-        f_ = torch.exp(lfm - m_new)
-        i_ = torch.exp(li - m_new)
-        C = C * f_[..., None, None] + i_[..., None, None] * (
-            kt[..., :, None] * vt[..., None, :])
-        n = n * f_[..., None] + i_[..., None] * kt
-        num = torch.matmul(qt[..., None, :], C)[..., 0, :]        # bhk,bhkv
-        den = torch.clamp_min(torch.abs((qt * n).sum(-1)), 1.0)
-        ys.append(num / den[..., None])
-        m = m_new
-    y = torch.stack(ys, dim=1).reshape(B, T, d).to(x.dtype)
+    y, C, n, m = _recurrence(ssm_scan.mlstm_scan,
+                             ref.mlstm_recurrence_plain, q.float(),
+                             k.float(), v.float(), log_i, log_f, *state)
+    y = y.reshape(B, T, d).to(x.dtype)
     return y @ params["wo"], (C, n, m)
 
 
@@ -214,21 +204,8 @@ def slstm_scan(params, x, n_heads, state=None):
         state = (zeros, zeros, torch.full_like(zeros, NEG_INIT), zeros)
     # The four recurrences h @ r (einsum "bhd,hde->bhe") in one product.
     R = torch.cat([params[k].float() for k in ("rz", "ri", "rf", "ro")], -1)
-    c, n, m, h = state
-    ys = []
-    for zt, it, ft, ot in zip(*(g.unbind(1) for g in gates)):
-        rz, ri, rf, ro = torch.einsum("bhd,hde->bhe", h, R).split(hd, -1)
-        z = torch.tanh(zt + rz)
-        li = it + ri
-        lf = log_sigmoid(ft + rf)
-        o = torch.sigmoid(ot + ro)
-        lfm = lf + m
-        m_new = torch.maximum(lfm, li)
-        f_, i_ = torch.exp(lfm - m_new), torch.exp(li - m_new)
-        c = c * f_ + i_ * z
-        n = n * f_ + i_
-        h = o * c / torch.clamp_min(torch.abs(n), 1.0)
-        m = m_new
-        ys.append(h)
-    y = torch.stack(ys, dim=1).reshape(B, T, d).to(x.dtype)
+    y, c, n, m, h = _recurrence(ssm_scan.slstm_scan,
+                                ref.slstm_recurrence_plain, *gates, R,
+                                *state)
+    y = y.reshape(B, T, d).to(x.dtype)
     return y @ params["w_out"], (c, n, m, h)

@@ -902,12 +902,21 @@ def prefill_cache_to_decode(cfg: ArchConfig, cache, context=None):
     G, B, T = cache["attn_k"].shape[:3]
     S = T if context is None else context
     W = min(cfg.window or S, S)
-    tok = torch.arange(max(0, T - W), T, device=ssm.device)
     out = {"ssm": ssm, "conv": conv, "pos": cache["pos"]}
     for key in ("attn_k", "attn_v"):
-        kv = cache[key]
-        ring = kv.new_zeros((G, B, W) + kv.shape[3:])
-        ring[:, :, tok % W] = kv[:, :, tok]
+        # Token t to slot t % W: the last min(T, W) tokens, zero-padded
+        # when fewer than W, else rotated by (T - W) % W.  Slices and a
+        # cat, not an indexed write: DTensor has no sharding rule for
+        # index_put_ in some PyTorch releases (2.11).
+        last = cache[key][:, :, max(0, T - W):]
+        s = (T - W) % W if T >= W else 0
+        if T < W:
+            ring = torch.cat([last, last.new_zeros(
+                (G, B, W - T) + last.shape[3:])], 2)
+        elif s == 0:
+            ring = last.clone()
+        else:
+            ring = torch.cat([last[:, :, W - s:], last[:, :, :W - s]], 2)
         out[key] = ring
     return out
 

@@ -1,11 +1,12 @@
-"""The port's hand-written CUDA kernels (K1-K5) against their plain
-PyTorch twins, on a card (K2's and K3's two kernels and every speculation
-depth of K1 and K2 bitwise), and the served paths on the card against the
-CPU (the trainer, the moe model and its dispatch, the hybrid and xlstm
-models), distributed HFL on NCCL and gloo against one process, and the
-dry-run's argument bytes against what the card allocates.  Every test here is
-marked ``cuda`` and skips itself when ``torch.cuda.is_available()`` is
-false; this file imports neither JAX nor the JAX package, so it runs on a
+"""The port's hand-written CUDA kernels (K1-K5, and S1-S3 for the
+recurrences) against their plain PyTorch twins, on a card (K2's and K3's
+two kernels and every speculation depth of K1 and K2 bitwise; S1's state
+bitwise), and the served paths on the card against the CPU (the trainer,
+the moe model and its dispatch, the hybrid and xlstm models), distributed
+HFL on NCCL and gloo against one process, and the dry-run's argument
+bytes against what the card allocates.  Every test here is marked
+``cuda`` and skips itself when ``torch.cuda.is_available()`` is false;
+this file imports neither JAX nor the JAX package, so it runs on a
 machine that has only PyTorch:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -990,6 +991,74 @@ def test_hybrid_and_xlstm_reduced_models_on_the_card_match_the_cpu(
                                                      dcache)
     for got, want in zip(_leaves(out["cuda"]), _leaves(out["cpu"])):
         torch.testing.assert_close(got.cpu(), want, **tol)
+
+
+# (op, B, H, hd, ds): the reduced configs' widths (zamba2: ds 16, hd 16;
+# xlstm: 4 heads of 32).
+_SCANS = (("mamba2_scan", 2, 3, 16, 16), ("mlstm_scan", 2, 2, 32, 0),
+          ("slstm_scan", 2, 2, 32, 0))
+
+
+def _scan_operands(name, B, T, H, hd, ds, dev, seed=0):
+    """Seeded float32 operands of one recurrence op, a non-zero state."""
+    g = torch.Generator().manual_seed(seed)
+
+    def rn(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=g)).to(dev)
+
+    if name == "mamba2_scan":
+        return (torch.exp(-torch.rand((B, T, H), generator=g)).to(dev),
+                rn(B, T, ds), rn(B, T, ds), rn(B, T, H, hd, scale=0.1),
+                rn(B, H, ds, hd))
+    if name == "mlstm_scan":
+        s = hd ** -0.5
+        return (rn(B, T, H, hd, scale=s), rn(B, T, H, hd, scale=s),
+                rn(B, T, H, hd), rn(B, T, H), rn(B, T, H) - 2.0,
+                rn(B, H, hd, hd, scale=0.1), rn(B, H, hd), rn(B, H))
+    return (*(rn(B, T, H, hd) for _ in range(4)),
+            rn(H, hd, 4 * hd, scale=hd ** -0.5),
+            *(rn(B, H, hd) for _ in range(4)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 64])
+@pytest.mark.parametrize("name,B,H,hd,ds", _SCANS)
+def test_recurrence_kernels_match_their_twins(cuda, name, B, H, hd, ds, T):
+    """S1-S3 at the reduced widths, a state carried in: y and every state
+    within 1e-4 of the twin's max |.| on the card (the read-outs and h . R
+    add in other orders); S1's state bitwise (its update reads no sum)."""
+    from repro_torch.kernels import ssm_scan
+
+    args = _scan_operands(name, B, T, H, hd, ds, cuda)
+    got = _launched(name, lambda: getattr(ssm_scan, name)(*args))
+    want = getattr(ref, name.replace("_scan", "_recurrence_plain"))(*args)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+    if name == "mamba2_scan":
+        assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_recurrence_kernels_raise_and_never_fall_back(cuda):
+    """A width the kernels do not take raises before any launch, on the
+    card as the op's CUDA implementation; an error the launch returns
+    raises too, and neither counts a launch."""
+    from repro_torch.kernels import build, ssm_scan
+
+    before = dict(ops.LAUNCHES)
+    args = _scan_operands("mamba2_scan", 1, 4, 2, 12, 16, cuda)
+    with pytest.raises(ValueError, match="no kernel"):
+        ssm_scan.mamba2_scan(*args)
+    args = _scan_operands("slstm_scan", 1, 4, 2, 24, 0, cuda)
+    with pytest.raises(ValueError, match="no kernel"):
+        ssm_scan.slstm_scan(*args)
+    args = _scan_operands("mamba2_scan", 1, 4, 2, 16, 16, cuda)
+    outs = (torch.empty_like(args[3]), torch.empty_like(args[4]))
+    with pytest.raises(RuntimeError, match="mamba2_scan failed"):
+        ssm_scan._launch("mamba2_scan", build.load().mamba2_scan, outs,
+                         *args, dims=(1, 4, 2, 16, 12))     # hd 12
+    assert ops.LAUNCHES == before
 
 
 def _leaves(tree):

@@ -818,7 +818,7 @@ def test_build_names_the_library_by_source_and_flags(tmp_path):
                                       "flash_attention_sm90.cu",
                                       "flash_attention_sm90_f32.cu",
                                       "rmsnorm.cu", "sroa_bisect.cu",
-                                      "topk_moves.cu"]
+                                      "ssm_scan.cu", "topk_moves.cu"]
     d1 = build._digest(srcs, build.NVCC_FLAGS)
     assert d1 == build._digest(srcs, list(build.NVCC_FLAGS))
     assert d1 != build._digest(srcs, build.NVCC_FLAGS + ["-G"])

@@ -13,7 +13,10 @@ sets and abstract structures, and the local slices of a dim split over two
 mesh axes (2 x 2 x 2).  The FLOP and byte arithmetic to 1e-12 relative.
 Then the port's own: ``run_cell`` on a fake 2 x 4 mesh (dense and moe,
 train and prefill), the dispatch-mode counter on a loop of collectives,
-and the FLOPs of a 1 x 1 mesh against the unsharded count.
+the FLOPs of a 1 x 1 mesh against the unsharded count, and the cells that
+are skipped (the encoder's decode; a train cell whose backward
+recurrences would run too many time steps as Python loops) beside one
+that runs (zamba2-7b's prefill_32k, its recurrences one op a layer).
 """
 import dataclasses
 import json
@@ -373,8 +376,12 @@ def test_flops_on_a_1x1_mesh_equal_the_unsharded_count():
 def test_cells_that_do_not_run():
     rec = d.run_cell("hubert-xlarge", "decode_32k", False, device_type="cpu")
     assert rec["status"] == "skipped" and "encoder" in rec["reason"]
+    rec = d.run_cell("zamba2-7b", "train_4k", False, device_type="cpu")
+    assert rec["status"] == "skipped"
+    assert "backward recurrences" in rec["reason"]
+    # the forward recurrences are one op a layer: the prefill runs
     rec = d.run_cell("zamba2-7b", "prefill_32k", False, device_type="cpu")
-    assert rec["status"] == "skipped" and "time steps" in rec["reason"]
+    assert rec["status"] == "ok" and rec["flops_per_device"] > 0
     assert d.scan_steps(configs.get("zamba2-7b"), shp.SHAPES[
         "long_500k"]) == 81
 
