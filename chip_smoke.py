@@ -152,7 +152,14 @@ s. The hybrid and xlstm families (lines ``[s]``, run after phase m, whose
    state within 1e-4, and whether the states are bitwise the twin's; each
    timed (events and device ms) beside the twin and the bound (operands
    read and outputs written once, phase s's float32 count at 67
-   TFLOP/s).
+   TFLOP/s).  The same for each backward kernel (S1b-S3b,
+   ``csrc/ssm_scan_bwd.cu``) against its backward twin, on the same
+   operands with seeded upstream gradients of every output: every
+   gradient within 1e-4 of max |.|, whether S1b's d s0 is bitwise the
+   twin's.  (h) Each of zamba2-7b's 81 Mamba2 layers in bf16 on the
+   kernels' route against the twins' route, both from the twins' route's
+   input to that layer: the largest gap as a share of max |y| and in bf16
+   ulps.
 e. The encoder family and the mixed frontend (lines ``[e]``, run after
    phase s, whose weights are freed first): (a) hubert-xlarge at full size
    (48 layers, d 1280, 16 heads of 80, d_ff 5120, vocab 504, bf16: 0.946 B
@@ -181,7 +188,16 @@ l. LM training (lines ``[l]``, run after phase e): (a) one float32
    size, 2 pods x 2 local steps: every leaf bitwise equal across the pods
    and to the float32 mean of the pods' own steps run apart; (d) K4 raises
    under autograd on the card before any launch, and so does a train step
-   on ``attn_impl="pallas"``.  The training path launches no kernel.
+   on ``attn_impl="pallas"``; (e) xlstm-125m at full size (12 layers,
+   112.7 M parameters) and zamba2-7b at full width cut to 12 of its 81
+   layers (1.37 B parameters), AdamW, remat, B = 4, T = 1,024, 4 steps:
+   each step's recurrence launches (each forward op twice a layer, each
+   backward op once), finite losses, ms a step and peak memory beside the
+   bound, one traced step; xlstm-125m one step on the twins' route too
+   (the route before the backward kernels).  In (a) and (e) a recurrence
+   twin that runs on the card raises, and (a)'s hybrid and xlstm steps must
+   launch S1-S3 and S1b-S3b as (e)'s do.  The training path launches no
+   other kernel.
 t. TSIA, the RA baselines and the per-cell planner (lines ``[t]``, run
    between phases l and 9): (a) ``tsia.solve(draw_scenario(0))`` at the
    paper's N = 50, M = 5 and full caps on K2, one lanes-kernel launch a
@@ -203,8 +219,8 @@ h. The planner's extended decision space (lines ``[h]``, run after phase
    and top-8 pruning: h1
    ``--n-starts 4``, h2 ``--horizon 4 --switch-cost 100``, h3
    ``--compression`` over three device tiers, 3 ticks each; h4 ``--m-cand
-   8 --topology-period 2 --edge-cost 2000``, 5 ticks (the redesign runs
-   at ticks 2 and 4); h5 all four knobs at once on 16 cells, 2 ticks.
+   8 --topology-period 2 --edge-cost 2000``, 3 ticks (the redesign runs
+   at tick 2); h5 all four knobs at once on 16 cells, 2 ticks.
    Each run reports plans/s, tick p50/p99, sum R, K2's and K3's launches
    and problems a launch, and one traced tick's K2 and K3 device time;
    every launch must take the lanes K2 and the warp K3.  Then K2 on one
@@ -256,8 +272,10 @@ d. The mesh, sharding and dry-run layer and distributed HFL (lines
    argument bytes equal to what the same steps allocate on the card, its
    predicted peak beside ``torch.cuda.max_memory_allocated`` (printed,
    not held); (c) ``run_cell`` on the 16 x 16 mesh for qwen2.5-32b
-   ``train_4k`` and llama4-scout-17b-a16e ``decode_32k`` (per-device
-   bytes, FLOPs, collective bytes by kind, fits 80 GB); (d) with two or
+   ``train_4k``, llama4-scout-17b-a16e ``decode_32k`` and the ``train_4k``
+   of zamba2-7b and xlstm-125m (their recurrences' backward ops through
+   their fakes; per-device bytes, FLOPs, collective bytes by kind, fits 80
+   GB); (d) with two or
    more cards, ``solve_fleet_sharded`` over them bitwise one card's search
    on ``draw_fleet(0, 128)``.  No kernel lies on this path.
 9. Launch counts of the main paths (every count reset to 0 right before
@@ -269,8 +287,9 @@ d. The mesh, sharding and dry-run layer and distributed HFL (lines
    ``launches_encoder_path`` and ``launches_vlm_path``: only K4's
    wgmma kernel may launch on phase e's paths, only it and S1-S3 on phase
    s's (whose counts are S1-S3's ``launches``), only its 3xTF32
-   kernel on phase a's, only the cluster K2 and K3 on phase x's, and no
-   kernel on phase l's; the two cluster kernels' ``launches`` are phase
+   kernel on phase a's, only the cluster K2 and K3 on phase x's, and only
+   S1-S3 and S1b-S3b on phase l's (``launches_lm_train_path``, and
+   S1b-S3b's ``launches``); the two cluster kernels' ``launches`` are phase
    x's and the 3xTF32 kernel's phase a's), each
    kernel's time beside its plain
    version's, its bound and its library call, then the card and the
@@ -374,6 +393,11 @@ TRAIN_KINDS = (("qwen1.5-0.5b", {}), ("llama4-scout-17b-a16e", {}),
                ("hubert-xlarge", {}), ("internvl2-76b", {}))
 TRAIN_CPU_TOL = 1e-4
 TRAIN_STEPS, HFL_PODS, HFL_K = 4, 2, 2
+# Phase l (e): the recurrent families' training at full width, AdamW and
+# remat, B x T tokens: xlstm-125m at full size and zamba2-7b cut to
+# ZAMBA_TRAIN_LAYERS of its 81 layers (two shared-attention groups, 1.37 B
+# parameters: all 81 layers, 6.75 B, with AdamW's state do not fit 80 GB).
+ZAMBA_TRAIN_LAYERS = 12
 
 SERVE_CAPS = dict(b_iters=30, f_iters=24, p_iters=20, t_iters=28)
 DEVICE_MS_SESSIONS = 3        # profiler sessions before "not measured"
@@ -506,9 +530,9 @@ def _ptxas(log: str) -> list[str]:
                     break
                 ident = mangled[i + n:i + n + int(digits)]
                 if ident.endswith("_kernel"):
-                    t = re.match(r"I((?:Li\d+E)+)E",
+                    t = re.match(r"I((?:L[ib]\d+E)+)E",
                                  mangled[i + n + len(ident):])
-                    args = ", ".join(re.findall(r"Li(\d+)E",
+                    args = ", ".join(re.findall(r"L[ib](\d+)E",
                                                 t.group(1) if t else ""))
                     return ident + (f"<{args}>" if args else "")
         return mangled
@@ -580,6 +604,13 @@ def _k2_bound(w: dict, n_prob: int, N: int, caps: dict = SERVE_CAPS):
                  + 10 * caps["t_iters"] * n_prob)
     nbytes = n_prob * N * 4 * (7 + 3) + n_prob * 4 * (5 + 3) + n_prob
     return flops, _bound_ms(nbytes, flops)
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| / max |want|: 0 where the two are equal (zeros
+    too), inf where want is zero and got is not."""
+    diff = float((got - want).abs().max())
+    return 0.0 if diff == 0 else diff / float(want.abs().max())
 
 
 def _max_abs_err(got, want) -> float:
@@ -1261,7 +1292,10 @@ def _by_kernel(c: dict) -> dict:
                                 - c["flash_attention_sm90_f32"]),
             "rmsnorm": c["rmsnorm"],
             "mamba2_scan": c["mamba2_scan"], "mlstm_scan": c["mlstm_scan"],
-            "slstm_scan": c["slstm_scan"]}
+            "slstm_scan": c["slstm_scan"],
+            "mamba2_scan_bwd": c["mamba2_scan_bwd"],
+            "mlstm_scan_bwd": c["mlstm_scan_bwd"],
+            "slstm_scan_bwd": c["slstm_scan_bwd"]}
 
 
 def _k2_operands(scn, assigns):
@@ -1514,15 +1548,15 @@ def _tsia_path(dev, report: dict, k2: dict) -> dict:
 
 # Phase h: the README's planning examples (`README.md`, "Planning"), each
 # through the CLI's own construction on the README fleet: (key, cells,
-# ticks, flags).  h4 runs 5 ticks so that the redesign (every 2 ticks from tick
-# 1 on) runs at ticks 2 and 4; h5 sets every knob at once on 16 cells.
+# ticks, flags).  h4 runs 3 ticks so that the redesign (every 2 ticks from tick
+# 1 on) runs at tick 2; h5 sets every knob at once on 16 cells.
 H_TIERS = "lo:1.6:1.0:0.55:0.35,mid,hi:0.7:1.2:1.5:0.3"
 H_RUNS = (
     ("h1", 128, 3, ["--n-starts", "4"]),
     ("h2", 128, 3, ["--horizon", "4", "--switch-cost", "100"]),
     ("h3", 128, 3, ["--tiers", H_TIERS, "--compression", "--topk-frac",
                     "0.05"]),
-    ("h4", 128, 5, ["--m-cand", "8", "--topology-period", "2",
+    ("h4", 128, 3, ["--m-cand", "8", "--topology-period", "2",
                     "--edge-cost", "2000"]),
     ("h5", 16, 2, ["--n-starts", "4", "--horizon", "4", "--switch-cost",
                    "100", "--tiers", H_TIERS, "--compression",
@@ -2719,9 +2753,18 @@ SSM_SCANS = {
     "mlstm_scan": ("mlstm_scan_kernel", "src/repro/models/ssm.py:159", 5),
     "slstm_scan": ("slstm_scan_kernel", "src/repro/models/ssm.py:205", 4),
 }
+# S1b-S3b (csrc/ssm_scan_bwd.cu): each backward op's name, its kernel's
+# name in a trace, and the ``lax.scan`` whose autodiff it replaces.
+SSM_BWD = {
+    "mamba2_scan_bwd": ("mamba2_scan_bwd_kernel",
+                        "src/repro/models/ssm.py:103"),
+    "mlstm_scan_bwd": ("mlstm_scan_bwd_kernel", "src/repro/models/ssm.py:159"),
+    "slstm_scan_bwd": ("slstm_scan_bwd_kernel", "src/repro/models/ssm.py:205"),
+}
 # Each kernel against its twin: max |delta| within this share of max |.|
-# of y and of each state (the read-outs and sLSTM's h . R add in other
-# orders; phase s (d)'s limit).
+# of y and of each state, or of each gradient (the read-outs, sLSTM's
+# h . R and the backward's contractions add in other orders; phase s
+# (d)'s limit).
 SSM_KERNEL_TOL = 1e-4
 
 
@@ -2765,7 +2808,8 @@ def _ssm_kernel_row(name: str, args: tuple, tag: str, time_it: bool = True,
     kernel and the twin run from it over all T steps and over the first
     step alone (the decode shape).  Raises past ``SSM_KERNEL_TOL`` of max
     |.| on y or any state.  With ``time_it`` at all T: CUDA-event ms of
-    one call, its device ms (``_queued_ms``), the twin's ms and the bound
+    one call, its device ms (``_queued_ms``), the twin's ms (the host clock
+    around the checking call at all T, synchronised) and the bound
     (operands read and outputs written once; ``_ssm_f32_flops`` at the
     FP32 peak)."""
     import torch
@@ -2787,9 +2831,11 @@ def _ssm_kernel_row(name: str, args: tuple, tag: str, time_it: bool = True,
         got = op(*ops_)
         torch.cuda.synchronize()
         _check(ops.LAUNCHES[name] == before + 1, f"{name} did not launch")
+        t0 = time.perf_counter()
         want = twin(*ops_)
-        rels = [float((g - w).abs().max() / w.abs().max())
-                for g, w in zip(got, want)]
+        torch.cuda.synchronize()
+        twin_ms = (time.perf_counter() - t0) * 1e3
+        rels = [_rel_err(g, w) for g, w in zip(got, want)]
         _check(all(g.shape == w.shape for g, w in zip(got, want))
                and max(rels) <= SSM_KERNEL_TOL,
                f"{tag} {name} at T = {ops_[0].shape[1]}: max |delta| / max "
@@ -2799,6 +2845,7 @@ def _ssm_kernel_row(name: str, args: tuple, tag: str, time_it: bool = True,
             torch.equal(g, w) for g, w in zip(got[1:], want[1:]))
         if key == "T":
             row["max_abs_err"] = _max_abs_err(got, want)
+            row["plain_ms"] = twin_ms
     if time_it:
         call = lambda: op(*args)  # noqa: E731
         ds = args[1].shape[-1] if name == "mamba2_scan" else 0
@@ -2807,8 +2854,8 @@ def _ssm_kernel_row(name: str, args: tuple, tag: str, time_it: bool = True,
             y.numel() * 4 for y in op(*args))
         bound, by = _bound_ms(nbytes, flops)
         row.update(ms=_time_ms(call, 10), device_ms=_queued_ms(call, 10),
-                   plain_ms=_time_ms(lambda: twin(*args), 1), bound_ms=bound,
-                   bound_by=by, f32_flops=flops, nbytes=nbytes)
+                   bound_ms=bound, bound_by=by, f32_flops=flops,
+                   nbytes=nbytes)
     print(f"{tag} {name} ({kernel}) at (B, T, H, hd) = {row['shape']}"
           + (f", ds {args[1].shape[-1]}" if name == "mamba2_scan" else "")
           + f", a state carried in: max |delta| / max |.| of (y, states) "
@@ -2817,6 +2864,93 @@ def _ssm_kernel_row(name: str, args: tuple, tag: str, time_it: bool = True,
           f"{json.dumps([float(f'{r:.3g}') for r in row['rel_T1']])} at "
           f"T = 1 (limit {SSM_KERNEL_TOL}); states bitwise the twin's: "
           f"{row['state_bitwise_T']} and {row['state_bitwise_T1']}"
+          + (f"; {row['ms']:.4g} ms events, {row['device_ms']:.4g} ms "
+             f"device, twin {row['plain_ms']:.4g} ms, bound "
+             f"{row['bound_ms']:.4g} ms by {row['bound_by']} "
+             f"({row['f32_flops']:.4g} f32 flop, {row['nbytes']:.4g} bytes)"
+             if time_it else ""))
+    return row
+
+
+def _ssm_bwd_f32_flops(name: str, B: int, T: int, H: int, hd: int,
+                       ds: int = 0) -> int:
+    """The float32 count of one backward recurrence, the recompute of the
+    states included: S1b 14 a state element a step (the forward's 3, the
+    adjoint's update 3 and four contractions 8), S2b 15 a C element a step
+    (the forward's 4, 3 and 8), S3b its three products of h . R's size (the
+    recomputed h . R, dR and dpre . R^T)."""
+    if name == "mamba2_scan_bwd":
+        return B * T * 14 * H * ds * hd
+    if name == "mlstm_scan_bwd":
+        return B * T * 15 * H * hd * hd
+    return B * T * 3 * 2 * H * hd * 4 * hd
+
+
+def _ssm_bwd_row(name: str, args: tuple, tag: str,
+                 time_it: bool = True) -> dict:
+    """One backward recurrence op (S1b-S3b) against its backward twin: on
+    the forward op's operands ``args`` with the state the forward leaves
+    after the T steps carried in, and seeded upstream gradients of every
+    output, final states too.  Raises past ``SSM_KERNEL_TOL`` of max |.|
+    on any gradient; records whether S1b's d s0 is bitwise the twin's.
+    With ``time_it``: CUDA-event ms of one call, its device ms
+    (``_queued_ms``), the twin's ms (the host clock around the checking
+    call, synchronised) and the bound (operands, y and upstream gradients
+    read and the gradients written once; ``_ssm_bwd_f32_flops`` at the
+    FP32 peak)."""
+    import torch
+
+    from repro_torch.kernels import ops, ref, ssm_scan
+
+    fwd = name[:-len("_bwd")]
+    op, bwd = getattr(ssm_scan, fwd), getattr(ssm_scan, name)
+    twin = getattr(ref, fwd.replace("_scan", "_recurrence_bwd_plain"))
+    first = op(*args)
+    args = args[:-(len(first) - 1)] + tuple(first[1:])
+    outs = op(*args)
+    gen = torch.Generator(device=outs[0].device).manual_seed(26)
+    ups = tuple(torch.randn(o.shape, generator=gen, device=o.device)
+                for o in outs)
+    bargs = args + (() if fwd == "mamba2_scan" else (outs[0],)) + ups
+    del first, outs
+    torch.cuda.synchronize()
+    before = ops.LAUNCHES[name]
+    got = bwd(*bargs)
+    torch.cuda.synchronize()
+    _check(ops.LAUNCHES[name] == before + 1, f"{name} did not launch")
+    t0 = time.perf_counter()
+    want = twin(*bargs)
+    torch.cuda.synchronize()
+    twin_ms = (time.perf_counter() - t0) * 1e3
+    rels = [_rel_err(g, w) for g, w in zip(got, want)]
+    B, T, H, hd = args[0].shape if fwd != "mamba2_scan" else args[3].shape
+    ds = args[1].shape[-1] if fwd == "mamba2_scan" else 0
+    _check(all(g.shape == w.shape for g, w in zip(got, want))
+           and max(rels) <= SSM_KERNEL_TOL,
+           f"{tag} {name} at T = {T}: max |delta| / max |.| of the "
+           f"gradients {rels} (limit {SSM_KERNEL_TOL})")
+    row = {"name": name, "shape": [B, T, H, hd], "rel_T": rels,
+           "max_abs_err": _max_abs_err(got, want),
+           "ds0_bitwise": (bool(torch.equal(got[4], want[4]))
+                           if fwd == "mamba2_scan" else None)}
+    del want
+    if time_it:
+        call = lambda: bwd(*bargs)  # noqa: E731
+        flops = _ssm_bwd_f32_flops(name, B, T, H, hd, ds)
+        nbytes = sum(a.numel() * 4 for a in bargs) + sum(
+            g.numel() * 4 for g in got)
+        bound, by = _bound_ms(nbytes, flops)
+        row.update(ms=_time_ms(call, 5), device_ms=_queued_ms(call, 5),
+                   plain_ms=twin_ms, bound_ms=bound, bound_by=by,
+                   f32_flops=flops, nbytes=nbytes)
+    print(f"{tag} {name} ({SSM_BWD[name][0]}) at (B, T, H, hd) = "
+          f"{row['shape']}" + (f", ds {ds}" if ds else "")
+          + f", a state carried in, every output's upstream gradient: max "
+          f"|delta| / max |.| of the gradients "
+          f"{json.dumps([float(f'{r:.3g}') for r in rels])} (limit "
+          f"{SSM_KERNEL_TOL})"
+          + (f"; d s0 bitwise the twin's: {row['ds0_bitwise']}"
+             if ds else "")
           + (f"; {row['ms']:.4g} ms events, {row['device_ms']:.4g} ms "
              f"device, twin {row['plain_ms']:.4g} ms, bound "
              f"{row['bound_ms']:.4g} ms by {row['bound_by']} "
@@ -2974,6 +3108,32 @@ def _ssm_path(dev) -> dict:
               f"of sequences; the control, chunked at key chunks of 512 "
               f"against 1,024: {control:.4g}")
 
+        # (h) Each Mamba2 layer in bf16 on the kernels' route against the
+        # twins' route, both from the twins' route's input to that layer.
+        x, positions, _ = tf.embed_inputs(flash, params, {"tokens": toks})
+        layer_gaps = []
+        for i in range(L):
+            h_in = tf.rms_norm(x, mm[i]["ln"])
+            yk = ssm.mamba2_scan(mm[i], h_in, flash.ssm_state,
+                                 flash.ssm_headdim)[0].float()
+            with _twin_recurrences():
+                yt = ssm.mamba2_scan(mm[i], h_in, flash.ssm_state,
+                                     flash.ssm_headdim)[0]
+            layer_gaps.append(float((yk - yt.float()).abs().max()
+                                    / yt.float().abs().max()))
+            x = x + yt
+            if i in ends:
+                x = tf._shared_apply(flash, params, x, positions=positions)[0]
+        worst = max(range(L), key=layer_gaps.__getitem__)
+        print(f"[s] (h) each of the {L} Mamba2 layers in {flash.dtype}, the "
+              f"kernels' route against the twins' route from the twins' "
+              f"input: max |delta| / max |y| at most {layer_gaps[worst]:.4g} "
+              f"(layer {worst}; {layer_gaps[worst] / 2 ** -8:.3g} bf16 ulps "
+              f"of max |y|), median "
+              f"{sorted(layer_gaps)[L // 2]:.4g}; by layer "
+              f"{json.dumps([float(f'{r:.3g}') for r in layer_gaps])}")
+        del x, yk, yt, h_in
+
         # (f) Traces: one Mamba2 layer's prefill, one shared group, four
         # decode steps from the chunked prefill's cache.
         x, positions, _ = tf.embed_inputs(flash, params, {"tokens": toks})
@@ -3003,12 +3163,14 @@ def _ssm_path(dev) -> dict:
         traced["decode"] = {}
         _profile("[s]", "4 traced decode steps", decode, traced["decode"],
                  SSM_RANGES)
-        # (g) S1 against its twin on the first Mamba2 layer's operands of
-        # the prompt, a state carried in.
+        # (g) S1 and S1b against their twins on the first Mamba2 layer's
+        # operands of the prompt, a state carried in.
+        got = _scan_operands(lambda: tf._mamba_apply(flash, p0, x))
         rows = {"mamba2_scan": _ssm_kernel_row(
-            "mamba2_scan", _scan_operands(lambda: tf._mamba_apply(
-                flash, p0, x))["mamba2_scan"], "[s] (g)")}
-        del cache, x, mm, p0
+            "mamba2_scan", got["mamba2_scan"], "[s] (g)")}
+        rows["mamba2_scan_bwd"] = _ssm_bwd_row(
+            "mamba2_scan_bwd", got["mamba2_scan"], "[s] (g)")
+        del cache, x, mm, p0, got
 
         # (c) The re-layout at full width and depth, in float32 with TF32
         # off (in bf16 the rounding of 94 blocks moves the logits further
@@ -3149,6 +3311,8 @@ def _ssm_path(dev) -> dict:
         got = _scan_operands(lambda: tf._xlstm_pair(xcfg, blk, x))
         for name in ("mlstm_scan", "slstm_scan"):
             rows[name] = _ssm_kernel_row(name, got[name], "[s] (g)")
+            rows[name + "_bwd"] = _ssm_bwd_row(name + "_bwd", got[name],
+                                               "[s] (g)")
         del params, x, blk, got
     seconds = time.perf_counter() - t_phase
     print(f"[s] phase s: {seconds:.1f} s")
@@ -3156,6 +3320,7 @@ def _ssm_path(dev) -> dict:
     return {"counts": path, "zamba2": a, "xlstm": x_run, "kernels": rows,
             "twins": {"zamba2": a_twin, "xlstm": x_twin},
             "rel_b": max(groups), "rel_b_groups": groups, "gap_b": gap,
+            "layer_gaps": layer_gaps,
             "gap_b_control": control, "rel_c": rel_c, "cpu_errs": errs, "traced": traced,
             "est_prefill_wall_ms": est_wall, "walls": walls,
             "seconds": seconds,
@@ -3431,7 +3596,9 @@ def _lm_train_path(dev) -> dict:
 
     t_phase = time.perf_counter()
     ops.reset_launches()
-    # (a) Each kind of model, reduced, float32: the card against the CPU.
+    path = dict(ops.LAUNCHES)
+    # (a) Each kind of model, reduced, float32: the card against the CPU;
+    # the recurrent kinds on S1-S3 and S1b-S3b, no twin on the card.
     errs = {}
     for arch, changes in TRAIN_KINDS:
         cfg = dataclasses.replace(configs.get(arch).reduced(), **changes)
@@ -3441,8 +3608,18 @@ def _lm_train_path(dev) -> dict:
         with f32_math():
             want = step(params, opt.init(params), batch)
             card = tree_map(lambda t: t.to(dev), params)
-            got = step(card, opt.init(card),
-                       {k: v.to(dev) for k, v in batch.items()})
+            before = dict(ops.LAUNCHES)
+            with _no_twins():
+                got = step(card, opt.init(card),
+                           {k: v.to(dev) for k, v in batch.items()})
+            torch.cuda.synchronize()
+        made = {k: ops.LAUNCHES[k] - before[k] for k in before}
+        need = _recurrent_counts(cfg)
+        _check(all(made[k] == need.get(k, 0) for k in made
+                   if k != "ssm_scan"), f"{arch}'s train step launched "
+               f"{made}, want {need} (remat: each forward op twice a layer, "
+               f"each backward once)")
+        _add(path, made)
         err = max(float((g.cpu() - w).abs().max() / w.abs().max())
                   for g, w in zip(tree_leaves(got[0]), tree_leaves(want[0])))
         loss_err = abs(float(got[2]["loss"]) - float(want[2]["loss"]))
@@ -3455,7 +3632,9 @@ def _lm_train_path(dev) -> dict:
     print(f"[l] (a) one f32 train step (SGD, cosine schedule, clip, remat) "
           f"of each kind at reduced() size, the card against the CPU (TF32 "
           f"off), max |delta| over max |leaf|: {json.dumps(shown)} (limit "
-          f"{TRAIN_CPU_TOL})")
+          f"{TRAIN_CPU_TOL}); launches {json.dumps(_by_kernel(path))}, no "
+          f"recurrence twin on the card")
+    before = dict(ops.LAUNCHES)
 
     # (b) qwen1.5-0.5b at full size, adamw, B x T tokens, chunked, remat.
     cfg = configs.get(LM_ARCH)
@@ -3539,7 +3718,7 @@ def _lm_train_path(dev) -> dict:
     _check(apart == len(leaves), f"hfl_lm: only {apart} of {len(leaves)} "
            f"leaves equal the f32 mean of the pods' own steps, bitwise")
     _check(math.isfinite(float(hm["ce"])), "hfl_lm: non-finite ce")
-    counts = dict(ops.LAUNCHES)
+    _add(path, {k: ops.LAUNCHES[k] - before[k] for k in before})
     print(f"[l] (c) make_hfl_lm_train_step at full size, P = {HFL_PODS} "
           f"pods x K = {HFL_K} local steps: {hfl_ms:.1f} ms, ce "
           f"{float(hm['ce']):.6g}; every leaf bitwise equal across the pods "
@@ -3570,14 +3749,154 @@ def _lm_train_path(dev) -> dict:
         refused = True
     _check(refused, "a train step on attn_impl='pallas' ran")
     torch.cuda.empty_cache()
+    print("[l] (d) K4 raised under autograd on the card, before any "
+          "launch, and so did a train step on attn_impl='pallas'")
+    # (e) The recurrent families at full width on S1-S3 and S1b-S3b.
+    recurrent = {}
+    for arch, layers in ((XLSTM_ARCH, None), (SSM_ARCH, ZAMBA_TRAIN_LAYERS)):
+        recurrent[arch] = _recurrent_train(dev, arch, layers)
+        _add(path, recurrent[arch]["counts"])
     seconds = time.perf_counter() - t_phase
-    print(f"[l] (d) K4 raised under autograd on the card, before any "
-          f"launch, and so did a train step on attn_impl='pallas'; the "
-          f"training path's launches: {json.dumps(_by_kernel(counts))}")
+    print(f"[l] the training path's launches: "
+          f"{json.dumps(_by_kernel(path))}")
     print(f"[l] phase l: {seconds:.1f} s")
     return {"cpu_errs": errs, "losses": losses, "step_ms": step_ms,
             "bound_ms": train_bound, "peak_bytes": peak, "trace": stats,
-            "hfl_ms": hfl_ms, "counts": counts, "seconds": seconds}
+            "hfl_ms": hfl_ms, "counts": path, "recurrent": recurrent,
+            "seconds": seconds}
+
+
+def _recurrent_counts(cfg) -> dict:
+    """The recurrence launches of one train step with remat: each forward
+    op twice a layer (the forward and its recompute), each backward op
+    once; none for the other families."""
+    if cfg.family == "mamba_hybrid":
+        return {"mamba2_scan": 2 * cfg.n_layers,
+                "mamba2_scan_bwd": cfg.n_layers}
+    if cfg.family == "xlstm":
+        pairs = cfg.n_layers // 2
+        return {"mlstm_scan": 2 * pairs, "slstm_scan": 2 * pairs,
+                "mlstm_scan_bwd": pairs, "slstm_scan_bwd": pairs}
+    return {}
+
+
+@contextlib.contextmanager
+def _no_twins():
+    """Raise if a recurrence's plain twin (forward or backward) runs: on
+    the card the ops launch their kernels or raise."""
+    from repro_torch.kernels import ssm_scan
+
+    class Trap:
+        def __getattr__(self, name):
+            def trap(*args, **kwargs):
+                raise RuntimeError(f"the twin ref.{name} ran on the card")
+            return trap
+
+    saved = ssm_scan.ref
+    ssm_scan.ref = Trap()
+    try:
+        yield
+    finally:
+        ssm_scan.ref = saved
+
+
+def _recurrent_train(dev, arch: str, n_layers: int | None) -> dict:
+    """Phase l (e): ``arch`` at full width (``n_layers`` of its layers, or
+    all), AdamW, remat, B x T tokens, TRAIN_STEPS steps on one batch:
+    each step's recurrence launches (``_recurrent_counts``) and no twin,
+    finite losses, ms a step, peak memory beside the bound, one traced
+    step; for xlstm-125m one step on the twins' route too (the route before
+    the backward kernels)."""
+    import torch
+
+    from repro_torch import configs, optim
+    from repro_torch.kernels import ops
+    from repro_torch.models import ssm
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.cnn import tree_leaves
+
+    cfg = configs.get(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = tf.init_params(cfg, gen, dev)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    batch = {"tokens": torch.randint(0, cfg.vocab, (LM_B, LM_T),
+                                     generator=gen, device=dev)}
+    opt = optim.get_optimizer("adamw")
+    step = tf.make_train_step(cfg, opt)
+    need = _recurrent_counts(cfg)
+    total = {k: 0 for k in ops.LAUNCHES}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    p, s, losses, step_ms = params, opt.init(params), [], []
+    with _no_twins():
+        for _ in range(TRAIN_STEPS):
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            p, s, met = step(p, s, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(met["loss"]))
+            made = dict(ops.LAUNCHES)
+            _check(all(made[k] == need.get(k, 0) for k in made
+                       if k != "ssm_scan"), f"{arch}: a train step launched "
+                   f"{_by_kernel(made)}, want {need}")
+            _add(total, made)
+    peak = torch.cuda.max_memory_allocated()
+    _check(all(math.isfinite(x) for x in losses), f"{arch}: non-finite "
+           f"losses {losses}")
+    stats = {}
+    with _no_twins():
+        _profile("[l]", f"1 traced {arch} train step",
+                 lambda: step(p, s, batch), stats)
+    # The bound: the bf16 products of forward, recompute-free backward
+    # (3 x the forward's, the head over every position) and the float32
+    # time loops (forward twice under remat, backward once).
+    bnd = _ssm_bounds(cfg, LM_B, LM_T)
+    head = 2 * LM_B * cfg.d_model * cfg.vocab
+    mm = 3 * (bnd["prefill_flops"] - head + LM_T * head)
+    if cfg.family == "mamba_hybrid":
+        _, Hs = ssm.mamba2_dims(cfg.d_model, cfg.ssm_state, cfg.ssm_headdim)
+        bwd = cfg.n_layers * _ssm_bwd_f32_flops(
+            "mamba2_scan_bwd", LM_B, LM_T, Hs, cfg.ssm_headdim, cfg.ssm_state)
+    else:
+        hd = cfg.d_model // cfg.n_heads
+        bwd = cfg.n_layers // 2 * sum(
+            _ssm_bwd_f32_flops(n, LM_B, LM_T, cfg.n_heads, hd)
+            for n in ("mlstm_scan_bwd", "slstm_scan_bwd"))
+    f32 = 2 * bnd["prefill_f32_flops"] + bwd
+    bound = max(mm / BF16_TENSOR_FLOPS_PER_S, f32 / FP32_FLOPS_PER_S) * 1e3
+    row = dict(arch=arch, n_layers=cfg.n_layers, n_params=n_params,
+               losses=losses, step_ms=step_ms, peak_bytes=peak,
+               bound_ms=bound, mm_flops=mm, f32_flops=f32, trace=stats,
+               counts=total, per_step=need)
+    twin = ""
+    if arch == XLSTM_ARCH:
+        ops.reset_launches()
+        with _twin_recurrences():
+            t0 = time.perf_counter()
+            step(p, s, batch)
+            torch.cuda.synchronize()
+            row["twin_ms"] = (time.perf_counter() - t0) * 1e3
+        _check(ops.LAUNCHES["ssm_scan"] == 0, f"{arch}: a recurrence kernel "
+               f"launched on the twins' route")
+        twin = (f"; one step on the twins' route (the route before the "
+                f"backward kernels) {row['twin_ms']:.1f} ms")
+    print(f"[l] (e) {arch} at full width, {cfg.n_layers} layers "
+          f"({n_params:,} parameters, {cfg.dtype}, AdamW, remat), B = "
+          f"{LM_B}, T = {LM_T}: launches a step {json.dumps(need)} and no "
+          f"twin; losses {[float(f'{x:.6g}') for x in losses]}; ms a step "
+          f"{[float(f'{x:.4f}') for x in step_ms]} (host clock, "
+          f"synchronised; the first with cold starts); bound {bound:.4g} ms "
+          f"(bf16 products {mm:.4g} flop at 989 TFLOP/s, the time loops "
+          f"{f32:.4g} f32 flop at 67 TFLOP/s); peak memory allocated "
+          f"{peak:,} bytes ({peak / 2 ** 30:.2f} GiB); traced step: device "
+          f"{stats['device_ms']:.3f} ms, busy share "
+          f"{_fmt(_div(stats['union_ms'], stats['wall_ms']), '.4f')}" + twin)
+    del p, s, params, met
+    torch.cuda.empty_cache()
+    return row
 
 
 # Phase d: the mesh, sharding and dry-run layer and distributed HFL.  (a)
@@ -3588,7 +3907,8 @@ def _lm_train_path(dev) -> dict:
 # (c) two cells on the 16 x 16 production mesh (a fake process group of
 # 256 ranks, meta shards); (d) the fleet split over the cards.
 DRY_CELLS = (("qwen2.5-32b", "train_4k"),
-             ("llama4-scout-17b-a16e", "decode_32k"))
+             ("llama4-scout-17b-a16e", "decode_32k"),
+             (SSM_ARCH, "train_4k"), (XLSTM_ARCH, "train_4k"))
 
 
 def _dist_path(dev, hfl_run: dict) -> dict:
@@ -4231,6 +4551,10 @@ def main(argv: list[str]) -> int:
     ssm_counts = _by_kernel(sp["counts"])
     for name in SSM_SCANS:
         counts[name] = ssm_counts[name]
+    # S1b-S3b's path is phase l's: LM training.
+    train_counts = _by_kernel(lp["counts"])
+    for name in SSM_BWD:
+        counts[name] = train_counts[name]
     print(f"[9] kernels: {json.dumps(counts)} (ops.LAUNCHES of the LM run: "
           f"{json.dumps(lmc)})")
     print(f"[9] kernels on phase a's path ({LM_ARCH} in float32): "
@@ -4299,9 +4623,24 @@ def main(argv: list[str]) -> int:
             v == 0 for k, v in c.items() if k != "flash_attention_sm90"),
             f"{tag}'s path did not launch K4's tensor-core kernel once a "
             f"layer, and nothing else: {c}")
-    train_counts = _by_kernel(lp["counts"])
-    _check(all(v == 0 for v in train_counts.values()),
-           f"a kernel launched on phase l's training path: {train_counts}")
+    print(f"[9] kernels on phase l's path (LM training): "
+          f"{json.dumps(train_counts)}")
+    _check(all(n == 0 for k, n in train_counts.items()
+               if k not in SSM_SCANS and k not in SSM_BWD),
+           f"a kernel other than S1-S3 and S1b-S3b launched on phase l's "
+           f"training path: {train_counts}")
+    for name, (kernel, replaces) in SSM_BWD.items():
+        r = sp["kernels"][name]
+        report[name] = dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/ssm_scan_bwd.cu",
+            replaces=replaces, max_abs_err=r["max_abs_err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], device_ms=r["device_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
+            kernel=kernel, shape=r["shape"], rel_err=r["rel_T"],
+            ds0_bitwise=r["ds0_bitwise"],
+            path="phase l: make_train_step of the hybrid and xlstm families "
+                 "(reduced, and at full width with AdamW, B = 4, T = 1,024)")
     f_counts = _by_kernel(fp["counts"])
     print(f"[9] kernels on phase f's path (the training pipeline): "
           f"{json.dumps(f_counts)}")
@@ -4335,6 +4674,7 @@ def main(argv: list[str]) -> int:
         report[name]["launches_tsia_path"] = tsia_counts[name]
         report[name]["launches_h_path"] = h_counts[name]
         report[name]["launches_train_path"] = f_counts[name]
+        report[name]["launches_lm_train_path"] = train_counts[name]
         report[name]["launches_moe_path"] = moe_counts[name]
         report[name]["launches_ssm_path"] = ssm_counts[name]
         report[name]["launches_encoder_path"] = enc_counts[name]
@@ -4453,6 +4793,16 @@ def main(argv: list[str]) -> int:
           f"{lp['peak_bytes'] / 2 ** 30:.2f} GiB; hfl_lm step "
           f"{lp['hfl_ms']:.1f} ms; card against CPU at most "
           f"{max(lp['cpu_errs'].values()):.3g} ({lp['seconds']:.1f} s)")
+    for arch, r in lp["recurrent"].items():
+        print(f"[9] training path, {arch} at full width ({r['n_layers']} "
+              f"layers, AdamW, remat): "
+              f"{sorted(r['step_ms'])[len(r['step_ms']) // 2]:.3f} ms a step "
+              f"(median of {len(r['step_ms'])}; bound {r['bound_ms']:.4g} "
+              f"ms), peak {r['peak_bytes'] / 2 ** 30:.2f} GiB"
+              + (f"; on the twins {r['twin_ms']:.1f} ms a step"
+                 if "twin_ms" in r else ""))
+    print(f"[9] ssm path, {SSM_ARCH}'s Mamba2 layers in bf16, kernels "
+          f"against twins: at most {max(sp['layer_gaps']):.4g} of max |y|")
     print("[9] phase d: distributed HFL " + "; ".join(
         f"{k} {r['ms']:.3f} ms an iteration ({r['err']:.3g} of max |leaf| "
         f"from one process)" for k, r in dp["dist"].items())

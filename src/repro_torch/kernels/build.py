@@ -112,6 +112,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mamba2_scan.argtypes = [p] * 7 + [i] * 5 + [p]
     lib.mlstm_scan.argtypes = [p] * 12 + [i] * 4 + [p]
     lib.slstm_scan.argtypes = [p] * 14 + [i] * 4 + [p]
+    lib.mamba2_scan_ckpt.argtypes = [p] * 6 + [i] * 5 + [p]
+    lib.mamba2_scan_bwd.argtypes = [p] * 14 + [i] * 5 + [p]
+    lib.mlstm_scan_ckpt.argtypes = [p] * 11 + [i] * 4 + [p]
+    lib.mlstm_scan_bwd.argtypes = [p] * 28 + [i] * 4 + [p]
+    lib.slstm_scan_save.argtypes = [p] * 10 + [i] * 4 + [p]
+    lib.slstm_scan_bwd.argtypes = [p] * 25 + [i] * 4 + [p]
     lib.topk_moves_cluster_smem.restype = ctypes.c_longlong
     for fn in (lib.sroa_invert_rate, lib.sroa_solve, lib.sroa_solve_lanes,
                lib.sroa_solve_lanes_occupancy, lib.sroa_solve_cluster,
@@ -123,7 +129,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                lib.flash_attention_sm90_occupancy,
                lib.flash_attention_sm90_f32,
                lib.flash_attention_sm90_f32_occupancy, lib.rmsnorm,
-               lib.mamba2_scan, lib.mlstm_scan, lib.slstm_scan):
+               lib.mamba2_scan, lib.mlstm_scan, lib.slstm_scan,
+               lib.mamba2_scan_ckpt, lib.mamba2_scan_bwd,
+               lib.mlstm_scan_ckpt, lib.mlstm_scan_bwd,
+               lib.slstm_scan_save, lib.slstm_scan_bwd):
         fn.restype = ctypes.c_int
     return lib
 

@@ -55,44 +55,30 @@
 //   barrier comes before the first remote store (the other blocks may not
 //   have started), and none follows the last.  Each element's next inputs
 //   are loaded a step ahead.
+//
+// Saving variants (template flag SAVE), for the backward kernels of
+// csrc/ssm_scan_bwd.cu: the same kernel, the same arithmetic, but instead
+// of y and the final state it writes what the reverse pass reads.  S1 the
+// state before every kS1Ckpt-th step, S2 C, n and m before every chunk of
+// kS2Chunk steps, S3 every step's c, n, m and the four pre-activations;
+// each in the layout its reader takes (S1's and S2's: a thread's own
+// registers, contiguous across the block, so both sides coalesce).
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "cluster.cuh"
+#include "ssm_scan.cuh"
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kS1Chunk = 32;    // S1's time steps a staged chunk
-constexpr int kS2Chunk = 16;    // S2's
-constexpr int kS2Cols = 32;     // S2's columns of C a block (or all of hd)
-constexpr int kS3Cluster = 8;   // S3's blocks a (b, h)
-
-__device__ __forceinline__ float quad_sum(float a) {
-  a = __fadd_rn(a, __shfl_xor_sync(kFull, a, 1));
-  return __fadd_rn(a, __shfl_xor_sync(kFull, a, 2));
-}
-
-// The twin's formulas (models/ssm.py, jax.nn): softplus(x) = max(x, 0) +
-// log1p(exp(-|x|)), log_sigmoid(x) = -softplus(-x), sigmoid(x) = 1 / (1 +
-// exp(-x)).
-__device__ __forceinline__ float softplus(float x) {
-  return __fadd_rn(fmaxf(x, 0.0f), log1pf(expf(-fabsf(x))));
-}
-__device__ __forceinline__ float log_sigmoid(float x) {
-  return -softplus(-x);
-}
-__device__ __forceinline__ float sigmoid(float x) {
-  return __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-x)));
-}
-
 // ------------------------------------------------------------ S1 Mamba2
-template <int ROWS>
+template <int ROWS, bool SAVE>
 __global__ void __launch_bounds__(1024) mamba2_scan_kernel(
     const float* __restrict__ decay, const float* __restrict__ Bm,
     const float* __restrict__ Cm, const float* __restrict__ dtx,
     const float* __restrict__ s0, float* __restrict__ y,
-    float* __restrict__ sT, int T, int H, int hd) {
+    float* __restrict__ sT, float* __restrict__ ckpt, int T, int H,
+    int hd) {
   constexpr int DS = 4 * ROWS;
   extern __shared__ float smem[];
   float* sB = smem;                            // [kS1Chunk][DS]
@@ -121,6 +107,13 @@ __global__ void __launch_bounds__(1024) mamba2_scan_kernel(
       sDec[e] = decay[((long long)b * T + t0 + e) * H + h];
     __syncthreads();
     for (int tt = 0; tt < n; ++tt) {
+      if (SAVE && (t0 + tt) % kS1Ckpt == 0) {   // the state before step t
+        float* cp = ckpt + ((long long)blockIdx.x * ((T + kS1Ckpt - 1) /
+                                                     kS1Ckpt) +
+                            (t0 + tt) / kS1Ckpt) * ROWS * nthr;
+#pragma unroll
+        for (int m = 0; m < ROWS; ++m) cp[m * nthr + tid] = s[m];
+      }
       const float dec = sDec[tt], u = sU[tt * hd + j];
       const float* Bt = sB + tt * DS;
       const float* Ct = sC + tt * DS;
@@ -129,44 +122,50 @@ __global__ void __launch_bounds__(1024) mamba2_scan_kernel(
       for (int m = 0; m < ROWS; ++m) {
         const int i = 4 * m + r;
         s[m] = __fadd_rn(__fmul_rn(s[m], dec), __fmul_rn(Bt[i], u));
-        acc = __fadd_rn(acc, __fmul_rn(Ct[i], s[m]));
+        if (!SAVE) acc = __fadd_rn(acc, __fmul_rn(Ct[i], s[m]));
       }
-      acc = quad_sum(acc);
-      if (r == 0) y[(((long long)b * T + t0 + tt) * H + h) * hd + j] = acc;
+      if (!SAVE) {
+        acc = quad_sum(acc);
+        if (r == 0)
+          y[(((long long)b * T + t0 + tt) * H + h) * hd + j] = acc;
+      }
     }
   }
+  if (SAVE) return;
 #pragma unroll
   for (int m = 0; m < ROWS; ++m)
     sT[st + (long long)(4 * m + r) * hd + j] = s[m];
 }
 
-template <int ROWS>
+template <int ROWS, bool SAVE>
 int launch_mamba2(const float* decay, const float* Bm, const float* Cm,
                   const float* dtx, const float* s0, float* y, float* sT,
-                  int B, int T, int H, int hd, cudaStream_t stream) {
+                  float* ckpt, int B, int T, int H, int hd,
+                  cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * ((size_t)kS1Chunk * (2 * 4 * ROWS + hd) + kS1Chunk);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        mamba2_scan_kernel<ROWS>,
+        mamba2_scan_kernel<ROWS, SAVE>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  mamba2_scan_kernel<ROWS><<<B * H, 4 * hd, smem, stream>>>(
-      decay, Bm, Cm, dtx, s0, y, sT, T, H, hd);
+  mamba2_scan_kernel<ROWS, SAVE><<<B * H, 4 * hd, smem, stream>>>(
+      decay, Bm, Cm, dtx, s0, y, sT, ckpt, T, H, hd);
   return (int)cudaGetLastError();
 }
 
 // ------------------------------------------------------------- S2 mLSTM
-template <int ROWS>
+template <int ROWS, bool SAVE>
 __global__ void __launch_bounds__(4 * kS2Cols + 32) mlstm_scan_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ log_i,
     const float* __restrict__ log_f, const float* __restrict__ C0,
     const float* __restrict__ n0, const float* __restrict__ m0,
     float* __restrict__ y, float* __restrict__ Cout,
-    float* __restrict__ nout, float* __restrict__ mout, int T, int H,
-    int cols) {
+    float* __restrict__ nout, float* __restrict__ mout,
+    float* __restrict__ Cck, float* __restrict__ nck,
+    float* __restrict__ mck, int T, int H, int cols) {
   constexpr int HD = 4 * ROWS;
   constexpr int NP = (HD + 31) / 32;           // n's rows a lane
   __shared__ float sQ[kS2Chunk][HD], sK[kS2Chunk][HD];
@@ -193,8 +192,22 @@ __global__ void __launch_bounds__(4 * kS2Cols + 32) mlstm_scan_kernel(
       nr[p] = (lane + 32 * p < HD) ? n0[sbase + lane + 32 * p] : 0.0f;
   }
   float mst = m0[bh];
+  const int nC = (T + kS2Chunk - 1) / kS2Chunk;
   for (int t0 = 0; t0 < T; t0 += kS2Chunk) {
     const int n = min(kS2Chunk, T - t0);
+    if (SAVE) {                      // C, n, m before the chunk
+      const long long ck = (long long)bh * nC + t0 / kS2Chunk;
+      if (holds_c) {
+#pragma unroll
+        for (int m = 0; m < ROWS; ++m)
+          Cck[((ck * slices + slice) * ROWS + m) * workers + tid] = Cr[m];
+      } else if (slice == 0) {
+#pragma unroll
+        for (int p = 0; p < NP; ++p)
+          if (lane + 32 * p < HD) nck[ck * HD + lane + 32 * p] = nr[p];
+        if (lane == 0) mck[ck] = mst;
+      }
+    }
     __syncthreads();                 // the last chunk's y is written
     for (int e = tid; e < n * HD; e += nthr) {
       const long long g = (((long long)b * T + t0 + e / HD) * H + h) * HD +
@@ -247,10 +260,12 @@ __global__ void __launch_bounds__(4 * kS2Cols + 32) mlstm_scan_kernel(
       }
     }
     __syncthreads();
-    for (int e = tid; e < n * cols; e += nthr)
-      y[(((long long)b * T + t0 + e / cols) * H + h) * HD + slice * cols +
-        e % cols] = __fdiv_rn(sNum[e / cols][e % cols], sDen[e / cols]);
+    if (!SAVE)
+      for (int e = tid; e < n * cols; e += nthr)
+        y[(((long long)b * T + t0 + e / cols) * H + h) * HD + slice * cols +
+          e % cols] = __fdiv_rn(sNum[e / cols][e % cols], sDen[e / cols]);
   }
+  if (SAVE) return;
   if (holds_c) {
 #pragma unroll
     for (int m = 0; m < ROWS; ++m)
@@ -263,23 +278,24 @@ __global__ void __launch_bounds__(4 * kS2Cols + 32) mlstm_scan_kernel(
   }
 }
 
-template <int ROWS>
+template <int ROWS, bool SAVE>
 int launch_mlstm(const float* q, const float* k, const float* v,
                  const float* li, const float* lf, const float* C0,
                  const float* n0, const float* m0, float* y, float* C,
-                 float* n, float* m, int B, int T, int H,
-                 cudaStream_t stream) {
+                 float* n, float* m, float* Cck, float* nck, float* mck,
+                 int B, int T, int H, cudaStream_t stream) {
   constexpr int HD = 4 * ROWS;
   const int cols = HD % kS2Cols == 0 ? kS2Cols : HD;
   if (cols > kS2Cols || cols % 8 != 0) return (int)cudaErrorInvalidValue;
-  mlstm_scan_kernel<ROWS><<<B * H * (HD / cols), 4 * cols + 32, 0,
-                            stream>>>(q, k, v, li, lf, C0, n0, m0, y, C, n,
-                                      m, T, H, cols);
+  mlstm_scan_kernel<ROWS, SAVE><<<B * H * (HD / cols), 4 * cols + 32, 0,
+                                  stream>>>(q, k, v, li, lf, C0, n0, m0, y,
+                                            C, n, m, Cck, nck, mck, T, H,
+                                            cols);
   return (int)cudaGetLastError();
 }
 
 // ------------------------------------------------------------- S3 sLSTM
-template <int ROWS>
+template <int ROWS, bool SAVE>
 __global__ void __cluster_dims__(kS3Cluster, 1, 1) __launch_bounds__(512)
     slstm_scan_kernel(const float* __restrict__ zx,
                       const float* __restrict__ ix,
@@ -292,7 +308,7 @@ __global__ void __cluster_dims__(kS3Cluster, 1, 1) __launch_bounds__(512)
                       const float* __restrict__ h0, float* __restrict__ y,
                       float* __restrict__ cout, float* __restrict__ nout,
                       float* __restrict__ mout, float* __restrict__ hout,
-                      int T, int H) {
+                      float* __restrict__ saved, int T, int H) {
   constexpr int HD = 4 * ROWS;
   constexpr int E = HD / kS3Cluster;           // state elements a block
   __shared__ float sH[2][HD];                  // h_{t-1}, h_t
@@ -346,10 +362,13 @@ __global__ void __cluster_dims__(kS3Cluster, 1, 1) __launch_bounds__(512)
         nf = fx[g];
         no = ox[g];
       }
-      const float z = tanhf(__fadd_rn(zt, sG[tid]));
+      const float zp = __fadd_rn(zt, sG[tid]);
       const float li = __fadd_rn(it, sG[E + tid]);
-      const float lf = log_sigmoid(__fadd_rn(ft, sG[2 * E + tid]));
-      const float o = sigmoid(__fadd_rn(ot, sG[3 * E + tid]));
+      const float fp = __fadd_rn(ft, sG[2 * E + tid]);
+      const float op = __fadd_rn(ot, sG[3 * E + tid]);
+      const float z = tanhf(zp);
+      const float lf = log_sigmoid(fp);
+      const float o = sigmoid(op);
       const float lfm = __fadd_rn(lf, ms);
       const float mnew = fmaxf(lfm, li);
       const float f = expf(__fsub_rn(lfm, mnew));
@@ -358,13 +377,25 @@ __global__ void __cluster_dims__(kS3Cluster, 1, 1) __launch_bounds__(512)
       ns = __fadd_rn(__fmul_rn(ns, f), i);
       hs = __fdiv_rn(__fmul_rn(o, cs), fmaxf(fabsf(ns), 1.0f));
       ms = mnew;
-      y[(((long long)b * T + t) * H + h) * HD + me] = hs;
+      const long long g = (((long long)b * T + t) * H + h) * HD + me;
+      if (SAVE) {                    // planes c, n, m, z, i, f, o of (B,T,H,hd)
+        const long long plane = (long long)(gridDim.x / kS3Cluster) * T * HD;
+        saved[g] = cs;
+        saved[plane + g] = ns;
+        saved[2 * plane + g] = ms;
+        saved[3 * plane + g] = zp;
+        saved[4 * plane + g] = li;
+        saved[5 * plane + g] = fp;
+        saved[6 * plane + g] = op;
+      } else {
+        y[g] = hs;
+      }
       for (unsigned rank = 0; rank < kS3Cluster; ++rank)
         st_cluster(&sH[cur ^ 1][me], rank, hs);
     }
     cluster_sync();                  // h_t in every block; sG free again
   }
-  if (owner) {
+  if (owner && !SAVE) {
     cout[sbase + me] = cs;
     nout[sbase + me] = ns;
     mout[sbase + me] = ms;
@@ -372,15 +403,15 @@ __global__ void __cluster_dims__(kS3Cluster, 1, 1) __launch_bounds__(512)
   }
 }
 
-template <int ROWS>
+template <int ROWS, bool SAVE>
 int launch_slstm(const float* zx, const float* ix, const float* fx,
                  const float* ox, const float* R, const float* c0,
                  const float* n0, const float* m0, const float* h0, float* y,
-                 float* c, float* n, float* m, float* h, int B, int T, int H,
-                 cudaStream_t stream) {
+                 float* c, float* n, float* m, float* h, float* saved, int B,
+                 int T, int H, cudaStream_t stream) {
   constexpr int E = 4 * ROWS / kS3Cluster;
-  slstm_scan_kernel<ROWS><<<B * H * kS3Cluster, 16 * E, 0, stream>>>(
-      zx, ix, fx, ox, R, c0, n0, m0, h0, y, c, n, m, h, T, H);
+  slstm_scan_kernel<ROWS, SAVE><<<B * H * kS3Cluster, 16 * E, 0, stream>>>(
+      zx, ix, fx, ox, R, c0, n0, m0, h0, y, c, n, m, h, saved, T, H);
   return (int)cudaGetLastError();
 }
 
@@ -397,10 +428,10 @@ int mamba2_scan(const float* decay, const float* Bm, const float* Cm,
   if (B <= 0 || H <= 0) return 0;
   if (T < 0 || hd <= 0 || hd > 256 || hd % 8 != 0 || ds % 4 != 0)
     return (int)cudaErrorInvalidValue;
-#define S1(R)                                                           \
-  case R:                                                               \
-    return launch_mamba2<R>(decay, Bm, Cm, dtx, s0, y, sT, B, T, H, hd, \
-                            stream)
+#define S1(R)                                                             \
+  case R:                                                                 \
+    return launch_mamba2<R, false>(decay, Bm, Cm, dtx, s0, y, sT, nullptr, \
+                                   B, T, H, hd, stream)
   switch (ds / 4) {
     S1(1); S1(2); S1(4); S1(8); S1(16); S1(32);
     default: return (int)cudaErrorInvalidValue;
@@ -418,10 +449,10 @@ int mlstm_scan(const float* q, const float* k, const float* v,
                cudaStream_t stream) {
   if (B <= 0 || H <= 0) return 0;
   if (T < 0 || hd % 4 != 0) return (int)cudaErrorInvalidValue;
-#define S2(R)                                                              \
-  case R:                                                                  \
-    return launch_mlstm<R>(q, k, v, li, lf, C0, n0, m0, y, C, n, m, B, T, \
-                           H, stream)
+#define S2(R)                                                             \
+  case R:                                                                 \
+    return launch_mlstm<R, false>(q, k, v, li, lf, C0, n0, m0, y, C, n, m, \
+                                  nullptr, nullptr, nullptr, B, T, H, stream)
   switch (hd / 4) {
     S2(2); S2(4); S2(8); S2(16); S2(24); S2(32); S2(48);
     default: return (int)cudaErrorInvalidValue;
@@ -439,10 +470,72 @@ int slstm_scan(const float* zx, const float* ix, const float* fx,
                int hd, cudaStream_t stream) {
   if (B <= 0 || H <= 0) return 0;
   if (T < 0 || hd % 16 != 0) return (int)cudaErrorInvalidValue;
-#define S3(R_)                                                            \
-  case R_:                                                                \
-    return launch_slstm<R_>(zx, ix, fx, ox, R, c0, n0, m0, h0, y, c, n, m, \
-                            h, B, T, H, stream)
+#define S3(R_)                                                             \
+  case R_:                                                                 \
+    return launch_slstm<R_, false>(zx, ix, fx, ox, R, c0, n0, m0, h0, y, c, \
+                                   n, m, h, nullptr, B, T, H, stream)
+  switch (hd / 4) {
+    S3(4); S3(8); S3(12); S3(16); S3(24); S3(32); S3(48); S3(64);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef S3
+}
+
+// The saving variants (csrc/ssm_scan_bwd.cu's inputs), on the forward's
+// operands and widths.  S1: ckpt (B, H, ceil(T / kS1Ckpt), ds, hd), the
+// state before steps 0, kS1Ckpt, ...
+int mamba2_scan_ckpt(const float* decay, const float* Bm, const float* Cm,
+                     const float* dtx, const float* s0, float* ckpt, int B,
+                     int T, int H, int ds, int hd, cudaStream_t stream) {
+  if (B <= 0 || H <= 0 || T == 0) return 0;
+  if (T < 0 || hd <= 0 || hd > 256 || hd % 8 != 0 || ds % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+#define S1(R)                                                             \
+  case R:                                                                 \
+    return launch_mamba2<R, true>(decay, Bm, Cm, dtx, s0, nullptr, nullptr, \
+                                  ckpt, B, T, H, hd, stream)
+  switch (ds / 4) {
+    S1(1); S1(2); S1(4); S1(8); S1(16); S1(32);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef S1
+}
+
+// S2: Cck (B, H, ceil(T / kS2Chunk), hd, hd), nck (..., hd), mck (...):
+// C, n and m before steps 0, kS2Chunk, ...
+int mlstm_scan_ckpt(const float* q, const float* k, const float* v,
+                    const float* li, const float* lf, const float* C0,
+                    const float* n0, const float* m0, float* Cck, float* nck,
+                    float* mck, int B, int T, int H, int hd,
+                    cudaStream_t stream) {
+  if (B <= 0 || H <= 0 || T == 0) return 0;
+  if (T < 0 || hd % 4 != 0) return (int)cudaErrorInvalidValue;
+#define S2(R)                                                             \
+  case R:                                                                 \
+    return launch_mlstm<R, true>(q, k, v, li, lf, C0, n0, m0, nullptr,     \
+                                 nullptr, nullptr, nullptr, Cck, nck, mck, \
+                                 B, T, H, stream)
+  switch (hd / 4) {
+    S2(2); S2(4); S2(8); S2(16); S2(24); S2(32); S2(48);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef S2
+}
+
+// S3: saved (7, B, T, H, hd), every step's c, n, m (after it) and its
+// pre-activations z, i, f, o (input terms plus h_{t-1} . R).
+int slstm_scan_save(const float* zx, const float* ix, const float* fx,
+                    const float* ox, const float* R, const float* c0,
+                    const float* n0, const float* m0, const float* h0,
+                    float* saved, int B, int T, int H, int hd,
+                    cudaStream_t stream) {
+  if (B <= 0 || H <= 0 || T == 0) return 0;
+  if (T < 0 || hd % 16 != 0) return (int)cudaErrorInvalidValue;
+#define S3(R_)                                                             \
+  case R_:                                                                 \
+    return launch_slstm<R_, true>(zx, ix, fx, ox, R, c0, n0, m0, h0,       \
+                                  nullptr, nullptr, nullptr, nullptr,      \
+                                  nullptr, saved, B, T, H, stream)
   switch (hd / 4) {
     S3(4); S3(8); S3(12); S3(16); S3(24); S3(32); S3(48); S3(64);
     default: return (int)cudaErrorInvalidValue;

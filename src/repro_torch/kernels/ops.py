@@ -17,8 +17,10 @@ the one-cluster-per-cell kernels, and ``flash_attention_sm90`` and
 ``flash_attention_sm90_f32`` the K4 launches that took the bf16 and the
 f32 tensor-core kernels.  K4 refuses to run under autograd
 (:func:`flash_attention`).  The recurrences' ops (:mod:`ssm_scan`: S1-S3,
-no Pallas counterpart) count under ``ssm_scan`` (any of the three) and
-under ``mamba2_scan``, ``mlstm_scan`` and ``slstm_scan``.
+no Pallas counterpart) count under ``ssm_scan`` (any of the six) and
+under ``mamba2_scan``, ``mlstm_scan`` and ``slstm_scan`` and their
+backward ops' ``mamba2_scan_bwd``, ``mlstm_scan_bwd`` and
+``slstm_scan_bwd`` (one count a call of an op, whatever kernels it runs).
 """
 from __future__ import annotations
 
@@ -33,7 +35,8 @@ LAUNCHES = {"sroa_invert": 0, "sroa_solve": 0, "sroa_solve_lanes": 0,
             "topk_moves_cluster": 0, "flash_attention": 0,
             "flash_attention_sm90": 0, "flash_attention_sm90_f32": 0,
             "rmsnorm": 0, "ssm_scan": 0, "mamba2_scan": 0, "mlstm_scan": 0,
-            "slstm_scan": 0}
+            "slstm_scan": 0, "mamba2_scan_bwd": 0, "mlstm_scan_bwd": 0,
+            "slstm_scan_bwd": 0}
 
 
 def reset_launches() -> None:

@@ -34,6 +34,11 @@ numbers:
   ``models/ssm.py``.  The kernels take each state update in the twin's
   rounding order; the read-outs and the sLSTM's recurrence product are
   sums in other orders.
+* :func:`mamba2_recurrence_bwd_plain`, :func:`mlstm_recurrence_bwd_plain`
+  and :func:`slstm_recurrence_bwd_plain` — S1b, S2b and S3b
+  (``csrc/ssm_scan_bwd.cu``): the same loops' gradients, an explicit
+  reverse-time loop each (not autograd), with JAX's rules at the ties
+  of ``max`` and ``abs`` (:func:`max_grad_split`).
 """
 from __future__ import annotations
 
@@ -629,3 +634,175 @@ def slstm_recurrence_plain(zx, ix, fx, ox, R, c0, n0, m0, h0):
         m = m_new
         ys.append(h)
     return torch.stack(ys, dim=1), c, n, m, h
+
+
+# ---------------------------------------------- the recurrences' backward
+def max_grad_split(a, b):
+    """The shares of the gradient of ``max(a, b)`` that reach ``a`` and
+    ``b``, as JAX's autodiff splits them: all to the larger, half each at
+    a tie (``torch.clamp_min`` and ``torch.maximum`` give it otherwise)."""
+    wa = torch.where(a > b, 1.0, torch.where(a == b, 0.5, 0.0))
+    wb = torch.where(b > a, 1.0, torch.where(a == b, 0.5, 0.0))
+    return wa, wb
+
+
+def _den_grad(x):
+    """d max(|x|, 1) / dx with JAX's rules: half the gradient at |x| = 1,
+    and ``sign(0) = 0`` for ``abs``."""
+    return max_grad_split(x.abs(), torch.ones_like(x))[0] * torch.sign(x)
+
+
+def _zeros_if_none(g, like):
+    return torch.zeros_like(like) if g is None else g
+
+
+def mamba2_recurrence_bwd_plain(decay, Bm, Cm, dtx, s0, dy=None, dsT=None):
+    """S1's backward: the operands of :func:`mamba2_recurrence_plain` and
+    the upstream gradients of y and s_T (None counts as zeros) -> the
+    gradients of (decay, Bm, Cm, dtx, s0).
+
+    The states are recomputed first.  Then for t = T ... 1, with G the
+    adjoint of s_t: G += C_t (x) dy_t; dC_t = s_t . dy_t, dB_t = G . u_t
+    (both summed over the heads), du_t = B_t . G, d decay_t = <G, s_{t-1}>;
+    G *= decay_t.  d s0 is the last G."""
+    T = decay.shape[1]
+    states = [s0]
+    for dec, Bt, ut in zip(decay.unbind(1), Bm.unbind(1), dtx.unbind(1)):
+        states.append(states[-1] * dec[:, :, None, None]
+                      + Bt[:, None, :, None] * ut[:, :, None])
+    dy = _zeros_if_none(dy, dtx)
+    G = _zeros_if_none(dsT, s0)
+    ddec, dB, dC, du = [], [], [], []
+    for t in range(T - 1, -1, -1):
+        dyt, Bt, Ct, ut = dy[:, t], Bm[:, t], Cm[:, t], dtx[:, t]
+        G = G + Ct[:, None, :, None] * dyt[:, :, None, :]
+        dC.append(torch.einsum("bhij,bhj->bi", states[t + 1], dyt))
+        dB.append(torch.einsum("bhij,bhj->bi", G, ut))
+        du.append(torch.einsum("bi,bhij->bhj", Bt, G))
+        ddec.append(torch.einsum("bhij,bhij->bh", G, states[t]))
+        G = G * decay[:, t, :, None, None]
+    back = lambda xs: torch.stack(xs[::-1], dim=1)  # noqa: E731
+    return back(ddec), back(dB), back(dC), back(du), G
+
+
+def mlstm_recurrence_bwd_plain(q, k, v, log_i, log_f, C0, n0, m0, y,
+                               dy=None, dC=None, dn=None, dm=None):
+    """S2's backward: the operands of :func:`mlstm_recurrence_plain`, its
+    y, and the upstream gradients of (y, C, n, m) (None counts as zeros)
+    -> the gradients of (q, k, v, log_i, log_f, C0, n0, m0).
+
+    The states, gates and denominators are recomputed first.  A reverse
+    step, with G_C, G_n, G_m the adjoints of C_t, n_t, m_t: d num = dy /
+    den, d den = -<dy, y> / den, through max(|q . n|, 1) to q . n; G_C +=
+    q (x) d num, G_n += q d(q . n); dq = C_t d num + n_t d(q . n); dv =
+    i k . G_C, dk = i (G_C v + G_n); d i = <k . G_C, v> + <G_n, k>, d f =
+    <G_C, C_{t-1}> + <G_n, n_{t-1}>; G_C, G_n *= f; then the stabiliser
+    m_t = max(log_f + m_{t-1}, log_i), f = exp(log_f + m_{t-1} - m_t),
+    i = exp(log_i - m_t) gives d log_i, d log_f and G_m."""
+    C, n, m = C0, n0, m0
+    Cs, ns, gates = [C0], [n0], []
+    for kt, vt, qt, li, lf in zip(k.unbind(1), v.unbind(1), q.unbind(1),
+                                  log_i.unbind(1), log_f.unbind(1)):
+        lfm = lf + m
+        m_new = torch.maximum(lfm, li)
+        f_ = torch.exp(lfm - m_new)
+        i_ = torch.exp(li - m_new)
+        C = C * f_[..., None, None] + i_[..., None, None] * (
+            kt[..., :, None] * vt[..., None, :])
+        n = n * f_[..., None] + i_[..., None] * kt
+        qn = (qt * n).sum(-1)
+        gates.append((lfm, li, f_, i_, qn, torch.clamp_min(qn.abs(), 1.0)))
+        Cs.append(C)
+        ns.append(n)
+        m = m_new
+    dy = _zeros_if_none(dy, q)
+    GC, Gn, Gm = (_zeros_if_none(dC, C0), _zeros_if_none(dn, n0),
+                  _zeros_if_none(dm, m0))
+    dq, dk, dv, dli, dlf = [], [], [], [], []
+    for t in range(q.shape[1] - 1, -1, -1):
+        qt, kt, vt, dyt = q[:, t], k[:, t], v[:, t], dy[:, t]
+        lfm, li, f_, i_, qn, den = gates[t]
+        dnum = dyt / den[..., None]
+        dqn = -(dyt * y[:, t]).sum(-1) / den * _den_grad(qn)
+        GC = GC + qt[..., :, None] * dnum[..., None, :]
+        Gn = Gn + qt * dqn[..., None]
+        dq.append(torch.matmul(Cs[t + 1], dnum[..., None])[..., 0]
+                  + ns[t + 1] * dqn[..., None])
+        GCv = torch.matmul(kt[..., None, :], GC)[..., 0, :]     # k . G_C
+        GCk = torch.matmul(GC, vt[..., None])[..., 0]           # G_C v
+        dv.append(i_[..., None] * GCv)
+        dk.append(i_[..., None] * (GCk + Gn))
+        d_i = (GCv * vt).sum(-1) + (Gn * kt).sum(-1)
+        d_f = torch.einsum("bhkv,bhkv->bh", GC, Cs[t]) + (Gn * ns[t]).sum(-1)
+        GC = GC * f_[..., None, None]
+        Gn = Gn * f_[..., None]
+        a, c = d_f * f_, d_i * i_       # d(lfm - m_t), d(li - m_t)
+        dmn = Gm - a - c
+        wl, wi = max_grad_split(lfm, li)
+        Gm = a + dmn * wl               # d lfm: d log_f_t and d m_{t-1}
+        dlf.append(Gm)
+        dli.append(c + dmn * wi)
+    back = lambda xs: torch.stack(xs[::-1], dim=1)  # noqa: E731
+    return (back(dq), back(dk), back(dv), back(dli), back(dlf), GC, Gn, Gm)
+
+
+def slstm_recurrence_bwd_plain(zx, ix, fx, ox, R, c0, n0, m0, h0, y,
+                               dy=None, dc=None, dn=None, dm=None, dh=None):
+    """S3's backward: the operands of :func:`slstm_recurrence_plain`, its
+    y (h_{t-1} is y's step t - 1, or h0), and the upstream gradients of
+    (y, c, n, m, h) (None counts as zeros) -> the gradients of (zx, ix,
+    fx, ox, R, c0, n0, m0, h0).
+
+    The pre-activations and states are recomputed first.  A reverse step,
+    with G_c, G_n, G_m, G_h the adjoints of c_t, n_t, m_t, h_t (G_h plus
+    dy_t): through h = o c / max(|n|, 1), c = c f + i z, n = n f + i and
+    the stabiliser to the four pre-activations' adjoints dpre_t (B, H,
+    4 hd); dR += h_{t-1} (x) dpre_t, G_h = dpre_t . R^T."""
+    hd = zx.shape[-1]
+    c, n, m = c0, n0, m0
+    saved = []
+    for t, (zt, it, ft, ot) in enumerate(zip(zx.unbind(1), ix.unbind(1),
+                                             fx.unbind(1), ox.unbind(1))):
+        hp = h0 if t == 0 else y[:, t - 1]
+        rz, ri, rf, ro = torch.einsum("bhd,hde->bhe", hp, R).split(hd, -1)
+        zp, li, fp, op = zt + rz, it + ri, ft + rf, ot + ro
+        lfm = log_sigmoid(fp) + m
+        m_new = torch.maximum(lfm, li)
+        f_, i_ = torch.exp(lfm - m_new), torch.exp(li - m_new)
+        z = torch.tanh(zp)
+        c_new = c * f_ + i_ * z
+        n_new = n * f_ + i_
+        saved.append((hp, z, li, fp, torch.sigmoid(op), lfm, f_, i_, c, n,
+                      c_new, n_new))
+        c, n, m = c_new, n_new, m_new
+    dy = _zeros_if_none(dy, zx)
+    Gc, Gn, Gm, Gh = (_zeros_if_none(g, x) for g, x in
+                      ((dc, c0), (dn, n0), (dm, m0), (dh, h0)))
+    dR = torch.zeros_like(R)
+    dpres = []
+    for t in range(zx.shape[1] - 1, -1, -1):
+        hp, z, li, fp, o, lfm, f_, i_, cp, np_, c, n = saved[t]
+        g = dy[:, t] + Gh
+        den = torch.clamp_min(n.abs(), 1.0)
+        x = o * c
+        dx = g / den                     # h = x / den
+        Gc = Gc + dx * o
+        Gn = Gn + (-g * x) / (den * den) * _den_grad(n)
+        d_f = Gc * cp + Gn * np_
+        d_i = Gc * z + Gn
+        dz = Gc * i_
+        Gc = Gc * f_
+        Gn = Gn * f_
+        a, cc = d_f * f_, d_i * i_
+        dmn = Gm - a - cc
+        wl, wi = max_grad_split(lfm, li)
+        Gm = a + dmn * wl                # d lfm: d log_sigmoid and d m_{t-1}
+        dpre = torch.cat([dz * (1 - z * z), cc + dmn * wi,
+                          Gm * torch.sigmoid(-fp),
+                          dx * c * o * (1 - o)], dim=-1)      # (B, H, 4 hd)
+        dR = dR + torch.einsum("bhd,bhe->hde", hp, dpre)
+        Gh = torch.einsum("bhe,hde->bhd", dpre, R)
+        dpres.append(dpre)
+    dpre = torch.stack(dpres[::-1], dim=1)
+    dzx, dix, dfx, dox = dpre.split(hd, -1)
+    return (dzx, dix, dfx, dox, dR, Gc, Gn, Gm, Gh)

@@ -1,36 +1,45 @@
 """The recurrences of the hybrid and xlstm families as one op each: S1
 (Mamba2), S2 (mLSTM) and S3 (sLSTM), with their kernels in
-``csrc/ssm_scan.cu``.
+``csrc/ssm_scan.cu``, and their backward ops S1b-S3b, with their kernels
+in ``csrc/ssm_scan_bwd.cu``.
 
 The JAX package runs each recurrence as one ``lax.scan`` (its
-``models/ssm.py``): one loop that XLA keeps on the device, and that its
-dry-run counts once and multiplies by the trip count.  Here each is one
-``torch.library`` op, ``repro_torch::mamba2_scan``, ``::mlstm_scan`` and
-``::slstm_scan``, with
+``models/ssm.py``): one loop that XLA keeps on the device, differentiates
+in reverse, and that its dry-run counts once and multiplies by the trip
+count.  Here each is one ``torch.library`` op, ``repro_torch::mamba2_scan``,
+``::mlstm_scan`` and ``::slstm_scan``, and its gradient another,
+``::mamba2_scan_bwd``, ``::mlstm_scan_bwd`` and ``::slstm_scan_bwd``, each
+with
 
 * a CPU implementation, the plain twin in :mod:`repro_torch.kernels.ref`
-  (the time loop of ``models/ssm.py`` step by step);
-* a CUDA implementation that launches the hand-written kernel, counts the
-  launch in ``ops.LAUNCHES["ssm_scan"]`` and under the op's own name, and
-  raises on a shape the kernel does not take or on a launch error;
+  (the time loop of ``models/ssm.py`` step by step, or its reverse);
+* a CUDA implementation that launches the hand-written kernels, counts
+  the op once in ``ops.LAUNCHES["ssm_scan"]`` and under the op's own name,
+  and raises on a shape the kernels do not take or on a launch error;
 * a fake implementation (shapes and dtypes), which ``meta`` tensors and
   the dry-run take;
 * a FLOP formula for ``torch.utils.flop_counter``: T times the per-step
-  matrix products the twin runs (the Mamba2 read-out, mLSTM's q . C,
-  sLSTM's h . R), which is what the dry-run's ``StepCounter`` counts over
-  the twin's loop.
+  matrix products the twin runs (forward: the Mamba2 read-out, mLSTM's
+  q . C, sLSTM's h . R; backward: the contractions of the reverse step),
+  which is what the dry-run's ``StepCounter`` counts over the twin's loop.
 
-Every operand is float32 and every output a fresh tensor.  The ops have
-no autograd formula: ``models/ssm.py`` calls the twin directly when a
-gradient is wanted.
+The backward ops are the forward ops' autograd formulas
+(``torch.library.register_autograd``): the forward saves its operands and,
+for S2 and S3, its y.  A backward op on a card runs the forward kernel's
+saving variant (S1: the state every ``S1B_CKPT`` steps; S2: C, n and m
+every ``S2B_CKPT`` steps; S3: every step's c, n, m and pre-activations)
+into scratch the wrapper allocates, then the reverse kernels; the sums
+over heads (S1's dB and dC), slices (S2's dq and dk) and batch rows (S3's
+dR) are per-block partials added here in a fixed order.
 
-The kernels (source notes in ``csrc/ssm_scan.cu``) run the twin's
-sequential recurrence with the state on the chip, one launch for the
-whole sequence; they are not the chunked SSD form.  Each takes only
-the widths its thread layout divides (:func:`mamba2_supported`,
-:func:`mlstm_supported`, :func:`slstm_supported`: every config of the
-zoo and its ``reduced()`` forms), and raises on others before any
-launch.
+Every operand is float32 and every output a fresh tensor.  The kernels
+(source notes in the ``csrc`` files) run the twin's sequential recurrence
+with the state on the chip, one launch for the whole sequence; they are
+not the chunked SSD form.  Each takes only the widths its thread layout
+divides (:func:`mamba2_supported`, :func:`mlstm_supported`,
+:func:`slstm_supported`: every config of the zoo and its ``reduced()``
+forms), and raises on others before any launch; a backward takes the
+widths its forward takes.
 """
 from __future__ import annotations
 
@@ -136,18 +145,37 @@ def _refuse(kernel: str, shape: str) -> None:
                      f"repro_torch.kernels.ssm_scan's *_supported")
 
 
+def _operands(name: str, ins) -> tuple:
+    """The operands, contiguous, on one device (raises otherwise)."""
+    ins = tuple(x.contiguous() for x in ins)
+    if any(x.device != ins[0].device for x in ins):
+        raise ValueError(f"{name}: operands must lie on one device")
+    return ins
+
+
 def _launch(name: str, fn, outs, *ins, dims):
     """Launch ``fn`` over contiguous operands, count it, return outs."""
-    ins = tuple(x.contiguous() for x in ins)
-    dev = ins[0].device
-    if any(x.device != dev for x in ins):
-        raise ValueError(f"{name}: operands must lie on one device")
-    err = _call(dev, fn, *(x.data_ptr() for x in ins),
-                *(y.data_ptr() for y in outs), *dims, _stream(ins[0]))
-    build.check(err, name)
+    ins = _operands(name, ins)
+    _run(name, ins[0], (fn, ins + tuple(outs), dims))
+    return outs
+
+
+def _run(name: str, like: Tensor, *calls) -> None:
+    """Each call ``(fn, tensors, ints)`` in turn on ``like``'s device and
+    current stream, raising at the first launch error; the op is counted
+    once, after the last launch."""
+    dev, stream = like.device, _stream(like)
+    for fn, tensors, ints in calls:
+        build.check(_call(dev, fn, *(x.data_ptr() for x in tensors), *ints,
+                          stream), name)
     ops.LAUNCHES["ssm_scan"] += 1
     ops.LAUNCHES[name] += 1
-    return outs
+
+
+def _own(outs) -> tuple:
+    """A twin's outputs as tensors of their own (S3b's twin returns views
+    of one tensor, which an op may not)."""
+    return tuple(y.contiguous() for y in outs)
 
 
 # ------------------------------------------------------------ S1 Mamba2
@@ -185,6 +213,76 @@ def _mamba2_flops(decay, Bm, Cm, dtx, s0, *args, **kwargs) -> int:
     return T * 2 * B * H * Bm[-1] * hd                # C_t . s a step
 
 
+# S1b: the forward's saving variant keeps the state every S1B_CKPT steps;
+# the reverse kernel recomputes the S1B_CKPT states of a chunk into a
+# scratch of its own.
+S1B_CKPT = 8
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@torch.library.custom_op("repro_torch::mamba2_scan_bwd", mutates_args=(),
+                         device_types="cpu")
+def mamba2_scan_bwd(decay: Tensor, Bm: Tensor, Cm: Tensor, dtx: Tensor,
+                    s0: Tensor, dy: Tensor, dsT: Tensor
+                    ) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """S1b: S1's gradient (:func:`ref.mamba2_recurrence_bwd_plain`) ->
+    (d decay, dBm, dCm, d dtx, d s0)."""
+    check_mamba2(decay, Bm, Cm, dtx, s0)
+    _same("dy", dy, dtx.shape)
+    _same("dsT", dsT, s0.shape)
+    return _own(ref.mamba2_recurrence_bwd_plain(decay, Bm, Cm, dtx, s0, dy,
+                                                dsT))
+
+
+@mamba2_scan_bwd.register_kernel("cuda")
+def _mamba2_bwd_cuda(decay, Bm, Cm, dtx, s0, dy, dsT):
+    B, T, H, ds, hd = check_mamba2(decay, Bm, Cm, dtx, s0)
+    _same("dy", dy, dtx.shape)
+    _same("dsT", dsT, s0.shape)
+    if not mamba2_supported(ds, hd):
+        _refuse("S1b (mamba2_scan_bwd)", f"ds {ds}, hd {hd}")
+    ins = _operands("mamba2_scan_bwd", (decay, Bm, Cm, dtx, s0, dy, dsT))
+    f32 = dict(dtype=torch.float32, device=dtx.device)
+    ckpt = torch.empty((B, H, _ceil(T, S1B_CKPT), ds, hd), **f32)
+    scratch = torch.empty((B * H, S1B_CKPT, ds * hd), **f32)
+    ddec, ddtx, ds0 = (torch.empty(x.shape, **f32) for x in (decay, dtx, s0))
+    dBh, dCh = (torch.empty((B, T, H, ds), **f32) for _ in range(2))
+    lib, dims = build.load(), (B, T, H, ds, hd)
+    _run("mamba2_scan_bwd", dtx,
+         (lib.mamba2_scan_ckpt, ins[:5] + (ckpt,), dims),
+         (lib.mamba2_scan_bwd, ins + (ckpt, scratch, ddec, dBh, dCh, ddtx,
+                                      ds0), dims))
+    return ddec, dBh.sum(2), dCh.sum(2), ddtx, ds0
+
+
+@mamba2_scan_bwd.register_fake
+def _mamba2_bwd_fake(decay, Bm, Cm, dtx, s0, dy, dsT):
+    check_mamba2(decay, Bm, Cm, dtx, s0)
+    return tuple(x.new_empty(x.shape) for x in (decay, Bm, Cm, dtx, s0))
+
+
+@register_flop_formula(torch.ops.repro_torch.mamba2_scan_bwd)
+def _mamba2_bwd_flops(decay, Bm, Cm, dtx, *args, **kwargs) -> int:
+    B, T, H, hd = dtx
+    return T * 8 * B * H * Bm[-1] * hd        # dC, dB, d dtx, d decay a step
+
+
+def _mamba2_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _mamba2_backward(ctx, dy, dsT):
+    # autograd hands a zero gradient for an output that took none
+    return mamba2_scan_bwd(*ctx.saved_tensors, dy, dsT)
+
+
+torch.library.register_autograd("repro_torch::mamba2_scan", _mamba2_backward,
+                                setup_context=_mamba2_setup)
+
+
 # ------------------------------------------------------------- S2 mLSTM
 @torch.library.custom_op("repro_torch::mlstm_scan", mutates_args=(),
                          device_types="cpu")
@@ -220,6 +318,84 @@ def _mlstm_flops(q, *args, **kwargs) -> int:
     return T * 2 * B * H * hd * hd                    # q_t . C a step
 
 
+# S2b: the forward's saving variant keeps C, n and m every S2B_CKPT steps
+# (its chunk); the reverse kernel recomputes a chunk's C and n into a
+# scratch of its own.
+S2B_CKPT = 16
+
+
+@torch.library.custom_op("repro_torch::mlstm_scan_bwd", mutates_args=(),
+                         device_types="cpu")
+def mlstm_scan_bwd(q: Tensor, k: Tensor, v: Tensor, log_i: Tensor,
+                   log_f: Tensor, C0: Tensor, n0: Tensor, m0: Tensor,
+                   y: Tensor, dy: Tensor, dC: Tensor, dn: Tensor,
+                   dm: Tensor) -> tuple[Tensor, Tensor, Tensor, Tensor,
+                                        Tensor, Tensor, Tensor, Tensor]:
+    """S2b: S2's gradient (:func:`ref.mlstm_recurrence_bwd_plain`) ->
+    (dq, dk, dv, d log_i, d log_f, dC0, dn0, dm0)."""
+    check_mlstm(q, k, v, log_i, log_f, C0, n0, m0)
+    for name, g, x in (("y", y, q), ("dy", dy, q), ("dC", dC, C0),
+                       ("dn", dn, n0), ("dm", dm, m0)):
+        _same(name, g, x.shape)
+    return _own(ref.mlstm_recurrence_bwd_plain(q, k, v, log_i, log_f, C0, n0,
+                                               m0, y, dy, dC, dn, dm))
+
+
+@mlstm_scan_bwd.register_kernel("cuda")
+def _mlstm_bwd_cuda(q, k, v, log_i, log_f, C0, n0, m0, y, dy, dC, dn, dm):
+    B, T, H, hd = check_mlstm(q, k, v, log_i, log_f, C0, n0, m0)
+    for name, g, x in (("y", y, q), ("dy", dy, q), ("dC", dC, C0),
+                       ("dn", dn, n0), ("dm", dm, m0)):
+        _same(name, g, x.shape)
+    if not mlstm_supported(hd):
+        _refuse("S2b (mlstm_scan_bwd)", f"hd {hd}")
+    ins = _operands("mlstm_scan_bwd", (q, k, v, log_i, log_f, C0, n0, m0,
+                                       y, dy, dC, dn, dm))
+    f32 = dict(dtype=torch.float32, device=q.device)
+    S, nC = hd // mlstm_slice(hd), _ceil(T, S2B_CKPT)
+    ckpt = (torch.empty((B, H, nC, hd, hd), **f32),
+            torch.empty((B, H, nC, hd), **f32),
+            torch.empty((B, H, nC), **f32))
+    scratch = (torch.empty((B * H * S, S2B_CKPT, hd * mlstm_slice(hd)), **f32),
+               torch.empty((B * H * S, S2B_CKPT, hd), **f32),
+               torch.empty((B, T, H), **f32))
+    dq, dk = (torch.empty((S, B, T, H, hd), **f32) for _ in range(2))
+    dfi = torch.empty((2, S, B, T, H), **f32)
+    dv, dli, dlf, dC0, dn0, dm0 = (torch.empty(x.shape, **f32) for x in
+                                   (v, log_i, log_f, C0, n0, m0))
+    lib, dims = build.load(), (B, T, H, hd)
+    _run("mlstm_scan_bwd", q,
+         (lib.mlstm_scan_ckpt, ins[:8] + ckpt, dims),
+         (lib.mlstm_scan_bwd, ins + ckpt + scratch + (
+             dq, dk, dv, dfi, dli, dlf, dC0, dn0, dm0), dims))
+    return dq.sum(0), dk.sum(0), dv, dli, dlf, dC0, dn0, dm0
+
+
+@mlstm_scan_bwd.register_fake
+def _mlstm_bwd_fake(q, k, v, log_i, log_f, C0, n0, m0, y, dy, dC, dn, dm):
+    check_mlstm(q, k, v, log_i, log_f, C0, n0, m0)
+    return tuple(x.new_empty(x.shape)
+                 for x in (q, k, v, log_i, log_f, C0, n0, m0))
+
+
+@register_flop_formula(torch.ops.repro_torch.mlstm_scan_bwd)
+def _mlstm_bwd_flops(q, *args, **kwargs) -> int:
+    B, T, H, hd = q
+    return T * 8 * B * H * hd * hd        # dq, k . G_C, G_C v, d f a step
+
+
+def _mlstm_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs, output[0])
+
+
+def _mlstm_backward(ctx, dy, dC, dn, dm):
+    return mlstm_scan_bwd(*ctx.saved_tensors, dy, dC, dn, dm)
+
+
+torch.library.register_autograd("repro_torch::mlstm_scan", _mlstm_backward,
+                                setup_context=_mlstm_setup)
+
+
 # ------------------------------------------------------------- S3 sLSTM
 @torch.library.custom_op("repro_torch::slstm_scan", mutates_args=(),
                          device_types="cpu")
@@ -253,3 +429,75 @@ def _slstm_fake(zx, ix, fx, ox, R, c0, n0, m0, h0):
 def _slstm_flops(zx, *args, **kwargs) -> int:
     B, T, H, hd = zx
     return T * 2 * B * H * hd * 4 * hd                # h_{t-1} . R a step
+
+
+# S3b: the forward's saving variant keeps every step's c, n, m and the four
+# pre-activations.
+@torch.library.custom_op("repro_torch::slstm_scan_bwd", mutates_args=(),
+                         device_types="cpu")
+def slstm_scan_bwd(zx: Tensor, ix: Tensor, fx: Tensor, ox: Tensor,
+                   R: Tensor, c0: Tensor, n0: Tensor, m0: Tensor, h0: Tensor,
+                   y: Tensor, dy: Tensor, dc: Tensor, dn: Tensor, dm: Tensor,
+                   dh: Tensor) -> tuple[Tensor, Tensor, Tensor, Tensor,
+                                        Tensor, Tensor, Tensor, Tensor,
+                                        Tensor]:
+    """S3b: S3's gradient (:func:`ref.slstm_recurrence_bwd_plain`) ->
+    (dzx, dix, dfx, dox, dR, dc0, dn0, dm0, dh0)."""
+    check_slstm(zx, ix, fx, ox, R, c0, n0, m0, h0)
+    for name, g in (("y", y), ("dy", dy)):
+        _same(name, g, zx.shape)
+    for name, g in (("dc", dc), ("dn", dn), ("dm", dm), ("dh", dh)):
+        _same(name, g, c0.shape)
+    return _own(ref.slstm_recurrence_bwd_plain(zx, ix, fx, ox, R, c0, n0, m0,
+                                               h0, y, dy, dc, dn, dm, dh))
+
+
+@slstm_scan_bwd.register_kernel("cuda")
+def _slstm_bwd_cuda(zx, ix, fx, ox, R, c0, n0, m0, h0, y, dy, dc, dn, dm,
+                    dh):
+    B, T, H, hd = check_slstm(zx, ix, fx, ox, R, c0, n0, m0, h0)
+    for name, g in (("y", y), ("dy", dy)):
+        _same(name, g, zx.shape)
+    for name, g in (("dc", dc), ("dn", dn), ("dm", dm), ("dh", dh)):
+        _same(name, g, c0.shape)
+    if not slstm_supported(hd):
+        _refuse("S3b (slstm_scan_bwd)", f"hd {hd}")
+    ins = _operands("slstm_scan_bwd", (zx, ix, fx, ox, R, c0, n0, m0, h0,
+                                       y, dy, dc, dn, dm, dh))
+    f32 = dict(dtype=torch.float32, device=zx.device)
+    saved = torch.empty((7, B, T, H, hd), **f32)  # c, n, m, z, i, f, o pre
+    grads = tuple(torch.empty(zx.shape, **f32) for _ in range(4))
+    dRb = torch.empty((B, H, hd, 4 * hd), **f32)
+    states = tuple(torch.empty(c0.shape, **f32) for _ in range(4))
+    lib, dims = build.load(), (B, T, H, hd)
+    _run("slstm_scan_bwd", zx,
+         (lib.slstm_scan_save, ins[:9] + (saved,), dims),
+         (lib.slstm_scan_bwd, ins + (saved,) + grads + (dRb,) + states,
+          dims))
+    return (*grads, dRb.sum(0), *states)
+
+
+@slstm_scan_bwd.register_fake
+def _slstm_bwd_fake(zx, ix, fx, ox, R, c0, n0, m0, h0, y, dy, dc, dn, dm,
+                    dh):
+    check_slstm(zx, ix, fx, ox, R, c0, n0, m0, h0)
+    return tuple(x.new_empty(x.shape)
+                 for x in (zx, ix, fx, ox, R, c0, n0, m0, h0))
+
+
+@register_flop_formula(torch.ops.repro_torch.slstm_scan_bwd)
+def _slstm_bwd_flops(zx, *args, **kwargs) -> int:
+    B, T, H, hd = zx
+    return T * 24 * B * H * hd * hd   # h . R (recomputed), dR, dpre . R^T
+
+
+def _slstm_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs, output[0])
+
+
+def _slstm_backward(ctx, dy, dc, dn, dm, dh):
+    return slstm_scan_bwd(*ctx.saved_tensors, dy, dc, dn, dm, dh)
+
+
+torch.library.register_autograd("repro_torch::slstm_scan", _slstm_backward,
+                                setup_context=_slstm_setup)

@@ -35,10 +35,12 @@ its cache in place), ``compile_s`` and ``generated_code_size_in_bytes``
 emits no HLO and runs its layer and time loops eagerly, so every
 collective is seen as often as it runs.  The recurrences of the hybrid
 and xlstm families are one op a layer (:mod:`repro_torch.kernels.
-ssm_scan`), which the ``meta`` run takes through its fake implementation
-and its FLOP formula, as the reference's ``lax.scan`` is one loop; only
-their backward passes (train cells) still run as Python loops over the
-time steps.  The peak is eager PyTorch's:
+ssm_scan`), and their gradients one backward op a layer, which the
+``meta`` run takes through their fake implementations and FLOP formulas,
+as the reference's ``lax.scan`` is one loop forward and one in reverse.
+The scratch the backward ops' CUDA implementations allocate (saved states
+and per-block partials, freed after each op) is not in the fakes, so not
+in the peak.  The peak is eager PyTorch's:
 no fusion, no rematerialisation beyond ``cfg.remat``'s checkpoints, and
 DTensor's sharding propagation, not GSPMD's, decides the layouts between
 the constraints.
@@ -87,10 +89,6 @@ _COLLECTIVE_OPS = {
     "reduce_scatter_tensor_coalesced": "reduce-scatter",
     "all_to_all_single": "all-to-all", "shard_dim_alltoall": "all-to-all",
 }
-# A train cell's recurrence time steps (sequence length x scanned layers)
-# beyond which it is skipped: the backward passes of the recurrences run
-# as Python loops of ~8 ops a step (the forward is one op a layer).
-MAX_SCAN_STEPS = 1 << 12
 
 
 # ------------------------------------------------------------ the trees
@@ -483,12 +481,6 @@ def run_cell(arch: str, shape_name, multi_pod: bool,
     ok, reason = shp.applicable(cfg, shape)
     rules = rules or sh.default_rules(multi_pod=multi_pod)
     cfg, rules = apply_variant(cfg, rules, variant, n_devices, multi_pod)
-    if ok and shape.kind == "train" and \
-            scan_steps(cfg, shape) > MAX_SCAN_STEPS:
-        ok, reason = False, (
-            f"{scan_steps(cfg, shape):,} recurrence time steps (seq_len x "
-            f"layers): the backward recurrences still run as Python loops, "
-            f"beyond {MAX_SCAN_STEPS:,} steps")
     if not ok:
         rec.update(status="skipped", reason=reason)
         return rec

@@ -14,11 +14,13 @@ work that does not depend on the state (the projections, the causal conv,
 the decay exp(dt A), dt * x, the gates' input terms) is done for all T
 before the op, the output projection after it.
 
-The route (:func:`_recurrence`) is a pure function of the operands: with
-grad mode on and an operand that requires grad, the scan calls the twin
-itself on either device (the ops have no autograd formula; the gradient
-flows through the twin's loop); else it calls the op, whose CUDA
-implementation launches the kernel or raises.
+Each scan always calls its op, with or without a gradient: the ops'
+autograd formulas are the backward ops S1b-S3b (a reverse-time loop with
+the adjoint state on the chip on a card, the backward twin's loop on the
+CPU), so a train step runs one forward launch a layer (two under remat)
+and one backward launch a layer on a card, as the reference
+differentiates its ``lax.scan``.  The CUDA implementations launch their
+kernels or raise.
 
 Where the two frameworks could round differently, the reference's
 formulas are copied rather than PyTorch's shortcuts:
@@ -39,21 +41,12 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import ref, ssm_scan
+from repro_torch.kernels import ssm_scan
 from repro_torch.kernels.ref import log_sigmoid, softplus
 from repro_torch.models.layers import init_dense
 
 CONV_W = 4  # causal depthwise conv width used by Mamba2
 NEG_INIT = -1e30  # the xLSTM stabilisers' initial value
-
-
-def _recurrence(op, twin, *operands):
-    """``twin(*operands)`` when grad mode is on and an operand requires
-    grad (the training route: the op has no backward), else
-    ``op(*operands)``."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
-        return twin(*operands)
-    return op(*operands)
 
 
 # =========================================================== Mamba2 (SSD)
@@ -133,8 +126,8 @@ def mamba2_scan(params, x, d_state, headdim=64, state=None, conv_state=None):
 
     s = (torch.zeros((B_, n_heads, d_state, headdim), dtype=torch.float32,
                      device=x.device) if state is None else state)
-    y, s = _recurrence(ssm_scan.mamba2_scan, ref.mamba2_recurrence_plain,
-                       decay, Bm.float(), Cm.float(), dtx, s)   # (B,T,H,hd)
+    y, s = ssm_scan.mamba2_scan(decay, Bm.float(), Cm.float(), dtx,
+                                s)                              # (B,T,H,hd)
     y = y + params["D"][None, None, :, None] * xh
     y = (y.reshape(B_, T, d_inner) * F.silu(z.float())).to(x.dtype)
     return y @ params["out_proj"], (s, conv_state)
@@ -168,9 +161,8 @@ def mlstm_scan(params, x, n_heads, state=None):
         state = (torch.zeros((B, n_heads, hd, hd), **f32),
                  torch.zeros((B, n_heads, hd), **f32),
                  torch.full((B, n_heads), NEG_INIT, **f32))
-    y, C, n, m = _recurrence(ssm_scan.mlstm_scan,
-                             ref.mlstm_recurrence_plain, q.float(),
-                             k.float(), v.float(), log_i, log_f, *state)
+    y, C, n, m = ssm_scan.mlstm_scan(q.float(), k.float(), v.float(), log_i,
+                                     log_f, *state)
     y = y.reshape(B, T, d).to(x.dtype)
     return y @ params["wo"], (C, n, m)
 
@@ -204,8 +196,6 @@ def slstm_scan(params, x, n_heads, state=None):
         state = (zeros, zeros, torch.full_like(zeros, NEG_INIT), zeros)
     # The four recurrences h @ r (einsum "bhd,hde->bhe") in one product.
     R = torch.cat([params[k].float() for k in ("rz", "ri", "rf", "ro")], -1)
-    y, c, n, m, h = _recurrence(ssm_scan.slstm_scan,
-                                ref.slstm_recurrence_plain, *gates, R,
-                                *state)
+    y, c, n, m, h = ssm_scan.slstm_scan(*gates, R, *state)
     y = y.reshape(B, T, d).to(x.dtype)
     return y @ params["w_out"], (c, n, m, h)

@@ -1,7 +1,7 @@
-"""The port's hand-written CUDA kernels (K1-K5, and S1-S3 for the
-recurrences) against their plain PyTorch twins, on a card (K2's and K3's
-two kernels and every speculation depth of K1 and K2 bitwise; S1's state
-bitwise), and the served paths on the card against the CPU (the trainer,
+"""The port's hand-written CUDA kernels (K1-K5, and S1-S3 and their
+backward S1b-S3b for the recurrences) against their plain PyTorch twins,
+on a card (K2's and K3's two kernels and every speculation depth of K1
+and K2 bitwise; S1's state and S1b's d s0 bitwise), and the served paths on the card against the CPU (the trainer,
 the moe model and its dispatch, the hybrid and xlstm models), distributed
 HFL on NCCL and gloo against one process, and the dry-run's argument
 bytes against what the card allocates.  Every test here is marked
@@ -1061,6 +1061,82 @@ def test_recurrence_kernels_raise_and_never_fall_back(cuda):
     assert ops.LAUNCHES == before
 
 
+# (op, B, H, hd, ds): the reduced widths, and the full widths of zamba2-7b
+# (ds 64, hd 64) and xlstm-125m (hd 192) at one (b, h).
+_SCANS_BWD = _SCANS + (("mamba2_scan", 1, 2, 64, 64),
+                       ("mlstm_scan", 1, 1, 192, 0),
+                       ("slstm_scan", 1, 1, 192, 0))
+
+
+def _bwd_operands(name, args, outs, seed=1):
+    """A backward op's operands: the forward's, y (S2, S3) and a seeded
+    upstream gradient of every output, final states too."""
+    g = torch.Generator().manual_seed(seed)
+    ups = tuple(torch.randn(o.shape, generator=g).to(o.device) for o in outs)
+    return args + (() if name == "mamba2_scan" else (outs[0],)) + ups
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 64])
+@pytest.mark.parametrize("name,B,H,hd,ds", _SCANS_BWD)
+def test_recurrence_backward_kernels_match_their_twins(cuda, name, B, H, hd,
+                                                       ds, T):
+    """S1b-S3b, a state carried in, seeded upstream gradients of every
+    output: each gradient within 1e-4 of the backward twin's max |.| on
+    the card (the contractions add in other orders); S1b's G, so d s0,
+    bitwise the twin's (its update reads no sum).  Through autograd, the
+    op's gradients are the backward op's."""
+    from repro_torch.kernels import ssm_scan
+
+    args = _scan_operands(name, B, T, H, hd, ds, cuda)
+    outs = getattr(ssm_scan, name)(*args)
+    bargs = _bwd_operands(name, args, outs)
+    bwd = getattr(ssm_scan, name + "_bwd")
+    got = _launched(name + "_bwd", lambda: bwd(*bargs))
+    want = getattr(ref, name.replace("_scan", "_recurrence_bwd_plain"))(
+        *bargs)
+    assert len(got) == len(want) == len(args)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+    if name == "mamba2_scan":
+        assert torch.equal(got[4], want[4])
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    n0 = dict(ops.LAUNCHES)
+    grads = torch.autograd.grad(getattr(ssm_scan, name)(*leaves), leaves,
+                                bargs[len(bargs) - len(outs):])
+    assert ops.LAUNCHES[name] == n0[name] + 1
+    assert ops.LAUNCHES[name + "_bwd"] == n0[name + "_bwd"] + 1
+    for g, w in zip(grads, got):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_recurrence_backward_kernels_raise_and_never_fall_back(cuda):
+    """A width the backward kernels do not take raises before any launch;
+    an error a launch returns raises too; neither counts a launch."""
+    from repro_torch.kernels import build, ssm_scan
+
+    before = dict(ops.LAUNCHES)
+    for name, hd, ds in (("mamba2_scan", 12, 16), ("mlstm_scan", 20, 0),
+                         ("slstm_scan", 24, 0)):
+        args = _scan_operands(name, 1, 4, 2, hd, ds, cuda)
+        ups = tuple(torch.zeros_like(x) for x in (
+            (args[3], args[4]) if name == "mamba2_scan" else
+            (args[0], *args[5:8]) if name == "mlstm_scan" else
+            (args[0], *args[5:9])))
+        y = () if name == "mamba2_scan" else (args[0],)
+        with pytest.raises(ValueError, match="no kernel"):
+            getattr(ssm_scan, name + "_bwd")(*args, *y, *ups)
+    args = _scan_operands("mamba2_scan", 1, 4, 2, 16, 16, cuda)
+    bufs = tuple(torch.empty(4096, device=cuda) for _ in range(9))
+    with pytest.raises(RuntimeError, match="mamba2_scan_bwd failed"):
+        ssm_scan._run("mamba2_scan_bwd", args[3], (
+            build.load().mamba2_scan_bwd, args + bufs,
+            (1, 4, 2, 16, 12)))                          # hd 12
+    assert ops.LAUNCHES == before
+
+
 def _leaves(tree):
     if isinstance(tree, torch.Tensor):
         return [tree]
@@ -1210,6 +1286,51 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, arch, changes):
         assert abs(float(got[2][k]) - float(w)) <= 1e-4 * max(abs(float(w)),
                                                                1.0)
     assert int(got[1]["step"]) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,changes", TRAIN_KINDS[2:4],
+                         ids=[a for a, _ in TRAIN_KINDS[2:4]])
+def test_recurrent_train_steps_launch_the_backward_kernels(cuda, arch,
+                                                          changes):
+    """A train step of the hybrid (3 Mamba2 layers) and xlstm (2 pairs)
+    models with remat on the card: each forward recurrence twice a layer
+    (the forward and its recompute), each backward once, and no twin."""
+    from repro_torch import configs, optim
+    from repro_torch.kernels import ssm_scan
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.cnn import tree_map
+
+    cfg = dataclasses.replace(configs.get(arch).reduced(), **changes)
+    assert cfg.remat
+    params, batch = _lm_train_inputs(cfg)
+    card = tree_map(lambda t: t.to(cuda), params)
+    opt = optim.sgd(lr=0.1)
+    twins = []
+
+    def trap(*args):
+        twins.append(args)
+        raise AssertionError("a twin ran on the card")
+
+    saved = ssm_scan.ref
+    ssm_scan.ref = type("Trap", (), {"__getattr__": lambda _, n: trap})()
+    try:
+        ops.reset_launches()
+        tf.make_train_step(cfg, opt)(card, opt.init(card),
+                                     {k: v.to(cuda) for k, v in batch.items()})
+        torch.cuda.synchronize()
+    finally:
+        ssm_scan.ref = saved
+    assert not twins
+    if cfg.family == "mamba_hybrid":
+        want = {"mamba2_scan": 2 * cfg.n_layers,
+                "mamba2_scan_bwd": cfg.n_layers}
+    else:
+        pairs = cfg.n_layers // 2
+        want = {"mlstm_scan": 2 * pairs, "slstm_scan": 2 * pairs,
+                "mlstm_scan_bwd": pairs, "slstm_scan_bwd": pairs}
+    assert {k: ops.LAUNCHES[k] for k in want} == want
+    assert ops.LAUNCHES["ssm_scan"] == sum(want.values())
 
 
 @pytest.mark.cuda

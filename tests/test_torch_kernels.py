@@ -818,14 +818,15 @@ def test_build_names_the_library_by_source_and_flags(tmp_path):
                                       "flash_attention_sm90.cu",
                                       "flash_attention_sm90_f32.cu",
                                       "rmsnorm.cu", "sroa_bisect.cu",
-                                      "ssm_scan.cu", "topk_moves.cu"]
+                                      "ssm_scan.cu", "ssm_scan_bwd.cu",
+                                      "topk_moves.cu"]
     d1 = build._digest(srcs, build.NVCC_FLAGS)
     assert d1 == build._digest(srcs, list(build.NVCC_FLAGS))
     assert d1 != build._digest(srcs, build.NVCC_FLAGS + ["-G"])
     # The shared header is hashed with the sources (it is not compiled).
     assert [h.name for h in build.headers()] == ["cluster.cuh",
                                                  "fast_math.cuh",
-                                                 "sm90.cuh"]
+                                                 "sm90.cuh", "ssm_scan.cuh"]
     assert d1 != build._digest(srcs + build.headers(), build.NVCC_FLAGS)
     assert build.build_dir().parts[-2:] == ("build", "repro_torch_kernels")
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS

@@ -376,9 +376,6 @@ def test_flops_on_a_1x1_mesh_equal_the_unsharded_count():
 def test_cells_that_do_not_run():
     rec = d.run_cell("hubert-xlarge", "decode_32k", False, device_type="cpu")
     assert rec["status"] == "skipped" and "encoder" in rec["reason"]
-    rec = d.run_cell("zamba2-7b", "train_4k", False, device_type="cpu")
-    assert rec["status"] == "skipped"
-    assert "backward recurrences" in rec["reason"]
     # the forward recurrences are one op a layer: the prefill runs
     rec = d.run_cell("zamba2-7b", "prefill_32k", False, device_type="cpu")
     assert rec["status"] == "ok" and rec["flops_per_device"] > 0

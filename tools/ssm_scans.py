@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""Hold the recurrence kernels S1-S3 (``csrc/ssm_scan.cu``) to their plain
-twins on a card, and time them.
+"""Hold the recurrence kernels S1-S3 (``csrc/ssm_scan.cu``) and their
+backward kernels S1b-S3b (``csrc/ssm_scan_bwd.cu``) to their plain twins
+on a card, and time them.
 
     python3 tools/ssm_scans.py [--no-time]
 
 Builds the kernels with ``-Xptxas -v`` and prints the scan kernels'
-registers and spills, then runs ``chip_smoke._ssm_kernel_row`` on seeded
-operands with a state carried in: phase s's shapes (zamba2-7b's Mamba2 at
-(B, T, H, ds, hd) = (4, 1024, 112, 64, 64), xlstm-125m's mLSTM and sLSTM
-at (4, 1024, 4, 192)) timed beside the twin and the bound, and the
-reduced configs' widths (ds 16 and hd 16; hd 32) untimed.  The card's
+registers and spills, then runs ``chip_smoke._ssm_kernel_row`` and
+``chip_smoke._ssm_bwd_row`` (seeded upstream gradients of every output)
+on seeded operands with a state carried in: phase s's shapes (zamba2-7b's
+Mamba2 at (B, T, H, ds, hd) = (4, 1024, 112, 64, 64), xlstm-125m's mLSTM
+and sLSTM at (4, 1024, 4, 192)) timed beside the twin and the bound, and
+the reduced configs' widths (ds 16 and hd 16; hd 32) untimed.  The card's
 name and power limit come first; one JSON line a case follows.  Runs on a
 card only.
 """
@@ -71,14 +73,18 @@ def main(argv: list[str]) -> int:
         check=True).stdout.strip(), flush=True)
     build.load(verbose=True)
     for line in cs._ptxas(build.build_log):
-        if "_scan_kernel" in line:
+        if "_scan_kernel" in line or "_scan_bwd_kernel" in line \
+                or "_gates_bwd_kernel" in line:
             print("ptxas:", line, flush=True)
     gen = torch.Generator(device="cuda").manual_seed(25)
     with torch.inference_mode():
         for name, B, T, H, hd, ds, timed in CASES:
             args = operands(name, B, T, H, hd, ds, gen)
-            row = cs._ssm_kernel_row(name, args, "[ssm]",
-                                     time_it=timed and "--no-time" not in argv)
+            time_it = timed and "--no-time" not in argv
+            row = cs._ssm_kernel_row(name, args, "[ssm]", time_it=time_it)
+            print(json.dumps(row), flush=True)
+            row = cs._ssm_bwd_row(name + "_bwd", args, "[ssm]",
+                                  time_it=time_it)
             print(json.dumps(row), flush=True)
     return 0
 
