@@ -155,8 +155,17 @@ s. The hybrid and xlstm families (lines ``[s]``, run after phase m, whose
    TFLOP/s).  The same for each backward kernel (S1b-S3b,
    ``csrc/ssm_scan_bwd.cu``) against its backward twin, on the same
    operands with seeded upstream gradients of every output: every
-   gradient within 1e-4 of max |.|, whether S1b's d s0 is bitwise the
-   twin's.  (h) Each of zamba2-7b's 81 Mamba2 layers in bf16 on the
+   gradient within 1e-4 of max |.|.  S1 and S1b run on both routes
+   (``_mamba2_rows``), forced on the same tensors: the chunked kernels
+   (``csrc/ssd_chunked.cu``) also within 1e-5 of their plain model
+   (``ref.mamba2_chunked_plain`` and ``_bwd_plain``), the sequential
+   S1's state bitwise the twin's (asserted; S1b's d s0 recorded); each
+   timed beside the other, the plain version (twin or model) and its
+   bound (the chunked kernels': three TF32 passes of their chunk products
+   at 495 TFLOP/s, or bytes), and all four at T = 1, 8, 32, 64, 128 and
+   1,024 (device ms: ``ssm_scan.MAMBA2_CHUNKED_MIN_T``'s source).  Every
+   prefill S1 launch of (a) must take the chunked kernel and every decode
+   step the sequential one.  (h) Each of zamba2-7b's 81 Mamba2 layers in bf16 on the
    kernels' route against the twins' route, both from the twins' route's
    input to that layer: the largest gap as a share of max |y| and in bf16
    ulps.
@@ -192,9 +201,10 @@ l. LM training (lines ``[l]``, run after phase e): (a) one float32
    112.7 M parameters) and zamba2-7b at full width cut to 12 of its 81
    layers (1.37 B parameters), AdamW, remat, B = 4, T = 1,024, 4 steps:
    each step's recurrence launches (each forward op twice a layer, each
-   backward op once), finite losses, ms a step and peak memory beside the
-   bound, one traced step; xlstm-125m one step on the twins' route too
-   (the route before the backward kernels).  In (a) and (e) a recurrence
+   backward op once; zamba2's S1 and S1b all on the chunked kernels),
+   finite losses, ms a step and peak memory beside the bound, one traced
+   step; xlstm-125m one step on the twins' route too (the route before
+   the backward kernels), at T = 128.  In (a) and (e) a recurrence
    twin that runs on the card raises, and (a)'s hybrid and xlstm steps must
    launch S1-S3 and S1b-S3b as (e)'s do.  The training path launches no
    other kernel.
@@ -398,6 +408,7 @@ TRAIN_STEPS, HFL_PODS, HFL_K = 4, 2, 2
 # ZAMBA_TRAIN_LAYERS of its 81 layers (two shared-attention groups, 1.37 B
 # parameters: all 81 layers, 6.75 B, with AdamW's state do not fit 80 GB).
 ZAMBA_TRAIN_LAYERS = 12
+TWIN_TRAIN_T = 128          # phase l (e)'s xlstm step on the twins' route
 
 SERVE_CAPS = dict(b_iters=30, f_iters=24, p_iters=20, t_iters=28)
 DEVICE_MS_SESSIONS = 3        # profiler sessions before "not measured"
@@ -1273,9 +1284,10 @@ def _add(total: dict, counts: dict) -> None:
 
 def _by_kernel(c: dict) -> dict:
     """A path's ``ops.LAUNCHES`` as launches of each kernel: the routed
-    counters (``sroa_solve``, ``topk_moves``, ``flash_attention``) count
-    every kernel of their op, so the one-warp K2's, the block K3's and the
-    SIMT K4's launches are what the others leave."""
+    counters (``sroa_solve``, ``topk_moves``, ``flash_attention``,
+    ``mamba2_scan``, ``mamba2_scan_bwd``) count every kernel of their op,
+    so the one-warp K2's, the block K3's, the SIMT K4's and the sequential
+    S1's and S1b's launches are what the others leave."""
     return {"sroa_invert": c["sroa_invert"],
             "sroa_solve_lanes": c["sroa_solve_lanes"],
             "sroa_solve_cluster": c["sroa_solve_cluster"],
@@ -1291,9 +1303,12 @@ def _by_kernel(c: dict) -> dict:
                                 - c["flash_attention_sm90"]
                                 - c["flash_attention_sm90_f32"]),
             "rmsnorm": c["rmsnorm"],
-            "mamba2_scan": c["mamba2_scan"], "mlstm_scan": c["mlstm_scan"],
-            "slstm_scan": c["slstm_scan"],
-            "mamba2_scan_bwd": c["mamba2_scan_bwd"],
+            "mamba2_scan": c["mamba2_scan"] - c["mamba2_scan_chunked"],
+            "mamba2_scan_chunked": c["mamba2_scan_chunked"],
+            "mlstm_scan": c["mlstm_scan"], "slstm_scan": c["slstm_scan"],
+            "mamba2_scan_bwd": (c["mamba2_scan_bwd"]
+                                - c["mamba2_scan_bwd_chunked"]),
+            "mamba2_scan_bwd_chunked": c["mamba2_scan_bwd_chunked"],
             "mlstm_scan_bwd": c["mlstm_scan_bwd"],
             "slstm_scan_bwd": c["slstm_scan_bwd"]}
 
@@ -2848,8 +2863,7 @@ def _ssm_kernel_row(name: str, args: tuple, tag: str, time_it: bool = True,
             row["plain_ms"] = twin_ms
     if time_it:
         call = lambda: op(*args)  # noqa: E731
-        ds = args[1].shape[-1] if name == "mamba2_scan" else 0
-        flops = _ssm_f32_flops(name, B, T, H, hd, ds)
+        flops = _ssm_f32_flops(name, B, T, H, hd)
         nbytes = sum(a.numel() * 4 for a in args) + sum(
             y.numel() * 4 for y in op(*args))
         bound, by = _bound_ms(nbytes, flops)
@@ -2857,8 +2871,7 @@ def _ssm_kernel_row(name: str, args: tuple, tag: str, time_it: bool = True,
                    bound_ms=bound, bound_by=by, f32_flops=flops,
                    nbytes=nbytes)
     print(f"{tag} {name} ({kernel}) at (B, T, H, hd) = {row['shape']}"
-          + (f", ds {args[1].shape[-1]}" if name == "mamba2_scan" else "")
-          + f", a state carried in: max |delta| / max |.| of (y, states) "
+          f", a state carried in: max |delta| / max |.| of (y, states) "
           f"{json.dumps([float(f'{r:.3g}') for r in row['rel_T']])} over "
           f"T = {T} and "
           f"{json.dumps([float(f'{r:.3g}') for r in row['rel_T1']])} at "
@@ -2888,12 +2901,12 @@ def _ssm_bwd_f32_flops(name: str, B: int, T: int, H: int, hd: int,
 
 def _ssm_bwd_row(name: str, args: tuple, tag: str,
                  time_it: bool = True) -> dict:
-    """One backward recurrence op (S1b-S3b) against its backward twin: on
-    the forward op's operands ``args`` with the state the forward leaves
-    after the T steps carried in, and seeded upstream gradients of every
-    output, final states too.  Raises past ``SSM_KERNEL_TOL`` of max |.|
-    on any gradient; records whether S1b's d s0 is bitwise the twin's.
-    With ``time_it``: CUDA-event ms of one call, its device ms
+    """One backward recurrence op (S2b or S3b; S1b's are
+    ``_mamba2_rows``'s) against its backward twin: on the forward op's
+    operands ``args`` with the state the forward leaves after the T steps
+    carried in, and seeded upstream gradients of every output, final
+    states too.  Raises past ``SSM_KERNEL_TOL`` of max |.| on any
+    gradient.  With ``time_it``: CUDA-event ms of one call, its device ms
     (``_queued_ms``), the twin's ms (the host clock around the checking
     call, synchronised) and the bound (operands, y and upstream gradients
     read and the gradients written once; ``_ssm_bwd_f32_flops`` at the
@@ -2911,7 +2924,7 @@ def _ssm_bwd_row(name: str, args: tuple, tag: str,
     gen = torch.Generator(device=outs[0].device).manual_seed(26)
     ups = tuple(torch.randn(o.shape, generator=gen, device=o.device)
                 for o in outs)
-    bargs = args + (() if fwd == "mamba2_scan" else (outs[0],)) + ups
+    bargs = args + (outs[0],) + ups
     del first, outs
     torch.cuda.synchronize()
     before = ops.LAUNCHES[name]
@@ -2923,20 +2936,17 @@ def _ssm_bwd_row(name: str, args: tuple, tag: str,
     torch.cuda.synchronize()
     twin_ms = (time.perf_counter() - t0) * 1e3
     rels = [_rel_err(g, w) for g, w in zip(got, want)]
-    B, T, H, hd = args[0].shape if fwd != "mamba2_scan" else args[3].shape
-    ds = args[1].shape[-1] if fwd == "mamba2_scan" else 0
+    B, T, H, hd = args[0].shape
     _check(all(g.shape == w.shape for g, w in zip(got, want))
            and max(rels) <= SSM_KERNEL_TOL,
            f"{tag} {name} at T = {T}: max |delta| / max |.| of the "
            f"gradients {rels} (limit {SSM_KERNEL_TOL})")
     row = {"name": name, "shape": [B, T, H, hd], "rel_T": rels,
-           "max_abs_err": _max_abs_err(got, want),
-           "ds0_bitwise": (bool(torch.equal(got[4], want[4]))
-                           if fwd == "mamba2_scan" else None)}
+           "max_abs_err": _max_abs_err(got, want)}
     del want
     if time_it:
         call = lambda: bwd(*bargs)  # noqa: E731
-        flops = _ssm_bwd_f32_flops(name, B, T, H, hd, ds)
+        flops = _ssm_bwd_f32_flops(name, B, T, H, hd)
         nbytes = sum(a.numel() * 4 for a in bargs) + sum(
             g.numel() * 4 for g in got)
         bound, by = _bound_ms(nbytes, flops)
@@ -2944,19 +2954,239 @@ def _ssm_bwd_row(name: str, args: tuple, tag: str,
                    plain_ms=twin_ms, bound_ms=bound, bound_by=by,
                    f32_flops=flops, nbytes=nbytes)
     print(f"{tag} {name} ({SSM_BWD[name][0]}) at (B, T, H, hd) = "
-          f"{row['shape']}" + (f", ds {ds}" if ds else "")
-          + f", a state carried in, every output's upstream gradient: max "
+          f"{row['shape']}, a state carried in, every output's upstream "
+          f"gradient: max "
           f"|delta| / max |.| of the gradients "
           f"{json.dumps([float(f'{r:.3g}') for r in rels])} (limit "
           f"{SSM_KERNEL_TOL})"
-          + (f"; d s0 bitwise the twin's: {row['ds0_bitwise']}"
-             if ds else "")
           + (f"; {row['ms']:.4g} ms events, {row['device_ms']:.4g} ms "
              f"device, twin {row['plain_ms']:.4g} ms, bound "
              f"{row['bound_ms']:.4g} ms by {row['bound_by']} "
              f"({row['f32_flops']:.4g} f32 flop, {row['nbytes']:.4g} bytes)"
              if time_it else ""))
     return row
+
+
+# S1 and S1b's chunked kernels (csrc/ssd_chunked.cu, the route
+# ``ssm_scan.mamba2_route`` gives long sequences): each counter's name, its
+# kernel's name in a trace, and the ``lax.scan`` it replaces.
+SSM_CHUNKED = {
+    "mamba2_scan_chunked": ("mamba2_chunked_kernel",
+                            "src/repro/models/ssm.py:103"),
+    "mamba2_scan_bwd_chunked": ("mamba2_chunked_bwd_kernel",
+                                "src/repro/models/ssm.py:103"),
+}
+# The chunked kernels against their plain model (ref.mamba2_chunked_plain
+# and _bwd_plain: the same chunks and products, the 3xTF32 split summed
+# exactly): max |delta| within this share of max |.|; against the
+# sequential twins they are held to SSM_KERNEL_TOL like every kernel.
+SSD_MODEL_TOL = 1e-5
+# The T sweep of both S1 and both S1b kernels (MAMBA2_CHUNKED_MIN_T's
+# source).
+SSD_SWEEP_T = (1, 8, 32, 64, 128, 1024)
+
+
+def _ssd_chunked_flops(B: int, T: int, H: int, ds: int, hd: int,
+                       bwd: bool) -> int:
+    """The chunk products of the chunked S1 (or S1b, its saving forward
+    included) at their fewest: G = C B^T once a (b, chunk), shared by the
+    heads; the rest a (b, h, chunk).  Each counts twice its multiply-adds,
+    once: the kernels' 3xTF32 split runs each three times, their own work
+    and not the function's (``_ssd_bound``)."""
+    from repro_torch.kernels import ssm_scan
+
+    L, nC = ssm_scan.S1_CHUNK, -(-T // ssm_scan.S1_CHUNK)
+    shared = 2 * L * L * ds * B * nC
+    if not bwd:
+        head = 2 * L * hd * (L + ds) + 2 * ds * hd * L
+    else:
+        head = (2 * ds * hd * L                     # saving forward's S
+                + 2 * L * L * hd                    # D = dY U^T
+                + 2 * L * hd * (L + ds)             # dU
+                + 2 * 2 * L * ds * (L + hd)         # dB, dC
+                + 2 * ds * hd * L                   # A_prev
+                + 2 * L * L * L)                    # F
+    return shared + head * B * H * nC
+
+
+def _ssd_bound(nbytes: int, B: int, T: int, H: int, ds: int, hd: int,
+               bwd: bool):
+    """The chunked kernels' bound: operands read and outputs written once
+    at 3.35 TB/s, or the chunk products counted once at the TF32 peak, 495
+    TFLOP/s (as ``_k4_bound`` counts K4's 3xTF32 kernel).  Returns (ms,
+    "bytes" | "operations", flop)."""
+    flops = _ssd_chunked_flops(B, T, H, ds, hd, bwd)
+    return (*_bound_ms(nbytes, flops, TF32_TENSOR_FLOPS_PER_S), flops)
+
+
+def _mamba2_rows(args: tuple, tag: str, time_it: bool = True) -> dict:
+    """S1 and S1b on both routes on the same operands ``args`` (S1's, a
+    state carried in as in ``_ssm_kernel_row``): every kernel against the
+    sequential twins over all T steps and at T = 1 (SSM_KERNEL_TOL of max
+    |.| of y, s_T and each gradient), the chunked kernels also against
+    their plain model (SSD_MODEL_TOL); the sequential S1's state must be
+    bitwise the twin's at both lengths (S1b's d s0 is recorded).  With
+    ``time_it``: each kernel's events and device ms on the same tensors,
+    the twin's (the sequential kernels' plain version) or the model's (the
+    chunked kernels') host-clock ms, the bound, and the T sweep.  Returns
+    rows by counter name ("mamba2_scan", "mamba2_scan_chunked",
+    "mamba2_scan_bwd", "mamba2_scan_bwd_chunked") and "sweep"."""
+    import torch
+
+    from repro_torch.kernels import ref, ssm_scan
+
+    def fwd(route):
+        return lambda *a: ssm_scan.mamba2_scan_cuda(*a, _route=route)
+
+    def bwd(route):
+        return lambda *a: ssm_scan.mamba2_scan_bwd_cuda(*a, _route=route)
+
+    first = fwd("sequential")(*args)
+    args = args[:4] + (first[1],)
+    B, T, H, hd = args[3].shape
+    ds = args[1].shape[-1]
+    step = tuple(a[:, :1] for a in args[:4]) + args[4:]
+    gen = torch.Generator(device=args[0].device).manual_seed(27)
+    ups = tuple(torch.randn(o.shape, generator=gen, device=o.device)
+                for o in first)
+    del first
+    chunked = (ds in ssm_scan.MAMBA2_CHUNKED_WIDTHS
+               and hd in ssm_scan.MAMBA2_CHUNKED_WIDTHS)
+    routes = (("chunked",) if chunked else ()) + ("sequential",)
+    rows = {}
+
+    def held(kind, route, key, got, want, model):
+        name = "mamba2_scan" + ("_bwd" if kind == "bwd" else "") + (
+            "_chunked" if route == "chunked" else "")
+        rels = [_rel_err(g, w) for g, w in zip(got, want)]
+        _check(all(g.shape == w.shape for g, w in zip(got, want))
+               and max(rels) <= SSM_KERNEL_TOL,
+               f"{tag} {name} at T = {want[0].shape[1]}: max |delta| / max "
+               f"|.| {rels} against the twin (limit {SSM_KERNEL_TOL})")
+        row = rows.setdefault(name, {"name": name, "route": route,
+                                     "shape": [B, T, H, hd], "ds": ds})
+        row[f"rel_{key}"] = rels
+        if model is not None:
+            mrel = [_rel_err(g, w) for g, w in zip(got, model)]
+            _check(max(mrel) <= SSD_MODEL_TOL, f"{tag} {name} at T = "
+                   f"{want[0].shape[1]}: max |delta| / max |.| {mrel} "
+                   f"against the chunked model (limit {SSD_MODEL_TOL})")
+            row[f"rel_model_{key}"] = mrel
+        if kind == "fwd":
+            row[f"state_bitwise_{key}"] = bool(torch.equal(got[1], want[1]))
+        else:
+            row[f"ds0_bitwise_{key}"] = bool(torch.equal(got[4], want[4]))
+        if key == "T":
+            row["max_abs_err"] = _max_abs_err(got, want)
+        return row
+
+    plain = {}
+    for key, a in (("T", args), ("T1", step)):
+        ga = a + (ups[0][:, :a[0].shape[1]], ups[1])
+        t0 = time.perf_counter()
+        want = ref.mamba2_recurrence_plain(*a)
+        torch.cuda.synchronize()
+        plain[("fwd", "sequential", key)] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        model = ref.mamba2_chunked_plain(*a)
+        torch.cuda.synchronize()
+        plain[("fwd", "chunked", key)] = (time.perf_counter() - t0) * 1e3
+        for route in routes:
+            got = fwd(route)(*a)
+            torch.cuda.synchronize()
+            held("fwd", route, key, got, want,
+                 model if route == "chunked" else None)
+        del want, model, got
+        t0 = time.perf_counter()
+        want = ref.mamba2_recurrence_bwd_plain(*ga)
+        torch.cuda.synchronize()
+        plain[("bwd", "sequential", key)] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        model = ref.mamba2_chunked_bwd_plain(*ga)
+        torch.cuda.synchronize()
+        plain[("bwd", "chunked", key)] = (time.perf_counter() - t0) * 1e3
+        for route in routes:
+            got = bwd(route)(*ga)
+            torch.cuda.synchronize()
+            held("bwd", route, key, got, want,
+                 model if route == "chunked" else None)
+        del want, model, got
+    seq = rows["mamba2_scan"]
+    _check(seq["state_bitwise_T"] and seq["state_bitwise_T1"],
+           f"{tag} the sequential S1's state is not bitwise the twin's")
+    bargs = args + ups
+    if time_it:
+        for name, row in rows.items():
+            kind = "bwd" if "_bwd" in name else "fwd"
+            call_args = bargs if kind == "bwd" else args
+            fn = (bwd if kind == "bwd" else fwd)(row["route"])
+            call = lambda: fn(*call_args)  # noqa: E731
+            outs = call()
+            nbytes = sum(x.numel() * 4 for x in call_args) + sum(
+                y.numel() * 4 for y in outs)
+            del outs
+            if row["route"] == "chunked":
+                bound, by, flops = _ssd_bound(nbytes, B, T, H, ds, hd,
+                                              kind == "bwd")
+                row.update(tf32_flops=flops, tf32x3_flops=3 * flops)
+            else:
+                flops = (_ssm_bwd_f32_flops("mamba2_scan_bwd", B, T, H, hd, ds)
+                         if kind == "bwd" else
+                         _ssm_f32_flops("mamba2_scan", B, T, H, hd, ds))
+                bound, by = _bound_ms(nbytes, flops)
+                row.update(f32_flops=flops)
+            row.update(ms=_time_ms(call, 5), device_ms=_queued_ms(call, 5),
+                       plain_ms=plain[(kind, row["route"], "T")],
+                       bound_ms=bound, bound_by=by, nbytes=nbytes)
+        sweep = []
+        for t in SSD_SWEEP_T:
+            a = tuple(x[:, :t] for x in args[:4]) + args[4:]
+            ga = a + (ups[0][:, :t], ups[1])
+            sweep.append({"T": t, **{
+                f"{kind}_{route}": _queued_ms(
+                    (lambda f, x: lambda: f(*x))(
+                        (bwd if kind == "bwd" else fwd)(route),
+                        ga if kind == "bwd" else a), 10)
+                for kind in ("fwd", "bwd") for route in routes}})
+        rows["sweep"] = sweep
+    for name, row in rows.items():
+        if name == "sweep":
+            continue
+        kernel = (SSM_CHUNKED[name][0] if name in SSM_CHUNKED else
+                  (SSM_BWD[name][0] if name in SSM_BWD
+                   else SSM_SCANS[name][0]))
+        bits = (f"state bitwise the twin's {row['state_bitwise_T']} and "
+                f"{row['state_bitwise_T1']}" if "state_bitwise_T" in row else
+                f"d s0 bitwise the twin's {row['ds0_bitwise_T']} and "
+                f"{row['ds0_bitwise_T1']}")
+        model = (f"; against the chunked model "
+                 f"{json.dumps([float(f'{r:.3g}') for r in row['rel_model_T']])}"
+                 f" and {json.dumps([float(f'{r:.3g}') for r in row['rel_model_T1']])}"
+                 f" (limit {SSD_MODEL_TOL})" if "rel_model_T" in row else "")
+        print(f"{tag} {name} ({kernel}, the {row['route']} route) at (B, T, "
+              f"H, hd) = {row['shape']}, ds {ds}, a state carried in: max "
+              f"|delta| / max |.| against the sequential twin "
+              f"{json.dumps([float(f'{r:.3g}') for r in row['rel_T']])} over "
+              f"T = {T} and "
+              f"{json.dumps([float(f'{r:.3g}') for r in row['rel_T1']])} at "
+              f"T = 1 (limit {SSM_KERNEL_TOL}){model}; {bits}"
+              + (f"; {row['ms']:.4g} ms events, {row['device_ms']:.4g} ms "
+                 f"device, plain {row['plain_ms']:.4g} ms ("
+                 f"{'the chunked model' if row['route'] == 'chunked' else 'the twin'}"
+                 f"), bound {row['bound_ms']:.4g} ms by {row['bound_by']} ("
+                 + (f"{row['tf32_flops']:.4g} flop of chunk products at "
+                    f"TF32, {row['tf32x3_flops']:.4g} run by the 3xTF32 "
+                    f"split"
+                    if row["route"] == "chunked" else
+                    f"{row['f32_flops']:.4g} f32 flop")
+                 + f", {row['nbytes']:.4g} bytes)" if time_it else ""))
+    if time_it:
+        print(f"{tag} S1 and S1b by T, device ms (_queued_ms) at (B, H, ds, "
+              f"hd) = ({B}, {H}, {ds}, {hd}): " + "; ".join(
+                  f"T {r['T']}: " + ", ".join(
+                      f"{k} {v:.4g}" for k, v in r.items() if k != "T")
+                  for r in rows["sweep"]))
+    return rows
 
 
 @contextlib.contextmanager
@@ -3051,8 +3281,14 @@ def _ssm_path(dev) -> dict:
            f"{SSM_ARCH}'s run launched S1 {counts['mamba2_scan']} times "
            f"(want {L} a prefill and {L} a decode step: {per_run}), S2 "
            f"{counts['mlstm_scan']} and S3 {counts['slstm_scan']} times")
+    _check(counts["mamba2_scan_chunked"] == L,
+           f"{counts['mamba2_scan_chunked']} of the prefill's {L} S1 launches "
+           f"took the chunked kernel (want all; every decode step the "
+           f"sequential one)")
     print(f"[s] S1 launches in the run: {counts['mamba2_scan']} ({L} in the "
-          f"prefill and {L} in each of {LM_NEW} decode steps)")
+          f"prefill, all {counts['mamba2_scan_chunked']} on the chunked "
+          f"kernel, and {L} in each of {LM_NEW} decode steps on the "
+          f"sequential one)")
     a_twin = _twin_route(flash, dev, a, SSM_ARCH)
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -3166,10 +3402,10 @@ def _ssm_path(dev) -> dict:
         # (g) S1 and S1b against their twins on the first Mamba2 layer's
         # operands of the prompt, a state carried in.
         got = _scan_operands(lambda: tf._mamba_apply(flash, p0, x))
-        rows = {"mamba2_scan": _ssm_kernel_row(
-            "mamba2_scan", got["mamba2_scan"], "[s] (g)")}
-        rows["mamba2_scan_bwd"] = _ssm_bwd_row(
-            "mamba2_scan_bwd", got["mamba2_scan"], "[s] (g)")
+        # Both routes of each, new beside old on the same tensors, and the
+        # T sweep.
+        rows = _mamba2_rows(got["mamba2_scan"], "[s] (g)")
+        sweep = rows.pop("sweep")
         del cache, x, mm, p0, got
 
         # (c) The re-layout at full width and depth, in float32 with TF32
@@ -3318,6 +3554,7 @@ def _ssm_path(dev) -> dict:
     print(f"[s] phase s: {seconds:.1f} s")
     path = {k: counts[k] + x_run["counts"][k] for k in counts}
     return {"counts": path, "zamba2": a, "xlstm": x_run, "kernels": rows,
+            "sweep": sweep,
             "twins": {"zamba2": a_twin, "xlstm": x_twin},
             "rel_b": max(groups), "rel_b_groups": groups, "gap_b": gap,
             "layer_gaps": layer_gaps,
@@ -3614,7 +3851,8 @@ def _lm_train_path(dev) -> dict:
                            {k: v.to(dev) for k, v in batch.items()})
             torch.cuda.synchronize()
         made = {k: ops.LAUNCHES[k] - before[k] for k in before}
-        need = _recurrent_counts(cfg)
+        need = _recurrent_counts(cfg, batch["tokens"].shape[1]
+                                 if "tokens" in batch else 0)
         _check(all(made[k] == need.get(k, 0) for k in made
                    if k != "ssm_scan"), f"{arch}'s train step launched "
                f"{made}, want {need} (remat: each forward op twice a layer, "
@@ -3766,13 +4004,21 @@ def _lm_train_path(dev) -> dict:
             "seconds": seconds}
 
 
-def _recurrent_counts(cfg) -> dict:
-    """The recurrence launches of one train step with remat: each forward
-    op twice a layer (the forward and its recompute), each backward op
-    once; none for the other families."""
+def _recurrent_counts(cfg, T: int) -> dict:
+    """The recurrence launches of one train step of T tokens with remat:
+    each forward op twice a layer (the forward and its recompute), each
+    backward op once, S1's and S1b's on the chunked kernels where
+    ``mamba2_route`` sends T; none for the other families."""
+    from repro_torch.kernels import ssm_scan
+
     if cfg.family == "mamba_hybrid":
-        return {"mamba2_scan": 2 * cfg.n_layers,
+        need = {"mamba2_scan": 2 * cfg.n_layers,
                 "mamba2_scan_bwd": cfg.n_layers}
+        if ssm_scan.mamba2_route(T, cfg.ssm_state,
+                                 cfg.ssm_headdim) == "chunked":
+            need.update(mamba2_scan_chunked=2 * cfg.n_layers,
+                        mamba2_scan_bwd_chunked=cfg.n_layers)
+        return need
     if cfg.family == "xlstm":
         pairs = cfg.n_layers // 2
         return {"mlstm_scan": 2 * pairs, "slstm_scan": 2 * pairs,
@@ -3825,7 +4071,7 @@ def _recurrent_train(dev, arch: str, n_layers: int | None) -> dict:
                                      generator=gen, device=dev)}
     opt = optim.get_optimizer("adamw")
     step = tf.make_train_step(cfg, opt)
-    need = _recurrent_counts(cfg)
+    need = _recurrent_counts(cfg, LM_T)
     total = {k: 0 for k in ops.LAUNCHES}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3873,16 +4119,20 @@ def _recurrent_train(dev, arch: str, n_layers: int | None) -> dict:
                counts=total, per_step=need)
     twin = ""
     if arch == XLSTM_ARCH:
+        # One step on the twins' route, cut to TWIN_TRAIN_T tokens (at
+        # T = 1,024 it takes about a minute).
+        short = {"tokens": batch["tokens"][:, :TWIN_TRAIN_T]}
         ops.reset_launches()
         with _twin_recurrences():
             t0 = time.perf_counter()
-            step(p, s, batch)
+            step(p, s, short)
             torch.cuda.synchronize()
             row["twin_ms"] = (time.perf_counter() - t0) * 1e3
         _check(ops.LAUNCHES["ssm_scan"] == 0, f"{arch}: a recurrence kernel "
                f"launched on the twins' route")
         twin = (f"; one step on the twins' route (the route before the "
-                f"backward kernels) {row['twin_ms']:.1f} ms")
+                f"backward kernels) at T = {TWIN_TRAIN_T} "
+                f"{row['twin_ms']:.1f} ms")
     print(f"[l] (e) {arch} at full width, {cfg.n_layers} layers "
           f"({n_params:,} parameters, {cfg.dtype}, AdamW, remat), B = "
           f"{LM_B}, T = {LM_T}: launches a step {json.dumps(need)} and no "
@@ -3983,7 +4233,9 @@ def _dist_path(dev, hfl_run: dict) -> dict:
         m, c = rec["memory"], rec["collectives"]
         print(f"[d] (c) dry-run {arch} x {name} x 16x16: per device "
               f"arguments {m['argument_size_in_bytes']:,} B, temp "
-              f"{m['temp_size_in_bytes']:,} B, output "
+              f"{m['temp_size_in_bytes']:,} B (the largest backward "
+              f"recurrence op's scratch {m['scratch_size_in_bytes']:,} B of "
+              f"it), output "
               f"{m['output_size_in_bytes']:,} B, fits 80 GB "
               f"{rec['fits_80gb']}; {rec['flops_per_device']:.4g} matmul "
               f"FLOPs a device; collectives {json.dumps(c)} (counts "
@@ -4549,11 +4801,11 @@ def main(argv: list[str]) -> int:
               "flash_attention": _by_kernel(lmc)["flash_attention"],
               "rmsnorm": lmc["rmsnorm"]}
     ssm_counts = _by_kernel(sp["counts"])
-    for name in SSM_SCANS:
+    for name in (*SSM_SCANS, "mamba2_scan_chunked"):
         counts[name] = ssm_counts[name]
     # S1b-S3b's path is phase l's: LM training.
     train_counts = _by_kernel(lp["counts"])
-    for name in SSM_BWD:
+    for name in (*SSM_BWD, "mamba2_scan_bwd_chunked"):
         counts[name] = train_counts[name]
     print(f"[9] kernels: {json.dumps(counts)} (ops.LAUNCHES of the LM run: "
           f"{json.dumps(lmc)})")
@@ -4598,20 +4850,28 @@ def main(argv: list[str]) -> int:
            "flash_attention_sm90 did not launch once a shared-attention "
            "application on phase s's path")
     _check(all(n == 0 for k, n in ssm_counts.items()
-               if k != "flash_attention_sm90" and k not in SSM_SCANS),
+               if k not in ("flash_attention_sm90", "mamba2_scan_chunked")
+               and k not in SSM_SCANS),
            f"a kernel other than K4's tensor-core kernel and S1-S3 launched "
            f"on phase s's path: {ssm_counts}")
-    for name, (kernel, replaces, _) in SSM_SCANS.items():
+    for name, (kernel, replaces) in (
+            *((n, v[:2]) for n, v in SSM_SCANS.items()),
+            ("mamba2_scan_chunked", SSM_CHUNKED["mamba2_scan_chunked"])):
         r = sp["kernels"][name]
         report[name] = dict(
             name=name, route="cuda",
-            source="src/repro_torch/kernels/csrc/ssm_scan.cu",
+            source="src/repro_torch/kernels/csrc/" + (
+                "ssd_chunked.cu" if name in SSM_CHUNKED else "ssm_scan.cu"),
             replaces=replaces, max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], device_ms=r["device_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
             kernel=kernel, shape=r["shape"], rel_err=r["rel_T"],
             rel_err_T1=r["rel_T1"], state_bitwise=r["state_bitwise_T"],
             path="phase s: run_lm, B = 4, T = 1,024, 32 tokens")
+        if name.startswith("mamba2"):
+            report[name].update(
+                mamba2_route=r["route"], sweep=sp["sweep"],
+                rel_err_model=r.get("rel_model_T"))
     enc_counts = _by_kernel(ep["encoder"]["counts"])
     vlm_counts = _by_kernel(ep["vlm"]["counts"])
     print(f"[9] kernels on phase e's paths: {ENC_ARCH}'s forward "
@@ -4626,21 +4886,30 @@ def main(argv: list[str]) -> int:
     print(f"[9] kernels on phase l's path (LM training): "
           f"{json.dumps(train_counts)}")
     _check(all(n == 0 for k, n in train_counts.items()
-               if k not in SSM_SCANS and k not in SSM_BWD),
+               if k not in SSM_SCANS and k not in SSM_BWD
+               and k not in SSM_CHUNKED),
            f"a kernel other than S1-S3 and S1b-S3b launched on phase l's "
            f"training path: {train_counts}")
-    for name, (kernel, replaces) in SSM_BWD.items():
+    for name, (kernel, replaces) in (
+            *SSM_BWD.items(),
+            ("mamba2_scan_bwd_chunked",
+             SSM_CHUNKED["mamba2_scan_bwd_chunked"])):
         r = sp["kernels"][name]
         report[name] = dict(
             name=name, route="cuda",
-            source="src/repro_torch/kernels/csrc/ssm_scan_bwd.cu",
+            source="src/repro_torch/kernels/csrc/" + (
+                "ssd_chunked.cu" if name in SSM_CHUNKED
+                else "ssm_scan_bwd.cu"),
             replaces=replaces, max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], device_ms=r["device_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
             kernel=kernel, shape=r["shape"], rel_err=r["rel_T"],
-            ds0_bitwise=r["ds0_bitwise"],
+            ds0_bitwise=r.get("ds0_bitwise_T"),
             path="phase l: make_train_step of the hybrid and xlstm families "
                  "(reduced, and at full width with AdamW, B = 4, T = 1,024)")
+        if name.startswith("mamba2"):
+            report[name].update(mamba2_route=r["route"],
+                                rel_err_model=r.get("rel_model_T"))
     f_counts = _by_kernel(fp["counts"])
     print(f"[9] kernels on phase f's path (the training pipeline): "
           f"{json.dumps(f_counts)}")
@@ -4766,7 +5035,8 @@ def main(argv: list[str]) -> int:
               f"tok/s; logits {t['gap']:.4g} of max |logit| apart, "
               f"{t['same_tokens']:.4f} of the greedy tokens equal")
     print(f"[9] ssm path: {ssm_counts['flash_attention_sm90']} K4 launches "
-          f"on the tensor cores, S1 {ssm_counts['mamba2_scan']}, S2 "
+          f"on the tensor cores, S1 {ssm_counts['mamba2_scan_chunked']} "
+          f"chunked and {ssm_counts['mamba2_scan']} sequential, S2 "
           f"{ssm_counts['mlstm_scan']}, S3 {ssm_counts['slstm_scan']}; K4 "
           f"against chunked {sp['rel_b']:.4g} of max "
           f"|x| a shared block (whole model {sp['gap_b']:.4g}, control "

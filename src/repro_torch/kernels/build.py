@@ -118,6 +118,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mlstm_scan_bwd.argtypes = [p] * 28 + [i] * 4 + [p]
     lib.slstm_scan_save.argtypes = [p] * 10 + [i] * 4 + [p]
     lib.slstm_scan_bwd.argtypes = [p] * 25 + [i] * 4 + [p]
+    lib.mamba2_chunked.argtypes = [p] * 8 + [i] * 6 + [p]
+    lib.mamba2_chunked_bwd.argtypes = [p] * 12 + [i] * 6 + [p]
     lib.topk_moves_cluster_smem.restype = ctypes.c_longlong
     for fn in (lib.sroa_invert_rate, lib.sroa_solve, lib.sroa_solve_lanes,
                lib.sroa_solve_lanes_occupancy, lib.sroa_solve_cluster,
@@ -132,7 +134,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                lib.mamba2_scan, lib.mlstm_scan, lib.slstm_scan,
                lib.mamba2_scan_ckpt, lib.mamba2_scan_bwd,
                lib.mlstm_scan_ckpt, lib.mlstm_scan_bwd,
-               lib.slstm_scan_save, lib.slstm_scan_bwd):
+               lib.slstm_scan_save, lib.slstm_scan_bwd, lib.mamba2_chunked,
+               lib.mamba2_chunked_bwd):
         fn.restype = ctypes.c_int
     return lib
 

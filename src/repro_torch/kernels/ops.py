@@ -20,7 +20,9 @@ f32 tensor-core kernels.  K4 refuses to run under autograd
 no Pallas counterpart) count under ``ssm_scan`` (any of the six) and
 under ``mamba2_scan``, ``mlstm_scan`` and ``slstm_scan`` and their
 backward ops' ``mamba2_scan_bwd``, ``mlstm_scan_bwd`` and
-``slstm_scan_bwd`` (one count a call of an op, whatever kernels it runs).
+``slstm_scan_bwd`` (one count a call of an op, whatever kernels it runs);
+``mamba2_scan_chunked`` and ``mamba2_scan_bwd_chunked`` count the S1 and
+S1b calls that took the chunked kernels (``ssm_scan.mamba2_route``).
 """
 from __future__ import annotations
 
@@ -36,7 +38,8 @@ LAUNCHES = {"sroa_invert": 0, "sroa_solve": 0, "sroa_solve_lanes": 0,
             "flash_attention_sm90": 0, "flash_attention_sm90_f32": 0,
             "rmsnorm": 0, "ssm_scan": 0, "mamba2_scan": 0, "mlstm_scan": 0,
             "slstm_scan": 0, "mamba2_scan_bwd": 0, "mlstm_scan_bwd": 0,
-            "slstm_scan_bwd": 0}
+            "slstm_scan_bwd": 0, "mamba2_scan_chunked": 0,
+            "mamba2_scan_bwd_chunked": 0}
 
 
 def reset_launches() -> None:

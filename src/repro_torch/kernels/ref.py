@@ -39,6 +39,12 @@ numbers:
   (``csrc/ssm_scan_bwd.cu``): the same loops' gradients, an explicit
   reverse-time loop each (not autograd), with JAX's rules at the ties
   of ``max`` and ``abs`` (:func:`max_grad_split`).
+* :func:`mamba2_chunked_plain` and :func:`mamba2_chunked_bwd_plain` — S1's
+  and S1b's chunked kernels (``csrc/ssd_chunked.cu``): the chunked SSD
+  form's arithmetic, chunks of ``S1_CHUNK`` steps, the decay products as
+  running products (:func:`ssd_segments`), the products by the 3xTF32
+  split (:func:`matmul_tf32x3`).  Tests and ``chip_smoke.py`` hold the
+  kernels to them; no path runs them.
 """
 from __future__ import annotations
 
@@ -806,3 +812,158 @@ def slstm_recurrence_bwd_plain(zx, ix, fx, ox, R, c0, n0, m0, h0, y,
     dpre = torch.stack(dpres[::-1], dim=1)
     dzx, dix, dfx, dox = dpre.split(hd, -1)
     return (dzx, dix, dfx, dox, dR, Gc, Gn, Gm, Gh)
+
+
+# ------------------------------------- S1 and S1b in the chunked SSD form
+# Time steps a chunk of the chunked S1 and S1b kernels: the wrappers pass it
+# to csrc/ssd_chunked.cu, whose entries refuse any L but their kL.
+S1_CHUNK = 32
+
+
+def ssd_segments(dec: torch.Tensor):
+    """The decay products of a chunk, from its decays dec (..., L) (a tail
+    chunk padded with ones), as running products in linear space (a decay
+    may be exactly 0, so no log-space sums and no division):
+
+    * seg (..., L, L): seg[t, s] = dec_{s+1} ... dec_t for s <= t (1 on the
+      diagonal), 0 above it, column s built down from its diagonal as
+      seg[t, s] = seg[t - 1, s] * dec_t;
+    * p (..., L): p_t = p_{t-1} * dec_t from p_{-1} = 1 (the decay from the
+      chunk's start state to step t);
+    * w (..., L): w_s = seg[L - 1, s] (from step s to the chunk's end);
+    * pm (..., L): pm_r = p_{r-1}, pm_0 = 1."""
+    L = dec.shape[-1]
+    s = torch.arange(L, device=dec.device)
+    rows, row = [], torch.zeros_like(dec)
+    for t in range(L):
+        row = torch.where(s < t, row * dec[..., t:t + 1],
+                          (s == t).to(dec.dtype))
+        rows.append(row)
+    seg = torch.stack(rows, dim=-2)
+    ps, p = [], torch.ones_like(dec[..., 0])
+    for t in range(L):
+        p = p * dec[..., t]
+        ps.append(p)
+    p = torch.stack(ps, dim=-1)
+    pm = torch.cat([torch.ones_like(p[..., :1]), p[..., :-1]], dim=-1)
+    return seg, p, seg[..., L - 1, :], pm
+
+
+def _ssd_chunks(decay, Bm, Cm, dtx, L):
+    """The operands cut into chunks of L steps, the tail padded (decay with
+    ones, the rest with zeros): dec (B, H, nC, L), Bc and Cc (B, 1, nC, L,
+    ds), U (B, H, nC, L, hd); and n, the real steps of the last chunk."""
+    B, T, H, hd = dtx.shape
+    nC = -(-T // L)
+    pad = nC * L - T
+    dec = F.pad(decay, (0, 0, 0, pad), value=1.0)
+    dec = dec.reshape(B, nC, L, H).permute(0, 3, 1, 2)
+    Bc, Cc = (F.pad(x, (0, 0, 0, pad)).reshape(B, 1, nC, L, -1)
+              for x in (Bm, Cm))
+    U = F.pad(dtx, (0, 0, 0, 0, 0, pad)).reshape(B, nC, L, H, hd)
+    return dec, Bc, Cc, U.permute(0, 3, 1, 2, 4), L - pad
+
+
+def _unchunk(x, T):
+    """(B, H, nC, L, k) -> (B, T, H, k); (B, H, nC, L) -> (B, T, H)."""
+    B, H, nC, L = x.shape[:4]
+    x = x.reshape(B, H, nC * L, *x.shape[4:])[:, :, :T]
+    return x.transpose(1, 2)
+
+
+def mamba2_chunked_plain(decay, Bm, Cm, dtx, s0, *, L: int = S1_CHUNK,
+                         mm=matmul_tf32x3, starts: bool = False):
+    """S1 in the chunked SSD form, as the chunked kernel computes it: the
+    operands of :func:`mamba2_recurrence_plain` -> (y, s_T), and with
+    ``starts`` also every chunk's start state (B, H, nC, ds, hd), what the
+    kernel's saving variant writes for S1b.
+
+    Within a chunk with start state S, with seg, p, w of
+    :func:`ssd_segments`: G = C B^T (one (L, L) product a batch row, shared
+    by the heads), Y = (G * seg) U + diag(p) C S (one product over the
+    concatenated depth L + ds), S_next = p_{L-1} S + B^T diag(w) U.  The
+    products are taken by ``mm``: three TF32 passes over split operands
+    (:func:`matmul_tf32x3`, the kernel's precision) by default, one pass
+    (:func:`matmul_tf32`) or ``torch.matmul``."""
+    B, T, H, hd = dtx.shape
+    dec, Bc, Cc, U, _ = _ssd_chunks(decay, Bm, Cm, dtx, L)
+    seg, p, w, _ = ssd_segments(dec)
+    G = mm(Cc, Bc.transpose(-1, -2))                  # (B, 1, nC, L, L)
+    M = G * seg
+    S, ys, saved = s0, [], []
+    for c in range(dec.shape[2]):
+        saved.append(S)
+        Cp = p[:, :, c, :, None] * Cc[:, :, c]
+        ys.append(mm(torch.cat([M[:, :, c], Cp], -1),
+                     torch.cat([U[:, :, c], S], -2)))
+        S = (p[:, :, c, L - 1, None, None] * S
+             + mm(Bc[:, :, c].transpose(-1, -2), w[:, :, c, :, None]
+                  * U[:, :, c]))
+    y = _unchunk(torch.stack(ys, 2), T)
+    if starts:
+        return y, S, torch.stack(saved, 2)
+    return y, S
+
+
+def mamba2_chunked_bwd_plain(decay, Bm, Cm, dtx, s0, dy=None, dsT=None, *,
+                             L: int = S1_CHUNK, mm=matmul_tf32x3):
+    """S1b in the chunked SSD form, as the chunked backward kernel computes
+    it: the operands and upstream gradients of
+    :func:`mamba2_recurrence_bwd_plain` -> the gradients of (decay, Bm, Cm,
+    dtx, s0).
+
+    The chunk start states S_c come from the forward (:func:`
+    mamba2_chunked_plain` with ``starts``).  The chunks are walked last
+    first, with A the adjoint of the chunk's end state (dsT for the last),
+    G = C B^T and D = dY U^T:
+
+    * dU = (G * seg)^T dY + diag(w) B A;
+    * dB = (D * seg)^T C + diag(w) U A^T; dC = (D * seg) B + diag(p) dY S^T
+      (per head; summed over the heads last);
+    * d decay_r = <A_r, s_{r-1}>, A_r the adjoint of the state after step
+      r, without dividing by a decay: with E = G * D, q_t = <C_t, (dY
+      S^T)_t>, v_s = <u_s, (B A)_s>, and <A, S> added to E's last row (v)
+      and q's last entry, F = E Sg^T + q pm^T, Sg[r, s] = seg[r - 1, s]
+      (the term that skips dec_r's own factor), and d decay_r = sum_t
+      seg[t, r] F[t, r];
+    * the previous chunk's A = p_{L-1} A + C^T diag(p) dY; d s0 is the A
+      that reaches the first chunk."""
+    B, T, H, hd = dtx.shape
+    dy = _zeros_if_none(dy, dtx)
+    A = _zeros_if_none(dsT, s0)
+    starts = mamba2_chunked_plain(decay, Bm, Cm, dtx, s0, L=L, mm=mm,
+                                  starts=True)[2]
+    dec, Bc, Cc, U, _ = _ssd_chunks(decay, Bm, Cm, dtx, L)
+    dY = _ssd_chunks(decay, Bm, Cm, dy, L)[3]
+    seg, p, w, pm = ssd_segments(dec)
+    Sg = torch.cat([torch.zeros_like(seg[..., :1, :]), seg[..., :-1, :]], -2)
+    nC = dec.shape[2]
+    dU, dBh, dCh, ddec = [None] * nC, [None] * nC, [None] * nC, [None] * nC
+    for c in range(nC - 1, -1, -1):
+        S, Cc_, Bc_, U_, dY_ = (starts[:, :, c], Cc[:, :, c], Bc[:, :, c],
+                                U[:, :, c], dY[:, :, c])
+        sg, p_, w_ = seg[:, :, c], p[:, :, c, :, None], w[:, :, c, :, None]
+        G = mm(Cc_, Bc_.transpose(-1, -2))
+        D = mm(dY_, U_.transpose(-1, -2))
+        Md = D * sg
+        BA = mm(Bc_, A)
+        dU[c] = mm((G * sg).transpose(-1, -2), dY_) + w_ * BA
+        dBh[c] = mm(torch.cat([Md.transpose(-1, -2), w_ * U_], -1),
+                    torch.cat([Cc_.expand(-1, H, -1, -1),
+                               A.transpose(-1, -2)], -2))
+        dYS = mm(dY_, S.transpose(-1, -2))
+        dCh[c] = mm(Md, Bc_) + p_ * dYS
+        E = G * D
+        q = (Cc_ * dYS).sum(-1)
+        v = (U_ * BA).sum(-1)
+        AS = (A * S).sum((-1, -2))
+        E = torch.cat([E[..., :-1, :], E[..., -1:, :] + v[..., None, :]], -2)
+        q = torch.cat([q[..., :-1], q[..., -1:] + AS[..., None]], -1)
+        Fm = mm(E, Sg[:, :, c].transpose(-1, -2)) + q[..., :, None] * \
+            pm[:, :, c, None, :]
+        ddec[c] = (sg * Fm).sum(-2)
+        A = p[:, :, c, L - 1, None, None] * A + mm(
+            Cc_.transpose(-1, -2), p_ * dY_)
+    stack = lambda xs: torch.stack(xs, 2)  # noqa: E731
+    return (_unchunk(stack(ddec), T), _unchunk(stack(dBh), T).sum(2),
+            _unchunk(stack(dCh), T).sum(2), _unchunk(stack(dU), T), A)

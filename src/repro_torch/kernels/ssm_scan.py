@@ -26,22 +26,36 @@ with
 The backward ops are the forward ops' autograd formulas
 (``torch.library.register_autograd``): the forward saves its operands and,
 for S2 and S3, its y.  A backward op on a card runs the forward kernel's
-saving variant (S1: the state every ``S1B_CKPT`` steps; S2: C, n and m
-every ``S2B_CKPT`` steps; S3: every step's c, n, m and pre-activations)
-into scratch the wrapper allocates, then the reverse kernels; the sums
-over heads (S1's dB and dC), slices (S2's dq and dk) and batch rows (S3's
-dR) are per-block partials added here in a fixed order.
+saving variant (S1: the state every ``S1B_CKPT`` steps, or every chunk's
+start state on the chunked route; S2: C, n and m every ``S2B_CKPT``
+steps; S3: every step's c, n, m and pre-activations) into scratch the
+wrapper allocates (``*_bwd_scratch``: the shapes it allocates from, which
+the dry-run counts through :func:`bwd_scratch`), then the reverse
+kernels; the sums over heads (S1's dB and dC), slices (S2's dq and dk)
+and batch rows (S3's dR) are per-block partials added here in a fixed
+order.
 
-Every operand is float32 and every output a fresh tensor.  The kernels
-(source notes in the ``csrc`` files) run the twin's sequential recurrence
-with the state on the chip, one launch for the whole sequence; they are
-not the chunked SSD form.  Each takes only the widths its thread layout
-divides (:func:`mamba2_supported`, :func:`mlstm_supported`,
+Every operand is float32 and every output a fresh tensor.  S1 and S1b
+have two routes, picked by :func:`mamba2_route` from the shapes alone:
+sequences of at least ``MAMBA2_CHUNKED_MIN_T`` steps at ds and hd in
+``MAMBA2_CHUNKED_WIDTHS`` take the chunked SSD form
+(``csrc/ssd_chunked.cu``: chunks of ``S1_CHUNK`` steps, a chunk's
+products on the TF32 tensor cores with a 3xTF32 split; modelled by
+``ref.mamba2_chunked_plain`` and ``_bwd_plain``), the rest (every decode
+step) the sequential kernels, which run the twin's recurrence step by
+step with the state on the chip.  ``mamba2_scan_cuda(..., _route=)`` and
+``mamba2_scan_bwd_cuda(..., _route=)`` force a route, for timing both on
+the same tensors.  S2, S3 and their backward run sequentially, one launch
+for the whole sequence.  Each kernel takes only the widths its thread
+layout divides (:func:`mamba2_supported`, :func:`mlstm_supported`,
 :func:`slstm_supported`: every config of the zoo and its ``reduced()``
 forms), and raises on others before any launch; a backward takes the
-widths its forward takes.
+widths its forward takes.  No route is taken because a build or a launch
+failed: those raise.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import Tensor
@@ -162,12 +176,13 @@ def _launch(name: str, fn, outs, *ins, dims):
 
 def _run(name: str, like: Tensor, *calls) -> None:
     """Each call ``(fn, tensors, ints)`` in turn on ``like``'s device and
-    current stream, raising at the first launch error; the op is counted
-    once, after the last launch."""
+    current stream, raising at the first launch error (None in
+    ``tensors`` passes a null pointer); the op is counted once, after the
+    last launch."""
     dev, stream = like.device, _stream(like)
     for fn, tensors, ints in calls:
-        build.check(_call(dev, fn, *(x.data_ptr() for x in tensors), *ints,
-                          stream), name)
+        build.check(_call(dev, fn, *(None if x is None else x.data_ptr()
+                                     for x in tensors), *ints, stream), name)
     ops.LAUNCHES["ssm_scan"] += 1
     ops.LAUNCHES[name] += 1
 
@@ -179,6 +194,54 @@ def _own(outs) -> tuple:
 
 
 # ------------------------------------------------------------ S1 Mamba2
+# S1 and S1b have two kernels each, picked by :func:`mamba2_route`: the
+# sequential ones (csrc/ssm_scan.cu, csrc/ssm_scan_bwd.cu: a step at a time)
+# and the chunked SSD form (csrc/ssd_chunked.cu: S1_CHUNK steps a chunk,
+# the chunk's products on the tensor cores).
+S1_CHUNK = ref.S1_CHUNK
+MAMBA2_CHUNKED_WIDTHS = (32, 64)          # ds and hd the chunked kernels take
+# The shortest T the chunked kernels take: the shortest T of the sweep that
+# chip_smoke.py's phase s (g) and tools/ssm_scans.py print at which both
+# beat the sequential kernels in device time on an H100 at zamba2-7b's
+# widths (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W: T = 32, S1 0.03115
+# against 0.0441 ms, S1b 0.09693 against 0.2404; at T = 8 the sequential S1
+# still wins, 0.02126 against 0.0275).
+MAMBA2_CHUNKED_MIN_T = 32
+MAMBA2_ROUTES = ("chunked", "sequential")
+
+
+def mamba2_route(T: int, ds: int, hd: int) -> str:
+    """S1's and S1b's routing rule: "chunked" for sequences of at least
+    :data:`MAMBA2_CHUNKED_MIN_T` steps at widths the chunked layout takes
+    (ds and hd in :data:`MAMBA2_CHUNKED_WIDTHS`), else "sequential" (every
+    decode step, T = 1)."""
+    if (T >= MAMBA2_CHUNKED_MIN_T and ds in MAMBA2_CHUNKED_WIDTHS
+            and hd in MAMBA2_CHUNKED_WIDTHS):
+        return "chunked"
+    return "sequential"
+
+
+def _aligned(ins) -> tuple:
+    """The chunked kernels copy 16 bytes at a time: an operand whose data
+    does not start on 16 bytes (a view at an odd offset) is copied."""
+    return tuple(x if x.data_ptr() % 16 == 0 else x.clone() for x in ins)
+
+
+def _pick(what: str, picked: str, forced: str | None, ds, hd) -> str:
+    """The route: the rule's, or ``forced`` where the forced kernel takes
+    the operands (the sequential ones take every width
+    :func:`mamba2_supported` takes)."""
+    route = picked if forced is None else forced
+    if route not in MAMBA2_ROUTES:
+        raise ValueError(f"no {what} route {forced!r}")
+    if route == "chunked" and not (ds in MAMBA2_CHUNKED_WIDTHS
+                                   and hd in MAMBA2_CHUNKED_WIDTHS):
+        _refuse(f"{what}'s chunked kernel", f"ds {ds}, hd {hd}")
+    if route == "sequential" and not mamba2_supported(ds, hd):
+        _refuse(what, f"ds {ds}, hd {hd}")
+    return route
+
+
 @torch.library.custom_op("repro_torch::mamba2_scan", mutates_args=(),
                          device_types="cpu")
 def mamba2_scan(decay: Tensor, Bm: Tensor, Cm: Tensor, dtx: Tensor,
@@ -190,15 +253,30 @@ def mamba2_scan(decay: Tensor, Bm: Tensor, Cm: Tensor, dtx: Tensor,
     return y.contiguous(), s
 
 
-@mamba2_scan.register_kernel("cuda")
-def _mamba2_cuda(decay, Bm, Cm, dtx, s0):
+def mamba2_scan_cuda(decay, Bm, Cm, dtx, s0, *, _route: str | None = None):
+    """S1 on CUDA tensors -> (y, s_T), on :func:`mamba2_route`'s kernel.
+    ``_route`` forces one ("chunked" or "sequential"), for timing both on
+    the same tensors; it raises where that kernel does not take the
+    widths."""
     B, T, H, ds, hd = check_mamba2(decay, Bm, Cm, dtx, s0)
-    if not mamba2_supported(ds, hd):
-        _refuse("S1 (mamba2_scan)", f"ds {ds}, hd {hd}")
+    route = _pick("S1 (mamba2_scan)", mamba2_route(T, ds, hd), _route, ds,
+                  hd)
     outs = (torch.empty_like(dtx, memory_format=torch.contiguous_format),
             torch.empty_like(s0, memory_format=torch.contiguous_format))
-    return _launch("mamba2_scan", build.load().mamba2_scan, outs, decay, Bm,
-                   Cm, dtx, s0, dims=(B, T, H, ds, hd))
+    lib = build.load()
+    if route == "sequential":
+        return _launch("mamba2_scan", lib.mamba2_scan, outs, decay, Bm, Cm,
+                       dtx, s0, dims=(B, T, H, ds, hd))
+    ins = _aligned(_operands("mamba2_scan", (decay, Bm, Cm, dtx, s0)))
+    _run("mamba2_scan", ins[0], (lib.mamba2_chunked, ins + outs + (None,),
+                                 (B, T, H, ds, hd, S1_CHUNK)))
+    ops.LAUNCHES["mamba2_scan_chunked"] += 1
+    return outs
+
+
+@mamba2_scan.register_kernel("cuda")
+def _mamba2_cuda(decay, Bm, Cm, dtx, s0):
+    return mamba2_scan_cuda(decay, Bm, Cm, dtx, s0)
 
 
 @mamba2_scan.register_fake
@@ -213,14 +291,41 @@ def _mamba2_flops(decay, Bm, Cm, dtx, s0, *args, **kwargs) -> int:
     return T * 2 * B * H * Bm[-1] * hd                # C_t . s a step
 
 
-# S1b: the forward's saving variant keeps the state every S1B_CKPT steps;
-# the reverse kernel recomputes the S1B_CKPT states of a chunk into a
-# scratch of its own.
+# S1b on the sequential route: the forward's saving variant keeps the state
+# every S1B_CKPT steps; the reverse kernel recomputes the S1B_CKPT states of
+# a chunk into a scratch of its own.  On the chunked route the saving
+# variant keeps every chunk's start state.
 S1B_CKPT = 8
 
 
 def _ceil(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def mamba2_bwd_scratch(B: int, T: int, H: int, ds: int, hd: int,
+                       route: str | None = None) -> dict:
+    """The f32 scratch S1b's CUDA wrapper allocates on ``route`` (the
+    rule's by default), name -> shape: the per-head dB and dC partials, and
+    the saved states (chunked: every chunk's start state; sequential: the
+    state every S1B_CKPT steps and a block's recompute scratch)."""
+    route = route or mamba2_route(T, ds, hd)
+    parts = {"dBh": (B, T, H, ds), "dCh": (B, T, H, ds)}
+    if route == "chunked":
+        parts["starts"] = (B, H, _ceil(T, S1_CHUNK), ds, hd)
+    else:
+        parts["ckpt"] = (B, H, _ceil(T, S1B_CKPT), ds, hd)
+        parts["scratch"] = (B * H, S1B_CKPT, ds * hd)
+    return parts
+
+
+def _scratch(shapes: dict, like: Tensor) -> dict:
+    return {k: torch.empty(v, dtype=torch.float32, device=like.device)
+            for k, v in shapes.items()}
+
+
+def scratch_bytes(shapes: dict) -> int:
+    """The bytes of f32 scratch of a ``*_bwd_scratch`` dict."""
+    return sum(4 * math.prod(s) for s in shapes.values())
 
 
 @torch.library.custom_op("repro_torch::mamba2_scan_bwd", mutates_args=(),
@@ -237,25 +342,42 @@ def mamba2_scan_bwd(decay: Tensor, Bm: Tensor, Cm: Tensor, dtx: Tensor,
                                                 dsT))
 
 
-@mamba2_scan_bwd.register_kernel("cuda")
-def _mamba2_bwd_cuda(decay, Bm, Cm, dtx, s0, dy, dsT):
+def mamba2_scan_bwd_cuda(decay, Bm, Cm, dtx, s0, dy, dsT, *,
+                         _route: str | None = None):
+    """S1b on CUDA tensors -> (d decay, dBm, dCm, d dtx, d s0), on
+    :func:`mamba2_route`'s kernels (the saving forward, then the backward
+    kernel); ``_route`` forces one route, as for S1."""
     B, T, H, ds, hd = check_mamba2(decay, Bm, Cm, dtx, s0)
     _same("dy", dy, dtx.shape)
     _same("dsT", dsT, s0.shape)
-    if not mamba2_supported(ds, hd):
-        _refuse("S1b (mamba2_scan_bwd)", f"ds {ds}, hd {hd}")
+    route = _pick("S1b (mamba2_scan_bwd)", mamba2_route(T, ds, hd), _route,
+                  ds, hd)
     ins = _operands("mamba2_scan_bwd", (decay, Bm, Cm, dtx, s0, dy, dsT))
+    if route == "chunked":
+        ins = _aligned(ins)
     f32 = dict(dtype=torch.float32, device=dtx.device)
-    ckpt = torch.empty((B, H, _ceil(T, S1B_CKPT), ds, hd), **f32)
-    scratch = torch.empty((B * H, S1B_CKPT, ds * hd), **f32)
+    sc = _scratch(mamba2_bwd_scratch(B, T, H, ds, hd, route), dtx)
     ddec, ddtx, ds0 = (torch.empty(x.shape, **f32) for x in (decay, dtx, s0))
-    dBh, dCh = (torch.empty((B, T, H, ds), **f32) for _ in range(2))
     lib, dims = build.load(), (B, T, H, ds, hd)
-    _run("mamba2_scan_bwd", dtx,
-         (lib.mamba2_scan_ckpt, ins[:5] + (ckpt,), dims),
-         (lib.mamba2_scan_bwd, ins + (ckpt, scratch, ddec, dBh, dCh, ddtx,
-                                      ds0), dims))
-    return ddec, dBh.sum(2), dCh.sum(2), ddtx, ds0
+    grads = (ddec, sc["dBh"], sc["dCh"], ddtx, ds0)
+    if route == "sequential":
+        _run("mamba2_scan_bwd", dtx,
+             (lib.mamba2_scan_ckpt, ins[:5] + (sc["ckpt"],), dims),
+             (lib.mamba2_scan_bwd, ins + (sc["ckpt"], sc["scratch"]) + grads,
+              dims))
+    else:
+        _run("mamba2_scan_bwd", dtx,
+             (lib.mamba2_chunked, ins[:5] + (None, None, sc["starts"]),
+              dims + (S1_CHUNK,)),
+             (lib.mamba2_chunked_bwd, ins[:4] + ins[5:] + (sc["starts"],)
+              + grads, dims + (S1_CHUNK,)))
+        ops.LAUNCHES["mamba2_scan_bwd_chunked"] += 1
+    return ddec, sc["dBh"].sum(2), sc["dCh"].sum(2), ddtx, ds0
+
+
+@mamba2_scan_bwd.register_kernel("cuda")
+def _mamba2_bwd_cuda(decay, Bm, Cm, dtx, s0, dy, dsT):
+    return mamba2_scan_bwd_cuda(decay, Bm, Cm, dtx, s0, dy, dsT)
 
 
 @mamba2_scan_bwd.register_fake
@@ -341,6 +463,18 @@ def mlstm_scan_bwd(q: Tensor, k: Tensor, v: Tensor, log_i: Tensor,
                                                m0, y, dy, dC, dn, dm))
 
 
+def mlstm_bwd_scratch(B: int, T: int, H: int, hd: int) -> dict:
+    """The f32 scratch S2b's CUDA wrapper allocates, name -> shape: C, n
+    and m every S2B_CKPT steps, the slices' recompute scratch and the
+    stabiliser's, and the per-slice dq, dk, d f and d i partials."""
+    S, nC = hd // mlstm_slice(hd), _ceil(T, S2B_CKPT)
+    return {"C": (B, H, nC, hd, hd), "n": (B, H, nC, hd), "m": (B, H, nC),
+            "scrC": (B * H * S, S2B_CKPT, hd * mlstm_slice(hd)),
+            "scrN": (B * H * S, S2B_CKPT, hd), "scrM": (B, T, H),
+            "dq": (S, B, T, H, hd), "dk": (S, B, T, H, hd),
+            "dfi": (2, S, B, T, H)}
+
+
 @mlstm_scan_bwd.register_kernel("cuda")
 def _mlstm_bwd_cuda(q, k, v, log_i, log_f, C0, n0, m0, y, dy, dC, dn, dm):
     B, T, H, hd = check_mlstm(q, k, v, log_i, log_f, C0, n0, m0)
@@ -352,23 +486,18 @@ def _mlstm_bwd_cuda(q, k, v, log_i, log_f, C0, n0, m0, y, dy, dC, dn, dm):
     ins = _operands("mlstm_scan_bwd", (q, k, v, log_i, log_f, C0, n0, m0,
                                        y, dy, dC, dn, dm))
     f32 = dict(dtype=torch.float32, device=q.device)
-    S, nC = hd // mlstm_slice(hd), _ceil(T, S2B_CKPT)
-    ckpt = (torch.empty((B, H, nC, hd, hd), **f32),
-            torch.empty((B, H, nC, hd), **f32),
-            torch.empty((B, H, nC), **f32))
-    scratch = (torch.empty((B * H * S, S2B_CKPT, hd * mlstm_slice(hd)), **f32),
-               torch.empty((B * H * S, S2B_CKPT, hd), **f32),
-               torch.empty((B, T, H), **f32))
-    dq, dk = (torch.empty((S, B, T, H, hd), **f32) for _ in range(2))
-    dfi = torch.empty((2, S, B, T, H), **f32)
+    sc = _scratch(mlstm_bwd_scratch(B, T, H, hd), q)
+    ckpt = (sc["C"], sc["n"], sc["m"])
+    scratch = (sc["scrC"], sc["scrN"], sc["scrM"])
     dv, dli, dlf, dC0, dn0, dm0 = (torch.empty(x.shape, **f32) for x in
                                    (v, log_i, log_f, C0, n0, m0))
     lib, dims = build.load(), (B, T, H, hd)
     _run("mlstm_scan_bwd", q,
          (lib.mlstm_scan_ckpt, ins[:8] + ckpt, dims),
          (lib.mlstm_scan_bwd, ins + ckpt + scratch + (
-             dq, dk, dv, dfi, dli, dlf, dC0, dn0, dm0), dims))
-    return dq.sum(0), dk.sum(0), dv, dli, dlf, dC0, dn0, dm0
+             sc["dq"], sc["dk"], dv, sc["dfi"], dli, dlf, dC0, dn0, dm0),
+          dims))
+    return sc["dq"].sum(0), sc["dk"].sum(0), dv, dli, dlf, dC0, dn0, dm0
 
 
 @mlstm_scan_bwd.register_fake
@@ -452,6 +581,12 @@ def slstm_scan_bwd(zx: Tensor, ix: Tensor, fx: Tensor, ox: Tensor,
                                                h0, y, dy, dc, dn, dm, dh))
 
 
+def slstm_bwd_scratch(B: int, T: int, H: int, hd: int) -> dict:
+    """The f32 scratch S3b's CUDA wrapper allocates, name -> shape: every
+    step's c, n, m and four pre-activations, and the per-b dR partials."""
+    return {"saved": (7, B, T, H, hd), "dRb": (B, H, hd, 4 * hd)}
+
+
 @slstm_scan_bwd.register_kernel("cuda")
 def _slstm_bwd_cuda(zx, ix, fx, ox, R, c0, n0, m0, h0, y, dy, dc, dn, dm,
                     dh):
@@ -465,16 +600,15 @@ def _slstm_bwd_cuda(zx, ix, fx, ox, R, c0, n0, m0, h0, y, dy, dc, dn, dm,
     ins = _operands("slstm_scan_bwd", (zx, ix, fx, ox, R, c0, n0, m0, h0,
                                        y, dy, dc, dn, dm, dh))
     f32 = dict(dtype=torch.float32, device=zx.device)
-    saved = torch.empty((7, B, T, H, hd), **f32)  # c, n, m, z, i, f, o pre
+    sc = _scratch(slstm_bwd_scratch(B, T, H, hd), zx)
     grads = tuple(torch.empty(zx.shape, **f32) for _ in range(4))
-    dRb = torch.empty((B, H, hd, 4 * hd), **f32)
     states = tuple(torch.empty(c0.shape, **f32) for _ in range(4))
     lib, dims = build.load(), (B, T, H, hd)
     _run("slstm_scan_bwd", zx,
-         (lib.slstm_scan_save, ins[:9] + (saved,), dims),
-         (lib.slstm_scan_bwd, ins + (saved,) + grads + (dRb,) + states,
-          dims))
-    return (*grads, dRb.sum(0), *states)
+         (lib.slstm_scan_save, ins[:9] + (sc["saved"],), dims),
+         (lib.slstm_scan_bwd, ins + (sc["saved"],) + grads + (sc["dRb"],)
+          + states, dims))
+    return (*grads, sc["dRb"].sum(0), *states)
 
 
 @slstm_scan_bwd.register_fake
@@ -501,3 +635,19 @@ def _slstm_backward(ctx, dy, dc, dn, dm, dh):
 
 torch.library.register_autograd("repro_torch::slstm_scan", _slstm_backward,
                                 setup_context=_slstm_setup)
+
+
+def bwd_scratch(op: str, args) -> dict:
+    """The scratch (name -> shape) the CUDA wrapper of backward op ``op``
+    ("mamba2_scan_bwd", "mlstm_scan_bwd" or "slstm_scan_bwd") allocates for
+    the operands ``args`` (tensors, or anything with their ``shape``), and
+    frees when it returns; {} for any other op.  The dry-run's
+    ``StepCounter`` adds it to the live bytes while the op runs."""
+    if op == "mamba2_scan_bwd":
+        B, T, H, hd = args[3].shape
+        return mamba2_bwd_scratch(B, T, H, args[1].shape[-1], hd)
+    if op == "mlstm_scan_bwd":
+        return mlstm_bwd_scratch(*args[0].shape)
+    if op == "slstm_scan_bwd":
+        return slstm_bwd_scratch(*args[0].shape)
+    return {}

@@ -39,8 +39,10 @@ ssm_scan`), and their gradients one backward op a layer, which the
 ``meta`` run takes through their fake implementations and FLOP formulas,
 as the reference's ``lax.scan`` is one loop forward and one in reverse.
 The scratch the backward ops' CUDA implementations allocate (saved states
-and per-block partials, freed after each op) is not in the fakes, so not
-in the peak.  The peak is eager PyTorch's:
+and per-block partials, freed when each op returns) is not in the fakes'
+outputs; ``StepCounter`` adds it (``ssm_scan.bwd_scratch``, the shapes the
+CUDA wrappers allocate from) to the live bytes while the op runs.  The
+peak is eager PyTorch's:
 no fusion, no rematerialisation beyond ``cfg.remat``'s checkpoints, and
 DTensor's sharding propagation, not GSPMD's, decides the layouts between
 the constraints.
@@ -342,7 +344,9 @@ class StepCounter(torch.utils._python_dispatch.TorchDispatchMode):
     """Records what one device runs: collectives (kind -> output bytes and
     count), matrix-product FLOPs on local shards, and the peak of the live
     bytes of the storages allocated while it is on (outside ``exclude``,
-    the arguments' storages).
+    the arguments' storages), a backward recurrence op's scratch
+    (``ssm_scan.bwd_scratch``) counted live beside its outputs while it
+    runs; ``scratch_peak`` is the largest such scratch.
 
     DTensor operations are passed on (``NotImplemented``), so the mode sees
     the local operations and the collectives they issue; the operations
@@ -360,6 +364,7 @@ class StepCounter(torch.utils._python_dispatch.TorchDispatchMode):
         self.peak = self.live_bytes = 0
         self._live: dict = {}
         self._exclude = {_storage_key(t) for t in exclude}
+        self.scratch_peak = 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
@@ -382,7 +387,19 @@ class StepCounter(torch.utils._python_dispatch.TorchDispatchMode):
                 *args, **kwargs, out_val=out)
         for t in flat:
             self._allocated(t)
+        if func.namespace == "repro_torch":
+            self._scratch(func._opname, args)
         return out
+
+    def _scratch(self, op: str, args) -> None:
+        """The op's scratch, live with its outputs until it returns."""
+        from repro_torch.kernels import ssm_scan
+
+        n = ssm_scan.scratch_bytes(ssm_scan.bwd_scratch(op, args))
+        if n:
+            self.sweep()
+            self.scratch_peak = max(self.scratch_peak, n)
+            self.peak = max(self.peak, self.live_bytes + n)
 
     def _allocated(self, t: torch.Tensor) -> None:
         from torch.multiprocessing.reductions import StorageWeakRef
@@ -529,6 +546,7 @@ def run_cell(arch: str, shape_name, multi_pod: bool,
         memory={"argument_size_in_bytes": arg_bytes,
                 "output_size_in_bytes": out_bytes,
                 "temp_size_in_bytes": temp,
+                "scratch_size_in_bytes": counter.scratch_peak,
                 "alias_size_in_bytes": None,
                 "generated_code_size_in_bytes": None},
         fits_80gb=arg_bytes + temp <= HBM_BYTES,

@@ -1,7 +1,9 @@
 """The port's hand-written CUDA kernels (K1-K5, and S1-S3 and their
 backward S1b-S3b for the recurrences) against their plain PyTorch twins,
 on a card (K2's and K3's two kernels and every speculation depth of K1
-and K2 bitwise; S1's state and S1b's d s0 bitwise), and the served paths on the card against the CPU (the trainer,
+and K2 bitwise; on the sequential route S1's state and S1b's d s0
+bitwise; S1's and S1b's chunked kernels against the sequential twins and
+their chunked model), and the served paths on the card against the CPU (the trainer,
 the moe model and its dispatch, the hybrid and xlstm models), distributed
 HFL on NCCL and gloo against one process, and the dry-run's argument
 bytes against what the card allocates.  Every test here is marked
@@ -1083,9 +1085,12 @@ def test_recurrence_backward_kernels_match_their_twins(cuda, name, B, H, hd,
                                                        ds, T):
     """S1b-S3b, a state carried in, seeded upstream gradients of every
     output: each gradient within 1e-4 of the backward twin's max |.| on
-    the card (the contractions add in other orders); S1b's G, so d s0,
-    bitwise the twin's (its update reads no sum).  Through autograd, the
-    op's gradients are the backward op's."""
+    the card (the contractions add in other orders); on the sequential
+    route S1b's G, so d s0, bitwise the twin's (its update reads no sum;
+    the chunked route, which T = 64 at ds = hd = 64 takes, sums chunk
+    products, so there the sequential S1b is forced on the same operands
+    and held to both).  Through autograd, the op's gradients are the
+    backward op's."""
     from repro_torch.kernels import ssm_scan
 
     args = _scan_operands(name, B, T, H, hd, ds, cuda)
@@ -1100,7 +1105,14 @@ def test_recurrence_backward_kernels_match_their_twins(cuda, name, B, H, hd,
         assert g.shape == w.shape and g.dtype == torch.float32
         assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
     if name == "mamba2_scan":
-        assert torch.equal(got[4], want[4])
+        seq = got
+        if ssm_scan.mamba2_route(T, ds, hd) != "sequential":
+            seq = ssm_scan.mamba2_scan_bwd_cuda(*bargs, _route="sequential")
+            for g, w in zip(seq, want):
+                assert g.shape == w.shape
+                assert float((g - w).abs().max()) <= 1e-4 * float(
+                    w.abs().max())
+        assert torch.equal(seq[4], want[4])
     leaves = [a.clone().requires_grad_(True) for a in args]
     n0 = dict(ops.LAUNCHES)
     grads = torch.autograd.grad(getattr(ssm_scan, name)(*leaves), leaves,
@@ -1111,10 +1123,97 @@ def test_recurrence_backward_kernels_match_their_twins(cuda, name, B, H, hd,
         assert torch.equal(g, w)
 
 
+# (B, T, H, ds, hd): the chunked kernels' four widths, T from one step to
+# past two chunks (a tail of 36 and of 2 steps).
+_CHUNKED = ((2, 100, 3, 64, 64), (1, 7, 2, 32, 64), (2, 64, 2, 64, 32),
+            (1, 130, 4, 32, 32), (1, 1, 2, 64, 64))
+
+
+def _mamba2_special(B, T, H, ds, hd, dev, seed):
+    """S1's operands with decays of exactly 0 and exactly 1 (a forgetting
+    step at the first, a middle and the last step; a head that never
+    decays)."""
+    args = _scan_operands("mamba2_scan", B, T, H, hd, ds, dev, seed)
+    decay = args[0].clone()
+    for t in {0, T // 2, T - 1}:
+        decay[0, t, 0] = 0.0
+    decay[-1, :, H - 1] = 1.0
+    return (decay,) + args[1:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,ds,hd", _CHUNKED)
+def test_chunked_mamba2_kernels_match_the_twins_and_the_model(cuda, B, T, H,
+                                                              ds, hd):
+    """The chunked S1 and S1b (csrc/ssd_chunked.cu), forced on the same
+    operands, decays of exactly 0 and 1 among them: y, s_T and the five
+    gradients within 1e-4 of the sequential twins' max |.| and within 1e-5
+    of the chunked model's (the same chunks and products; the model sums
+    the 3xTF32 split's passes exactly); no NaN."""
+    from repro_torch.kernels import ssm_scan
+
+    args = _mamba2_special(B, T, H, ds, hd, cuda, seed=T)
+    g = torch.Generator().manual_seed(T + 1)
+    ups = (torch.randn(args[3].shape, generator=g).to(cuda),
+           torch.randn(args[4].shape, generator=g).to(cuda))
+    n0 = dict(ops.LAUNCHES)
+    got = ssm_scan.mamba2_scan_cuda(*args, _route="chunked")
+    gg = ssm_scan.mamba2_scan_bwd_cuda(*args, *ups, _route="chunked")
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["mamba2_scan_chunked"] == \
+        n0["mamba2_scan_chunked"] + 1
+    assert ops.LAUNCHES["mamba2_scan_bwd_chunked"] == \
+        n0["mamba2_scan_bwd_chunked"] + 1
+    for have, twin, model in (
+            (got, ref.mamba2_recurrence_plain(*args),
+             ref.mamba2_chunked_plain(*args)),
+            (gg, ref.mamba2_recurrence_bwd_plain(*args, *ups),
+             ref.mamba2_chunked_bwd_plain(*args, *ups))):
+        for h_, w, m in zip(have, twin, model):
+            assert h_.shape == w.shape and bool(torch.isfinite(h_).all())
+            assert float((h_ - w).abs().max()) <= 1e-4 * float(
+                w.abs().max())
+            assert float((h_ - m).abs().max()) <= 1e-5 * float(
+                m.abs().max())
+
+
+@pytest.mark.cuda
+def test_mamba2_routes_on_the_card(cuda):
+    """The op takes mamba2_route's kernel: the chunked ones at T = 100
+    (ds = hd = 64), forward and under autograd backward, the sequential
+    ones at T = 1; the routed call equals the forced one bitwise."""
+    from repro_torch.kernels import ssm_scan
+
+    for T, route in ((100, "chunked"), (1, "sequential")):
+        args = _scan_operands("mamba2_scan", 2, T, 3, 64, 64, cuda)
+        assert ssm_scan.mamba2_route(T, 64, 64) == route
+        n0 = dict(ops.LAUNCHES)
+        leaves = [a.clone().requires_grad_(True) for a in args]
+        out = ssm_scan.mamba2_scan(*leaves)
+        grads = torch.autograd.grad(out, leaves,
+                                    [torch.ones_like(o) for o in out])
+        torch.cuda.synchronize()
+        chunked = int(route == "chunked")
+        assert ops.LAUNCHES["mamba2_scan"] == n0["mamba2_scan"] + 1
+        assert ops.LAUNCHES["mamba2_scan_bwd"] == n0["mamba2_scan_bwd"] + 1
+        assert ops.LAUNCHES["mamba2_scan_chunked"] == \
+            n0["mamba2_scan_chunked"] + chunked
+        assert ops.LAUNCHES["mamba2_scan_bwd_chunked"] == \
+            n0["mamba2_scan_bwd_chunked"] + chunked
+        forced = ssm_scan.mamba2_scan_cuda(*args, _route=route)
+        for a, b in zip(out, forced):
+            assert torch.equal(a, b)
+        fgrads = ssm_scan.mamba2_scan_bwd_cuda(
+            *args, *(torch.ones_like(o) for o in out), _route=route)
+        for a, b in zip(grads, fgrads):
+            assert torch.equal(a, b)
+
+
 @pytest.mark.cuda
 def test_recurrence_backward_kernels_raise_and_never_fall_back(cuda):
     """A width the backward kernels do not take raises before any launch;
-    an error a launch returns raises too; neither counts a launch."""
+    an error a launch returns raises too (a width, or a chunk length that
+    is not the chunked kernels' own); neither counts a launch."""
     from repro_torch.kernels import build, ssm_scan
 
     before = dict(ops.LAUNCHES)
@@ -1134,6 +1233,15 @@ def test_recurrence_backward_kernels_raise_and_never_fall_back(cuda):
         ssm_scan._run("mamba2_scan_bwd", args[3], (
             build.load().mamba2_scan_bwd, args + bufs,
             (1, 4, 2, 16, 12)))                          # hd 12
+    args = _scan_operands("mamba2_scan", 1, 4, 2, 64, 64, cuda)
+    outs = (torch.empty_like(args[3]), torch.empty_like(args[4]))
+    bufs = tuple(torch.empty(4096 * 64, device=cuda) for _ in range(6))
+    lib = build.load()
+    for fn, tensors in ((lib.mamba2_chunked, args + outs + (None,)),
+                        (lib.mamba2_chunked_bwd, args[:4] + outs + bufs)):
+        with pytest.raises(RuntimeError, match="mamba2_scan failed"):
+            ssm_scan._run("mamba2_scan", args[3], (
+                fn, tensors, (1, 4, 2, 64, 64, ssm_scan.S1_CHUNK // 2)))
     assert ops.LAUNCHES == before
 
 

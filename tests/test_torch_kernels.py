@@ -818,8 +818,8 @@ def test_build_names_the_library_by_source_and_flags(tmp_path):
                                       "flash_attention_sm90.cu",
                                       "flash_attention_sm90_f32.cu",
                                       "rmsnorm.cu", "sroa_bisect.cu",
-                                      "ssm_scan.cu", "ssm_scan_bwd.cu",
-                                      "topk_moves.cu"]
+                                      "ssd_chunked.cu", "ssm_scan.cu",
+                                      "ssm_scan_bwd.cu", "topk_moves.cu"]
     d1 = build._digest(srcs, build.NVCC_FLAGS)
     assert d1 == build._digest(srcs, list(build.NVCC_FLAGS))
     assert d1 != build._digest(srcs, build.NVCC_FLAGS + ["-G"])

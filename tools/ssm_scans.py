@@ -1,17 +1,22 @@
 #!/usr/bin/env python3
-"""Hold the recurrence kernels S1-S3 (``csrc/ssm_scan.cu``) and their
-backward kernels S1b-S3b (``csrc/ssm_scan_bwd.cu``) to their plain twins
-on a card, and time them.
+"""Hold the recurrence kernels S1-S3 (``csrc/ssm_scan.cu``, and S1's
+chunked kernel ``csrc/ssd_chunked.cu``) and their backward kernels S1b-S3b
+(``csrc/ssm_scan_bwd.cu``, S1b's chunked kernel in ``ssd_chunked.cu``) to
+their plain twins on a card, and time them.
 
     python3 tools/ssm_scans.py [--no-time]
 
 Builds the kernels with ``-Xptxas -v`` and prints the scan kernels'
-registers and spills, then runs ``chip_smoke._ssm_kernel_row`` and
-``chip_smoke._ssm_bwd_row`` (seeded upstream gradients of every output)
-on seeded operands with a state carried in: phase s's shapes (zamba2-7b's
-Mamba2 at (B, T, H, ds, hd) = (4, 1024, 112, 64, 64), xlstm-125m's mLSTM
-and sLSTM at (4, 1024, 4, 192)) timed beside the twin and the bound, and
-the reduced configs' widths (ds 16 and hd 16; hd 32) untimed.  The card's
+registers and spills, then, on seeded operands with a state carried in:
+S1 and S1b on both routes (``chip_smoke._mamba2_rows``: the chunked and
+the sequential kernels on the same tensors, against the sequential twins
+and the chunked model, with the T sweep), and S2, S3 and their backward
+(``chip_smoke._ssm_kernel_row``, ``_ssm_bwd_row``, seeded upstream
+gradients of every output): phase s's shapes (zamba2-7b's Mamba2 at (B,
+T, H, ds, hd) = (4, 1024, 112, 64, 64), xlstm-125m's mLSTM and sLSTM at
+(4, 1024, 4, 192)) timed beside the plain version and the bound, and
+smaller widths untimed (the reduced configs' ds 16 and hd 16, which only
+the sequential kernels take; ds 32 and hd 64 on both; hd 32).  The card's
 name and power limit come first; one JSON line a case follows.  Runs on a
 card only.
 """
@@ -28,6 +33,7 @@ CASES = (("mamba2_scan", 4, 1024, 112, 64, 64, True),
          ("mlstm_scan", 4, 1024, 4, 192, 0, True),
          ("slstm_scan", 4, 1024, 4, 192, 0, True),
          ("mamba2_scan", 2, 64, 16, 16, 16, False),
+         ("mamba2_scan", 2, 100, 4, 64, 32, False),
          ("mlstm_scan", 2, 64, 4, 32, 0, False),
          ("slstm_scan", 2, 64, 4, 32, 0, False))
 
@@ -73,14 +79,19 @@ def main(argv: list[str]) -> int:
         check=True).stdout.strip(), flush=True)
     build.load(verbose=True)
     for line in cs._ptxas(build.build_log):
-        if "_scan_kernel" in line or "_scan_bwd_kernel" in line \
-                or "_gates_bwd_kernel" in line:
+        if any(k in line for k in ("_scan_kernel", "_scan_bwd_kernel",
+                                   "_gates_bwd_kernel", "_chunked_")):
             print("ptxas:", line, flush=True)
     gen = torch.Generator(device="cuda").manual_seed(25)
     with torch.inference_mode():
         for name, B, T, H, hd, ds, timed in CASES:
             args = operands(name, B, T, H, hd, ds, gen)
             time_it = timed and "--no-time" not in argv
+            if name == "mamba2_scan":
+                rows = cs._mamba2_rows(args, "[ssm]", time_it=time_it)
+                for row in rows.values():
+                    print(json.dumps(row), flush=True)
+                continue
             row = cs._ssm_kernel_row(name, args, "[ssm]", time_it=time_it)
             print(json.dumps(row), flush=True)
             row = cs._ssm_bwd_row(name + "_bwd", args, "[ssm]",
