@@ -163,7 +163,18 @@ s. The hybrid and xlstm families (lines ``[s]``, run after phase m, whose
    timed beside the other, the plain version (twin or model) and its
    bound (the chunked kernels': three TF32 passes of their chunk products
    at 495 TFLOP/s, or bytes), and all four at T = 1, 8, 32, 64, 128 and
-   1,024 (device ms: ``ssm_scan.MAMBA2_CHUNKED_MIN_T``'s source).  Every
+   1,024 (device ms: ``ssm_scan.MAMBA2_CHUNKED_MIN_T``'s source).  S2b
+   and S3b run on both their kernels (``_ssm_bwd_rows``), forced on the
+   same tensors, at T = 1,024 and T = 1: the chunked S2b
+   (``csrc/mlstm_chunked.cu``) also within 1e-5 of its model
+   (``ref.mlstm_chunked_bwd_plain``), the sequential S2b, the short
+   S3b step and S3b's barrier kernel within 1e-4 of the twins; each timed
+   whole and launch by launch (the saving forward, the reverse kernels,
+   the stabiliser's; the sequential S2b's stabiliser kernel alone), both
+   S2b kernels at T = 1, 8, 16, 32, 64, 128 and 1,024
+   (``ssm_scan.MLSTM_CHUNKED_MIN_T``'s source), and S3b's handshake floor
+   (1,024 steps of the walk's handshake alone on its cluster shape, the
+   cluster barrier and the mbarrier).  Every
    prefill S1 launch of (a) must take the chunked kernel and every decode
    step the sequential one.  (h) Each of zamba2-7b's 81 Mamba2 layers in bf16 on the
    kernels' route against the twins' route, both from the twins' route's
@@ -201,7 +212,8 @@ l. LM training (lines ``[l]``, run after phase e): (a) one float32
    112.7 M parameters) and zamba2-7b at full width cut to 12 of its 81
    layers (1.37 B parameters), AdamW, remat, B = 4, T = 1,024, 4 steps:
    each step's recurrence launches (each forward op twice a layer, each
-   backward op once; zamba2's S1 and S1b all on the chunked kernels),
+   backward op once; zamba2's S1 and S1b all on the chunked kernels,
+   xlstm's S2b on the chunked kernel and S3b on its short step),
    finite losses, ms a step and peak memory beside the bound, one traced
    step; xlstm-125m one step on the twins' route too (the route before
    the backward kernels), at T = 128.  In (a) and (e) a recurrence
@@ -1285,9 +1297,10 @@ def _add(total: dict, counts: dict) -> None:
 def _by_kernel(c: dict) -> dict:
     """A path's ``ops.LAUNCHES`` as launches of each kernel: the routed
     counters (``sroa_solve``, ``topk_moves``, ``flash_attention``,
-    ``mamba2_scan``, ``mamba2_scan_bwd``) count every kernel of their op,
-    so the one-warp K2's, the block K3's, the SIMT K4's and the sequential
-    S1's and S1b's launches are what the others leave."""
+    ``mamba2_scan``, ``mamba2_scan_bwd``, ``mlstm_scan_bwd``,
+    ``slstm_scan_bwd``) count every kernel of their op, so the one-warp
+    K2's, the block K3's, the SIMT K4's, the sequential S1's, S1b's and
+    S2b's and the barrier S3b's launches are what the others leave."""
     return {"sroa_invert": c["sroa_invert"],
             "sroa_solve_lanes": c["sroa_solve_lanes"],
             "sroa_solve_cluster": c["sroa_solve_cluster"],
@@ -1309,8 +1322,12 @@ def _by_kernel(c: dict) -> dict:
             "mamba2_scan_bwd": (c["mamba2_scan_bwd"]
                                 - c["mamba2_scan_bwd_chunked"]),
             "mamba2_scan_bwd_chunked": c["mamba2_scan_bwd_chunked"],
-            "mlstm_scan_bwd": c["mlstm_scan_bwd"],
-            "slstm_scan_bwd": c["slstm_scan_bwd"]}
+            "mlstm_scan_bwd": (c["mlstm_scan_bwd"]
+                               - c["mlstm_scan_bwd_chunked"]),
+            "mlstm_scan_bwd_chunked": c["mlstm_scan_bwd_chunked"],
+            "slstm_scan_bwd": (c["slstm_scan_bwd"]
+                               - c["slstm_scan_bwd_short"]),
+            "slstm_scan_bwd_short": c["slstm_scan_bwd_short"]}
 
 
 def _k2_operands(scn, assigns):
@@ -2768,13 +2785,16 @@ SSM_SCANS = {
     "mlstm_scan": ("mlstm_scan_kernel", "src/repro/models/ssm.py:159", 5),
     "slstm_scan": ("slstm_scan_kernel", "src/repro/models/ssm.py:205", 4),
 }
-# S1b-S3b (csrc/ssm_scan_bwd.cu): each backward op's name, its kernel's
-# name in a trace, and the ``lax.scan`` whose autodiff it replaces.
+# S1b-S3b (csrc/ssm_scan_bwd.cu): each backward op's counter, its kernel's
+# name in a trace, and the ``lax.scan`` whose autodiff it replaces; S3b's
+# two (its short step, and its barrier kernel, forced only).
 SSM_BWD = {
     "mamba2_scan_bwd": ("mamba2_scan_bwd_kernel",
                         "src/repro/models/ssm.py:103"),
     "mlstm_scan_bwd": ("mlstm_scan_bwd_kernel", "src/repro/models/ssm.py:159"),
     "slstm_scan_bwd": ("slstm_scan_bwd_kernel", "src/repro/models/ssm.py:205"),
+    "slstm_scan_bwd_short": ("slstm_bwd_short_kernel",
+                             "src/repro/models/ssm.py:205"),
 }
 # Each kernel against its twin: max |delta| within this share of max |.|
 # of y and of each state, or of each gradient (the read-outs, sLSTM's
@@ -2899,25 +2919,81 @@ def _ssm_bwd_f32_flops(name: str, B: int, T: int, H: int, hd: int,
     return B * T * 3 * 2 * H * hd * 4 * hd
 
 
-def _ssm_bwd_row(name: str, args: tuple, tag: str,
-                 time_it: bool = True) -> dict:
-    """One backward recurrence op (S2b or S3b; S1b's are
-    ``_mamba2_rows``'s) against its backward twin: on the forward op's
-    operands ``args`` with the state the forward leaves after the T steps
-    carried in, and seeded upstream gradients of every output, final
-    states too.  Raises past ``SSM_KERNEL_TOL`` of max |.| on any
-    gradient.  With ``time_it``: CUDA-event ms of one call, its device ms
-    (``_queued_ms``), the twin's ms (the host clock around the checking
-    call, synchronised) and the bound (operands, y and upstream gradients
-    read and the gradients written once; ``_ssm_bwd_f32_flops`` at the
-    FP32 peak)."""
+# S2b's and S3b's two kernels each, the routed one first: (route, the
+# counter of its calls).  S3b's barrier kernel runs only when forced, and S2b's
+# sequential one below MLSTM_CHUNKED_MIN_T steps.
+SSM_BWD_ROUTES = {
+    "mlstm_scan_bwd": (("chunked", "mlstm_scan_bwd_chunked"),
+                       ("sequential", "mlstm_scan_bwd")),
+    "slstm_scan_bwd": (("short", "slstm_scan_bwd_short"),
+                       ("barrier", "slstm_scan_bwd")),
+}
+# The T sweep of both S2b kernels around their crossover
+# (MLSTM_CHUNKED_MIN_T's source; PERF.md keeps the sweep to T = 1,024).
+MLSTM_SWEEP_T = (1, 8, 16)
+
+
+def _mlstm_chunked_flops(B: int, T: int, H: int, hd: int) -> int:
+    """The chunked S2b's chunk products at their fewest (as
+    ``_ssd_chunked_flops`` counts S1b's): a (b, h, chunk) of L steps with
+    hd + 1 value columns (v and n), G = q k^T once, each product's
+    multiply-adds counted twice, once (the 3xTF32 split runs each three
+    times); the chunk's end state from its start (the saving forward's
+    work in the chunk form) among them."""
+    from repro_torch.kernels import ssm_scan
+
+    L, nC, V = ssm_scan.S2_CHUNK, -(-T // ssm_scan.S2_CHUNK), hd + 1
+    per = (2 * L * L * hd                   # G = q k^T
+           + 2 * L * L * V                  # D = dY U^T
+           + 2 * L * V * (L + hd)           # dU
+           + 2 * 2 * L * hd * (L + V)       # dk, dq
+           + 2 * 2 * hd * V * L             # A_prev, the end state
+           + 2 * L * L * L)                 # F
+    return per * B * H * nC
+
+
+def _part_call(fn, tensors, ints):
+    """One launch of a backward op's plan (``ssm_scan.*_bwd_plan``) alone,
+    on the current stream, raising on a launch error."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.sroa_bisect import _stream
+
+    def call():
+        build.check(fn(*(None if t is None else t.data_ptr()
+                         for t in tensors), *ints, _stream(tensors[0])),
+                    "part")
+    return call
+
+
+def _ssm_bwd_rows(name: str, args: tuple, tag: str,
+                  time_it: bool = True) -> dict:
+    """S2b or S3b (``name``) on both its kernels, forced on the same
+    operands: the forward op's ``args`` with the state the forward leaves
+    after the T steps carried in, and seeded upstream gradients of every
+    output, final states too.  Each kernel against the backward twin over
+    all T steps and over the first step alone (``SSM_KERNEL_TOL`` of max
+    |.| of every gradient), the chunked S2b also against its model
+    (``ref.mlstm_chunked_bwd_plain``, ``SSD_MODEL_TOL``).  With
+    ``time_it``: each kernel's events and device ms (``_queued_ms``) of the
+    op, the device ms of each of its launches alone (the saving forward,
+    the reverse kernels, the stabiliser's; for the sequential S2b its stabiliser
+    kernel alone too), the plain version's host ms (the
+    model's for the chunked S2b, else the twin's), and the bound (operands and upstream
+    gradients read and the gradients written once; the chunked S2b's
+    products counted once at the TF32 peak, ``_mlstm_chunked_flops``,
+    beside the sequential kernel's operations bound; else ``_ssm_bwd_f32_flops`` at the
+    FP32 peak); S2b's T sweep and S3b's handshake floor (T steps of the
+    walk's handshake alone, the cluster barrier and the mbarrier).  Returns
+    rows by counter name, and "sweep" or "floor"."""
     import torch
 
-    from repro_torch.kernels import ops, ref, ssm_scan
+    from repro_torch.kernels import build, ops, ref, ssm_scan
 
     fwd = name[:-len("_bwd")]
-    op, bwd = getattr(ssm_scan, fwd), getattr(ssm_scan, name)
+    op, routed = getattr(ssm_scan, fwd), getattr(ssm_scan, name + "_cuda")
+    plan = getattr(ssm_scan, fwd.split("_")[0] + "_bwd_plan")
     twin = getattr(ref, fwd.replace("_scan", "_recurrence_bwd_plain"))
+    n_time = SSM_SCANS[fwd][2]
     first = op(*args)
     args = args[:-(len(first) - 1)] + tuple(first[1:])
     outs = op(*args)
@@ -2925,56 +3001,157 @@ def _ssm_bwd_row(name: str, args: tuple, tag: str,
     ups = tuple(torch.randn(o.shape, generator=gen, device=o.device)
                 for o in outs)
     bargs = args + (outs[0],) + ups
+    step = tuple(a[:, :1] for a in args[:n_time]) + args[n_time:]
+    bstep = step + (op(*step)[0], ups[0][:, :1]) + ups[1:]
     del first, outs
     torch.cuda.synchronize()
-    before = ops.LAUNCHES[name]
-    got = bwd(*bargs)
-    torch.cuda.synchronize()
-    _check(ops.LAUNCHES[name] == before + 1, f"{name} did not launch")
-    t0 = time.perf_counter()
-    want = twin(*bargs)
-    torch.cuda.synchronize()
-    twin_ms = (time.perf_counter() - t0) * 1e3
-    rels = [_rel_err(g, w) for g, w in zip(got, want)]
     B, T, H, hd = args[0].shape
-    _check(all(g.shape == w.shape for g, w in zip(got, want))
-           and max(rels) <= SSM_KERNEL_TOL,
-           f"{tag} {name} at T = {T}: max |delta| / max |.| of the "
-           f"gradients {rels} (limit {SSM_KERNEL_TOL})")
-    row = {"name": name, "shape": [B, T, H, hd], "rel_T": rels,
-           "max_abs_err": _max_abs_err(got, want)}
-    del want
+    rows, plain = {}, {}
+    for key, ba in (("T", bargs), ("T1", bstep)):
+        t0 = time.perf_counter()
+        want = twin(*ba)
+        torch.cuda.synchronize()
+        plain[key] = (time.perf_counter() - t0) * 1e3
+        model = None
+        if fwd == "mlstm_scan":
+            t0 = time.perf_counter()
+            model = ref.mlstm_chunked_bwd_plain(*ba)
+            torch.cuda.synchronize()
+            plain["model_" + key] = (time.perf_counter() - t0) * 1e3
+        for route, counter in SSM_BWD_ROUTES[name]:
+            before = ops.LAUNCHES[counter]
+            got = routed(*ba, _route=route)
+            torch.cuda.synchronize()
+            _check(ops.LAUNCHES[counter] == before + 1,
+                   f"{counter} did not launch")
+            rels = [_rel_err(g, w) for g, w in zip(got, want)]
+            _check(all(g.shape == w.shape for g, w in zip(got, want))
+                   and max(rels) <= SSM_KERNEL_TOL,
+                   f"{tag} {counter} at T = {ba[0].shape[1]}: max |delta| / "
+                   f"max |.| of the gradients {rels} (limit "
+                   f"{SSM_KERNEL_TOL})")
+            row = rows.setdefault(counter, {"name": counter, "route": route,
+                                            "shape": [B, T, H, hd]})
+            row[f"rel_{key}"] = rels
+            if model is not None and route == "chunked":
+                mrel = [_rel_err(g, w) for g, w in zip(got, model)]
+                _check(max(mrel) <= SSD_MODEL_TOL, f"{tag} {counter} at T "
+                       f"= {ba[0].shape[1]}: max |delta| / max |.| {mrel} "
+                       f"against the chunked model (limit {SSD_MODEL_TOL})")
+                row[f"rel_model_{key}"] = mrel
+            if key == "T":
+                row["max_abs_err"] = _max_abs_err(got, want)
+            del got
+        del want, model
+    for row in rows.values():
+        row["plain_ms"] = plain["model_T" if row["route"] == "chunked"
+                                else "T"]
     if time_it:
-        call = lambda: bwd(*bargs)  # noqa: E731
-        flops = _ssm_bwd_f32_flops(name, B, T, H, hd)
-        nbytes = sum(a.numel() * 4 for a in bargs) + sum(
-            g.numel() * 4 for g in got)
-        bound, by = _bound_ms(nbytes, flops)
-        row.update(ms=_time_ms(call, 5), device_ms=_queued_ms(call, 5),
-                   plain_ms=twin_ms, bound_ms=bound, bound_by=by,
-                   f32_flops=flops, nbytes=nbytes)
-    print(f"{tag} {name} ({SSM_BWD[name][0]}) at (B, T, H, hd) = "
-          f"{row['shape']}, a state carried in, every output's upstream "
-          f"gradient: max "
-          f"|delta| / max |.| of the gradients "
-          f"{json.dumps([float(f'{r:.3g}') for r in rels])} (limit "
-          f"{SSM_KERNEL_TOL})"
-          + (f"; {row['ms']:.4g} ms events, {row['device_ms']:.4g} ms "
-             f"device, twin {row['plain_ms']:.4g} ms, bound "
-             f"{row['bound_ms']:.4g} ms by {row['bound_by']} "
-             f"({row['f32_flops']:.4g} f32 flop, {row['nbytes']:.4g} bytes)"
-             if time_it else ""))
-    return row
+        lib = build.load()
+        for route, counter in SSM_BWD_ROUTES[name]:
+            row = rows[counter]
+            call = (lambda r: lambda: routed(*bargs, _route=r))(route)
+            grads = call()
+            nbytes = sum(a.numel() * 4 for a in bargs) + sum(
+                g.numel() * 4 for g in grads)
+            del grads
+            flops = _ssm_bwd_f32_flops(name, B, T, H, hd)
+            bound, by = _bound_ms(nbytes, flops)
+            row.update(f32_flops=flops, nbytes=nbytes)
+            if route == "chunked":
+                row.update(bound_f32_ms=bound, bound_f32_by=by)
+                tf = _mlstm_chunked_flops(B, T, H, hd)
+                bound, by = _bound_ms(nbytes, tf, TF32_TENSOR_FLOPS_PER_S)
+                row.update(tf32_flops=tf, tf32x3_flops=3 * tf)
+            row.update(ms=_time_ms(call, 5), device_ms=_queued_ms(call, 5),
+                       bound_ms=bound, bound_by=by)
+            _, calls, sc, bufs = plan(bargs, route)
+            row["parts"] = {label: _queued_ms(_part_call(fn, ts, ints), 5)
+                            for label, fn, ts, ints in calls}
+            if counter == "mlstm_scan_bwd":
+                li, lf, m0, dm = bargs[3], bargs[4], bargs[7], bargs[12]
+                dv, dli, dlf, dC0, dn0, dm0 = bufs
+                row["parts"]["mlstm_gates_bwd_kernel alone"] = _queued_ms(
+                    _part_call(lib.mlstm_gates_bwd_seq, (
+                        li, lf, m0, dm, sc["dfi"], sc["scrM"], dli, dlf,
+                        dm0), (B, T, H, sc["dfi"].shape[1])), 5)
+            del sc, bufs
+        if fwd == "mlstm_scan":
+            sweep = []
+            for t in MLSTM_SWEEP_T:
+                a = (tuple(x[:, :t] for x in bargs[:5]) + bargs[5:8]
+                     + (bargs[8][:, :t], bargs[9][:, :t]) + bargs[10:])
+                sweep.append({"T": t, **{
+                    route: _queued_ms((lambda r, x: lambda: routed(
+                        *x, _route=r))(route, a), 5)
+                    for route, _ in SSM_BWD_ROUTES[name]}})
+            rows["sweep"] = sweep
+        else:
+            out = torch.empty(B * H * hd, device=bargs[0].device)
+            rows["floor"] = {"T": T, **{
+                kind: _queued_ms(_part_call(
+                    lib.slstm_handshake_floor, (out,),
+                    (mode, B, T, H, hd)), 5)
+                for kind, mode in (("barrier", 0), ("mbarrier", 1))}}
+    for counter, row in rows.items():
+        if counter in ("sweep", "floor"):
+            continue
+        kernel = (SSM_CHUNKED[counter][0] if counter in SSM_CHUNKED
+                  else SSM_BWD[counter][0])
+        model = (f"; against the chunked model "
+                 f"{json.dumps([float(f'{r:.3g}') for r in row['rel_model_T']])}"
+                 f" and "
+                 f"{json.dumps([float(f'{r:.3g}') for r in row['rel_model_T1']])}"
+                 f" (limit {SSD_MODEL_TOL})" if "rel_model_T" in row else "")
+        timed = ""
+        if "ms" in row:
+            extra = (f"; {row['tf32_flops']:.4g} flop of chunk products at "
+                     f"TF32, {row['tf32x3_flops']:.4g} run by the 3xTF32 "
+                     f"split; the sequential kernel's operations bound "
+                     f"{row['bound_f32_ms']:.4g} ms by {row['bound_f32_by']}"
+                     if "tf32_flops" in row else
+                     f"; {row['f32_flops']:.4g} f32 flop")
+            timed = (f"; {row['ms']:.4g} ms events, {row['device_ms']:.4g} "
+                     f"ms device (alone: " + ", ".join(
+                         f"{k} {v:.4g}" for k, v in row["parts"].items())
+                     + f"), plain {row['plain_ms']:.4g} ms, bound "
+                     f"{row['bound_ms']:.4g} ms by {row['bound_by']} "
+                     f"({row['nbytes']:.4g} bytes{extra})")
+        print(f"{tag} {counter} ({kernel}, the {row['route']} route) at (B, "
+              f"T, H, hd) = {row['shape']}, a state carried in, every "
+              f"output's upstream gradient: max |delta| / max |.| of the "
+              f"gradients {json.dumps([float(f'{r:.3g}') for r in row['rel_T']])}"
+              f" over T = {T} and "
+              f"{json.dumps([float(f'{r:.3g}') for r in row['rel_T1']])} at "
+              f"T = 1 (limit {SSM_KERNEL_TOL}){model}{timed}")
+    if "sweep" in rows:
+        print(f"{tag} S2b by T, device ms (_queued_ms) at (B, H, hd) = ({B}, "
+              f"{H}, {hd}): " + "; ".join(
+                  f"T {r['T']}: " + ", ".join(
+                      f"{k} {v:.4g}" for k, v in r.items() if k != "T")
+                  for r in rows["sweep"]))
+    if "floor" in rows:
+        f = rows["floor"]
+        print(f"{tag} S3b's handshake floor (its cluster shape, {B * H} "
+              f"clusters of 8 blocks of {2 * hd} threads, {T} steps of the "
+              f"handshake alone): the cluster barrier {f['barrier']:.4g} ms "
+              f"({f['barrier'] / max(T, 1) * 1e3:.4g} us a step), the "
+              f"mbarrier {f['mbarrier']:.4g} ms "
+              f"({f['mbarrier'] / max(T, 1) * 1e3:.4g} us a step)")
+    return rows
 
 
-# S1 and S1b's chunked kernels (csrc/ssd_chunked.cu, the route
-# ``ssm_scan.mamba2_route`` gives long sequences): each counter's name, its
-# kernel's name in a trace, and the ``lax.scan`` it replaces.
+# The chunked kernels: S1 and S1b's (csrc/ssd_chunked.cu, the route
+# ``ssm_scan.mamba2_route`` gives long sequences) and S2b's
+# (csrc/mlstm_chunked.cu, ``ssm_scan.mlstm_route``'s): each counter's name,
+# its kernel's name in a trace, and the ``lax.scan`` it replaces.
 SSM_CHUNKED = {
     "mamba2_scan_chunked": ("mamba2_chunked_kernel",
                             "src/repro/models/ssm.py:103"),
     "mamba2_scan_bwd_chunked": ("mamba2_chunked_bwd_kernel",
                                 "src/repro/models/ssm.py:103"),
+    "mlstm_scan_bwd_chunked": ("mlstm_chunked_bwd_kernel",
+                               "src/repro/models/ssm.py:159"),
 }
 # The chunked kernels against their plain model (ref.mamba2_chunked_plain
 # and _bwd_plain: the same chunks and products, the 3xTF32 split summed
@@ -3406,6 +3583,7 @@ def _ssm_path(dev) -> dict:
         # T sweep.
         rows = _mamba2_rows(got["mamba2_scan"], "[s] (g)")
         sweep = rows.pop("sweep")
+        bwd_extra = {}              # S2b's T sweep, S3b's handshake floor
         del cache, x, mm, p0, got
 
         # (c) The re-layout at full width and depth, in float32 with TF32
@@ -3547,14 +3725,17 @@ def _ssm_path(dev) -> dict:
         got = _scan_operands(lambda: tf._xlstm_pair(xcfg, blk, x))
         for name in ("mlstm_scan", "slstm_scan"):
             rows[name] = _ssm_kernel_row(name, got[name], "[s] (g)")
-            rows[name + "_bwd"] = _ssm_bwd_row(name + "_bwd", got[name],
-                                               "[s] (g)")
+            bwd_rows = _ssm_bwd_rows(name + "_bwd", got[name], "[s] (g)")
+            bwd_extra[name] = bwd_rows.pop("sweep" if name == "mlstm_scan"
+                                           else "floor")
+            rows.update(bwd_rows)
         del params, x, blk, got
     seconds = time.perf_counter() - t_phase
     print(f"[s] phase s: {seconds:.1f} s")
     path = {k: counts[k] + x_run["counts"][k] for k in counts}
     return {"counts": path, "zamba2": a, "xlstm": x_run, "kernels": rows,
-            "sweep": sweep,
+            "sweep": sweep, "mlstm_sweep": bwd_extra["mlstm_scan"],
+            "slstm_floor": bwd_extra["slstm_scan"],
             "twins": {"zamba2": a_twin, "xlstm": x_twin},
             "rel_b": max(groups), "rel_b_groups": groups, "gap_b": gap,
             "layer_gaps": layer_gaps,
@@ -4008,7 +4189,8 @@ def _recurrent_counts(cfg, T: int) -> dict:
     """The recurrence launches of one train step of T tokens with remat:
     each forward op twice a layer (the forward and its recompute), each
     backward op once, S1's and S1b's on the chunked kernels where
-    ``mamba2_route`` sends T; none for the other families."""
+    ``mamba2_route`` sends T, S2b's where ``mlstm_route`` does, S3b's on
+    its short step; none for the other families."""
     from repro_torch.kernels import ssm_scan
 
     if cfg.family == "mamba_hybrid":
@@ -4021,8 +4203,12 @@ def _recurrent_counts(cfg, T: int) -> dict:
         return need
     if cfg.family == "xlstm":
         pairs = cfg.n_layers // 2
-        return {"mlstm_scan": 2 * pairs, "slstm_scan": 2 * pairs,
-                "mlstm_scan_bwd": pairs, "slstm_scan_bwd": pairs}
+        need = {"mlstm_scan": 2 * pairs, "slstm_scan": 2 * pairs,
+                "mlstm_scan_bwd": pairs, "slstm_scan_bwd": pairs,
+                "slstm_scan_bwd_short": pairs}
+        if ssm_scan.mlstm_route(T, cfg.d_model // cfg.n_heads) == "chunked":
+            need["mlstm_scan_bwd_chunked"] = pairs
+        return need
     return {}
 
 
@@ -4805,7 +4991,8 @@ def main(argv: list[str]) -> int:
         counts[name] = ssm_counts[name]
     # S1b-S3b's path is phase l's: LM training.
     train_counts = _by_kernel(lp["counts"])
-    for name in (*SSM_BWD, "mamba2_scan_bwd_chunked"):
+    for name in (*SSM_BWD, "mamba2_scan_bwd_chunked",
+                 "mlstm_scan_bwd_chunked"):
         counts[name] = train_counts[name]
     print(f"[9] kernels: {json.dumps(counts)} (ops.LAUNCHES of the LM run: "
           f"{json.dumps(lmc)})")
@@ -4892,13 +5079,14 @@ def main(argv: list[str]) -> int:
            f"training path: {train_counts}")
     for name, (kernel, replaces) in (
             *SSM_BWD.items(),
-            ("mamba2_scan_bwd_chunked",
-             SSM_CHUNKED["mamba2_scan_bwd_chunked"])):
+            *((n, SSM_CHUNKED[n]) for n in ("mamba2_scan_bwd_chunked",
+                                            "mlstm_scan_bwd_chunked"))):
         r = sp["kernels"][name]
         report[name] = dict(
             name=name, route="cuda",
             source="src/repro_torch/kernels/csrc/" + (
-                "ssd_chunked.cu" if name in SSM_CHUNKED
+                "ssd_chunked.cu" if name == "mamba2_scan_bwd_chunked" else
+                "mlstm_chunked.cu" if name == "mlstm_scan_bwd_chunked"
                 else "ssm_scan_bwd.cu"),
             replaces=replaces, max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], device_ms=r["device_ms"],
@@ -4910,6 +5098,15 @@ def main(argv: list[str]) -> int:
         if name.startswith("mamba2"):
             report[name].update(mamba2_route=r["route"],
                                 rel_err_model=r.get("rel_model_T"))
+        else:
+            report[name].update(
+                bwd_route=r["route"], rel_err_T1=r["rel_T1"],
+                rel_err_model=r.get("rel_model_T"), parts=r.get("parts"),
+                bound_f32_ms=r.get("bound_f32_ms"))
+            if name.startswith("mlstm"):
+                report[name]["sweep"] = sp["mlstm_sweep"]
+            else:
+                report[name]["floor"] = sp["slstm_floor"]
     f_counts = _by_kernel(fp["counts"])
     print(f"[9] kernels on phase f's path (the training pipeline): "
           f"{json.dumps(f_counts)}")
@@ -4937,7 +5134,8 @@ def main(argv: list[str]) -> int:
         device_ms=k3x["block_device_ms"])
     for name, n in counts.items():
         _check(n > 0 or name in ("rmsnorm", "flash_attention",
-                                 "sroa_solve", "topk_moves"),
+                                 "sroa_solve", "topk_moves",
+                                 "mlstm_scan_bwd", "slstm_scan_bwd"),
                f"{name} never launched on its path")
         report[name]["launches"] = n
         report[name]["launches_tsia_path"] = tsia_counts[name]

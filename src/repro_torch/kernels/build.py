@@ -120,6 +120,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.slstm_scan_bwd.argtypes = [p] * 25 + [i] * 4 + [p]
     lib.mamba2_chunked.argtypes = [p] * 8 + [i] * 6 + [p]
     lib.mamba2_chunked_bwd.argtypes = [p] * 12 + [i] * 6 + [p]
+    lib.mlstm_chunked_bwd.argtypes = [p] * 19 + [i] * 5 + [p]
+    lib.mlstm_gates_bwd.argtypes = [p] * 9 + [i] * 4 + [p]
+    lib.mlstm_gates_bwd_seq.argtypes = [p] * 9 + [i] * 4 + [p]
+    lib.slstm_scan_bwd_short.argtypes = [p] * 18 + [i] * 4 + [p]
+    lib.slstm_dR.argtypes = [p] * 7 + [i] * 4 + [p]
+    lib.slstm_handshake_floor.argtypes = [p] + [i] * 5 + [p]
     lib.topk_moves_cluster_smem.restype = ctypes.c_longlong
     for fn in (lib.sroa_invert_rate, lib.sroa_solve, lib.sroa_solve_lanes,
                lib.sroa_solve_lanes_occupancy, lib.sroa_solve_cluster,
@@ -135,7 +141,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                lib.mamba2_scan_ckpt, lib.mamba2_scan_bwd,
                lib.mlstm_scan_ckpt, lib.mlstm_scan_bwd,
                lib.slstm_scan_save, lib.slstm_scan_bwd, lib.mamba2_chunked,
-               lib.mamba2_chunked_bwd):
+               lib.mamba2_chunked_bwd, lib.mlstm_chunked_bwd,
+               lib.mlstm_gates_bwd, lib.mlstm_gates_bwd_seq,
+               lib.slstm_scan_bwd_short, lib.slstm_dR,
+               lib.slstm_handshake_floor):
         fn.restype = ctypes.c_int
     return lib
 

@@ -1,5 +1,6 @@
 // Thread block clusters and distributed shared memory (sm_90), shared by
-// csrc/sroa_bisect.cu (K2's cluster kernel) and csrc/topk_moves.cu (K3's).
+// csrc/sroa_bisect.cu (K2's cluster kernel), csrc/topk_moves.cu (K3's) and
+// csrc/ssm_scan.cu, csrc/ssm_scan_bwd.cu (S3, S3b).
 //
 // A block of a cluster reaches another block's shared memory through the
 // cluster's window: `mapa` turns this block's shared address into block
@@ -91,6 +92,43 @@ __device__ __forceinline__ uint2 ld_cluster(const uint2* p, unsigned rank) {
                : "=r"(v.x), "=r"(v.y) : "r"(cluster_addr(p, rank))
                : "memory");
   return v;
+}
+
+// A store into block `rank`'s shared memory that completes 4 bytes of a
+// transaction on that block's mbarrier at `bar`'s offset (st.async): the
+// receiver waits on its own mbarrier's phase (`mbar_wait_cluster`), not
+// on a barrier of the whole cluster.
+__device__ __forceinline__ void st_async(float* p, unsigned rank, float v,
+                                         const void* bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, "
+      "[%2];" ::"r"(cluster_addr(p, rank)),
+      "f"(v), "r"(cluster_addr(bar, rank))
+      : "memory");
+}
+
+// The mbarriers' initialisation made visible to the cluster's other blocks
+// (before the cluster barrier that precedes their first st.async).
+__device__ __forceinline__ void mbar_init_fence_cluster() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// Wait for the phase of parity `parity` of this block's mbarrier at shared
+// address `bar` to complete, acquiring at cluster scope what the other
+// blocks' st.async wrote.
+__device__ __forceinline__ void mbar_wait_cluster(unsigned bar,
+                                                  unsigned parity) {
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
 }
 
 }  // namespace

@@ -2,7 +2,8 @@
 // (S1b-S3b, their backward) share: the step lengths of the chunks, the
 // checkpoint intervals of the forward kernels' saving variants (equal to
 // kernels/ssm_scan.py's S1B_CKPT and S2B_CKPT), the twin's scalar
-// formulas, and the warp sums.
+// formulas and JAX's gradient shares, and the warp sums.  csrc/
+// mlstm_chunked.cu reads S2's checkpoints and takes the same formulas.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -40,6 +41,15 @@ __device__ __forceinline__ float log_sigmoid(float x) {
 }
 __device__ __forceinline__ float sigmoid(float x) {
   return __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-x)));
+}
+
+// JAX's gradient shares: d max(a, b) / da (all to the larger, half at a
+// tie), and sign(x) with sign(0) = 0.
+__device__ __forceinline__ float max_share(float a, float b) {
+  return a > b ? 1.0f : (a == b ? 0.5f : 0.0f);
+}
+__device__ __forceinline__ float sign0(float x) {
+  return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
 }
 
 }  // namespace

@@ -41,10 +41,13 @@
 //   and adds n's parts.  `mlstm_gates_bwd_kernel` then walks the
 //   stabiliser chain m_t = max(log_f + m_{t-1}, log_i) in reverse, a
 //   thread a (b, h), adding the slices' d f and d i in slice order: d
-//   log_i, d log_f, d m0.
-// * S3b `slstm_scan_bwd_kernel<ROWS>`: one cluster of 8 blocks a (b, h),
-//   as the forward; block q's E = hd / 8 owner threads take its elements'
-//   adjoints of c, n, m and h through the saved step to the four
+//   log_i, d log_f, d m0.  kernels/ssm_scan.py runs them below
+//   MLSTM_CHUNKED_MIN_T steps or at widths csrc/mlstm_chunked.cu (the
+//   chunked form, from the same checkpoints) does not take.
+// * S3b `slstm_scan_bwd_kernel<ROWS>` (the barrier kernel;
+//   kernels/ssm_scan.py runs it only when forced): one cluster of 8 blocks
+//   a (b, h), as the forward; block q's E = hd / 8 owner threads take its
+//   elements' adjoints of c, n, m and h through the saved step to the four
 //   pre-activations' adjoints dpre_t (its 4 E columns of R).  Every thread
 //   holds half a row of those columns of R (2 threads a row): dR += h_{t-1}
 //   (x) dpre_t in registers over all T (per-b partials, summed over B by
@@ -54,10 +57,19 @@
 //   slots in order.  The slots alternate, so a store for step t - 1 never
 //   meets a read of step t; a cluster barrier comes before the first
 //   remote store.
+// * S3b on the short step, `slstm_bwd_short_kernel<ROWS>` then
+//   `slstm_dR_kernel` (every call's): the same walk with only the adjoint
+//   on its chain.  A window of steps' constants is computed by all threads
+//   from loads issued a window ahead; dh's partials reach the owning block
+//   by st.async on its mbarrier, so a block waits for its own data, not at
+//   a cluster barrier; dR is a product of its own after the walk.  The
+//   handshake alone (`slstm_handshake_kernel`, both kinds) is S3b's
+//   latency floor.
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "cluster.cuh"
+#include "sm90.cuh"
 #include "ssm_scan.cuh"
 
 namespace {
@@ -102,15 +114,6 @@ __device__ __forceinline__ void scatter_rows(float* v, int lane,
 #pragma unroll
     for (int k = 0; k < kKept; ++k) dst[4 * (base + k) + (lane & 3)] = v[k];
   }
-}
-
-// JAX's gradient shares: d max(a, b) / da (all to the larger, half at a
-// tie), and sign(x) with sign(0) = 0.
-__device__ __forceinline__ float max_share(float a, float b) {
-  return a > b ? 1.0f : (a == b ? 0.5f : 0.0f);
-}
-__device__ __forceinline__ float sign0(float x) {
-  return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
 }
 
 // ----------------------------------------------------------- S1b Mamba2
@@ -692,6 +695,411 @@ int launch_slstm_bwd(const float* R, const float* c0, const float* n0,
   return (int)cudaGetLastError();
 }
 
+// --------------------------------------------------- S3b, the short step
+// Steps of a staged window: the reverse walk's per-step constants of a
+// window for the block's E elements, one (step, element) a thread.
+constexpr int kS3bWindow = 16;
+constexpr int kS3bCoef = 13;         // constants a (step, element)
+
+// A (step, element)'s saved values (csrc/ssm_scan.cu's planes c, n, m, z,
+// i, f, o at t, c, n, m at t - 1 or the carried state, and dy at t), read
+// a window ahead of their use.
+struct S3bRaw {
+  float c, n, m, zp, li, fp, op, cp, np, mp, dy;
+};
+
+__device__ __forceinline__ S3bRaw s3b_load(
+    const float* __restrict__ saved, const float* __restrict__ dy,
+    const float* __restrict__ c0, const float* __restrict__ n0,
+    const float* __restrict__ m0, long long plane, long long x,
+    long long step, long long s0, int t) {
+  S3bRaw r;
+  r.c = saved[x];
+  r.n = saved[plane + x];
+  r.m = saved[2 * plane + x];
+  r.zp = saved[3 * plane + x];
+  r.li = saved[4 * plane + x];
+  r.fp = saved[5 * plane + x];
+  r.op = saved[6 * plane + x];
+  r.dy = dy[x];
+  if (t > 0) {
+    r.cp = saved[x - step];
+    r.np = saved[plane + x - step];
+    r.mp = saved[2 * plane + x - step];
+  } else {
+    r.cp = c0[s0];
+    r.np = n0[s0];
+    r.mp = m0[s0];
+  }
+  return r;
+}
+
+// The reverse step's constants of one (step, element), off the adjoint's
+// chain: with h = o c / den, den = max(|n|, 1), the step is linear in
+// (G_h + dy, G_c, G_n, G_m); its coefficients in the twin's formulas
+// (JAX's tie shares), 1 / den taken once.
+__device__ __forceinline__ void s3b_coef(const S3bRaw& r, float* co,
+                                         int stride) {
+  const float z = tanhf(r.zp), o = sigmoid(r.op);
+  const float lfm = __fadd_rn(log_sigmoid(r.fp), r.mp);
+  const float f = expf(__fsub_rn(lfm, r.m));
+  const float i = expf(__fsub_rn(r.li, r.m));
+  const float den = fmaxf(fabsf(r.n), 1.0f), rden = __frcp_rn(den);
+  const float xo = __fmul_rn(o, r.c);
+  co[0 * stride] = __fmul_rn(o, rden);                        // d G_c / d gh
+  co[1 * stride] = __fmul_rn(-__fdiv_rn(xo, __fmul_rn(den, den)),
+                             __fmul_rn(max_share(fabsf(r.n), 1.0f),
+                                       sign0(r.n)));          // d G_n / d gh
+  co[2 * stride] = r.cp;
+  co[3 * stride] = r.np;
+  co[4 * stride] = z;
+  co[5 * stride] = i;
+  co[6 * stride] = f;
+  co[7 * stride] = max_share(lfm, r.li);
+  co[8 * stride] = max_share(r.li, lfm);
+  co[9 * stride] = __fsub_rn(1.0f, __fmul_rn(z, z));
+  co[10 * stride] = sigmoid(-r.fp);
+  co[11 * stride] = __fmul_rn(__fmul_rn(__fmul_rn(r.c, o), __fsub_rn(1.0f, o)),
+                              rden);                          // d o_pre / d gh
+  co[12 * stride] = r.dy;
+}
+
+// S3b's reverse walk, one cluster of 8 blocks a (b, h) as the forward:
+// block q's E = hd / 8 owner threads carry their elements' adjoints of c,
+// n, m and h.  Of the block's 4 E columns of R (E of each gate), a thread
+// holds two rows' E columns of one gate: a lane quad is a row pair's four
+// gates.  A step: each owner waits on its block's mbarrier for the 8
+// partials of dh_t (st.async from the cluster's blocks), adds them in
+// block order, and takes the step's constants (staged a window at a time
+// by all threads) through a dozen dependent multiply-adds to the four
+// pre-activations' adjoints dpre_t, which it writes to dzx..dox and to
+// shared memory; one block barrier; every thread sums its two rows' E
+// terms (each value read from shared memory serves two rows: the reads,
+// not the multiply-adds, bound this phase), the quad adds its four gates
+// by two shuffles, and each row's owner block receives its sum by
+// st.async.  No cluster barrier within the walk: each block waits only
+// for its own data.  The slots and mbarriers
+// alternate by step; an mbarrier is re-armed (arrive + expect_tx) as soon
+// as its phase is consumed, before this block sends the partials that let
+// any block store into it again.  dR = sum h_{t-1} (x) dpre_t is not on the
+// walk: `slstm_dR_kernel` takes it from dzx..dox and y afterwards.
+template <int ROWS>
+__global__ void __cluster_dims__(kS3Cluster, 1, 1)
+    __launch_bounds__(8 * ROWS) slstm_bwd_short_kernel(
+        const float* __restrict__ R, const float* __restrict__ c0,
+        const float* __restrict__ n0, const float* __restrict__ m0,
+        const float* __restrict__ dy, const float* __restrict__ dc,
+        const float* __restrict__ dn, const float* __restrict__ dm,
+        const float* __restrict__ dh, const float* __restrict__ saved,
+        float* __restrict__ dzx, float* __restrict__ dix,
+        float* __restrict__ dfx, float* __restrict__ dox,
+        float* __restrict__ dc0, float* __restrict__ dn0,
+        float* __restrict__ dm0, float* __restrict__ dh0, int T, int H) {
+  constexpr int HD = 4 * ROWS;
+  constexpr int E = HD / kS3Cluster;           // state elements a block
+  constexpr int NTHR = 8 * ROWS;               // 2 a row of R, = 16 E
+  constexpr int W = kS3bWindow;
+  static_assert(NTHR == W * E, "one (step, element) a thread a window");
+  __shared__ float sCo[kS3bCoef][W][E];        // the window's constants
+  __shared__ __align__(16) float sD[2][4 * E]; // dpre_t of the block's columns
+  __shared__ float sSlot[2][kS3Cluster][E];    // dh partials, by source
+  __shared__ __align__(8) unsigned long long sBar[2];
+  const unsigned q = cluster_rank();
+  const int bh = blockIdx.x / kS3Cluster;
+  const int b = bh / H, h = bh % H;
+  const int tid = threadIdx.x;
+  const int gate = tid & 3, rp = tid >> 2;     // R's rows 2 rp, 2 rp + 1
+  float Rr[2][E];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int c = 0; c < E; ++c)
+      Rr[i][c] = R[((long long)h * HD + 2 * rp + i) * (4 * HD) + gate * HD +
+                   (int)q * E + c];
+  const long long sbase = (long long)bh * HD;
+  const bool owner = tid < E;                  // carries element me
+  const int me = (int)q * E + tid;
+  const long long plane = (long long)(gridDim.x / kS3Cluster) * T * HD;
+  const long long step = (long long)H * HD;    // one time step in (B,T,H,hd)
+  constexpr unsigned kBytes = kS3Cluster * E * sizeof(float);
+  if (tid == 0) {
+    mbar_init(smem_addr(&sBar[0]), 1);
+    mbar_init(smem_addr(&sBar[1]), 1);
+    mbar_init_fence_cluster();
+    mbar_expect_tx(smem_addr(&sBar[0]), kBytes);  // their first phases
+    mbar_expect_tx(smem_addr(&sBar[1]), kBytes);
+  }
+  // dh's 8 partials of this block's element tid, in block order.
+  auto gather = [&](int sb) {
+    float acc = 0.0f;
+#pragma unroll
+    for (int p = 0; p < kS3Cluster; ++p)
+      acc = __fadd_rn(acc, sSlot[sb][p][tid]);
+    return acc;
+  };
+  float Gc = 0.0f, Gn = 0.0f, Gm = 0.0f, Gh = 0.0f;
+  if (owner) {
+    Gc = dc[sbase + me];
+    Gn = dn[sbase + me];
+    Gm = dm[sbase + me];
+    Gh = dh[sbase + me];
+  }
+  // This thread's (step, element) of each window, a window ahead.
+  const int wt = tid / E, we = tid % E;
+  const int nW = (T + W - 1) / W;
+  S3bRaw raw{};
+  auto fetch = [&](int w) {
+    const int t = w * W + wt;
+    if (w >= 0 && t < T)
+      raw = s3b_load(saved, dy, c0, n0, m0, plane,
+                     (((long long)b * T + t) * H + h) * HD + (int)q * E + we,
+                     step, sbase + (int)q * E + we, t);
+  };
+  fetch(nW - 1);
+  cluster_sync();                    // every block started, its mbarriers set
+  int k = 0;                         // reverse steps taken
+  for (int w = nW - 1; w >= 0; --w) {
+    const int t0 = w * W, n = min(W, T - t0);
+    __syncthreads();                 // the last window's constants are read
+    if (wt < n) s3b_coef(raw, &sCo[0][wt][we], W * E);
+    fetch(w - 1);                    // the next window's loads, in flight
+    __syncthreads();
+    for (int tt = n - 1; tt >= 0; --tt, ++k) {
+      const int db = k & 1;
+      if (owner) {
+        float co[kS3bCoef];
+#pragma unroll
+        for (int j = 0; j < kS3bCoef; ++j) co[j] = sCo[j][tt][tid];
+        if (k > 0) {                 // the partials of step k - 1
+          const int sb = (k - 1) & 1;
+          mbar_wait_cluster(smem_addr(&sBar[sb]), ((k - 1) >> 1) & 1);
+          Gh = gather(sb);           // the adjoint of h_t
+          if (tid == 0) mbar_expect_tx(smem_addr(&sBar[sb]), kBytes);
+        }
+        const float gh = __fadd_rn(co[12], Gh);
+        Gc = __fmaf_rn(gh, co[0], Gc);
+        Gn = __fmaf_rn(gh, co[1], Gn);
+        const float df = __fmaf_rn(Gc, co[2], __fmul_rn(Gn, co[3]));
+        const float di = __fmaf_rn(Gc, co[4], Gn);
+        const float dz = __fmul_rn(Gc, co[5]);
+        Gc = __fmul_rn(Gc, co[6]);
+        Gn = __fmul_rn(Gn, co[6]);
+        const float a = __fmul_rn(df, co[6]), cc = __fmul_rn(di, co[5]);
+        const float dmn = __fsub_rn(__fsub_rn(Gm, a), cc);
+        Gm = __fmaf_rn(dmn, co[7], a);
+        const float dzp = __fmul_rn(dz, co[9]);
+        const float dip = __fmaf_rn(dmn, co[8], cc);
+        const float dfp = __fmul_rn(Gm, co[10]);
+        const float dop = __fmul_rn(gh, co[11]);
+        sD[db][tid] = dzp;
+        sD[db][E + tid] = dip;
+        sD[db][2 * E + tid] = dfp;
+        sD[db][3 * E + tid] = dop;
+        const long long x =
+            (((long long)b * T + t0 + tt) * H + h) * HD + me;
+        dzx[x] = dzp;
+        dix[x] = dip;
+        dfx[x] = dfp;
+        dox[x] = dop;
+      }
+      __syncthreads();               // dpre_t of this block's columns
+      // Two rows' E terms of this gate, two chains a row.
+      const float2* d2 = reinterpret_cast<const float2*>(&sD[db][gate * E]);
+      float a0 = 0.0f, a1 = 0.0f, b0 = 0.0f, b1 = 0.0f;
+#pragma unroll
+      for (int c = 0; c < E / 2; ++c) {
+        const float2 d = d2[c];
+        a0 = __fmaf_rn(Rr[0][2 * c], d.x, a0);
+        a1 = __fmaf_rn(Rr[0][2 * c + 1], d.y, a1);
+        b0 = __fmaf_rn(Rr[1][2 * c], d.x, b0);
+        b1 = __fmaf_rn(Rr[1][2 * c + 1], d.y, b1);
+      }
+      // The quad's four gates (the same sum in every lane: IEEE addition
+      // commutes), then row 2 rp from lane 0 and row 2 rp + 1 from lane 1.
+      float s0 = __fadd_rn(a0, a1), s1 = __fadd_rn(b0, b1);
+      s0 = __fadd_rn(s0, __shfl_xor_sync(kFull, s0, 1));
+      s1 = __fadd_rn(s1, __shfl_xor_sync(kFull, s1, 1));
+      s0 = __fadd_rn(s0, __shfl_xor_sync(kFull, s0, 2));
+      s1 = __fadd_rn(s1, __shfl_xor_sync(kFull, s1, 2));
+      if (gate < 2) {
+        const int row = 2 * rp + gate;
+        st_async(&sSlot[db][q][row % E], row / E, gate ? s1 : s0,
+                 &sBar[db]);
+      }
+    }
+  }
+  if (owner) {
+    if (k > 0) {                     // dh_{-1}: the adjoint of h0
+      const int sb = (k - 1) & 1;
+      mbar_wait_cluster(smem_addr(&sBar[sb]), ((k - 1) >> 1) & 1);
+      Gh = gather(sb);
+    }
+    dc0[sbase + me] = Gc;
+    dn0[sbase + me] = Gn;
+    dm0[sbase + me] = Gm;
+    dh0[sbase + me] = Gh;
+  }
+  cluster_sync();                    // no block leaves while stores may land
+}
+
+// dR's per-batch-row partials: dRb[b, h] = sum_t h_{t-1} (x) dpre_t (h_{-1}
+// = h0), a (hd, T) x (T, 4 hd) product a (b, h).  A block a 64 x 64 tile
+// of one gate's columns, 4 x 4 a thread, over T in stages of 32 steps
+// through shared memory (double-buffered: the next stage's loads are in
+// flight while this one's multiply-adds run), each output's sum in time
+// order.
+constexpr int kDRTile = 64;
+constexpr int kDRStep = 32;
+constexpr int kDRThreads = 256;
+constexpr int kDRLoads = kDRStep * kDRTile / kDRThreads;   // a thread a stage
+
+// Two blocks an SM (at most 128 registers a thread): one alone left each
+// stage's loads exposed.
+__global__ void __launch_bounds__(kDRThreads, 2) slstm_dR_kernel(
+    const float* __restrict__ y, const float* __restrict__ h0,
+    const float* __restrict__ dzx, const float* __restrict__ dix,
+    const float* __restrict__ dfx, const float* __restrict__ dox,
+    float* __restrict__ dRb, int T, int H, int hd) {
+  __shared__ __align__(16) float sA[2][kDRStep][kDRTile];  // h_{t-1}[k]
+  __shared__ __align__(16) float sB[2][kDRStep][kDRTile];  // dpre_t[e]
+  const int tiles = (hd + kDRTile - 1) / kDRTile;
+  const int gate = blockIdx.x / tiles, e0 = (blockIdx.x % tiles) * kDRTile;
+  const int k0 = blockIdx.y * kDRTile;
+  const int bh = blockIdx.z, b = bh / H, h = bh % H;
+  const float* __restrict__ dp =
+      gate == 0 ? dzx : gate == 1 ? dix : gate == 2 ? dfx : dox;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const long long step = (long long)H * hd;     // one time step
+  const long long base = ((long long)b * T * H + h) * hd;
+  float ra[kDRLoads], rb[kDRLoads];
+  auto fetch = [&](int s0) {
+#pragma unroll
+    for (int j = 0; j < kDRLoads; ++j) {
+      const int e = tid + j * kDRThreads;
+      const int t = s0 + e / kDRTile, c = e % kDRTile;
+      const int kk = k0 + c, ee = e0 + c;
+      ra[j] = (t < T && kk < hd)
+                  ? (t > 0 ? y[base + (t - 1) * step + kk]
+                           : h0[(long long)bh * hd + kk])
+                  : 0.0f;
+      rb[j] = (t < T && ee < hd) ? dp[base + t * step + ee] : 0.0f;
+    }
+  };
+  float acc[4][4] = {};
+  fetch(0);
+  int buf = 0;
+  for (int s0 = 0; s0 < T; s0 += kDRStep, buf ^= 1) {
+#pragma unroll
+    for (int j = 0; j < kDRLoads; ++j) {
+      const int e = tid + j * kDRThreads;
+      sA[buf][e / kDRTile][e % kDRTile] = ra[j];
+      sB[buf][e / kDRTile][e % kDRTile] = rb[j];
+    }
+    __syncthreads();                 // the stage is in; buf ^ 1 is free
+    if (s0 + kDRStep < T) fetch(s0 + kDRStep);
+#pragma unroll 8
+    for (int tt = 0; tt < kDRStep; ++tt) {
+      const float4 a = *reinterpret_cast<const float4*>(&sA[buf][tt][4 * ty]);
+      const float4 d = *reinterpret_cast<const float4*>(&sB[buf][tt][4 * tx]);
+      const float av[4] = {a.x, a.y, a.z, a.w}, dv[4] = {d.x, d.y, d.z, d.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          acc[i][j] = __fmaf_rn(av[i], dv[j], acc[i][j]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int kk = k0 + 4 * ty + i;
+    if (kk >= hd) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int ee = e0 + 4 * tx + j;
+      if (ee < hd)
+        dRb[((long long)bh * hd + kk) * (4 * hd) + gate * hd + ee] =
+            acc[i][j];
+    }
+  }
+}
+
+template <int ROWS>
+int launch_slstm_bwd_short(const float* R, const float* c0, const float* n0,
+                           const float* m0, const float* dy, const float* dc,
+                           const float* dn, const float* dm, const float* dh,
+                           const float* saved, float* dzx, float* dix,
+                           float* dfx, float* dox, float* dc0, float* dn0,
+                           float* dm0, float* dh0, int B, int T, int H,
+                           cudaStream_t stream) {
+  constexpr int HD = 4 * ROWS;
+  slstm_bwd_short_kernel<ROWS><<<B * H * kS3Cluster, 2 * HD, 0, stream>>>(
+      R, c0, n0, m0, dy, dc, dn, dm, dh, saved, dzx, dix, dfx, dox, dc0, dn0,
+      dm0, dh0, T, H);
+  return (int)cudaGetLastError();
+}
+
+// S3b's latency floor: the reverse walk's handshake alone, on its cluster
+// shape (8 blocks of 2 hd threads a (b, h)), T steps of it with no gate
+// arithmetic, no loads and no products: owners publish, one block barrier,
+// one thread of two sends a row's partial to its owner block.  MBAR: the
+// short step's handshake (st.async, each owner waiting on its block's
+// mbarrier); else the barrier kernel's (plain remote stores, a cluster
+// barrier).
+template <int ROWS, bool MBAR>
+__global__ void __cluster_dims__(kS3Cluster, 1, 1)
+    __launch_bounds__(8 * ROWS) slstm_handshake_kernel(float* __restrict__ out,
+                                                       int T) {
+  constexpr int HD = 4 * ROWS;
+  constexpr int E = HD / kS3Cluster;
+  constexpr unsigned kBytes = kS3Cluster * E * sizeof(float);
+  __shared__ float sD[2][E];
+  __shared__ float sSlot[2][kS3Cluster][E];
+  __shared__ __align__(8) unsigned long long sBar[2];
+  const unsigned q = cluster_rank();
+  const int tid = threadIdx.x, row = tid >> 1, half = tid & 1;
+  const bool owner = tid < E;
+  if (MBAR && tid == 0) {
+    mbar_init(smem_addr(&sBar[0]), 1);
+    mbar_init(smem_addr(&sBar[1]), 1);
+    mbar_init_fence_cluster();
+    mbar_expect_tx(smem_addr(&sBar[0]), kBytes);
+    mbar_expect_tx(smem_addr(&sBar[1]), kBytes);
+  }
+  float g = (float)tid;
+  cluster_sync();
+  for (int k = 0; k < T; ++k) {
+    const int db = k & 1;
+    if (owner) {
+      if (k > 0) {
+        const int sb = (k - 1) & 1;
+        if (MBAR) {
+          mbar_wait_cluster(smem_addr(&sBar[sb]), ((k - 1) >> 1) & 1);
+          if (tid == 0) mbar_expect_tx(smem_addr(&sBar[sb]), kBytes);
+        }
+        float acc = 0.0f;
+#pragma unroll
+        for (int p = 0; p < kS3Cluster; ++p)
+          acc = __fadd_rn(acc, sSlot[sb][p][tid]);
+        g = acc;
+      }
+      sD[db][tid] = g;
+    }
+    __syncthreads();
+    const float part = sD[db][row % E];
+    if (half == 0) {
+      if (MBAR) st_async(&sSlot[db][q][row % E], row / E, part, &sBar[db]);
+      else st_cluster(&sSlot[db][q][row % E], row / E, part);
+    }
+    if (!MBAR) cluster_sync();
+  }
+  if (owner && MBAR && T > 0) {
+    const int sb = (T - 1) & 1;
+    mbar_wait_cluster(smem_addr(&sBar[sb]), ((T - 1) >> 1) & 1);
+  }
+  cluster_sync();
+  if (owner) out[blockIdx.x * E + tid] = g;
+}
+
 }  // namespace
 
 extern "C" {
@@ -782,6 +1190,79 @@ int slstm_scan_bwd(const float* zx, const float* ix, const float* fx,
     default: return (int)cudaErrorInvalidValue;
   }
 #undef S3
+}
+
+// S3b's reverse walk on the short step (slstm_bwd_short_kernel): S3's R,
+// c0, n0, m0, dy (B, T, H, hd), dc, dn, dm, dh (B, H, hd), saved from
+// slstm_scan_save -> dzx, dix, dfx, dox (B, T, H, hd), dc0, dn0, dm0, dh0.
+// S3's widths.  slstm_dR then takes dR from its outputs.
+int slstm_scan_bwd_short(const float* R, const float* c0, const float* n0,
+                         const float* m0, const float* dy, const float* dc,
+                         const float* dn, const float* dm, const float* dh,
+                         const float* saved, float* dzx, float* dix,
+                         float* dfx, float* dox, float* dc0, float* dn0,
+                         float* dm0, float* dh0, int B, int T, int H, int hd,
+                         cudaStream_t stream) {
+  if (B <= 0 || H <= 0) return 0;
+  if (T < 0 || hd % 16 != 0) return (int)cudaErrorInvalidValue;
+#define S3S(R_)                                                            \
+  case R_:                                                                 \
+    return launch_slstm_bwd_short<R_>(R, c0, n0, m0, dy, dc, dn, dm, dh,    \
+                                      saved, dzx, dix, dfx, dox, dc0, dn0, \
+                                      dm0, dh0, B, T, H, stream)
+  switch (hd / 4) {
+    S3S(4); S3S(8); S3S(12); S3S(16); S3S(24); S3S(32); S3S(48); S3S(64);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef S3S
+}
+
+// S3b's dR per batch row (slstm_dR_kernel): y (B, T, H, hd), h0 (B, H,
+// hd) and the pre-activations' adjoints dzx..dox (B, T, H, hd) -> dRb (B,
+// H, hd, 4 hd), summed over B by the wrapper.
+int slstm_dR(const float* y, const float* h0, const float* dzx,
+             const float* dix, const float* dfx, const float* dox,
+             float* dRb, int B, int T, int H, int hd, cudaStream_t stream) {
+  if (B <= 0 || H <= 0) return 0;
+  if (T < 0 || hd <= 0) return (int)cudaErrorInvalidValue;
+  const int tiles = (hd + kDRTile - 1) / kDRTile;
+  const dim3 grid(4 * tiles, tiles, B * H);
+  slstm_dR_kernel<<<grid, kDRThreads, 0, stream>>>(y, h0, dzx, dix, dfx, dox,
+                                                    dRb, T, H, hd);
+  return (int)cudaGetLastError();
+}
+
+// S3b's handshake floor at hd (S3's widths): B H clusters, T steps; mbar
+// non-zero for the short step's handshake, zero for the cluster barrier.  out
+// (B H 8 hd / 8) receives a value a thread so that nothing is elided.
+int slstm_handshake_floor(float* out, int mbar, int B, int T, int H, int hd,
+                          cudaStream_t stream) {
+  if (B <= 0 || H <= 0 || T < 0) return (int)cudaErrorInvalidValue;
+  const int grid = B * H * kS3Cluster;
+#define S3F(R_)                                                              \
+  case R_:                                                                   \
+    if (mbar)                                                                \
+      slstm_handshake_kernel<R_, true><<<grid, 8 * R_, 0, stream>>>(out, T); \
+    else                                                                     \
+      slstm_handshake_kernel<R_, false><<<grid, 8 * R_, 0, stream>>>(out, T);\
+    return (int)cudaGetLastError()
+  switch (hd / 4) {
+    S3F(4); S3F(8); S3F(12); S3F(16); S3F(24); S3F(32); S3F(48); S3F(64);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef S3F
+}
+
+// The stabiliser's backward kernel of mlstm_scan_bwd alone (its second
+// launch), for timing: the same operands; mt is its scratch.
+int mlstm_gates_bwd_seq(const float* li, const float* lf, const float* m0,
+                        const float* dm, const float* dfi, float* mt,
+                        float* dli, float* dlf, float* dm0, int B, int T,
+                        int H, int slices, cudaStream_t stream) {
+  if (B <= 0 || H <= 0) return 0;
+  mlstm_gates_bwd_kernel<<<(B * H + 31) / 32, 32, 0, stream>>>(
+      li, lf, m0, dm, dfi, mt, dli, dlf, dm0, B * H, T, H, slices);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

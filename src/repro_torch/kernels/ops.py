@@ -22,7 +22,10 @@ under ``mamba2_scan``, ``mlstm_scan`` and ``slstm_scan`` and their
 backward ops' ``mamba2_scan_bwd``, ``mlstm_scan_bwd`` and
 ``slstm_scan_bwd`` (one count a call of an op, whatever kernels it runs);
 ``mamba2_scan_chunked`` and ``mamba2_scan_bwd_chunked`` count the S1 and
-S1b calls that took the chunked kernels (``ssm_scan.mamba2_route``).
+S1b calls that took the chunked kernels (``ssm_scan.mamba2_route``),
+``mlstm_scan_bwd_chunked`` the S2b calls that took the chunked kernel
+(``ssm_scan.mlstm_route``), and ``slstm_scan_bwd_short`` the S3b calls
+that took the short reverse step (every call but a forced one).
 """
 from __future__ import annotations
 
@@ -39,7 +42,8 @@ LAUNCHES = {"sroa_invert": 0, "sroa_solve": 0, "sroa_solve_lanes": 0,
             "rmsnorm": 0, "ssm_scan": 0, "mamba2_scan": 0, "mlstm_scan": 0,
             "slstm_scan": 0, "mamba2_scan_bwd": 0, "mlstm_scan_bwd": 0,
             "slstm_scan_bwd": 0, "mamba2_scan_chunked": 0,
-            "mamba2_scan_bwd_chunked": 0}
+            "mamba2_scan_bwd_chunked": 0, "mlstm_scan_bwd_chunked": 0,
+            "slstm_scan_bwd_short": 0}
 
 
 def reset_launches() -> None:

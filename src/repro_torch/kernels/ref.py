@@ -45,6 +45,13 @@ numbers:
   running products (:func:`ssd_segments`), the products by the 3xTF32
   split (:func:`matmul_tf32x3`).  Tests and ``chip_smoke.py`` hold the
   kernels to them; no path runs them.
+* :func:`mlstm_chunked_bwd_plain` — S2b's chunked kernel
+  (``csrc/mlstm_chunked.cu``): given the stabiliser
+  (:func:`mlstm_gates_plain`), mLSTM as Mamba2's recurrence with n as an
+  extra value column, each chunk of ``S2_CHUNK`` steps through the same
+  chunk backward as S1b's (``_ssd_chunk_bwd``), then the stabiliser's
+  backward (:func:`mlstm_gates_bwd_plain`).  Held to the kernel as the
+  chunked S1 models are.
 """
 from __future__ import annotations
 
@@ -936,34 +943,153 @@ def mamba2_chunked_bwd_plain(decay, Bm, Cm, dtx, s0, dy=None, dsT=None, *,
     dec, Bc, Cc, U, _ = _ssd_chunks(decay, Bm, Cm, dtx, L)
     dY = _ssd_chunks(decay, Bm, Cm, dy, L)[3]
     seg, p, w, pm = ssd_segments(dec)
-    Sg = torch.cat([torch.zeros_like(seg[..., :1, :]), seg[..., :-1, :]], -2)
     nC = dec.shape[2]
     dU, dBh, dCh, ddec = [None] * nC, [None] * nC, [None] * nC, [None] * nC
     for c in range(nC - 1, -1, -1):
-        S, Cc_, Bc_, U_, dY_ = (starts[:, :, c], Cc[:, :, c], Bc[:, :, c],
-                                U[:, :, c], dY[:, :, c])
-        sg, p_, w_ = seg[:, :, c], p[:, :, c, :, None], w[:, :, c, :, None]
-        G = mm(Cc_, Bc_.transpose(-1, -2))
-        D = mm(dY_, U_.transpose(-1, -2))
-        Md = D * sg
-        BA = mm(Bc_, A)
-        dU[c] = mm((G * sg).transpose(-1, -2), dY_) + w_ * BA
-        dBh[c] = mm(torch.cat([Md.transpose(-1, -2), w_ * U_], -1),
-                    torch.cat([Cc_.expand(-1, H, -1, -1),
-                               A.transpose(-1, -2)], -2))
-        dYS = mm(dY_, S.transpose(-1, -2))
-        dCh[c] = mm(Md, Bc_) + p_ * dYS
-        E = G * D
-        q = (Cc_ * dYS).sum(-1)
-        v = (U_ * BA).sum(-1)
-        AS = (A * S).sum((-1, -2))
-        E = torch.cat([E[..., :-1, :], E[..., -1:, :] + v[..., None, :]], -2)
-        q = torch.cat([q[..., :-1], q[..., -1:] + AS[..., None]], -1)
-        Fm = mm(E, Sg[:, :, c].transpose(-1, -2)) + q[..., :, None] * \
-            pm[:, :, c, None, :]
-        ddec[c] = (sg * Fm).sum(-2)
-        A = p[:, :, c, L - 1, None, None] * A + mm(
-            Cc_.transpose(-1, -2), p_ * dY_)
+        dU[c], dBh[c], dCh[c], ddec[c], A = _ssd_chunk_bwd(
+            starts[:, :, c], A, Cc[:, :, c], Bc[:, :, c], U[:, :, c],
+            dY[:, :, c], seg[:, :, c], p[:, :, c], w[:, :, c], pm[:, :, c],
+            mm)
     stack = lambda xs: torch.stack(xs, 2)  # noqa: E731
     return (_unchunk(stack(ddec), T), _unchunk(stack(dBh), T).sum(2),
             _unchunk(stack(dCh), T).sum(2), _unchunk(stack(dU), T), A)
+
+
+def _ssd_chunk_bwd(S, A, Cc, Bc, U, dY, sg, p, w, pm, mm):
+    """One chunk of the chunked SSD backward (the formulas of
+    :func:`mamba2_chunked_bwd_plain`): its start state S (..., ds, hd), the
+    adjoint A of its end state, C and B (..., L, ds; Mamba2's shared by the
+    heads), U and dY (..., L, hd), and its segment products -> (dU, dB,
+    dC, d decay, the adjoint of its start state); dB and dC per head."""
+    L = sg.shape[-1]
+    p_, w_ = p[..., None], w[..., None]
+    G = mm(Cc, Bc.transpose(-1, -2))
+    D = mm(dY, U.transpose(-1, -2))
+    Md = D * sg
+    BA = mm(Bc, A)
+    dU = mm((G * sg).transpose(-1, -2), dY) + w_ * BA
+    dB = mm(torch.cat([Md.transpose(-1, -2), w_ * U], -1),
+            torch.cat([Cc.expand(A.shape[:-2] + Cc.shape[-2:]),
+                       A.transpose(-1, -2)], -2))
+    dYS = mm(dY, S.transpose(-1, -2))
+    dC = mm(Md, Bc) + p_ * dYS
+    E = G * D
+    q = (Cc * dYS).sum(-1)
+    v = (U * BA).sum(-1)
+    AS = (A * S).sum((-1, -2))
+    E = torch.cat([E[..., :-1, :], E[..., -1:, :] + v[..., None, :]], -2)
+    q = torch.cat([q[..., :-1], q[..., -1:] + AS[..., None]], -1)
+    Sg = torch.cat([torch.zeros_like(sg[..., :1, :]), sg[..., :-1, :]], -2)
+    Fm = mm(E, Sg.transpose(-1, -2)) + q[..., :, None] * pm[..., None, :]
+    ddec = (sg * Fm).sum(-2)
+    A = p[..., L - 1, None, None] * A + mm(Cc.transpose(-1, -2), p_ * dY)
+    return dU, dB, dC, ddec, A
+
+
+# ------------------------------------------------ S2b in the chunked form
+# Time steps a chunk of the chunked S2b kernel (csrc/mlstm_chunked.cu): a
+# multiple of the saving forward's checkpoint interval (S2B_CKPT, 16); 32
+# beat 16 (chip_smoke.py's phase s (g), NVIDIA H100 80GB HBM3, 700 W: the
+# op 2.367 against 2.564 ms at xlstm-125m's (4, 1024, 4, 192)).
+S2_CHUNK = 32
+
+
+def mlstm_gates_plain(log_i, log_f, m0):
+    """The mLSTM stabiliser step by step, as the forward computes it:
+    log_i, log_f (B, T, H), m0 (B, H) -> (lfm, m, f, i), each (B, T, H):
+    lfm_t = log_f_t + m_{t-1}, m_t = max(lfm_t, log_i_t), f_t =
+    exp(lfm_t - m_t) and i_t = exp(log_i_t - m_t), both in [0, 1]."""
+    m, out = m0, []
+    for li, lf in zip(log_i.unbind(1), log_f.unbind(1)):
+        lfm = lf + m
+        m = torch.maximum(lfm, li)
+        out.append((lfm, m, torch.exp(lfm - m), torch.exp(li - m)))
+    return tuple(torch.stack(x, 1) for x in zip(*out))
+
+
+def mlstm_gates_bwd_plain(lfm, log_i, f, i, d_f, d_i, dm=None):
+    """The stabiliser's backward: the gates of :func:`mlstm_gates_plain`
+    and the gradients of f and i (B, T, H) -> (d log_i, d log_f, d m0),
+    the reverse loop of :func:`mlstm_recurrence_bwd_plain`'s last lines."""
+    Gm = _zeros_if_none(dm, lfm[:, 0])
+    dli, dlf = [], []
+    for t in range(lfm.shape[1] - 1, -1, -1):
+        a, c = d_f[:, t] * f[:, t], d_i[:, t] * i[:, t]
+        dmn = Gm - a - c
+        wl, wi = max_grad_split(lfm[:, t], log_i[:, t])
+        Gm = a + dmn * wl
+        dlf.append(Gm)
+        dli.append(c + dmn * wi)
+    back = lambda xs: torch.stack(xs[::-1], dim=1)  # noqa: E731
+    return back(dli), back(dlf), Gm
+
+
+def _time_chunks(x, L, fill=0.0):
+    """(B, T, H, ...) -> (B, H, nC, L, ...), the tail padded with fill."""
+    B, T, H = x.shape[:3]
+    nC = -(-T // L)
+    pad = [0, 0] * (x.dim() - 3) + [0, 0, 0, nC * L - T]
+    x = F.pad(x, pad, value=fill).reshape(B, nC, L, H, *x.shape[3:])
+    return x.transpose(1, 3).transpose(2, 3)
+
+
+def mlstm_chunked_bwd_plain(q, k, v, log_i, log_f, C0, n0, m0, y, dy=None,
+                            dC=None, dn=None, dm=None, *, L: int = S2_CHUNK,
+                            mm=matmul_tf32x3):
+    """S2b in the chunked form, as the chunked kernel computes it: the
+    operands and upstream gradients of :func:`mlstm_recurrence_bwd_plain`
+    -> the gradients of (q, k, v, log_i, log_f, C0, n0, m0).
+
+    Given the stabiliser (:func:`mlstm_gates_plain`), C_t = f_t C_{t-1} +
+    k_t (i_t v_t)^T and n_t = f_t n_{t-1} + i_t k_t are one Mamba2
+    recurrence with an extra value column for n: decay f, B = k, C = q, u
+    = [i v | i], state [C | n], read-out [num | q . n].  The chunk start
+    states are the recurrence's own every L steps (what the forward's
+    saving variant writes).  A chunk's q . n, and so den = max(|q . n|,
+    1), comes from the chunk form (q . n_t = sum_s (G * seg)[t, s] i_s +
+    p_t q_t . n_start); the read-out's adjoint is [dy / den | d(q . n)],
+    d(q . n) = -<dy, y> / den through max(|.|, 1).  Each chunk then takes
+    Mamba2's chunked backward (:func:`_ssd_chunk_bwd`): dq = dC, dk = dB,
+    d f = d decay, dv = i du[:hd], d i = <du[:hd], v> + du[hd]; the
+    stabiliser's backward (:func:`mlstm_gates_bwd_plain`) gives d log_i,
+    d log_f and d m0."""
+    B, T, H, hd = q.shape
+    dy = _zeros_if_none(dy, q)
+    lfm, m, f, i = mlstm_gates_plain(log_i, log_f, m0)
+    C, n, starts = C0, n0, []
+    for t in range(T):
+        if t % L == 0:
+            starts.append(torch.cat([C, n[..., None]], -1))
+        ft, it = f[:, t], i[:, t]
+        C = C * ft[..., None, None] + it[..., None, None] * (
+            k[:, t, ..., :, None] * v[:, t, ..., None, :])
+        n = n * ft[..., None] + it[..., None] * k[:, t]
+    U = torch.cat([i[..., None] * v, i[..., None]], -1)
+    Qc, Kc, Uc, dyc, yc = (_time_chunks(x, L) for x in (q, k, U, dy, y))
+    dec = _time_chunks(f, L, 1.0)
+    ic = _time_chunks(i, L)
+    seg, p, w, pm = ssd_segments(dec)
+    A = torch.cat([_zeros_if_none(dC, C0), _zeros_if_none(dn, n0)[..., None]],
+                  -1)
+    nC = dec.shape[2]
+    dU, dK, dQ, dF = [None] * nC, [None] * nC, [None] * nC, [None] * nC
+    for c in range(nC - 1, -1, -1):
+        S, Q_, K_ = starts[c], Qc[:, :, c], Kc[:, :, c]
+        sg, p_ = seg[:, :, c], p[:, :, c]
+        G = mm(Q_, K_.transpose(-1, -2))
+        qn = ((G * sg) * ic[:, :, c, None, :]).sum(-1) + p_ * (
+            Q_ * S[..., hd][..., None, :]).sum(-1)
+        den = torch.clamp_min(qn.abs(), 1.0)
+        dqn = -(dyc[:, :, c] * yc[:, :, c]).sum(-1) / den * _den_grad(qn)
+        dY = torch.cat([dyc[:, :, c] / den[..., None], dqn[..., None]], -1)
+        dU[c], dK[c], dQ[c], dF[c], A = _ssd_chunk_bwd(
+            S, A, Q_, K_, Uc[:, :, c], dY, sg, p_, w[:, :, c], pm[:, :, c],
+            mm)
+    stack = lambda xs: _unchunk(torch.stack(xs, 2), T)  # noqa: E731
+    dU = stack(dU)
+    dv = i[..., None] * dU[..., :hd]
+    d_i = (dU[..., :hd] * v).sum(-1) + dU[..., hd]
+    dli, dlf, dm0 = mlstm_gates_bwd_plain(lfm, log_i, f, i, stack(dF), d_i,
+                                          dm)
+    return (stack(dQ), stack(dK), dv, dli, dlf, A[..., :hd], A[..., hd],
+            dm0)

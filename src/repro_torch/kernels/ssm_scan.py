@@ -1,7 +1,8 @@
 """The recurrences of the hybrid and xlstm families as one op each: S1
 (Mamba2), S2 (mLSTM) and S3 (sLSTM), with their kernels in
 ``csrc/ssm_scan.cu``, and their backward ops S1b-S3b, with their kernels
-in ``csrc/ssm_scan_bwd.cu``.
+in ``csrc/ssm_scan_bwd.cu`` (and the chunked S1, S1b and S2b in
+``csrc/ssd_chunked.cu`` and ``csrc/mlstm_chunked.cu``).
 
 The JAX package runs each recurrence as one ``lax.scan`` (its
 ``models/ssm.py``): one loop that XLA keeps on the device, differentiates
@@ -31,9 +32,9 @@ start state on the chunked route; S2: C, n and m every ``S2B_CKPT``
 steps; S3: every step's c, n, m and pre-activations) into scratch the
 wrapper allocates (``*_bwd_scratch``: the shapes it allocates from, which
 the dry-run counts through :func:`bwd_scratch`), then the reverse
-kernels; the sums over heads (S1's dB and dC), slices (S2's dq and dk)
-and batch rows (S3's dR) are per-block partials added here in a fixed
-order.
+kernels; the sums over heads (S1's dB and dC), value tiles or slices
+(S2's dq and dk) and batch rows (S3's dR) are per-block partials added
+here in a fixed order.
 
 Every operand is float32 and every output a fresh tensor.  S1 and S1b
 have two routes, picked by :func:`mamba2_route` from the shapes alone:
@@ -45,8 +46,21 @@ products on the TF32 tensor cores with a 3xTF32 split; modelled by
 step) the sequential kernels, which run the twin's recurrence step by
 step with the state on the chip.  ``mamba2_scan_cuda(..., _route=)`` and
 ``mamba2_scan_bwd_cuda(..., _route=)`` force a route, for timing both on
-the same tensors.  S2, S3 and their backward run sequentially, one launch
-for the whole sequence.  Each kernel takes only the widths its thread
+the same tensors.  S2b has two routes too, picked by :func:`mlstm_route`:
+sequences of at least ``MLSTM_CHUNKED_MIN_T`` steps at hd in
+``MLSTM_CHUNKED_WIDTHS`` take the chunked form (``csrc/mlstm_chunked.cu``:
+given the stabiliser, mLSTM is Mamba2's recurrence with n as an extra
+value column; chunks of ``S2_CHUNK`` steps from the saving forward's
+checkpoints, the products on the tensor cores; modelled by
+``ref.mlstm_chunked_bwd_plain``), the rest the sequential kernel.
+S3b walks its steps in reverse on its short step (the step's constants
+staged off the chain, an mbarrier handshake instead of a cluster barrier,
+dR a product of its own afterwards); its barrier kernel runs only when
+forced.  ``mlstm_scan_bwd_cuda(..., _route=)`` and
+``slstm_scan_bwd_cuda(..., _route=)`` force a kernel, and
+:func:`mlstm_bwd_plan` and :func:`slstm_bwd_plan` give each launch of a
+route, for timing them alone.  S2, S3 run sequentially, one launch for
+the whole sequence.  Each kernel takes only the widths its thread
 layout divides (:func:`mamba2_supported`, :func:`mlstm_supported`,
 :func:`slstm_supported`: every config of the zoo and its ``reduced()``
 forms), and raises on others before any launch; a backward takes the
@@ -441,9 +455,38 @@ def _mlstm_flops(q, *args, **kwargs) -> int:
 
 
 # S2b: the forward's saving variant keeps C, n and m every S2B_CKPT steps
-# (its chunk); the reverse kernel recomputes a chunk's C and n into a
-# scratch of its own.
+# (its chunk).  Two routes, picked by :func:`mlstm_route`: the chunked form
+# (csrc/mlstm_chunked.cu: chunks of S2_CHUNK steps from those checkpoints,
+# the products on the tensor cores) and the sequential kernel
+# (csrc/ssm_scan_bwd.cu: a step at a time, each chunk of S2B_CKPT steps
+# recomputed into a scratch of its own).
 S2B_CKPT = 16
+# Chunks of 32 steps: 2.367 against 2.56 ms for 16 at xlstm-125m's width
+# (PERF.md, S2b's row); the kernel takes no other length.
+S2_CHUNK = ref.S2_CHUNK
+MLSTM_CHUNKED_WIDTHS = (32, 64, 192)      # hd the chunked kernel takes
+# The shortest T the chunked kernel takes: the shortest T of the sweep that
+# chip_smoke.py's phase s (g) and tools/ssm_scans.py print at which it
+# beats the sequential kernel in device time at xlstm-125m's width
+# (tools/ssm_scans.py, NVIDIA H100 80GB HBM3, 700 W: T = 8, 0.08749 against
+# 0.09135 ms; at T = 1 the sequential kernel wins, 0.04358 against 0.07949).
+MLSTM_CHUNKED_MIN_T = 8
+MLSTM_ROUTES = ("chunked", "sequential")
+
+
+def mlstm_route(T: int, hd: int) -> str:
+    """S2b's routing rule: "chunked" for sequences of at least
+    :data:`MLSTM_CHUNKED_MIN_T` steps at head dims the chunked kernel
+    takes (:data:`MLSTM_CHUNKED_WIDTHS`), else "sequential"."""
+    if T >= MLSTM_CHUNKED_MIN_T and hd in MLSTM_CHUNKED_WIDTHS:
+        return "chunked"
+    return "sequential"
+
+
+def mlstm_tiles(hd: int) -> int:
+    """The chunked kernel's tiles of 32 value columns of [v | n]: hd / 32 of
+    v and one for n."""
+    return hd // 32 + 1
 
 
 @torch.library.custom_op("repro_torch::mlstm_scan_bwd", mutates_args=(),
@@ -455,49 +498,104 @@ def mlstm_scan_bwd(q: Tensor, k: Tensor, v: Tensor, log_i: Tensor,
                                         Tensor, Tensor, Tensor, Tensor]:
     """S2b: S2's gradient (:func:`ref.mlstm_recurrence_bwd_plain`) ->
     (dq, dk, dv, d log_i, d log_f, dC0, dn0, dm0)."""
-    check_mlstm(q, k, v, log_i, log_f, C0, n0, m0)
-    for name, g, x in (("y", y, q), ("dy", dy, q), ("dC", dC, C0),
-                       ("dn", dn, n0), ("dm", dm, m0)):
-        _same(name, g, x.shape)
+    _check_mlstm_bwd(q, k, v, log_i, log_f, C0, n0, m0, y, dy, dC, dn, dm)
     return _own(ref.mlstm_recurrence_bwd_plain(q, k, v, log_i, log_f, C0, n0,
                                                m0, y, dy, dC, dn, dm))
 
 
-def mlstm_bwd_scratch(B: int, T: int, H: int, hd: int) -> dict:
-    """The f32 scratch S2b's CUDA wrapper allocates, name -> shape: C, n
-    and m every S2B_CKPT steps, the slices' recompute scratch and the
-    stabiliser's, and the per-slice dq, dk, d f and d i partials."""
-    S, nC = hd // mlstm_slice(hd), _ceil(T, S2B_CKPT)
-    return {"C": (B, H, nC, hd, hd), "n": (B, H, nC, hd), "m": (B, H, nC),
-            "scrC": (B * H * S, S2B_CKPT, hd * mlstm_slice(hd)),
+def mlstm_bwd_scratch(B: int, T: int, H: int, hd: int,
+                      route: str | None = None) -> dict:
+    """The f32 scratch S2b's CUDA wrapper allocates on ``route`` (the
+    rule's by default), name -> shape: C, n and m every S2B_CKPT steps;
+    chunked: m_t and the per-tile dq, dk, d f and d i partials; sequential:
+    the slices' recompute scratch and the stabiliser's, and the per-slice
+    partials."""
+    route = route or mlstm_route(T, hd)
+    nC = _ceil(T, S2B_CKPT)
+    ckpt = {"C": (B, H, nC, hd, hd), "n": (B, H, nC, hd), "m": (B, H, nC)}
+    if route == "chunked":
+        NT = mlstm_tiles(hd)
+        return {**ckpt, "mt": (B, T, H), "dq": (NT, B, T, H, hd),
+                "dk": (NT, B, T, H, hd), "dfi": (2, NT, B, T, H)}
+    S = hd // mlstm_slice(hd)
+    return {**ckpt, "scrC": (B * H * S, S2B_CKPT, hd * mlstm_slice(hd)),
             "scrN": (B * H * S, S2B_CKPT, hd), "scrM": (B, T, H),
             "dq": (S, B, T, H, hd), "dk": (S, B, T, H, hd),
             "dfi": (2, S, B, T, H)}
 
 
-@mlstm_scan_bwd.register_kernel("cuda")
-def _mlstm_bwd_cuda(q, k, v, log_i, log_f, C0, n0, m0, y, dy, dC, dn, dm):
-    B, T, H, hd = check_mlstm(q, k, v, log_i, log_f, C0, n0, m0)
+def _check_mlstm_bwd(q, k, v, log_i, log_f, C0, n0, m0, y, dy, dC, dn, dm):
+    dims = check_mlstm(q, k, v, log_i, log_f, C0, n0, m0)
     for name, g, x in (("y", y, q), ("dy", dy, q), ("dC", dC, C0),
                        ("dn", dn, n0), ("dm", dm, m0)):
         _same(name, g, x.shape)
+    return dims
+
+
+def mlstm_bwd_plan(args, route: str | None = None):
+    """S2b's launches on CUDA tensors ``args`` (the op's operands) on
+    ``route`` (:func:`mlstm_route`'s by default; a forced one raises where
+    its kernel does not take the widths, before any launch) -> (the route,
+    its launches in order as (kernel, fn, tensors, ints), the scratch (name
+    -> tensor), the outputs' buffers before the wrapper's sums)."""
+    B, T, H, hd = _check_mlstm_bwd(*args)
+    route = route or mlstm_route(T, hd)
+    if route not in MLSTM_ROUTES:
+        raise ValueError(f"no S2b route {route!r}")
+    if route == "chunked" and hd not in MLSTM_CHUNKED_WIDTHS:
+        _refuse("S2b (mlstm_scan_bwd)'s chunked kernel", f"hd {hd}")
     if not mlstm_supported(hd):
         _refuse("S2b (mlstm_scan_bwd)", f"hd {hd}")
-    ins = _operands("mlstm_scan_bwd", (q, k, v, log_i, log_f, C0, n0, m0,
-                                       y, dy, dC, dn, dm))
+    ins = _operands("mlstm_scan_bwd", args)
+    if route == "chunked":
+        ins = _aligned(ins)
+    q, k, v, li, lf, C0, n0, m0, y, dy, dC, dn, dm = ins
     f32 = dict(dtype=torch.float32, device=q.device)
-    sc = _scratch(mlstm_bwd_scratch(B, T, H, hd), q)
+    sc = _scratch(mlstm_bwd_scratch(B, T, H, hd, route), q)
     ckpt = (sc["C"], sc["n"], sc["m"])
-    scratch = (sc["scrC"], sc["scrN"], sc["scrM"])
-    dv, dli, dlf, dC0, dn0, dm0 = (torch.empty(x.shape, **f32) for x in
-                                   (v, log_i, log_f, C0, n0, m0))
+    outs = tuple(torch.empty(x.shape, **f32)
+                 for x in (v, li, lf, C0, n0, m0))
+    dv, dli, dlf, dC0, dn0, dm0 = outs
     lib, dims = build.load(), (B, T, H, hd)
-    _run("mlstm_scan_bwd", q,
-         (lib.mlstm_scan_ckpt, ins[:8] + ckpt, dims),
-         (lib.mlstm_scan_bwd, ins + ckpt + scratch + (
-             sc["dq"], sc["dk"], dv, sc["dfi"], dli, dlf, dC0, dn0, dm0),
-          dims))
+    calls = [("mlstm_scan_kernel<SAVE>", lib.mlstm_scan_ckpt,
+              ins[:8] + ckpt, dims)]
+    if route == "sequential":
+        calls.append(("mlstm_scan_bwd_kernel, mlstm_gates_bwd_kernel",
+                      lib.mlstm_scan_bwd,
+                      ins + ckpt + (sc["scrC"], sc["scrN"], sc["scrM"],
+                                    sc["dq"], sc["dk"], dv, sc["dfi"], dli,
+                                    dlf, dC0, dn0, dm0), dims))
+    else:
+        calls += [("mlstm_chunked_bwd_kernel", lib.mlstm_chunked_bwd,
+                   (q, k, v, li, lf, y, dy, dC, dn) + ckpt + (
+                       sc["mt"], sc["dq"], sc["dk"], dv, sc["dfi"], dC0,
+                       dn0), dims + (S2_CHUNK,)),
+                  ("mlstm_gates_chunked_bwd_kernel", lib.mlstm_gates_bwd,
+                   (li, lf, m0, dm, sc["mt"], sc["dfi"], dli, dlf, dm0),
+                   (B, T, H, mlstm_tiles(hd)))]
+    return route, calls, sc, outs
+
+
+def mlstm_scan_bwd_cuda(q, k, v, log_i, log_f, C0, n0, m0, y, dy, dC, dn,
+                        dm, *, _route: str | None = None):
+    """S2b on CUDA tensors -> (dq, dk, dv, d log_i, d log_f, dC0, dn0,
+    dm0), on :func:`mlstm_route`'s kernels (the saving forward, then the
+    backward kernels); ``_route`` forces one ("chunked" or "sequential"),
+    for timing on the same tensors.  The per-tile (per-slice) dq and dk
+    partials are summed here, in order."""
+    args = (q, k, v, log_i, log_f, C0, n0, m0, y, dy, dC, dn, dm)
+    route, calls, sc, outs = mlstm_bwd_plan(args, _route)
+    _run("mlstm_scan_bwd", q, *(c[1:] for c in calls))
+    if route == "chunked":
+        ops.LAUNCHES["mlstm_scan_bwd_chunked"] += 1
+    dv, dli, dlf, dC0, dn0, dm0 = outs
     return sc["dq"].sum(0), sc["dk"].sum(0), dv, dli, dlf, dC0, dn0, dm0
+
+
+@mlstm_scan_bwd.register_kernel("cuda")
+def _mlstm_bwd_cuda(q, k, v, log_i, log_f, C0, n0, m0, y, dy, dC, dn, dm):
+    return mlstm_scan_bwd_cuda(q, k, v, log_i, log_f, C0, n0, m0, y, dy, dC,
+                               dn, dm)
 
 
 @mlstm_scan_bwd.register_fake
@@ -561,7 +659,13 @@ def _slstm_flops(zx, *args, **kwargs) -> int:
 
 
 # S3b: the forward's saving variant keeps every step's c, n, m and the four
-# pre-activations.
+# pre-activations.  Two kernels walk them in reverse: the short step
+# (csrc/ssm_scan_bwd.cu's slstm_bwd_short_kernel, then dR as a product of
+# its own), every call's; and the barrier kernel (a cluster barrier a step, dR
+# on the walk), only when forced.
+SLSTM_BWD_ROUTES = ("short", "barrier")
+
+
 @torch.library.custom_op("repro_torch::slstm_scan_bwd", mutates_args=(),
                          device_types="cpu")
 def slstm_scan_bwd(zx: Tensor, ix: Tensor, fx: Tensor, ox: Tensor,
@@ -572,43 +676,80 @@ def slstm_scan_bwd(zx: Tensor, ix: Tensor, fx: Tensor, ox: Tensor,
                                         Tensor]:
     """S3b: S3's gradient (:func:`ref.slstm_recurrence_bwd_plain`) ->
     (dzx, dix, dfx, dox, dR, dc0, dn0, dm0, dh0)."""
-    check_slstm(zx, ix, fx, ox, R, c0, n0, m0, h0)
-    for name, g in (("y", y), ("dy", dy)):
-        _same(name, g, zx.shape)
-    for name, g in (("dc", dc), ("dn", dn), ("dm", dm), ("dh", dh)):
-        _same(name, g, c0.shape)
+    _check_slstm_bwd(zx, ix, fx, ox, R, c0, n0, m0, h0, y, dy, dc, dn, dm,
+                     dh)
     return _own(ref.slstm_recurrence_bwd_plain(zx, ix, fx, ox, R, c0, n0, m0,
                                                h0, y, dy, dc, dn, dm, dh))
 
 
+def _check_slstm_bwd(zx, ix, fx, ox, R, c0, n0, m0, h0, y, dy, dc, dn, dm,
+                     dh):
+    dims = check_slstm(zx, ix, fx, ox, R, c0, n0, m0, h0)
+    for name, g in (("y", y), ("dy", dy)):
+        _same(name, g, zx.shape)
+    for name, g in (("dc", dc), ("dn", dn), ("dm", dm), ("dh", dh)):
+        _same(name, g, c0.shape)
+    return dims
+
+
 def slstm_bwd_scratch(B: int, T: int, H: int, hd: int) -> dict:
-    """The f32 scratch S3b's CUDA wrapper allocates, name -> shape: every
-    step's c, n, m and four pre-activations, and the per-b dR partials."""
+    """The f32 scratch S3b's CUDA wrapper allocates (both kernels), name ->
+    shape: every step's c, n, m and four pre-activations, and the per-b dR
+    partials."""
     return {"saved": (7, B, T, H, hd), "dRb": (B, H, hd, 4 * hd)}
+
+
+def slstm_bwd_plan(args, route: str | None = None):
+    """S3b's launches on CUDA tensors ``args`` (the op's operands) on
+    ``route`` ("short" by default, or "barrier", the cluster-barrier kernel): as
+    :func:`mlstm_bwd_plan`."""
+    B, T, H, hd = _check_slstm_bwd(*args)
+    route = route or "short"
+    if route not in SLSTM_BWD_ROUTES:
+        raise ValueError(f"no S3b route {route!r}")
+    if not slstm_supported(hd):
+        _refuse("S3b (slstm_scan_bwd)", f"hd {hd}")
+    ins = _operands("slstm_scan_bwd", args)
+    f32 = dict(dtype=torch.float32, device=ins[0].device)
+    sc = _scratch(slstm_bwd_scratch(B, T, H, hd), ins[0])
+    grads = tuple(torch.empty(ins[0].shape, **f32) for _ in range(4))
+    states = tuple(torch.empty(ins[5].shape, **f32) for _ in range(4))
+    lib, dims = build.load(), (B, T, H, hd)
+    calls = [("slstm_scan_kernel<SAVE>", lib.slstm_scan_save,
+              ins[:9] + (sc["saved"],), dims)]
+    if route == "barrier":
+        calls.append(("slstm_scan_bwd_kernel", lib.slstm_scan_bwd,
+                      ins + (sc["saved"],) + grads + (sc["dRb"],) + states,
+                      dims))
+    else:
+        R, c0, n0, m0, h0, y, dy, dc, dn, dm, dh = ins[4:]
+        calls += [("slstm_bwd_short_kernel", lib.slstm_scan_bwd_short,
+                   (R, c0, n0, m0, dy, dc, dn, dm, dh, sc["saved"]) + grads
+                   + states, dims),
+                  ("slstm_dR_kernel", lib.slstm_dR,
+                   (y, h0) + grads + (sc["dRb"],), dims)]
+    return route, calls, sc, grads + states
+
+
+def slstm_scan_bwd_cuda(zx, ix, fx, ox, R, c0, n0, m0, h0, y, dy, dc, dn, dm,
+                        dh, *, _route: str | None = None):
+    """S3b on CUDA tensors -> (dzx, dix, dfx, dox, dR, dc0, dn0, dm0, dh0):
+    the saving forward, then the short reverse step and the dR product
+    (``_route="barrier"`` forces the barrier kernel, for timing both on the
+    same tensors); the per-b dR partials are summed here, in order."""
+    args = (zx, ix, fx, ox, R, c0, n0, m0, h0, y, dy, dc, dn, dm, dh)
+    route, calls, sc, outs = slstm_bwd_plan(args, _route)
+    _run("slstm_scan_bwd", zx, *(c[1:] for c in calls))
+    if route == "short":
+        ops.LAUNCHES["slstm_scan_bwd_short"] += 1
+    return (*outs[:4], sc["dRb"].sum(0), *outs[4:])
 
 
 @slstm_scan_bwd.register_kernel("cuda")
 def _slstm_bwd_cuda(zx, ix, fx, ox, R, c0, n0, m0, h0, y, dy, dc, dn, dm,
                     dh):
-    B, T, H, hd = check_slstm(zx, ix, fx, ox, R, c0, n0, m0, h0)
-    for name, g in (("y", y), ("dy", dy)):
-        _same(name, g, zx.shape)
-    for name, g in (("dc", dc), ("dn", dn), ("dm", dm), ("dh", dh)):
-        _same(name, g, c0.shape)
-    if not slstm_supported(hd):
-        _refuse("S3b (slstm_scan_bwd)", f"hd {hd}")
-    ins = _operands("slstm_scan_bwd", (zx, ix, fx, ox, R, c0, n0, m0, h0,
-                                       y, dy, dc, dn, dm, dh))
-    f32 = dict(dtype=torch.float32, device=zx.device)
-    sc = _scratch(slstm_bwd_scratch(B, T, H, hd), zx)
-    grads = tuple(torch.empty(zx.shape, **f32) for _ in range(4))
-    states = tuple(torch.empty(c0.shape, **f32) for _ in range(4))
-    lib, dims = build.load(), (B, T, H, hd)
-    _run("slstm_scan_bwd", zx,
-         (lib.slstm_scan_save, ins[:9] + (sc["saved"],), dims),
-         (lib.slstm_scan_bwd, ins + (sc["saved"],) + grads + (sc["dRb"],)
-          + states, dims))
-    return (*grads, sc["dRb"].sum(0), *states)
+    return slstm_scan_bwd_cuda(zx, ix, fx, ox, R, c0, n0, m0, h0, y, dy, dc,
+                               dn, dm, dh)
 
 
 @slstm_scan_bwd.register_fake

@@ -3,13 +3,14 @@ backward S1b-S3b for the recurrences) against their plain PyTorch twins,
 on a card (K2's and K3's two kernels and every speculation depth of K1
 and K2 bitwise; on the sequential route S1's state and S1b's d s0
 bitwise; S1's and S1b's chunked kernels against the sequential twins and
-their chunked model), and the served paths on the card against the CPU (the trainer,
-the moe model and its dispatch, the hybrid and xlstm models), distributed
-HFL on NCCL and gloo against one process, and the dry-run's argument
-bytes against what the card allocates.  Every test here is marked
-``cuda`` and skips itself when ``torch.cuda.is_available()`` is false;
-this file imports neither JAX nor the JAX package, so it runs on a
-machine that has only PyTorch:
+their chunked model, S2b's chunked kernel likewise, S3b's short step and
+the barrier S3b beside them), and the served paths on the card against
+the CPU (the trainer, the moe model and its dispatch, the hybrid and
+xlstm models), distributed HFL on NCCL and gloo against one process, and
+the dry-run's argument bytes against what the card allocates.  Every
+test here is marked ``cuda`` and skips itself when
+``torch.cuda.is_available()`` is false; this file imports neither JAX
+nor the JAX package, so it runs on a machine that has only PyTorch:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -1242,6 +1243,106 @@ def test_recurrence_backward_kernels_raise_and_never_fall_back(cuda):
         with pytest.raises(RuntimeError, match="mamba2_scan failed"):
             ssm_scan._run("mamba2_scan", args[3], (
                 fn, tensors, (1, 4, 2, 64, 64, ssm_scan.S1_CHUNK // 2)))
+    assert ops.LAUNCHES == before
+
+
+# (B, T, H, hd): the chunked S2b's widths (hd 32 and 64: one and two value
+# tiles, and the n column's), T from one step past four chunks (tails of
+# 7, 4 and 2 steps), and xlstm-125m's full shape.
+_MLSTM_CHUNKED = ((2, 7, 2, 32), (2, 64, 2, 32), (2, 100, 3, 64),
+                  (1, 130, 2, 64), (1, 1, 2, 192), (4, 1024, 4, 192))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,hd", _MLSTM_CHUNKED)
+def test_chunked_mlstm_backward_matches_the_twin_and_the_model(cuda, B, T,
+                                                              H, hd):
+    """The chunked S2b (csrc/mlstm_chunked.cu) and the sequential one,
+    forced on the same operands, a state carried in, every upstream
+    gradient seeded: the eight gradients within 1e-4 of the backward
+    twin's max |.|, the chunked ones also within 1e-5 of the chunked
+    model's (the same chunks and products; the model sums the 3xTF32
+    split's passes exactly); no NaN."""
+    from repro_torch.kernels import ssm_scan
+
+    args = _scan_operands("mlstm_scan", B, T, H, hd, 0, cuda, seed=T)
+    bargs = _bwd_operands("mlstm_scan", args, ssm_scan.mlstm_scan(*args))
+    want = ref.mlstm_recurrence_bwd_plain(*bargs)
+    model = ref.mlstm_chunked_bwd_plain(*bargs)
+    for route in ssm_scan.MLSTM_ROUTES:
+        n0 = dict(ops.LAUNCHES)
+        got = ssm_scan.mlstm_scan_bwd_cuda(*bargs, _route=route)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["mlstm_scan_bwd"] == n0["mlstm_scan_bwd"] + 1
+        assert ops.LAUNCHES["mlstm_scan_bwd_chunked"] == \
+            n0["mlstm_scan_bwd_chunked"] + int(route == "chunked")
+        for g, w, m in zip(got, want, model):
+            assert g.shape == w.shape and bool(torch.isfinite(g).all())
+            assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+            if route == "chunked":
+                assert float((g - m).abs().max()) <= 1e-5 * float(
+                    m.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [32, 192])
+@pytest.mark.parametrize("T", [1, 7, 1024])
+def test_short_slstm_backward_matches_the_twin(cuda, T, hd):
+    """S3b's short reverse step (slstm_bwd_short_kernel, then
+    slstm_dR_kernel) and the barrier kernel, forced on the same operands, a
+    state carried in, every upstream gradient seeded: the nine gradients
+    within 1e-4 of the backward twin's max |.| (h . R, dR and the
+    partials' sums add in other orders)."""
+    from repro_torch.kernels import ssm_scan
+
+    args = _scan_operands("slstm_scan", 2, T, 2, hd, 0, cuda, seed=T)
+    bargs = _bwd_operands("slstm_scan", args, ssm_scan.slstm_scan(*args))
+    want = ref.slstm_recurrence_bwd_plain(*bargs)
+    for route in ssm_scan.SLSTM_BWD_ROUTES:
+        n0 = dict(ops.LAUNCHES)
+        got = ssm_scan.slstm_scan_bwd_cuda(*bargs, _route=route)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["slstm_scan_bwd"] == n0["slstm_scan_bwd"] + 1
+        assert ops.LAUNCHES["slstm_scan_bwd_short"] == \
+            n0["slstm_scan_bwd_short"] + int(route == "short")
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and bool(torch.isfinite(g).all())
+            assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+
+@pytest.mark.cuda
+def test_mlstm_and_slstm_backward_routes_on_the_card(cuda):
+    """Under autograd the ops take their rules' kernels: S2b the chunked
+    one at T = 64 and the sequential one at T = 1 (hd 32), S3b its short
+    step at both; the routed call equals the forced one bitwise.  A forced
+    chunked S2b at a width it has no instance of raises before any
+    launch."""
+    from repro_torch.kernels import ssm_scan
+
+    for T, route in ((64, "chunked"), (1, "sequential")):
+        assert ssm_scan.mlstm_route(T, 32) == route
+        for name, counter, forced in (
+                ("mlstm_scan", "mlstm_scan_bwd_chunked", route),
+                ("slstm_scan", "slstm_scan_bwd_short", "short")):
+            args = _scan_operands(name, 2, T, 2, 32, 0, cuda)
+            leaves = [a.clone().requires_grad_(True) for a in args]
+            out = getattr(ssm_scan, name)(*leaves)
+            ups = [torch.ones_like(o) for o in out]
+            n0 = dict(ops.LAUNCHES)
+            grads = torch.autograd.grad(out, leaves, ups)
+            torch.cuda.synchronize()
+            assert ops.LAUNCHES[name + "_bwd"] == n0[name + "_bwd"] + 1
+            assert ops.LAUNCHES[counter] == n0[counter] + int(
+                forced in ("chunked", "short"))
+            fgrads = getattr(ssm_scan, name + "_bwd_cuda")(
+                *args, out[0].detach(), *ups, _route=forced)
+            for a, b in zip(grads, fgrads):
+                assert torch.equal(a, b)
+    args = _scan_operands("mlstm_scan", 1, 8, 2, 16, 0, cuda)
+    bargs = _bwd_operands("mlstm_scan", args, ssm_scan.mlstm_scan(*args))
+    before = dict(ops.LAUNCHES)
+    with pytest.raises(ValueError, match="chunked kernel"):
+        ssm_scan.mlstm_scan_bwd_cuda(*bargs, _route="chunked")
     assert ops.LAUNCHES == before
 
 

@@ -817,14 +817,16 @@ def test_build_names_the_library_by_source_and_flags(tmp_path):
     assert [s.name for s in srcs] == ["flash_attention.cu",
                                       "flash_attention_sm90.cu",
                                       "flash_attention_sm90_f32.cu",
-                                      "rmsnorm.cu", "sroa_bisect.cu",
-                                      "ssd_chunked.cu", "ssm_scan.cu",
-                                      "ssm_scan_bwd.cu", "topk_moves.cu"]
+                                      "mlstm_chunked.cu", "rmsnorm.cu",
+                                      "sroa_bisect.cu", "ssd_chunked.cu",
+                                      "ssm_scan.cu", "ssm_scan_bwd.cu",
+                                      "topk_moves.cu"]
     d1 = build._digest(srcs, build.NVCC_FLAGS)
     assert d1 == build._digest(srcs, list(build.NVCC_FLAGS))
     assert d1 != build._digest(srcs, build.NVCC_FLAGS + ["-G"])
     # The shared header is hashed with the sources (it is not compiled).
-    assert [h.name for h in build.headers()] == ["cluster.cuh",
+    assert [h.name for h in build.headers()] == ["chunked.cuh",
+                                                 "cluster.cuh",
                                                  "fast_math.cuh",
                                                  "sm90.cuh", "ssm_scan.cuh"]
     assert d1 != build._digest(srcs + build.headers(), build.NVCC_FLAGS)

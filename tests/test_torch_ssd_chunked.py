@@ -289,8 +289,13 @@ def test_backward_scratch_shapes():
     assert ssm_scan.scratch_bytes(seq) == 1_233_125_376
     assert ssm_scan.mamba2_bwd_scratch(4, 1, 112, 64, 64) == \
         ssm_scan.mamba2_bwd_scratch(4, 1, 112, 64, 64, "sequential")
+    # S2b at xlstm-125m's train_4k shard (16, 4096, 4, 192): the chunked
+    # route's 7 tiles of dq and dk partials against the sequential route's
+    # 6 slices and its recompute scratch.
     assert ssm_scan.scratch_bytes(ssm_scan.mlstm_bwd_scratch(
-        16, 4096, 4, 192)) == 5_013_831_680
+        16, 4096, 4, 192)) == 5_262_868_480
+    assert ssm_scan.scratch_bytes(ssm_scan.mlstm_bwd_scratch(
+        16, 4096, 4, 192, "sequential")) == 5_013_831_680
     assert ssm_scan.scratch_bytes(ssm_scan.slstm_bwd_scratch(
         16, 4096, 4, 192)) == 1_447_034_880
 
