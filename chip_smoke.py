@@ -143,7 +143,9 @@ s. The hybrid and xlstm families (lines ``[s]``, run after phase m, whose
    full size (12 layers, d 768, 4 heads of 192, vocab 50,304), B = 4,
    T = 1,024, 32 tokens: finite, in range, timed beside its bounds; 6 S2
    and 6 S3 launches in the prefill and in each decode step and no other
-   kernel; the same on the twins, as for zamba2.  (g) Each recurrence
+   kernel, the prefill's S2 on the chunked kernel and every decode step's
+   on the sequential one, every S3 on the short step; the same on the
+   twins, as for zamba2.  (g) Each recurrence
    kernel against its twin on the card on the operands of the first layer
    of its kind (zamba2's first Mamba2 layer, xlstm's first pair, at B = 4,
    T = 1,024 of ``run_lm``'s prompt), a state carried in (the one the
@@ -163,15 +165,22 @@ s. The hybrid and xlstm families (lines ``[s]``, run after phase m, whose
    timed beside the other, the plain version (twin or model) and its
    bound (the chunked kernels': three TF32 passes of their chunk products
    at 495 TFLOP/s, or bytes), and all four at T = 1, 8, 32, 64, 128 and
-   1,024 (device ms: ``ssm_scan.MAMBA2_CHUNKED_MIN_T``'s source).  S2b
-   and S3b run on both their kernels (``_ssm_bwd_rows``), forced on the
-   same tensors, at T = 1,024 and T = 1: the chunked S2b
-   (``csrc/mlstm_chunked.cu``) also within 1e-5 of its model
-   (``ref.mlstm_chunked_bwd_plain``), the sequential S2b, the short
-   S3b step and S3b's barrier kernel within 1e-4 of the twins; each timed
-   whole and launch by launch (the saving forward, the reverse kernels,
-   the stabiliser's; the sequential S2b's stabiliser kernel alone), both
-   S2b kernels at T = 1, 8, 16, 32, 64, 128 and 1,024
+   1,024 (device ms: ``ssm_scan.MAMBA2_CHUNKED_MIN_T``'s source).  S2
+   and S3 run on both their kernels (``_ssm_fwd_rows``), forced on the
+   same tensors: the chunked S2 (``csrc/mlstm_chunked.cu``) also within
+   1e-5 of its model (``ref.mlstm_chunked_plain``), S3's short step and
+   barrier kernel within 1e-4 of the twin; each timed beside the other,
+   the plain version and its bound (the chunked S2's chunk products at
+   the TF32 peak, or bytes), and both S2 kernels at T = 1, 8, 16 and 32
+   (``ssm_scan.MLSTM_FWD_CHUNKED_MIN_T``'s source).  S2b and S3b run on
+   both their kernels (``_ssm_bwd_rows``), forced on the same tensors, at
+   T = 1,024 and T = 1: the chunked S2b (``csrc/mlstm_chunked.cu``, after
+   the chunked S2's saving variant) also within 1e-5 of its model
+   (``ref.mlstm_chunked_bwd_plain``), the sequential S2b, the short S3b
+   step (after the short S3's saving variant) and S3b's barrier kernel
+   within 1e-4 of the twins; each timed whole and launch by launch (the
+   saving forward, the reverse kernels, the stabiliser's; the sequential
+   S2b's stabiliser kernel alone), both S2b kernels at T = 1, 8 and 16
    (``ssm_scan.MLSTM_CHUNKED_MIN_T``'s source), and S3b's handshake floor
    (1,024 steps of the walk's handshake alone on its cluster shape, the
    cluster barrier and the mbarrier).  Every
@@ -213,7 +222,8 @@ l. LM training (lines ``[l]``, run after phase e): (a) one float32
    layers (1.37 B parameters), AdamW, remat, B = 4, T = 1,024, 4 steps:
    each step's recurrence launches (each forward op twice a layer, each
    backward op once; zamba2's S1 and S1b all on the chunked kernels,
-   xlstm's S2b on the chunked kernel and S3b on its short step),
+   xlstm's S2 and S2b on the chunked kernels and S3 and S3b on their
+   short steps),
    finite losses, ms a step and peak memory beside the bound, one traced
    step; xlstm-125m one step on the twins' route too (the route before
    the backward kernels), at T = 128.  In (a) and (e) a recurrence
@@ -1297,10 +1307,10 @@ def _add(total: dict, counts: dict) -> None:
 def _by_kernel(c: dict) -> dict:
     """A path's ``ops.LAUNCHES`` as launches of each kernel: the routed
     counters (``sroa_solve``, ``topk_moves``, ``flash_attention``,
-    ``mamba2_scan``, ``mamba2_scan_bwd``, ``mlstm_scan_bwd``,
-    ``slstm_scan_bwd``) count every kernel of their op, so the one-warp
-    K2's, the block K3's, the SIMT K4's, the sequential S1's, S1b's and
-    S2b's and the barrier S3b's launches are what the others leave."""
+    ``mamba2_scan``, ``mlstm_scan``, ``slstm_scan`` and their backward
+    ops') count every kernel of their op, so the one-warp K2's, the block
+    K3's, the SIMT K4's, the sequential S1's, S1b's, S2's and S2b's and the
+    barrier S3's and S3b's launches are what the others leave."""
     return {"sroa_invert": c["sroa_invert"],
             "sroa_solve_lanes": c["sroa_solve_lanes"],
             "sroa_solve_cluster": c["sroa_solve_cluster"],
@@ -1318,7 +1328,10 @@ def _by_kernel(c: dict) -> dict:
             "rmsnorm": c["rmsnorm"],
             "mamba2_scan": c["mamba2_scan"] - c["mamba2_scan_chunked"],
             "mamba2_scan_chunked": c["mamba2_scan_chunked"],
-            "mlstm_scan": c["mlstm_scan"], "slstm_scan": c["slstm_scan"],
+            "mlstm_scan": c["mlstm_scan"] - c["mlstm_scan_chunked"],
+            "mlstm_scan_chunked": c["mlstm_scan_chunked"],
+            "slstm_scan": c["slstm_scan"] - c["slstm_scan_short"],
+            "slstm_scan_short": c["slstm_scan_short"],
             "mamba2_scan_bwd": (c["mamba2_scan_bwd"]
                                 - c["mamba2_scan_bwd_chunked"]),
             "mamba2_scan_bwd_chunked": c["mamba2_scan_bwd_chunked"],
@@ -2777,13 +2790,16 @@ def _ssm_serve(cfg, dev, tag: str) -> dict:
             "step_ms": step_ms}
 
 
-# S1-S3 (csrc/ssm_scan.cu): each op's name, its kernel's name in a trace,
-# the ``lax.scan`` it replaces, and how many of its leading operands run
-# along the time axis (sLSTM's R and every state follow them).
+# S1-S3 (csrc/ssm_scan.cu): each counter's name (an op's, or S3's short
+# step's), its kernel's name in a trace, the ``lax.scan`` it replaces, and
+# how many of the op's leading operands run along the time axis (sLSTM's R
+# and every state follow them).
 SSM_SCANS = {
     "mamba2_scan": ("mamba2_scan_kernel", "src/repro/models/ssm.py:103", 4),
     "mlstm_scan": ("mlstm_scan_kernel", "src/repro/models/ssm.py:159", 5),
     "slstm_scan": ("slstm_scan_kernel", "src/repro/models/ssm.py:205", 4),
+    "slstm_scan_short": ("slstm_short_kernel", "src/repro/models/ssm.py:205",
+                         4),
 }
 # S1b-S3b (csrc/ssm_scan_bwd.cu): each backward op's counter, its kernel's
 # name in a trace, and the ``lax.scan`` whose autodiff it replaces; S3b's
@@ -2835,74 +2851,166 @@ def _ssm_f32_flops(name: str, B: int, T: int, H: int, hd: int,
     return B * T * 2 * H * hd * 4 * hd
 
 
-def _ssm_kernel_row(name: str, args: tuple, tag: str, time_it: bool = True,
-                    carry: bool = True) -> dict:
-    """One recurrence kernel against its plain twin on the same operands
-    ``args`` (each op's own order): with ``carry`` the state the kernel
-    leaves after the T steps from the given one is carried in, then the
-    kernel and the twin run from it over all T steps and over the first
-    step alone (the decode shape).  Raises past ``SSM_KERNEL_TOL`` of max
-    |.| on y or any state.  With ``time_it`` at all T: CUDA-event ms of
-    one call, its device ms (``_queued_ms``), the twin's ms (the host clock
-    around the checking call at all T, synchronised) and the bound
-    (operands read and outputs written once; ``_ssm_f32_flops`` at the
-    FP32 peak)."""
+# S2's and S3's two kernels each, the routed one first: (route, the counter
+# of its calls).  S3's barrier kernel runs only when forced, and S2's
+# sequential one below MLSTM_FWD_CHUNKED_MIN_T steps (every decode step).
+SSM_FWD_ROUTES = {
+    "mlstm_scan": (("chunked", "mlstm_scan_chunked"),
+                   ("sequential", "mlstm_scan")),
+    "slstm_scan": (("short", "slstm_scan_short"), ("barrier", "slstm_scan")),
+}
+# The T sweep of both S2 kernels around their crossover (the source of the
+# forward's MLSTM_CHUNKED_MIN_T).
+MLSTM_FWD_SWEEP_T = (1, 8, 16, 32)
+
+
+def _mlstm_fwd_chunked_flops(B: int, T: int, H: int, hd: int) -> int:
+    """The chunked S2's chunk products at their fewest (as
+    ``_mlstm_chunked_flops`` counts S2b's): a (b, h, chunk) of L steps, G =
+    q k^T once, the numerator M U + (p q) C over depth L + hd for the hd
+    value columns and the next chunk's C (hd x hd over L), each product's
+    multiply-adds counted twice, once (the 3xTF32 split runs each three
+    times); q . n and n's update are vectors beside them."""
+    from repro_torch.kernels import ssm_scan
+
+    L, nC = ssm_scan.S2_CHUNK, -(-T // ssm_scan.S2_CHUNK)
+    per = 2 * L * L * hd + 2 * L * hd * (L + hd) + 2 * hd * hd * L
+    return per * B * H * nC
+
+
+def _ssm_fwd_rows(name: str, args: tuple, tag: str,
+                  time_it: bool = True) -> dict:
+    """S2 or S3 (``name``) on both its kernels, forced on the same operands:
+    ``args`` (the op's order) with the state the routed kernel leaves after
+    the T steps carried in, over all T steps and over the first step alone
+    (the decode shape).  Each kernel against the twin (``SSM_KERNEL_TOL``
+    of max |.| of y and of every state), the chunked S2 also against its
+    model (``ref.mlstm_chunked_plain``, ``SSD_MODEL_TOL``).  With
+    ``time_it``: each kernel's CUDA-event ms of one call and its device ms
+    (``_queued_ms``), the plain version's host ms (the model's for the
+    chunked S2, else the twin's) and the bound (operands read and outputs
+    written once; the chunked S2's chunk products counted once at the
+    TF32 peak, ``_mlstm_fwd_chunked_flops``, beside the sequential
+    kernel's operations bound; else ``_ssm_f32_flops`` at the FP32 peak),
+    and S2's T sweep.  Returns rows by counter name, and "sweep" for S2."""
     import torch
 
     from repro_torch.kernels import ops, ref, ssm_scan
 
-    op = getattr(ssm_scan, name)
+    routed = getattr(ssm_scan, name + "_cuda")
     twin = getattr(ref, name.replace("_scan", "_recurrence_plain"))
-    kernel, replaces, n_time = SSM_SCANS[name]
-    first = op(*args)
-    if carry:
-        args = args[:-(len(first) - 1)] + tuple(first[1:])
+    n_time = SSM_SCANS[name][2]
+    first = routed(*args)
+    args = args[:-(len(first) - 1)] + tuple(first[1:])
+    del first
     torch.cuda.synchronize()
-    B, T, H, hd = first[0].shape
+    B, T, H, hd = args[0].shape
     step = tuple(a[:, :1] for a in args[:n_time]) + args[n_time:]
-    row = {"name": name, "shape": [B, T, H, hd]}
-    for key, ops_ in (("T", args), ("T1", step)):
-        before = ops.LAUNCHES[name]
-        got = op(*ops_)
-        torch.cuda.synchronize()
-        _check(ops.LAUNCHES[name] == before + 1, f"{name} did not launch")
+    routes = tuple(rc for rc in SSM_FWD_ROUTES[name] if rc[0] != "chunked"
+                   or hd in ssm_scan.MLSTM_CHUNKED_WIDTHS)
+    rows, plain = {}, {}
+    for key, a in (("T", args), ("T1", step)):
         t0 = time.perf_counter()
-        want = twin(*ops_)
+        want = twin(*a)
         torch.cuda.synchronize()
-        twin_ms = (time.perf_counter() - t0) * 1e3
-        rels = [_rel_err(g, w) for g, w in zip(got, want)]
-        _check(all(g.shape == w.shape for g, w in zip(got, want))
-               and max(rels) <= SSM_KERNEL_TOL,
-               f"{tag} {name} at T = {ops_[0].shape[1]}: max |delta| / max "
-               f"|.| of (y, states) {rels} (limit {SSM_KERNEL_TOL})")
-        row[f"rel_{key}"] = rels
-        row[f"state_bitwise_{key}"] = all(
-            torch.equal(g, w) for g, w in zip(got[1:], want[1:]))
-        if key == "T":
-            row["max_abs_err"] = _max_abs_err(got, want)
-            row["plain_ms"] = twin_ms
+        plain[key] = (time.perf_counter() - t0) * 1e3
+        model = None
+        if routes[0][0] == "chunked":
+            t0 = time.perf_counter()
+            model = ref.mlstm_chunked_plain(*a)
+            torch.cuda.synchronize()
+            plain["model_" + key] = (time.perf_counter() - t0) * 1e3
+        for route, counter in routes:
+            before = ops.LAUNCHES[counter]
+            got = routed(*a, _route=route)
+            torch.cuda.synchronize()
+            _check(ops.LAUNCHES[counter] == before + 1,
+                   f"{counter} did not launch")
+            rels = [_rel_err(g, w) for g, w in zip(got, want)]
+            _check(all(g.shape == w.shape for g, w in zip(got, want))
+                   and max(rels) <= SSM_KERNEL_TOL,
+                   f"{tag} {counter} at T = {a[0].shape[1]}: max |delta| / "
+                   f"max |.| of (y, states) {rels} (limit {SSM_KERNEL_TOL})")
+            row = rows.setdefault(counter, {"name": counter, "route": route,
+                                            "shape": [B, T, H, hd]})
+            row[f"rel_{key}"] = rels
+            row[f"state_bitwise_{key}"] = all(
+                torch.equal(g, w) for g, w in zip(got[1:], want[1:]))
+            if model is not None and route == "chunked":
+                mrel = [_rel_err(g, w) for g, w in zip(got, model)]
+                _check(max(mrel) <= SSD_MODEL_TOL, f"{tag} {counter} at T "
+                       f"= {a[0].shape[1]}: max |delta| / max |.| {mrel} "
+                       f"against the chunked model (limit {SSD_MODEL_TOL})")
+                row[f"rel_model_{key}"] = mrel
+            if key == "T":
+                row["max_abs_err"] = _max_abs_err(got, want)
+            del got
+        del want, model
+    for row in rows.values():
+        row["plain_ms"] = plain["model_T" if row["route"] == "chunked"
+                                else "T"]
     if time_it:
-        call = lambda: op(*args)  # noqa: E731
-        flops = _ssm_f32_flops(name, B, T, H, hd)
-        nbytes = sum(a.numel() * 4 for a in args) + sum(
-            y.numel() * 4 for y in op(*args))
-        bound, by = _bound_ms(nbytes, flops)
-        row.update(ms=_time_ms(call, 10), device_ms=_queued_ms(call, 10),
-                   bound_ms=bound, bound_by=by, f32_flops=flops,
-                   nbytes=nbytes)
-    print(f"{tag} {name} ({kernel}) at (B, T, H, hd) = {row['shape']}"
-          f", a state carried in: max |delta| / max |.| of (y, states) "
-          f"{json.dumps([float(f'{r:.3g}') for r in row['rel_T']])} over "
-          f"T = {T} and "
-          f"{json.dumps([float(f'{r:.3g}') for r in row['rel_T1']])} at "
-          f"T = 1 (limit {SSM_KERNEL_TOL}); states bitwise the twin's: "
-          f"{row['state_bitwise_T']} and {row['state_bitwise_T1']}"
-          + (f"; {row['ms']:.4g} ms events, {row['device_ms']:.4g} ms "
-             f"device, twin {row['plain_ms']:.4g} ms, bound "
-             f"{row['bound_ms']:.4g} ms by {row['bound_by']} "
-             f"({row['f32_flops']:.4g} f32 flop, {row['nbytes']:.4g} bytes)"
-             if time_it else ""))
-    return row
+        for route, counter in routes:
+            row = rows[counter]
+            call = (lambda r: lambda: routed(*args, _route=r))(route)
+            outs = call()
+            nbytes = sum(x.numel() * 4 for x in args) + sum(
+                y.numel() * 4 for y in outs)
+            del outs
+            flops = _ssm_f32_flops(name, B, T, H, hd)
+            bound, by = _bound_ms(nbytes, flops)
+            row.update(f32_flops=flops, nbytes=nbytes)
+            if route == "chunked":
+                row.update(bound_f32_ms=bound, bound_f32_by=by)
+                tf = _mlstm_fwd_chunked_flops(B, T, H, hd)
+                bound, by = _bound_ms(nbytes, tf, TF32_TENSOR_FLOPS_PER_S)
+                row.update(tf32_flops=tf, tf32x3_flops=3 * tf)
+            row.update(ms=_time_ms(call, 10), device_ms=_queued_ms(call, 10),
+                       bound_ms=bound, bound_by=by)
+        if len(routes) == 2 and routes[0][0] == "chunked":
+            rows["sweep"] = [{"T": t, **{
+                route: _queued_ms((lambda r, x: lambda: routed(
+                    *x, _route=r))(route, tuple(
+                        y[:, :t] for y in args[:n_time]) + args[n_time:]),
+                    10) for route, _ in routes}} for t in MLSTM_FWD_SWEEP_T]
+    for counter, row in rows.items():
+        if counter == "sweep":
+            continue
+        kernel = (SSM_CHUNKED[counter][0] if counter in SSM_CHUNKED
+                  else SSM_SCANS[counter][0])
+        model = (f"; against the chunked model "
+                 f"{json.dumps([float(f'{r:.3g}') for r in row['rel_model_T']])}"
+                 f" and "
+                 f"{json.dumps([float(f'{r:.3g}') for r in row['rel_model_T1']])}"
+                 f" (limit {SSD_MODEL_TOL})" if "rel_model_T" in row else "")
+        timed = ""
+        if "ms" in row:
+            extra = (f"; {row['tf32_flops']:.4g} flop of chunk products at "
+                     f"TF32, {row['tf32x3_flops']:.4g} run by the 3xTF32 "
+                     f"split; the sequential kernel's operations bound "
+                     f"{row['bound_f32_ms']:.4g} ms by {row['bound_f32_by']}"
+                     if "tf32_flops" in row else
+                     f"; {row['f32_flops']:.4g} f32 flop")
+            timed = (f"; {row['ms']:.4g} ms events, {row['device_ms']:.4g} "
+                     f"ms device, plain {row['plain_ms']:.4g} ms, bound "
+                     f"{row['bound_ms']:.4g} ms by {row['bound_by']} "
+                     f"({row['nbytes']:.4g} bytes{extra})")
+        print(f"{tag} {counter} ({kernel}, the {row['route']} route) at (B, "
+              f"T, H, hd) = {row['shape']}, a state carried in: max |delta| "
+              f"/ max |.| of (y, states) "
+              f"{json.dumps([float(f'{r:.3g}') for r in row['rel_T']])} over "
+              f"T = {T} and "
+              f"{json.dumps([float(f'{r:.3g}') for r in row['rel_T1']])} at "
+              f"T = 1 (limit {SSM_KERNEL_TOL}){model}; states bitwise the "
+              f"twin's: {row['state_bitwise_T']} and "
+              f"{row['state_bitwise_T1']}{timed}")
+    if "sweep" in rows:
+        print(f"{tag} S2 by T, device ms (_queued_ms) at (B, H, hd) = ({B}, "
+              f"{H}, {hd}): " + "; ".join(
+                  f"T {r['T']}: " + ", ".join(
+                      f"{k} {v:.4g}" for k, v in r.items() if k != "T")
+                  for r in rows["sweep"]))
+    return rows
 
 
 def _ssm_bwd_f32_flops(name: str, B: int, T: int, H: int, hd: int,
@@ -3142,7 +3250,7 @@ def _ssm_bwd_rows(name: str, args: tuple, tag: str,
 
 
 # The chunked kernels: S1 and S1b's (csrc/ssd_chunked.cu, the route
-# ``ssm_scan.mamba2_route`` gives long sequences) and S2b's
+# ``ssm_scan.mamba2_route`` gives long sequences) and S2 and S2b's
 # (csrc/mlstm_chunked.cu, ``ssm_scan.mlstm_route``'s): each counter's name,
 # its kernel's name in a trace, and the ``lax.scan`` it replaces.
 SSM_CHUNKED = {
@@ -3150,6 +3258,8 @@ SSM_CHUNKED = {
                             "src/repro/models/ssm.py:103"),
     "mamba2_scan_bwd_chunked": ("mamba2_chunked_bwd_kernel",
                                 "src/repro/models/ssm.py:103"),
+    "mlstm_scan_chunked": ("mlstm_chunked_kernel",
+                           "src/repro/models/ssm.py:159"),
     "mlstm_scan_bwd_chunked": ("mlstm_chunked_bwd_kernel",
                                "src/repro/models/ssm.py:159"),
 }
@@ -3198,7 +3308,7 @@ def _ssd_bound(nbytes: int, B: int, T: int, H: int, ds: int, hd: int,
 
 def _mamba2_rows(args: tuple, tag: str, time_it: bool = True) -> dict:
     """S1 and S1b on both routes on the same operands ``args`` (S1's, a
-    state carried in as in ``_ssm_kernel_row``): every kernel against the
+    state carried in as in ``_ssm_fwd_rows``): every kernel against the
     sequential twins over all T steps and at T = 1 (SSM_KERNEL_TOL of max
     |.| of y, s_T and each gradient), the chunked kernels also against
     their plain model (SSD_MODEL_TOL); the sequential S1's state must be
@@ -3705,12 +3815,23 @@ def _ssm_path(dev) -> dict:
     _check(xc["mlstm_scan"] == xc["slstm_scan"] == per_run
            and xc["ssm_scan"] == 2 * per_run and all(
                n == 0 for k, n in xc.items()
-               if k not in ("ssm_scan", "mlstm_scan", "slstm_scan")),
+               if k not in ("ssm_scan", "mlstm_scan", "slstm_scan",
+                            "mlstm_scan_chunked", "slstm_scan_short")),
            f"{XLSTM_ARCH}'s run: want S2 and S3 {pairs} times a prefill and "
            f"a decode step ({per_run} each) and nothing else, got {xc}")
+    # The routes: the prefill's S2 on the chunked kernel, every decode
+    # step's on the sequential one; every S3 on the short step.
+    _check(xc["mlstm_scan_chunked"] == pairs
+           and xc["slstm_scan_short"] == per_run,
+           f"{XLSTM_ARCH}'s run: {xc['mlstm_scan_chunked']} S2 launches on "
+           f"the chunked kernel (want the prefill's {pairs}, every decode "
+           f"step's on the sequential one) and {xc['slstm_scan_short']} of "
+           f"{per_run} S3 launches on the short step (want all)")
     print(f"[s] S2 and S3 launches in the run: {xc['mlstm_scan']} and "
           f"{xc['slstm_scan']} ({pairs} each in the prefill and in each of "
-          f"{LM_NEW} decode steps)")
+          f"{LM_NEW} decode steps); S2 on the chunked kernel "
+          f"{xc['mlstm_scan_chunked']} (the prefill's), S3 on the short "
+          f"step {xc['slstm_scan_short']}")
     x_twin = _twin_route(xcfg, dev, x_run, XLSTM_ARCH)
     # (g) S2 and S3 against their twins on the first pair's operands of
     # run_lm's prompt (its weights and prompt: the same generator), a
@@ -3723,8 +3844,12 @@ def _ssm_path(dev) -> dict:
         x = tf.embed_inputs(xcfg, params, {"tokens": toks})[0]
         blk = tf._layers(params["blocks"])[0]
         got = _scan_operands(lambda: tf._xlstm_pair(xcfg, blk, x))
+        fwd_sweep = None
         for name in ("mlstm_scan", "slstm_scan"):
-            rows[name] = _ssm_kernel_row(name, got[name], "[s] (g)")
+            fwd_rows = _ssm_fwd_rows(name, got[name], "[s] (g)")
+            if "sweep" in fwd_rows:
+                fwd_sweep = fwd_rows.pop("sweep")
+            rows.update(fwd_rows)
             bwd_rows = _ssm_bwd_rows(name + "_bwd", got[name], "[s] (g)")
             bwd_extra[name] = bwd_rows.pop("sweep" if name == "mlstm_scan"
                                            else "floor")
@@ -3735,6 +3860,7 @@ def _ssm_path(dev) -> dict:
     path = {k: counts[k] + x_run["counts"][k] for k in counts}
     return {"counts": path, "zamba2": a, "xlstm": x_run, "kernels": rows,
             "sweep": sweep, "mlstm_sweep": bwd_extra["mlstm_scan"],
+            "mlstm_fwd_sweep": fwd_sweep,
             "slstm_floor": bwd_extra["slstm_scan"],
             "twins": {"zamba2": a_twin, "xlstm": x_twin},
             "rel_b": max(groups), "rel_b_groups": groups, "gap_b": gap,
@@ -4189,8 +4315,9 @@ def _recurrent_counts(cfg, T: int) -> dict:
     """The recurrence launches of one train step of T tokens with remat:
     each forward op twice a layer (the forward and its recompute), each
     backward op once, S1's and S1b's on the chunked kernels where
-    ``mamba2_route`` sends T, S2b's where ``mlstm_route`` does, S3b's on
-    its short step; none for the other families."""
+    ``mamba2_route`` sends T, S2's where ``mlstm_fwd_route`` does and
+    S2b's where ``mlstm_route`` does, S3's and S3b's on the short step; none
+    for the other families."""
     from repro_torch.kernels import ssm_scan
 
     if cfg.family == "mamba_hybrid":
@@ -4205,8 +4332,11 @@ def _recurrent_counts(cfg, T: int) -> dict:
         pairs = cfg.n_layers // 2
         need = {"mlstm_scan": 2 * pairs, "slstm_scan": 2 * pairs,
                 "mlstm_scan_bwd": pairs, "slstm_scan_bwd": pairs,
-                "slstm_scan_bwd_short": pairs}
-        if ssm_scan.mlstm_route(T, cfg.d_model // cfg.n_heads) == "chunked":
+                "slstm_scan_short": 2 * pairs, "slstm_scan_bwd_short": pairs}
+        hd = cfg.d_model // cfg.n_heads
+        if ssm_scan.mlstm_fwd_route(T, hd) == "chunked":
+            need["mlstm_scan_chunked"] = 2 * pairs
+        if ssm_scan.mlstm_route(T, hd) == "chunked":
             need["mlstm_scan_bwd_chunked"] = pairs
         return need
     return {}
@@ -4987,7 +5117,7 @@ def main(argv: list[str]) -> int:
               "flash_attention": _by_kernel(lmc)["flash_attention"],
               "rmsnorm": lmc["rmsnorm"]}
     ssm_counts = _by_kernel(sp["counts"])
-    for name in (*SSM_SCANS, "mamba2_scan_chunked"):
+    for name in (*SSM_SCANS, "mamba2_scan_chunked", "mlstm_scan_chunked"):
         counts[name] = ssm_counts[name]
     # S1b-S3b's path is phase l's: LM training.
     train_counts = _by_kernel(lp["counts"])
@@ -5037,18 +5167,22 @@ def main(argv: list[str]) -> int:
            "flash_attention_sm90 did not launch once a shared-attention "
            "application on phase s's path")
     _check(all(n == 0 for k, n in ssm_counts.items()
-               if k not in ("flash_attention_sm90", "mamba2_scan_chunked")
+               if k not in ("flash_attention_sm90", "mamba2_scan_chunked",
+                            "mlstm_scan_chunked")
                and k not in SSM_SCANS),
            f"a kernel other than K4's tensor-core kernel and S1-S3 launched "
            f"on phase s's path: {ssm_counts}")
     for name, (kernel, replaces) in (
             *((n, v[:2]) for n, v in SSM_SCANS.items()),
-            ("mamba2_scan_chunked", SSM_CHUNKED["mamba2_scan_chunked"])):
+            *((n, SSM_CHUNKED[n]) for n in ("mamba2_scan_chunked",
+                                            "mlstm_scan_chunked"))):
         r = sp["kernels"][name]
         report[name] = dict(
             name=name, route="cuda",
             source="src/repro_torch/kernels/csrc/" + (
-                "ssd_chunked.cu" if name in SSM_CHUNKED else "ssm_scan.cu"),
+                "ssd_chunked.cu" if name == "mamba2_scan_chunked" else
+                "mlstm_chunked.cu" if name == "mlstm_scan_chunked"
+                else "ssm_scan.cu"),
             replaces=replaces, max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], device_ms=r["device_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
@@ -5059,6 +5193,12 @@ def main(argv: list[str]) -> int:
             report[name].update(
                 mamba2_route=r["route"], sweep=sp["sweep"],
                 rel_err_model=r.get("rel_model_T"))
+        else:
+            report[name].update(
+                fwd_route=r["route"], rel_err_model=r.get("rel_model_T"),
+                bound_f32_ms=r.get("bound_f32_ms"))
+            if name.startswith("mlstm"):
+                report[name]["sweep"] = sp["mlstm_fwd_sweep"]
     enc_counts = _by_kernel(ep["encoder"]["counts"])
     vlm_counts = _by_kernel(ep["vlm"]["counts"])
     print(f"[9] kernels on phase e's paths: {ENC_ARCH}'s forward "
@@ -5134,7 +5274,7 @@ def main(argv: list[str]) -> int:
         device_ms=k3x["block_device_ms"])
     for name, n in counts.items():
         _check(n > 0 or name in ("rmsnorm", "flash_attention",
-                                 "sroa_solve", "topk_moves",
+                                 "sroa_solve", "topk_moves", "slstm_scan",
                                  "mlstm_scan_bwd", "slstm_scan_bwd"),
                f"{name} never launched on its path")
         report[name]["launches"] = n
@@ -5235,7 +5375,9 @@ def main(argv: list[str]) -> int:
     print(f"[9] ssm path: {ssm_counts['flash_attention_sm90']} K4 launches "
           f"on the tensor cores, S1 {ssm_counts['mamba2_scan_chunked']} "
           f"chunked and {ssm_counts['mamba2_scan']} sequential, S2 "
-          f"{ssm_counts['mlstm_scan']}, S3 {ssm_counts['slstm_scan']}; K4 "
+          f"{ssm_counts['mlstm_scan_chunked']} chunked and "
+          f"{ssm_counts['mlstm_scan']} sequential, S3 "
+          f"{ssm_counts['slstm_scan_short']} on the short step; K4 "
           f"against chunked {sp['rel_b']:.4g} of max "
           f"|x| a shared block (whole model {sp['gap_b']:.4g}, control "
           f"{sp['gap_b_control']:.4g} of max |logit|), re-layout in f32 "

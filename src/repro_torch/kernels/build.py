@@ -126,6 +126,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.slstm_scan_bwd_short.argtypes = [p] * 18 + [i] * 4 + [p]
     lib.slstm_dR.argtypes = [p] * 7 + [i] * 4 + [p]
     lib.slstm_handshake_floor.argtypes = [p] + [i] * 5 + [p]
+    lib.slstm_scan_short.argtypes = [p] * 14 + [i] * 4 + [p]
+    lib.slstm_scan_short_save.argtypes = [p] * 10 + [i] * 4 + [p]
+    lib.mlstm_chunked.argtypes = [p] * 12 + [i] * 5 + [p]
+    lib.mlstm_chunked_ckpt.argtypes = [p] * 11 + [i] * 5 + [p]
     lib.topk_moves_cluster_smem.restype = ctypes.c_longlong
     for fn in (lib.sroa_invert_rate, lib.sroa_solve, lib.sroa_solve_lanes,
                lib.sroa_solve_lanes_occupancy, lib.sroa_solve_cluster,
@@ -144,7 +148,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                lib.mamba2_chunked_bwd, lib.mlstm_chunked_bwd,
                lib.mlstm_gates_bwd, lib.mlstm_gates_bwd_seq,
                lib.slstm_scan_bwd_short, lib.slstm_dR,
-               lib.slstm_handshake_floor):
+               lib.slstm_handshake_floor, lib.slstm_scan_short,
+               lib.slstm_scan_short_save, lib.mlstm_chunked,
+               lib.mlstm_chunked_ckpt):
         fn.restype = ctypes.c_int
     return lib
 

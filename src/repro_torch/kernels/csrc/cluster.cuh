@@ -107,6 +107,17 @@ __device__ __forceinline__ void st_async(float* p, unsigned rank, float v,
       : "memory");
 }
 
+// Two adjacent floats (8-byte aligned) in one st.async: 8 bytes of the
+// transaction.
+__device__ __forceinline__ void st_async(float2* p, unsigned rank, float2 v,
+                                         const void* bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], "
+      "{%1, %2}, [%3];" ::"r"(cluster_addr(p, rank)),
+      "f"(v.x), "f"(v.y), "r"(cluster_addr(bar, rank))
+      : "memory");
+}
+
 // The mbarriers' initialisation made visible to the cluster's other blocks
 // (before the cluster barrier that precedes their first st.async).
 __device__ __forceinline__ void mbar_init_fence_cluster() {

@@ -1,13 +1,13 @@
-// S2b in the chunked form, for Hopper (sm_90a): the mLSTM recurrence's
-// backward with the products of a chunk on the TF32 tensor cores.  Plain C
-// interface for ctypes.
+// S2 and S2b in the chunked form, for Hopper (sm_90a): the mLSTM
+// recurrence and its backward with the products of a chunk on the TF32
+// tensor cores.  Plain C interface for ctypes.
 //
-// No Pallas kernel is replaced: this replaces, for long sequences, the
-// reverse-mode autodiff of the `lax.scan` of the JAX package's
-// src/repro/models/ssm.py:159 (the mLSTM recurrence), which
-// csrc/ssm_scan_bwd.cu's `mlstm_scan_bwd_kernel` runs one step at a time.
-// kernels/ref.py: mlstm_chunked_bwd_plain is this file's arithmetic in
-// plain PyTorch.
+// No Pallas kernel is replaced: these replace, for long sequences, the
+// `lax.scan` of the JAX package's src/repro/models/ssm.py:159 (the mLSTM
+// recurrence) and its reverse-mode autodiff, which csrc/ssm_scan.cu's
+// `mlstm_scan_kernel` and csrc/ssm_scan_bwd.cu's `mlstm_scan_bwd_kernel`
+// run one step at a time.  kernels/ref.py: mlstm_chunked_plain and
+// mlstm_chunked_bwd_plain are this file's arithmetic in plain PyTorch.
 //
 // The form.  The stabiliser m_t = max(log_f_t + m_{t-1}, log_i_t) depends
 // on the gates alone, so given m the gates f_t = exp(log_f_t + m_{t-1} -
@@ -15,11 +15,18 @@
 // k_t (i_t v_t)^T, n_t = f_t n_{t-1} + i_t k_t are one Mamba2 recurrence
 // (csrc/ssd_chunked.cu) with decay f, B = k, C = q (a head's own), u = [i
 // v | i] and state [C | n]: n is an extra value column.  Its read-out [num
-// | q . n] has the adjoint [dy / den | d(q . n)], den = max(|q . n|, 1),
-// d(q . n) = -<dy, y> / den through max(|.|, 1) (JAX's ties).  Each chunk
-// of L steps then takes S1b's chunked backward (ssd_chunked.cu's header):
-// dq = dC, dk = dB, d f = d decay, dv = i du, d i = <du, [v | 1]>.
+// | q . n] gives y = num / den, den = max(|q . n|, 1); a chunk's q . n_t =
+// sum_s (G * seg)[t, s] i_s + p_t q_t . n_start.  The forward takes S1's
+// chunked forward with n as a vector beside the tiles; the read-out's
+// adjoint is [dy / den | d(q . n)], d(q . n) = -<dy, y> / den through
+// max(|.|, 1) (JAX's ties), and each chunk of L steps then takes S1b's
+// chunked backward (ssd_chunked.cu's header): dq = dC, dk = dB, d f = d
+// decay, dv = i du, d i = <du, [v | 1]>.
 //
+// * `mlstm_chunked_kernel<L, HD, SAVE>`: S2, one block of 8 warps a (b, h,
+//   tile of kVT = 32 value columns of v), 96 blocks at xlstm-125m's width;
+//   see the kernel.  SAVE writes C, n and m before every chunk, the
+//   backward's checkpoints, instead of y and the final state.
 // * `mlstm_chunked_bwd_kernel<L, HD>`: one block of 8 warps a (b, h, tile
 //   of kVT = 32 value columns of [v | n]): hd / 32 tiles of v and one more
 //   for the n column (the rest of that tile is zeros), 112 blocks at
@@ -32,10 +39,10 @@
 //   tiles, B, T, H)) that the wrapper and the gates kernel add in tile
 //   order: no atomics, the same bits run to run.  G = q k^T, the chunk's
 //   gates and q . n (so den) are computed by every tile of a (b, h).  A
-//   chunk's start state is read from the forward's saving variant (csrc/
-//   ssm_scan.cu: C, n and m before every kS2Chunk-th step, C in its
-//   thread-register layout, 16-byte groups of 4 rows of one column).  Tile
-//   0 writes m_t.
+//   chunk's start state is read from the checkpoints of the forward's
+//   saving variant (`mlstm_chunked_kernel<L, HD, true>`: C, n and m before
+//   every chunk, C in S2's thread-register layout, 16-byte groups of 4
+//   rows of one column).  Tile 0 writes m_t.
 // * `mlstm_gates_chunked_bwd_kernel`: the stabiliser's backward, one block
 //   a (b, h): all threads compute a window's a = d f f, c = d i i and the
 //   tie shares from m_t (the tiles' partials added in order), then one
@@ -46,13 +53,17 @@
 // Precision: the products are ssd_chunked.cu's 3xTF32 mma.sync
 // (csrc/chunked.cuh); the rest f32 in the model's order.
 //
-// Bound.  At (B, T, H, hd) = (4, 1024, 4, 192) the op reads its operands
-// and writes its gradients once: 108 MB, 0.032 ms at 3.35 TB/s; its chunk
-// products counted once (the chunk states' among them) are 7.1 GFLOP,
-// 0.014 ms at 495 TFLOP/s TF32 (chip_smoke.py's _mlstm_chunked_flops):
-// bytes bound it.  What bounds this design: a tile's block walks the T / L
-// chunks in order, each a dozen barriers and ~540 mma.sync a warp, issue-
-// bound like S1b's (every fragment element gathered and split at each use).
+// Bound.  At (B, T, H, hd) = (4, 1024, 4, 192) S2 reads its operands and
+// writes y and the state once: 55 MB, 0.0165 ms at 3.35 TB/s; its chunk
+// products counted once are 2.8 GFLOP, 0.0057 ms at 495 TFLOP/s TF32
+// (chip_smoke.py's _mlstm_fwd_chunked_flops).  S2b reads its operands and
+// writes its gradients once: 108 MB, 0.032 ms; its chunk products counted
+// once (the chunk states' among them) are 7.1 GFLOP, 0.014 ms
+// (_mlstm_chunked_flops).  Bytes bound both.  What bounds these designs: a
+// tile's block walks the T / L chunks in order, each a handful of barriers
+// and a chain of L dependent steps of the stabiliser (and the segments'
+// running products), and the products are issue-bound like S1's and S1b's
+// (every fragment element gathered and split at each use).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -69,6 +80,267 @@ constexpr int kVT = 32;          // value columns of [v | n] a tile
 constexpr int kThreads = 256;    // 8 warps
 constexpr int kNW = kThreads / 32;
 
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  // 4 bytes, or 4 zero bytes when !valid (src-size 0: nothing is read).
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// ------------------------------------------------------------------ S2
+template <int L, int HD>
+struct MlstmFwdTiles {
+  static constexpr int NT = HD / kVT;                 // tiles of v
+  static constexpr int ROWS = HD / 4;                 // S2b's checkpoint rows
+  // Q, K; v then U; the state's tile; seg then G * seg; n; f, i, p, w,
+  // log_i, log_f, m_t, den; m before the chunk.
+  static constexpr int FLOATS = 2 * L * HD + L * kVT + HD * kVT + L * L +
+                                HD + 8 * L + 1;
+};
+
+// A chunk's q, k, v tile, log_i and log_f into shared memory by
+// asynchronous copies, zeros past its n real steps.  The caller waits
+// (cp_async_wait_all) and syncs.
+template <int L, int HD>
+__device__ __forceinline__ void stage_mlstm_chunk(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ log_i,
+    const float* __restrict__ log_f, float* sQ, float* sK, float* sV,
+    float* sLi, float* sLf, int b, int h, int J, int T, int H, int t0,
+    int n, int tid) {
+  constexpr int HQ = HD / 4, VQ = kVT / 4;       // 16-byte groups of a row
+  for (int e = tid; e < L * HQ; e += kThreads) {
+    const int t = e / HQ, c4 = 4 * (e % HQ);
+    const long long o =
+        (((long long)b * T + t0 + min(t, n - 1)) * H + h) * HD + c4;
+    cp_async16(sQ + at<HD>(t, c4), q + o, t < n);
+    cp_async16(sK + at<HD>(t, c4), k + o, t < n);
+  }
+  for (int e = tid; e < L * VQ; e += kThreads) {
+    const int t = e / VQ, c4 = 4 * (e % VQ);
+    const long long o = (((long long)b * T + t0 + min(t, n - 1)) * H + h) *
+                        HD + J * kVT + c4;
+    cp_async16(sV + at<kVT>(t, c4), v + o, t < n);
+  }
+  for (int e = tid; e < L; e += kThreads) {
+    const long long g = ((long long)b * T + t0 + min(e, n - 1)) * H + h;
+    cp_async4(sLi + e, log_i + g, e < n);
+    cp_async4(sLf + e, log_f + g, e < n);
+  }
+}
+
+// S2, chunked: one block of 8 warps a (b, h, tile J of kVT value columns
+// of v): 96 blocks at xlstm-125m's (B, H, hd) = (4, 4, 192), one wave.
+// A block walks the chunks in order with its tile of C (hd x kVT) and all
+// of n in shared memory; the next chunk's operands are copied in while the
+// last one's outputs are stored.  A chunk: the stabiliser's chain by one
+// thread (the twin's arithmetic) while G = q k^T runs on the tensor cores;
+// f, i; seg, p, w (chunked.cuh's `segments`); M = G * seg, U = i v; then
+// q . n_t = sum_s M[t, s] i_s + p_t q_t . n (8 threads a row), the
+// numerator M U + (p q) C as one accumulation, C_next = p_{L-1} C + k^T
+// (w U) and n_next = p_{L-1} n + sum_s w_s i_s k_s (a column of hd a
+// thread, on the CUDA cores); y = num / max(|q . n|, 1) is stored from the
+// numerator's registers.  G, q . n, n and the gates are computed by every
+// tile of a (b, h): hd / kVT times.  SAVE writes C, n and m before every
+// chunk, C in the layout `mlstm_chunked_bwd_kernel` reads (S2's thread
+// registers: 16-byte groups of 4 rows of one column), instead of y and the
+// final state.
+template <int L, int HD, bool SAVE>
+__global__ void __launch_bounds__(kThreads) mlstm_chunked_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ log_i,
+    const float* __restrict__ log_f, const float* __restrict__ C0,
+    const float* __restrict__ n0, const float* __restrict__ m0,
+    float* __restrict__ y, float* __restrict__ Cout,
+    float* __restrict__ nout, float* __restrict__ mout,
+    float* __restrict__ Cck, float* __restrict__ nck,
+    float* __restrict__ mck, int T, int H) {
+  using P = MlstmFwdTiles<L, HD>;
+  constexpr int NT = P::NT, ROWS = P::ROWS;
+  constexpr int TPR = kThreads / L;        // threads a row of a chunk
+  constexpr int HQ = HD / 4;
+  static_assert(TPR <= 32 && L < kThreads && HD <= kThreads,
+                "a row's threads in one warp, a column of n a thread");
+  extern __shared__ float smem[];
+  float* sQ = smem;                        // [L][HD]
+  float* sK = sQ + L * HD;                 // [L][HD]
+  float* sU = sK + L * HD;                 // [L][kVT]: v's tile, then i v
+  float* sS = sU + L * kVT;                // [HD][kVT]: C's tile
+  float* sM = sS + HD * kVT;               // [L][L]: seg, then G * seg
+  float* sN = sM + L * L;                  // [HD]
+  float* sDec = sN + HD;                   // [L]: f
+  float* sI = sDec + L;                    // [L]
+  float* sP = sI + L;                      // [L]
+  float* sW = sP + L;                      // [L]
+  float* sLi = sW + L;                     // [L]
+  float* sLf = sLi + L;                    // [L]
+  float* sMt = sLf + L;                    // [L]: m_t
+  float* sDen = sMt + L;                   // [L]
+  float* sM0 = sDen + L;                   // [1]: m before the chunk
+  const int bh = blockIdx.x / NT, J = blockIdx.x % NT;
+  const int b = bh / H, h = bh % H;
+  const int tid = threadIdx.x;
+  const bool chain = tid == kThreads - 1;  // walks the stabiliser
+  const int nC = (T + L - 1) / L;
+  const long long sbase = (long long)bh * HD;
+  for (int e = tid; e < HD * (kVT / 4); e += kThreads) {
+    const int kk = e / (kVT / 4), c4 = 4 * (e % (kVT / 4));
+    cp_async16(sS + at<kVT>(kk, c4), C0 + (sbase + kk) * HD + J * kVT + c4,
+               true);
+  }
+  for (int e = tid; e < HQ; e += kThreads)
+    cp_async16(sN + 4 * e, n0 + sbase + 4 * e, true);
+  float mrun = chain ? m0[bh] : 0.0f;
+  if (nC > 0)
+    stage_mlstm_chunk<L, HD>(q, k, v, log_i, log_f, sQ, sK, sU, sLi, sLf, b,
+                             h, J, T, H, 0, min(L, T), tid);
+  for (int c = 0; c < nC; ++c) {
+    const int t0 = c * L, n = min(L, T - t0);
+    cp_async_wait_all();
+    __syncthreads();                 // the chunk's operands have landed
+    if (SAVE) {                      // C, n and m before the chunk
+      const long long ck = (long long)bh * nC + c;
+      float4* dst = reinterpret_cast<float4*>(
+          Cck + ((ck * NT + J) * ROWS) * (4 * kVT));
+      for (int e = tid; e < ROWS * kVT; e += kThreads) {
+        const int m = e / kVT, cc = e % kVT;
+        dst[e] = make_float4(sS[at<kVT>(4 * m, cc)],
+                             sS[at<kVT>(4 * m + 1, cc)],
+                             sS[at<kVT>(4 * m + 2, cc)],
+                             sS[at<kVT>(4 * m + 3, cc)]);
+      }
+      if (J == 0) {
+        for (int e = tid; e < HD; e += kThreads) nck[ck * HD + e] = sN[e];
+        if (chain) mck[ck] = mrun;
+      }
+    }
+    if (chain) {                     // the stabiliser over the chunk
+      sM0[0] = mrun;
+      for (int t = 0; t < n; ++t) {
+        mrun = fmaxf(__fadd_rn(sLf[t], mrun), sLi[t]);
+        sMt[t] = mrun;
+      }
+    }
+    WarpTile<L, L, kNW> G(tid);      // G = q k^T, meanwhile
+    G.template mma<HD>([&](int m, int kk) { return sQ[at<HD>(m, kk)]; },
+                       [&](int kk, int n_) { return sK[at<HD>(n_, kk)]; });
+    __syncthreads();
+    if (tid < L) {
+      float f = 1.0f, i = 0.0f;      // a padded step: unit decay, no input
+      if (tid < n) {
+        const float mn = sMt[tid];
+        const float lfm =
+            __fadd_rn(sLf[tid], tid > 0 ? sMt[tid - 1] : sM0[0]);
+        f = expf(__fsub_rn(lfm, mn));
+        i = expf(__fsub_rn(sLi[tid], mn));
+      }
+      sDec[tid] = f;
+      sI[tid] = i;
+    }
+    __syncthreads();
+    segments<L>(sDec, sM, sW, sP, tid);
+    __syncthreads();
+    G.each([&](int r, int col, float& x) {
+      const int o = at<L>(r, col);
+      sM[o] = __fmul_rn(x, sM[o]);
+    });
+    for (int e = tid; e < L * kVT; e += kThreads) {
+      const int o = at<kVT>(e / kVT, e % kVT);
+      sU[o] = __fmul_rn(sI[e / kVT], sU[o]);
+    }
+    __syncthreads();
+    if (!SAVE) {  // q . n_t = sum_s M[t, s] i_s + p_t q_t . n; den
+      const int row = tid / TPR, sub = tid % TPR;
+      float a = 0.0f, qn0 = 0.0f;
+      for (int s_ = sub; s_ < L; s_ += TPR)
+        a = __fadd_rn(a, __fmul_rn(sM[at<L>(row, s_)], sI[s_]));
+      for (int kk = sub; kk < HD; kk += TPR)
+        qn0 = __fadd_rn(qn0, __fmul_rn(sQ[at<HD>(row, kk)], sN[kk]));
+#pragma unroll
+      for (int off = TPR / 2; off > 0; off >>= 1) {
+        a = __fadd_rn(a, __shfl_xor_sync(kAll, a, off));
+        qn0 = __fadd_rn(qn0, __shfl_xor_sync(kAll, qn0, off));
+      }
+      if (sub == 0)
+        sDen[row] = fmaxf(fabsf(__fadd_rn(a, __fmul_rn(sP[row], qn0))),
+                          1.0f);
+    }
+    WarpTile<L, kVT, kNW> Y(tid);    // num = M U + (p q) C
+    if (!SAVE) {
+      Y.template mma<L>([&](int m, int kk) { return sM[at<L>(m, kk)]; },
+                        [&](int kk, int n_) { return sU[at<kVT>(kk, n_)]; });
+      Y.template mma<HD>(
+          [&](int m, int kk) { return __fmul_rn(sP[m], sQ[at<HD>(m, kk)]); },
+          [&](int kk, int n_) { return sS[at<kVT>(kk, n_)]; });
+    }
+    const float pL = sP[L - 1];
+    WarpTile<HD, kVT, kNW> S(tid);   // C_next = p_{L-1} C + k^T (w U)
+    S.each([&](int r, int col, float& x) {
+      x = __fmul_rn(pL, sS[at<kVT>(r, col)]);
+    });
+    S.template mma<L>(
+        [&](int m, int kk) { return sK[at<HD>(kk, m)]; },
+        [&](int kk, int n_) { return __fmul_rn(sW[kk], sU[at<kVT>(kk, n_)]); });
+    float nn = 0.0f;                 // n_next, column tid
+    if (tid < HD) {
+      float acc = 0.0f;
+      for (int s_ = 0; s_ < L; ++s_)
+        acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(sW[s_], sI[s_]),
+                                       sK[at<HD>(s_, tid)]));
+      nn = __fadd_rn(__fmul_rn(pL, sN[tid]), acc);
+    }
+    __syncthreads();                 // every read of this chunk is done
+    if (c + 1 < nC)
+      stage_mlstm_chunk<L, HD>(q, k, v, log_i, log_f, sQ, sK, sU, sLi, sLf,
+                               b, h, J, T, H, t0 + L, min(L, T - t0 - L),
+                               tid);
+    if (!SAVE)
+      Y.pairs([&](int a, int j, int e, int r, int col) {
+        if (r < n) {
+          const float den = sDen[r];
+          *reinterpret_cast<float2*>(
+              y + (((long long)b * T + t0 + r) * H + h) * HD + J * kVT +
+              col) = make_float2(__fdiv_rn(Y.acc[a][j][e], den),
+                                 __fdiv_rn(Y.acc[a][j][e + 1], den));
+        }
+      });
+    S.each([&](int r, int col, float& x) { sS[at<kVT>(r, col)] = x; });
+    if (tid < HD) sN[tid] = nn;
+  }
+  if (SAVE) return;
+  cp_async_wait_all();
+  __syncthreads();
+  for (int e = tid; e < HD * kVT; e += kThreads) {
+    const int kk = e / kVT, cc = e % kVT;
+    Cout[(sbase + kk) * HD + J * kVT + cc] = sS[at<kVT>(kk, cc)];
+  }
+  if (J == 0) {
+    for (int e = tid; e < HD; e += kThreads) nout[sbase + e] = sN[e];
+    if (chain) mout[bh] = mrun;
+  }
+}
+
+template <int L, int HD, bool SAVE>
+int launch_mlstm_chunked(const float* q, const float* k, const float* v,
+                         const float* li, const float* lf, const float* C0,
+                         const float* n0, const float* m0, float* y,
+                         float* C, float* n, float* m, float* Cck,
+                         float* nck, float* mck, int B, int T, int H,
+                         cudaStream_t stream) {
+  static unsigned set_on = 0;
+  constexpr int bytes = (int)sizeof(float) * MlstmFwdTiles<L, HD>::FLOATS;
+  cudaError_t err =
+      raise_smem_cap(mlstm_chunked_kernel<L, HD, SAVE>, bytes, set_on);
+  if (err != cudaSuccess) return (int)err;
+  mlstm_chunked_kernel<L, HD, SAVE>
+      <<<B * H * MlstmFwdTiles<L, HD>::NT, kThreads, bytes, stream>>>(
+          q, k, v, li, lf, C0, n0, m0, y, C, n, m, Cck, nck, mck, T, H);
+  return (int)cudaGetLastError();
+}
+
+// ----------------------------------------------------------------- S2b
 template <int L, int HD>
 struct MlstmTiles {
   static constexpr int NT = HD / kVT + 1;             // tiles of [v | n]
@@ -98,8 +370,7 @@ __global__ void __launch_bounds__(kThreads) mlstm_chunked_bwd_kernel(
   using RowTile = WarpTile<L, L, kNW>;
   constexpr int NT = P::NT, ROWS = P::ROWS;
   constexpr int TPR = kThreads / L;        // threads a row of a chunk
-  static_assert(L % kS2Chunk == 0 && TPR <= 32 && L < kThreads,
-                "chunks of whole checkpoint intervals");
+  static_assert(TPR <= 32 && L < kThreads, "a row's threads in one warp");
   extern __shared__ float smem[];
   float* sQ = smem;                        // [L][HD]
   float* sK = sQ + L * HD;                 // [L][HD]
@@ -133,7 +404,7 @@ __global__ void __launch_bounds__(kThreads) mlstm_chunked_bwd_kernel(
   const int b = bh / H, h = bh % H;
   const bool has_n = J == NT - 1;          // the n column's tile
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nC = (T + L - 1) / L, nCk = (T + kS2Chunk - 1) / kS2Chunk;
+  const int nC = (T + L - 1) / L;
   const long long sbase = (long long)bh * HD;
   const long long BTH = (long long)(gridDim.x / NT) * T;   // B H T
   // The adjoint's tile, transposed: column c of [C | n] is row c of sAT.
@@ -152,7 +423,7 @@ __global__ void __launch_bounds__(kThreads) mlstm_chunked_bwd_kernel(
     }
   for (int c = nC - 1; c >= 0; --c) {
     const int t0 = c * L, n = min(L, T - t0);
-    const long long ck = (long long)bh * nCk + c * (L / kS2Chunk);
+    const long long ck = (long long)bh * nC + c;   // the chunk's checkpoint
     __syncthreads();                 // the last chunk is done with smem
     constexpr int HQ = HD / 4;       // 16-byte groups of a row
     for (int e = tid; e < L * HQ; e += kThreads) {
@@ -516,9 +787,55 @@ __global__ void __launch_bounds__(kGatesThreads) mlstm_gates_chunked_bwd_kernel(
 
 extern "C" {
 
+// S2, chunked: S2's operands (csrc/ssm_scan.cu's mlstm_scan) -> y, C, n,
+// m.  L, the caller's chunk length, must be kL, and hd in {32, 64, 192};
+// cudaErrorInvalidValue otherwise.
+int mlstm_chunked(const float* q, const float* k, const float* v,
+                  const float* li, const float* lf, const float* C0,
+                  const float* n0, const float* m0, float* y, float* C,
+                  float* n, float* m, int B, int T, int H, int hd, int L,
+                  cudaStream_t stream) {
+  if (B <= 0 || H <= 0) return 0;
+  if (T < 0 || L != kL) return (int)cudaErrorInvalidValue;
+#define S2C(HD_)                                                           \
+  if (hd == HD_)                                                           \
+    return launch_mlstm_chunked<kL, HD_, false>(q, k, v, li, lf, C0, n0,   \
+                                                m0, y, C, n, m, nullptr,   \
+                                                nullptr, nullptr, B, T, H, \
+                                                stream);
+  S2C(192)
+  S2C(64)
+  S2C(32)
+#undef S2C
+  return (int)cudaErrorInvalidValue;
+}
+
+// Its saving variant, mlstm_chunked_bwd's input: Cck (B, H, ceil(T / L),
+// hd / 32, hd / 4, 32, 4), nck (B, H, ceil(T / L), hd), mck (B, H,
+// ceil(T / L)): C, n and m before steps 0, L, 2 L, ...
+int mlstm_chunked_ckpt(const float* q, const float* k, const float* v,
+                       const float* li, const float* lf, const float* C0,
+                       const float* n0, const float* m0, float* Cck,
+                       float* nck, float* mck, int B, int T, int H, int hd,
+                       int L, cudaStream_t stream) {
+  if (B <= 0 || H <= 0 || T == 0) return 0;
+  if (T < 0 || L != kL) return (int)cudaErrorInvalidValue;
+#define S2C(HD_)                                                           \
+  if (hd == HD_)                                                           \
+    return launch_mlstm_chunked<kL, HD_, true>(q, k, v, li, lf, C0, n0, m0, \
+                                               nullptr, nullptr, nullptr,   \
+                                               nullptr, Cck, nck, mck, B,   \
+                                               T, H, stream);
+  S2C(192)
+  S2C(64)
+  S2C(32)
+#undef S2C
+  return (int)cudaErrorInvalidValue;
+}
+
 // S2b, chunked: S2's operands (C0, n0, m0 are read through the
 // checkpoints), y, dy (B, T, H, hd), dC (B, H, hd, hd), dn (B, H, hd), the
-// checkpoints of mlstm_scan_ckpt (csrc/ssm_scan.cu) -> m_t (B, T, H), the
+// checkpoints of mlstm_chunked_ckpt (one a chunk) -> m_t (B, T, H), the
 // per-tile dq and dk partials (tiles, B, T, H, hd), dv (B, T, H, hd), the
 // per-tile d f and d i partials (2, tiles, B, T, H), dC0, dn0; tiles = hd /
 // 32 + 1.  L, the caller's chunk length, must be kL, and hd in {32, 64,

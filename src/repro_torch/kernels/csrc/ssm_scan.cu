@@ -11,8 +11,12 @@
 // file is built with --fmad=false: no multiply-add is contracted), so a
 // state whose update reads no sum (S1's) is bitwise the twin's; the
 // read-outs and S3's recurrence product are sums in another order than
-// cuBLAS's or the CPU's.  expf, log1pf and tanhf are the toolkit's
-// full-precision functions, in the twin's formulas.
+// cuBLAS's or the CPU's (S3's short step takes its products as fused
+// multiply-adds).  expf, log1pf and tanhf are the toolkit's full-precision
+// functions, in the twin's formulas.  Long sequences of S1 and S2 take the
+// chunked forms of csrc/ssd_chunked.cu and csrc/mlstm_chunked.cu instead
+// (kernels/ssm_scan.py's routing rules); the sequential S1 and S2 below
+// keep every decode step.
 //
 // Bound.  Each kernel reads its operands and writes y once: S1 at zamba2's
 // (B, T, H, ds, hd) = (4, 1024, 112, 64, 64) moves ~250 MB (0.075 ms at
@@ -42,9 +46,13 @@
 //   96 blocks at xlstm-125m's (B, H, hd) = (4, 4, 192) rather than 16
 //   blocks of one (b, h) each: n and the gates are recomputed six times,
 //   a few percent of the work.
-// * S3 `slstm_scan_kernel<ROWS>` (hd = 4 ROWS): the step's h_{t-1} . R
-//   reads (hd, 4 hd) of f32 a head (590 KB at hd 192), more than one SM
-//   holds.  A cluster of 8 blocks a (b, h) splits it: block q owns state
+// * S3's step reads (hd, 4 hd) of R in f32 a head (590 KB at hd 192),
+//   more than one SM holds, so a cluster of 8 blocks a (b, h) splits it.
+//   `slstm_short_kernel<ROWS, SAVE>` runs every call (kernels/ssm_scan.py):
+//   a half-warp an element, an mbarrier handshake instead of a cluster
+//   barrier, the step's input terms staged a window ahead (see the
+//   kernel).  The barrier kernel `slstm_scan_kernel<ROWS>` (hd =
+//   4 ROWS) runs only when forced: block q owns state
 //   elements E q .. E q + E - 1 (E = hd / 8) and the 4 E columns of R that
 //   produce their four gates, held in registers (hd / 4 a thread, 48 at
 //   hd 192; 4 threads a column).  A step: each quad sums its column, E
@@ -60,13 +68,15 @@
 // csrc/ssm_scan_bwd.cu: the same kernel, the same arithmetic, but instead
 // of y and the final state it writes what the reverse pass reads.  S1 the
 // state before every kS1Ckpt-th step, S2 C, n and m before every chunk of
-// kS2Chunk steps, S3 every step's c, n, m and the four pre-activations;
-// each in the layout its reader takes (S1's and S2's: a thread's own
-// registers, contiguous across the block, so both sides coalesce).
+// kS2Chunk steps (the sequential S2b's), S3 (either kernel) every step's
+// c, n, m and the four pre-activations; each in the layout its reader
+// takes (S1's and S2's: a thread's own registers, contiguous across the
+// block, so both sides coalesce).
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "cluster.cuh"
+#include "sm90.cuh"
 #include "ssm_scan.cuh"
 
 namespace {
@@ -415,6 +425,179 @@ int launch_slstm(const float* zx, const float* ix, const float* fx,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------- S3 sLSTM, the short step
+constexpr int kS3Window = 16;        // steps of input terms staged at a time
+
+// S3 on a short step: the barrier kernel's cluster of 8 blocks a (b, h),
+// block q owning elements E q .. E q + E - 1 and their 4 E columns of R,
+// with only the recurrence on the step's chain.  Half-warp k of warp w
+// carries element e = 2 w + k: its lane l holds the element's four gate
+// columns of R at rows 16 j + l (hd / 4 registers), so each value of h_{t-1}
+// it reads from shared memory serves four independent fused multiply-add
+// chains (the lanes of a half-warp read 16 adjacent words; the two halves
+// the same ones).  A reduce-scatter over the half-warp (5 shuffles) leaves
+// gate g's sum in lane quad g; the element's four pre-activations then
+// reach all its lanes by shuffle (no block barrier, no shared memory), its
+// input terms come from a window of kS3Window steps staged in shared memory
+// a window ahead by all threads, and every lane of the half-warp runs the
+// twin's gate formulas.  h_t reaches every block of the cluster by st.async
+// on that block's mbarrier, two elements (a warp's) in one 8-byte store, so
+// a block waits for its own data, not at a cluster barrier.  Slots and
+// mbarriers alternate by step; an mbarrier is re-armed as soon as its phase
+// is read, before this block sends the h that lets any block store into
+// that slot again.  One cluster barrier precedes the first remote store, and
+// each block waits for the last step's stores into it before the closing
+// one.
+template <int ROWS, bool SAVE>
+__global__ void __cluster_dims__(kS3Cluster, 1, 1)
+    __launch_bounds__(8 * ROWS) slstm_short_kernel(
+        const float* __restrict__ zx, const float* __restrict__ ix,
+        const float* __restrict__ fx, const float* __restrict__ ox,
+        const float* __restrict__ R, const float* __restrict__ c0,
+        const float* __restrict__ n0, const float* __restrict__ m0,
+        const float* __restrict__ h0, float* __restrict__ y,
+        float* __restrict__ cout, float* __restrict__ nout,
+        float* __restrict__ mout, float* __restrict__ hout,
+        float* __restrict__ saved, int T, int H) {
+  constexpr int HD = 4 * ROWS;
+  constexpr int E = HD / kS3Cluster;           // state elements a block
+  constexpr int NTHR = 8 * ROWS;               // 16 E: a half-warp a element
+  constexpr int W = kS3Window;
+  constexpr int K16 = HD / 16;                 // rows of R a lane
+  constexpr unsigned kBytes = HD * sizeof(float);  // h_t, from 8 blocks
+  static_assert(NTHR == W * E, "one (step, element) a thread a window");
+  static_assert(HD % 16 == 0, "whole half-warps of rows");
+  __shared__ __align__(16) float sH[2][HD];    // h_t in slot t & 1
+  __shared__ float sX[W][4][E];                // the window's input terms
+  __shared__ __align__(8) unsigned long long sBar[2];
+  const unsigned q = cluster_rank();
+  const int bh = blockIdx.x / kS3Cluster, b = bh / H, h = bh % H;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rg = lane & 15, base = lane & 16;  // row group, half-warp
+  const int r = lane & 3, gate = rg >> 2;      // lane quad g: gate g's sum
+  const int e = 2 * warp + (base >> 4);        // the block's element
+  const int me = (int)q * E + e;
+  float Rr[K16][4];
+#pragma unroll
+  for (int j = 0; j < K16; ++j)
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+      Rr[j][g] = R[((long long)h * HD + 16 * j + rg) * (4 * HD) + g * HD + me];
+  const long long sbase = (long long)bh * HD;
+  for (int x = tid; x < HD; x += NTHR) sH[1][x] = h0[sbase + x];  // h_{-1}
+  float cs = c0[sbase + me], ns = n0[sbase + me], ms = m0[sbase + me];
+  float hs = h0[sbase + me];
+  if (tid == 0) {
+    mbar_init(smem_addr(&sBar[0]), 1);
+    mbar_init(smem_addr(&sBar[1]), 1);
+    mbar_init_fence_cluster();
+    mbar_expect_tx(smem_addr(&sBar[0]), kBytes);  // their first phases
+    mbar_expect_tx(smem_addr(&sBar[1]), kBytes);
+  }
+  // This thread's (step, element) of each window, a window ahead.
+  const int wt = tid / E, we = tid % E;
+  const int nW = (T + W - 1) / W;
+  float4 raw = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  auto fetch = [&](int w) {
+    const int t = w * W + wt;
+    if (t < T) {
+      const long long g = (((long long)b * T + t) * H + h) * HD +
+                          (int)q * E + we;
+      raw = make_float4(zx[g], ix[g], fx[g], ox[g]);
+    }
+  };
+  fetch(0);
+  cluster_sync();                    // every block started, its mbarriers set
+  const long long plane = (long long)(gridDim.x / kS3Cluster) * T * HD;
+  const bool hi8 = rg & 8, hi4 = rg & 4;
+  for (int w = 0; w < nW; ++w) {
+    const int t0 = w * W, n = min(W, T - t0);
+    __syncthreads();                 // the last window's terms are read
+    if (wt < n) {
+      sX[wt][0][we] = raw.x;
+      sX[wt][1][we] = raw.y;
+      sX[wt][2][we] = raw.z;
+      sX[wt][3][we] = raw.w;
+    }
+    fetch(w + 1);                    // the next window's loads, in flight
+    __syncthreads();
+    for (int tt = 0; tt < n; ++tt) {
+      const int t = t0 + tt, sb = (t - 1) & 1;
+      if (t > 0) {                   // h_{t-1} from the cluster
+        mbar_wait_cluster(smem_addr(&sBar[sb]), ((t - 1) >> 1) & 1);
+        if (tid == 0) mbar_expect_tx(smem_addr(&sBar[sb]), kBytes);
+      }
+      float a[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int j = 0; j < K16; ++j) {
+        const float hv = sH[sb][16 * j + rg];
+#pragma unroll
+        for (int g = 0; g < 4; ++g) a[g] = __fmaf_rn(Rr[j][g], hv, a[g]);
+      }
+      // The half-warp's reduce-scatter: lanes 8-15 keep gates 2, 3 and
+      // lanes 0-7 gates 0, 1; then lanes with bit 2 the odd gate.
+      const float v0 = __fadd_rn(hi8 ? a[2] : a[0],
+                                 __shfl_xor_sync(kFull, hi8 ? a[0] : a[2], 8));
+      const float v1 = __fadd_rn(hi8 ? a[3] : a[1],
+                                 __shfl_xor_sync(kFull, hi8 ? a[1] : a[3], 8));
+      const float dot = quad_sum(__fadd_rn(
+          hi4 ? v1 : v0, __shfl_xor_sync(kFull, hi4 ? v0 : v1, 4)));
+      // This quad's gate: its input term plus h_{t-1} . R's column.
+      const float pre = __fadd_rn(sX[tt][gate][e], dot);
+      const float zp = __shfl_sync(kFull, pre, base);
+      const float li = __shfl_sync(kFull, pre, base + 4);
+      const float fp = __shfl_sync(kFull, pre, base + 8);
+      const float op = __shfl_sync(kFull, pre, base + 12);
+      const float z = tanhf(zp);
+      const float lf = log_sigmoid(fp);
+      const float o = sigmoid(op);
+      const float lfm = __fadd_rn(lf, ms);
+      const float mnew = fmaxf(lfm, li);
+      const float f = expf(__fsub_rn(lfm, mnew));
+      const float i = expf(__fsub_rn(li, mnew));
+      cs = __fadd_rn(__fmul_rn(cs, f), __fmul_rn(i, z));
+      ns = __fadd_rn(__fmul_rn(ns, f), i);
+      hs = __fdiv_rn(__fmul_rn(o, cs), fmaxf(fabsf(ns), 1.0f));
+      ms = mnew;
+      // h_t of the warp's two elements to every block of the cluster.
+      const float hpair = __shfl_xor_sync(kFull, hs, 16);
+      if (lane < kS3Cluster)
+        st_async(reinterpret_cast<float2*>(&sH[t & 1][(int)q * E + 2 * warp]),
+                 (unsigned)lane, make_float2(hs, hpair), &sBar[t & 1]);
+      const long long g = (((long long)b * T + t) * H + h) * HD + me;
+      if (SAVE) {                    // planes c, n, m, z, i, f, o of (B,T,H,hd)
+        if (r == 0)                  // each quad its pre-activation
+          saved[(3 + gate) * plane + g] = pre;
+        else if (r == 1 && gate < 3)
+          saved[gate * plane + g] = gate == 0 ? cs : gate == 1 ? ns : ms;
+      } else if (rg == 0) {
+        y[g] = hs;
+      }
+    }
+  }
+  if (T > 0)                         // the last step's stores into this block
+    mbar_wait_cluster(smem_addr(&sBar[(T - 1) & 1]), ((T - 1) >> 1) & 1);
+  cluster_sync();                    // no block leaves while stores may land
+  if (!SAVE && rg == 0) {
+    cout[sbase + me] = cs;
+    nout[sbase + me] = ns;
+    mout[sbase + me] = ms;
+    hout[sbase + me] = hs;
+  }
+}
+
+template <int ROWS, bool SAVE>
+int launch_slstm_short(const float* zx, const float* ix, const float* fx,
+                       const float* ox, const float* R, const float* c0,
+                       const float* n0, const float* m0, const float* h0,
+                       float* y, float* c, float* n, float* m, float* h,
+                       float* saved, int B, int T, int H,
+                       cudaStream_t stream) {
+  slstm_short_kernel<ROWS, SAVE><<<B * H * kS3Cluster, 8 * ROWS, 0, stream>>>(
+      zx, ix, fx, ox, R, c0, n0, m0, h0, y, c, n, m, h, saved, T, H);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -541,6 +724,47 @@ int slstm_scan_save(const float* zx, const float* ix, const float* fx,
     default: return (int)cudaErrorInvalidValue;
   }
 #undef S3
+}
+
+// S3 on the short step (slstm_short_kernel), S3's operands and outputs.
+// hd a multiple of 16 with hd / 4 in {4, 8, 12, 16, 24, 32, 48, 64}.
+int slstm_scan_short(const float* zx, const float* ix, const float* fx,
+                     const float* ox, const float* R, const float* c0,
+                     const float* n0, const float* m0, const float* h0,
+                     float* y, float* c, float* n, float* m, float* h, int B,
+                     int T, int H, int hd, cudaStream_t stream) {
+  if (B <= 0 || H <= 0) return 0;
+  if (T < 0 || hd % 16 != 0) return (int)cudaErrorInvalidValue;
+#define S3S(R_)                                                            \
+  case R_:                                                                 \
+    return launch_slstm_short<R_, false>(zx, ix, fx, ox, R, c0, n0, m0, h0, \
+                                         y, c, n, m, h, nullptr, B, T, H,  \
+                                         stream)
+  switch (hd / 4) {
+    S3S(4); S3S(8); S3S(12); S3S(16); S3S(24); S3S(32); S3S(48); S3S(64);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef S3S
+}
+
+// Its saving variant: saved (7, B, T, H, hd) as slstm_scan_save writes it.
+int slstm_scan_short_save(const float* zx, const float* ix, const float* fx,
+                          const float* ox, const float* R, const float* c0,
+                          const float* n0, const float* m0, const float* h0,
+                          float* saved, int B, int T, int H, int hd,
+                          cudaStream_t stream) {
+  if (B <= 0 || H <= 0 || T == 0) return 0;
+  if (T < 0 || hd % 16 != 0) return (int)cudaErrorInvalidValue;
+#define S3S(R_)                                                            \
+  case R_:                                                                 \
+    return launch_slstm_short<R_, true>(                            \
+        zx, ix, fx, ox, R, c0, n0, m0, h0, nullptr, nullptr, nullptr,      \
+        nullptr, nullptr, saved, B, T, H, stream)
+  switch (hd / 4) {
+    S3S(4); S3S(8); S3S(12); S3S(16); S3S(24); S3S(32); S3S(48); S3S(64);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef S3S
 }
 
 }  // extern "C"

@@ -3,7 +3,7 @@
 // checkpoint intervals of the forward kernels' saving variants (equal to
 // kernels/ssm_scan.py's S1B_CKPT and S2B_CKPT), the twin's scalar
 // formulas and JAX's gradient shares, and the warp sums.  csrc/
-// mlstm_chunked.cu reads S2's checkpoints and takes the same formulas.
+// mlstm_chunked.cu takes the same formulas.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -14,7 +14,8 @@ namespace {
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kS1Chunk = 32;    // S1's time steps a staged chunk
 constexpr int kS1Ckpt = 8;      // S1's saved state interval (S1B_CKPT)
-constexpr int kS2Chunk = 16;    // S2's, and its saved state interval
+constexpr int kS2Chunk = 16;    // the sequential S2's, and its saved
+                                // state interval (S2B_CKPT)
 constexpr int kS2Cols = 32;     // S2's columns of C a block (or all of hd)
 constexpr int kS3Cluster = 8;   // S3's blocks a (b, h)
 

@@ -43,7 +43,7 @@
 //   thread a (b, h), adding the slices' d f and d i in slice order: d
 //   log_i, d log_f, d m0.  kernels/ssm_scan.py runs them below
 //   MLSTM_CHUNKED_MIN_T steps or at widths csrc/mlstm_chunked.cu (the
-//   chunked form, from the same checkpoints) does not take.
+//   chunked form, from its own forward's checkpoints) does not take.
 // * S3b `slstm_scan_bwd_kernel<ROWS>` (the barrier kernel;
 //   kernels/ssm_scan.py runs it only when forced): one cluster of 8 blocks
 //   a (b, h), as the forward; block q's E = hd / 8 owner threads take its

@@ -23,9 +23,10 @@ backward ops' ``mamba2_scan_bwd``, ``mlstm_scan_bwd`` and
 ``slstm_scan_bwd`` (one count a call of an op, whatever kernels it runs);
 ``mamba2_scan_chunked`` and ``mamba2_scan_bwd_chunked`` count the S1 and
 S1b calls that took the chunked kernels (``ssm_scan.mamba2_route``),
-``mlstm_scan_bwd_chunked`` the S2b calls that took the chunked kernel
-(``ssm_scan.mlstm_route``), and ``slstm_scan_bwd_short`` the S3b calls
-that took the short reverse step (every call but a forced one).
+``mlstm_scan_chunked`` and ``mlstm_scan_bwd_chunked`` the S2 and S2b
+calls that took the chunked kernels (``ssm_scan.mlstm_route``), and
+``slstm_scan_short`` and ``slstm_scan_bwd_short`` the S3 and S3b calls
+that took the short step (every call but a forced one).
 """
 from __future__ import annotations
 
@@ -43,7 +44,8 @@ LAUNCHES = {"sroa_invert": 0, "sroa_solve": 0, "sroa_solve_lanes": 0,
             "slstm_scan": 0, "mamba2_scan_bwd": 0, "mlstm_scan_bwd": 0,
             "slstm_scan_bwd": 0, "mamba2_scan_chunked": 0,
             "mamba2_scan_bwd_chunked": 0, "mlstm_scan_bwd_chunked": 0,
-            "slstm_scan_bwd_short": 0}
+            "slstm_scan_bwd_short": 0, "mlstm_scan_chunked": 0,
+            "slstm_scan_short": 0}
 
 
 def reset_launches() -> None:

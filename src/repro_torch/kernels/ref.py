@@ -45,13 +45,16 @@ numbers:
   running products (:func:`ssd_segments`), the products by the 3xTF32
   split (:func:`matmul_tf32x3`).  Tests and ``chip_smoke.py`` hold the
   kernels to them; no path runs them.
-* :func:`mlstm_chunked_bwd_plain` — S2b's chunked kernel
-  (``csrc/mlstm_chunked.cu``): given the stabiliser
-  (:func:`mlstm_gates_plain`), mLSTM as Mamba2's recurrence with n as an
-  extra value column, each chunk of ``S2_CHUNK`` steps through the same
-  chunk backward as S1b's (``_ssd_chunk_bwd``), then the stabiliser's
-  backward (:func:`mlstm_gates_bwd_plain`).  Held to the kernel as the
-  chunked S1 models are.
+* :func:`mlstm_chunked_plain` and :func:`mlstm_chunked_bwd_plain` — S2's
+  and S2b's chunked kernels (``csrc/mlstm_chunked.cu``): given the
+  stabiliser (:func:`mlstm_gates_plain`), mLSTM as Mamba2's recurrence with
+  n as an extra value column, chunks of ``S2_CHUNK`` steps; the forward
+  S1's chunk products with q . n and y = num / den from the chunk form
+  (and, on request, C, n and m before every chunk: the checkpoints its
+  saving variant writes), the backward each chunk, from those checkpoints,
+  through the same chunk backward as S1b's (``_ssd_chunk_bwd``), then the
+  stabiliser's backward (:func:`mlstm_gates_bwd_plain`).  Held to the
+  kernels as the chunked S1 models are.
 """
 from __future__ import annotations
 
@@ -1033,9 +1036,59 @@ def _time_chunks(x, L, fill=0.0):
     return x.transpose(1, 3).transpose(2, 3)
 
 
+def mlstm_chunked_plain(q, k, v, log_i, log_f, C0, n0, m0, *,
+                        L: int = S2_CHUNK, mm=matmul_tf32x3,
+                        starts: bool = False):
+    """S2 in the chunked form, as the chunked forward kernel computes it:
+    the operands of :func:`mlstm_recurrence_plain` -> (y, C, n, m), and
+    with ``starts`` also C, n and m before every chunk ((B, H, nC, hd,
+    hd), (B, H, nC, hd), (B, H, nC)), what the kernel's saving variant
+    writes for S2b.
+
+    Given the stabiliser (:func:`mlstm_gates_plain`, step by step), a
+    chunk with start state (S, n_s) and seg, p, w of :func:`ssd_segments`
+    over its forget gates f: G = q k^T, M = G * seg, U = i v; the
+    numerator (M U + diag(p) q S: one product over the concatenated depth
+    L + hd, as Mamba2's read-out), q . n_t = sum_s M[t, s] i_s + p_t q_t
+    . n_s (the chunk form of the denominator's dot product, on the CUDA
+    cores), y = num / max(|q . n|, 1); the next chunk's S = p_{L-1} S +
+    k^T diag(w) U and n_s = p_{L-1} n_s + sum_s w_s i_s k_s.  The
+    products are taken by ``mm`` (three TF32 passes over split operands by
+    default, the kernel's precision); the rest in float32."""
+    B, T, H, hd = q.shape
+    lfm, m, f, i = mlstm_gates_plain(log_i, log_f, m0)
+    Qc, Kc, Vc = (_time_chunks(x, L) for x in (q, k, v))
+    dec, ic = _time_chunks(f, L, 1.0), _time_chunks(i, L)
+    seg, p, w, _ = ssd_segments(dec)
+    M = mm(Qc, Kc.transpose(-1, -2)) * seg
+    U = ic[..., None] * Vc
+    nC = dec.shape[2]
+    m_starts = torch.cat([m0[:, None], m[:, L - 1::L]], 1)[:, :nC]
+    C, n, ys, saved = C0, n0, [], []
+    for c in range(nC):
+        saved.append((C, n))
+        Q_, M_, p_, i_ = Qc[:, :, c], M[:, :, c], p[:, :, c], ic[:, :, c]
+        qn = (M_ * i_[..., None, :]).sum(-1) + p_ * (
+            Q_ * n[..., None, :]).sum(-1)
+        num = mm(torch.cat([M_, p_[..., None] * Q_], -1),
+                 torch.cat([U[:, :, c], C], -2))
+        ys.append(num / torch.clamp_min(qn.abs(), 1.0)[..., None])
+        pL, wi = p_[..., L - 1], w[:, :, c] * i_
+        C = pL[..., None, None] * C + mm(
+            Kc[:, :, c].transpose(-1, -2), w[:, :, c, :, None] * U[:, :, c])
+        n = pL[..., None] * n + (wi[..., None] * Kc[:, :, c]).sum(-2)
+    y = _unchunk(torch.stack(ys, 2), T)
+    out = (y, C, n, m[:, -1])
+    if starts:
+        out += (torch.stack([s[0] for s in saved], 2),
+                torch.stack([s[1] for s in saved], 2),
+                m_starts.transpose(1, 2))
+    return out
+
+
 def mlstm_chunked_bwd_plain(q, k, v, log_i, log_f, C0, n0, m0, y, dy=None,
                             dC=None, dn=None, dm=None, *, L: int = S2_CHUNK,
-                            mm=matmul_tf32x3):
+                            mm=matmul_tf32x3, starts=None):
     """S2b in the chunked form, as the chunked kernel computes it: the
     operands and upstream gradients of :func:`mlstm_recurrence_bwd_plain`
     -> the gradients of (q, k, v, log_i, log_f, C0, n0, m0).
@@ -1044,8 +1097,10 @@ def mlstm_chunked_bwd_plain(q, k, v, log_i, log_f, C0, n0, m0, y, dy=None,
     k_t (i_t v_t)^T and n_t = f_t n_{t-1} + i_t k_t are one Mamba2
     recurrence with an extra value column for n: decay f, B = k, C = q, u
     = [i v | i], state [C | n], read-out [num | q . n].  The chunk start
-    states are the recurrence's own every L steps (what the forward's
-    saving variant writes).  A chunk's q . n, and so den = max(|q . n|,
+    states are ``starts`` (C and n before every chunk, as
+    :func:`mlstm_chunked_plain` returns them), by default the chunked
+    forward's own: what the chunked forward kernel's saving variant
+    writes.  A chunk's q . n, and so den = max(|q . n|,
     1), comes from the chunk form (q . n_t = sum_s (G * seg)[t, s] i_s +
     p_t q_t . n_start); the read-out's adjoint is [dy / den | d(q . n)],
     d(q . n) = -<dy, y> / den through max(|.|, 1).  Each chunk then takes
@@ -1056,14 +1111,11 @@ def mlstm_chunked_bwd_plain(q, k, v, log_i, log_f, C0, n0, m0, y, dy=None,
     B, T, H, hd = q.shape
     dy = _zeros_if_none(dy, q)
     lfm, m, f, i = mlstm_gates_plain(log_i, log_f, m0)
-    C, n, starts = C0, n0, []
-    for t in range(T):
-        if t % L == 0:
-            starts.append(torch.cat([C, n[..., None]], -1))
-        ft, it = f[:, t], i[:, t]
-        C = C * ft[..., None, None] + it[..., None, None] * (
-            k[:, t, ..., :, None] * v[:, t, ..., None, :])
-        n = n * ft[..., None] + it[..., None] * k[:, t]
+    if starts is None:
+        starts = mlstm_chunked_plain(q, k, v, log_i, log_f, C0, n0, m0, L=L,
+                                     mm=mm, starts=True)[4:6]
+    starts = [torch.cat([Cs, ns[..., None]], -1)
+              for Cs, ns in zip(starts[0].unbind(2), starts[1].unbind(2))]
     U = torch.cat([i[..., None] * v, i[..., None]], -1)
     Qc, Kc, Uc, dyc, yc = (_time_chunks(x, L) for x in (q, k, U, dy, y))
     dec = _time_chunks(f, L, 1.0)

@@ -26,46 +26,51 @@ with
 
 The backward ops are the forward ops' autograd formulas
 (``torch.library.register_autograd``): the forward saves its operands and,
-for S2 and S3, its y.  A backward op on a card runs the forward kernel's
-saving variant (S1: the state every ``S1B_CKPT`` steps, or every chunk's
-start state on the chunked route; S2: C, n and m every ``S2B_CKPT``
-steps; S3: every step's c, n, m and pre-activations) into scratch the
-wrapper allocates (``*_bwd_scratch``: the shapes it allocates from, which
-the dry-run counts through :func:`bwd_scratch`), then the reverse
-kernels; the sums over heads (S1's dB and dC), value tiles or slices
-(S2's dq and dk) and batch rows (S3's dR) are per-block partials added
-here in a fixed order.
+for S2 and S3, its y.  A backward op on a card runs its route's forward
+kernel's saving variant (S1: the state every ``S1B_CKPT`` steps, or every
+chunk's start state on the chunked route; S2: C, n and m before every
+chunk, of ``S2_CHUNK`` steps on the chunked route and of ``S2B_CKPT`` on
+the sequential one; S3: every step's c, n, m and pre-activations) into
+scratch the wrapper allocates (``*_bwd_scratch``: the shapes it allocates
+from, which the dry-run counts through :func:`bwd_scratch`), then the
+reverse kernels; the sums over heads (S1's dB and dC), value tiles or
+slices (S2's dq and dk) and batch rows (S3's dR) are per-block partials
+added here in a fixed order.
 
-Every operand is float32 and every output a fresh tensor.  S1 and S1b
-have two routes, picked by :func:`mamba2_route` from the shapes alone:
-sequences of at least ``MAMBA2_CHUNKED_MIN_T`` steps at ds and hd in
-``MAMBA2_CHUNKED_WIDTHS`` take the chunked SSD form
-(``csrc/ssd_chunked.cu``: chunks of ``S1_CHUNK`` steps, a chunk's
-products on the TF32 tensor cores with a 3xTF32 split; modelled by
-``ref.mamba2_chunked_plain`` and ``_bwd_plain``), the rest (every decode
-step) the sequential kernels, which run the twin's recurrence step by
-step with the state on the chip.  ``mamba2_scan_cuda(..., _route=)`` and
-``mamba2_scan_bwd_cuda(..., _route=)`` force a route, for timing both on
-the same tensors.  S2b has two routes too, picked by :func:`mlstm_route`:
-sequences of at least ``MLSTM_CHUNKED_MIN_T`` steps at hd in
-``MLSTM_CHUNKED_WIDTHS`` take the chunked form (``csrc/mlstm_chunked.cu``:
-given the stabiliser, mLSTM is Mamba2's recurrence with n as an extra
-value column; chunks of ``S2_CHUNK`` steps from the saving forward's
-checkpoints, the products on the tensor cores; modelled by
-``ref.mlstm_chunked_bwd_plain``), the rest the sequential kernel.
-S3b walks its steps in reverse on its short step (the step's constants
-staged off the chain, an mbarrier handshake instead of a cluster barrier,
-dR a product of its own afterwards); its barrier kernel runs only when
-forced.  ``mlstm_scan_bwd_cuda(..., _route=)`` and
-``slstm_scan_bwd_cuda(..., _route=)`` force a kernel, and
+Every operand is float32 and every output a fresh tensor.  Each
+recurrence and each backward has two kernels, picked from the shapes
+alone; ``*_cuda(..., _route=)`` forces one, for timing both on the same
+tensors, and raises before any launch where that kernel does not take the
+widths.
+
+* S1 and S1b, by :func:`mamba2_route`: sequences of at least
+  ``MAMBA2_CHUNKED_MIN_T`` steps at ds and hd in ``MAMBA2_CHUNKED_WIDTHS``
+  take the chunked SSD form (``csrc/ssd_chunked.cu``: chunks of
+  ``S1_CHUNK`` steps, a chunk's products on the TF32 tensor cores with a
+  3xTF32 split; modelled by ``ref.mamba2_chunked_plain`` and
+  ``_bwd_plain``), the rest (every decode step) the sequential kernels,
+  which run the twin's recurrence step by step with the state on the
+  chip.
+* S2 by :func:`mlstm_fwd_route` (from ``MLSTM_FWD_CHUNKED_MIN_T`` steps)
+  and S2b by :func:`mlstm_route` (from ``MLSTM_CHUNKED_MIN_T``), at hd in
+  ``MLSTM_CHUNKED_WIDTHS``: the chunked form (``csrc/mlstm_chunked.cu``:
+  given the stabiliser, mLSTM is Mamba2's recurrence with n as an extra
+  value column; chunks of ``S2_CHUNK`` steps, the products on the tensor
+  cores; modelled by ``ref.mlstm_chunked_plain`` and
+  ``ref.mlstm_chunked_bwd_plain``), the rest (every decode step) the
+  sequential kernels.
+* S3 and S3b on their short steps (an mbarrier handshake instead of a
+  cluster barrier, the step's inputs or constants staged off the chain;
+  S3b's dR a product of its own afterwards); their barrier kernels run
+  only when forced.
+
 :func:`mlstm_bwd_plan` and :func:`slstm_bwd_plan` give each launch of a
-route, for timing them alone.  S2, S3 run sequentially, one launch for
-the whole sequence.  Each kernel takes only the widths its thread
-layout divides (:func:`mamba2_supported`, :func:`mlstm_supported`,
-:func:`slstm_supported`: every config of the zoo and its ``reduced()``
-forms), and raises on others before any launch; a backward takes the
-widths its forward takes.  No route is taken because a build or a launch
-failed: those raise.
+backward route, for timing them alone.  Each kernel takes only the widths
+its thread layout divides (:func:`mamba2_supported`,
+:func:`mlstm_supported`, :func:`slstm_supported`: every config of the zoo
+and its ``reduced()`` forms), and raises on others before any launch; a
+backward takes the widths its forward takes.  No route is taken because
+a build or a launch failed: those raise.
 """
 from __future__ import annotations
 
@@ -163,8 +168,10 @@ def mlstm_supported(hd: int) -> bool:
 
 
 def slstm_supported(hd: int) -> bool:
-    """S3's layout: hd / 8 state elements a block of the cluster, 16 threads
-    each (whole warps: hd a multiple of 16), hd / 4 rows of R a thread."""
+    """S3's layouts: hd / 8 state elements a block of the cluster; on the
+    short step a half-warp each (whole warps: hd a multiple of 16), on the
+    barrier kernels 16 threads each and hd / 4 rows of R a thread (their
+    templates)."""
     return hd % 16 == 0 and hd // 4 in SLSTM_ROWS
 
 
@@ -420,6 +427,58 @@ torch.library.register_autograd("repro_torch::mamba2_scan", _mamba2_backward,
 
 
 # ------------------------------------------------------------- S2 mLSTM
+# S2 and S2b have two kernels each, picked by :func:`mlstm_fwd_route` and
+# :func:`mlstm_route`: the chunked form (csrc/mlstm_chunked.cu: chunks of
+# S2_CHUNK steps, the chunk's products on the tensor cores) and the
+# sequential kernels (csrc/ssm_scan.cu, csrc/ssm_scan_bwd.cu: a step at a
+# time).  Chunks of 32 steps: S2b 2.367 against 2.56 ms for 16 at
+# xlstm-125m's width (PERF.md §6); the kernels take no other length.
+S2_CHUNK = ref.S2_CHUNK
+MLSTM_CHUNKED_WIDTHS = (32, 64, 192)      # hd the chunked kernels take
+# The shortest T each chunked kernel takes: the shortest T of the sweeps
+# that chip_smoke.py's phase s (g) and tools/ssm_scans.py print at which it
+# beats its sequential kernel in device time at xlstm-125m's width
+# (tools/ssm_scans.py, NVIDIA H100 80GB HBM3, 700 W).  S2b: T = 8, 0.08749
+# against 0.09135 ms; at T = 1 the sequential kernel wins, 0.04358 against
+# 0.07949.  S2: T = 16, 0.02831 against 0.03259 ms; at T = 8 the sequential
+# kernel wins, 0.02378 against 0.02787.
+MLSTM_CHUNKED_MIN_T = 8
+MLSTM_FWD_CHUNKED_MIN_T = 16
+MLSTM_ROUTES = ("chunked", "sequential")
+
+
+def mlstm_route(T: int, hd: int) -> str:
+    """S2b's routing rule: "chunked" for sequences of at least
+    :data:`MLSTM_CHUNKED_MIN_T` steps at head dims the chunked kernels
+    take (:data:`MLSTM_CHUNKED_WIDTHS`), else "sequential"."""
+    if T >= MLSTM_CHUNKED_MIN_T and hd in MLSTM_CHUNKED_WIDTHS:
+        return "chunked"
+    return "sequential"
+
+
+def mlstm_fwd_route(T: int, hd: int) -> str:
+    """S2's routing rule: as :func:`mlstm_route` from
+    :data:`MLSTM_FWD_CHUNKED_MIN_T` steps; "sequential" for every decode
+    step (T = 1)."""
+    if T >= MLSTM_FWD_CHUNKED_MIN_T and hd in MLSTM_CHUNKED_WIDTHS:
+        return "chunked"
+    return "sequential"
+
+
+def _mlstm_pick(what: str, op: str, picked: str, forced: str | None,
+                hd: int) -> str:
+    """S2's or S2b's route: the rule's, or ``forced`` where its kernel
+    takes hd (raises before any launch otherwise)."""
+    route = picked if forced is None else forced
+    if route not in MLSTM_ROUTES:
+        raise ValueError(f"no {what} route {forced!r}")
+    if route == "chunked" and hd not in MLSTM_CHUNKED_WIDTHS:
+        _refuse(f"{what} ({op})'s chunked kernel", f"hd {hd}")
+    if not mlstm_supported(hd):
+        _refuse(f"{what} ({op})", f"hd {hd}")
+    return route
+
+
 @torch.library.custom_op("repro_torch::mlstm_scan", mutates_args=(),
                          device_types="cpu")
 def mlstm_scan(q: Tensor, k: Tensor, v: Tensor, log_i: Tensor,
@@ -431,15 +490,32 @@ def mlstm_scan(q: Tensor, k: Tensor, v: Tensor, log_i: Tensor,
     return ref.mlstm_recurrence_plain(q, k, v, log_i, log_f, C0, n0, m0)
 
 
-@mlstm_scan.register_kernel("cuda")
-def _mlstm_cuda(q, k, v, log_i, log_f, C0, n0, m0):
+def mlstm_scan_cuda(q, k, v, log_i, log_f, C0, n0, m0, *,
+                    _route: str | None = None):
+    """S2 on CUDA tensors -> (y, C, n, m), on :func:`mlstm_fwd_route`'s
+    kernel; ``_route`` forces one ("chunked" or "sequential"), for timing
+    both on the same tensors, and raises where that kernel does not take
+    hd."""
     B, T, H, hd = check_mlstm(q, k, v, log_i, log_f, C0, n0, m0)
-    if not mlstm_supported(hd):
-        _refuse("S2 (mlstm_scan)", f"hd {hd}")
+    route = _mlstm_pick("S2", "mlstm_scan", mlstm_fwd_route(T, hd), _route,
+                        hd)
     outs = tuple(torch.empty(x.shape, dtype=torch.float32, device=x.device)
                  for x in (q, C0, n0, m0))
-    return _launch("mlstm_scan", build.load().mlstm_scan, outs, q, k, v,
-                   log_i, log_f, C0, n0, m0, dims=(B, T, H, hd))
+    lib = build.load()
+    if route == "sequential":
+        return _launch("mlstm_scan", lib.mlstm_scan, outs, q, k, v, log_i,
+                       log_f, C0, n0, m0, dims=(B, T, H, hd))
+    ins = _aligned(_operands("mlstm_scan", (q, k, v, log_i, log_f, C0, n0,
+                                            m0)))
+    _run("mlstm_scan", ins[0], (lib.mlstm_chunked, ins + outs,
+                                (B, T, H, hd, S2_CHUNK)))
+    ops.LAUNCHES["mlstm_scan_chunked"] += 1
+    return outs
+
+
+@mlstm_scan.register_kernel("cuda")
+def _mlstm_cuda(q, k, v, log_i, log_f, C0, n0, m0):
+    return mlstm_scan_cuda(q, k, v, log_i, log_f, C0, n0, m0)
 
 
 @mlstm_scan.register_fake
@@ -454,38 +530,18 @@ def _mlstm_flops(q, *args, **kwargs) -> int:
     return T * 2 * B * H * hd * hd                    # q_t . C a step
 
 
-# S2b: the forward's saving variant keeps C, n and m every S2B_CKPT steps
-# (its chunk).  Two routes, picked by :func:`mlstm_route`: the chunked form
-# (csrc/mlstm_chunked.cu: chunks of S2_CHUNK steps from those checkpoints,
-# the products on the tensor cores) and the sequential kernel
-# (csrc/ssm_scan_bwd.cu: a step at a time, each chunk of S2B_CKPT steps
-# recomputed into a scratch of its own).
+# S2b: the forward's saving variant keeps C, n and m before every chunk:
+# every S2_CHUNK steps on the chunked route (csrc/mlstm_chunked.cu's
+# saving forward; the chunked backward walks the chunks last first from
+# them), every S2B_CKPT steps on the sequential one (csrc/ssm_scan.cu's;
+# csrc/ssm_scan_bwd.cu recomputes each chunk of S2B_CKPT steps into a
+# scratch of its own).
 S2B_CKPT = 16
-# Chunks of 32 steps: 2.367 against 2.56 ms for 16 at xlstm-125m's width
-# (PERF.md, S2b's row); the kernel takes no other length.
-S2_CHUNK = ref.S2_CHUNK
-MLSTM_CHUNKED_WIDTHS = (32, 64, 192)      # hd the chunked kernel takes
-# The shortest T the chunked kernel takes: the shortest T of the sweep that
-# chip_smoke.py's phase s (g) and tools/ssm_scans.py print at which it
-# beats the sequential kernel in device time at xlstm-125m's width
-# (tools/ssm_scans.py, NVIDIA H100 80GB HBM3, 700 W: T = 8, 0.08749 against
-# 0.09135 ms; at T = 1 the sequential kernel wins, 0.04358 against 0.07949).
-MLSTM_CHUNKED_MIN_T = 8
-MLSTM_ROUTES = ("chunked", "sequential")
-
-
-def mlstm_route(T: int, hd: int) -> str:
-    """S2b's routing rule: "chunked" for sequences of at least
-    :data:`MLSTM_CHUNKED_MIN_T` steps at head dims the chunked kernel
-    takes (:data:`MLSTM_CHUNKED_WIDTHS`), else "sequential"."""
-    if T >= MLSTM_CHUNKED_MIN_T and hd in MLSTM_CHUNKED_WIDTHS:
-        return "chunked"
-    return "sequential"
 
 
 def mlstm_tiles(hd: int) -> int:
-    """The chunked kernel's tiles of 32 value columns of [v | n]: hd / 32 of
-    v and one for n."""
+    """The chunked backward kernel's tiles of 32 value columns of [v | n]:
+    hd / 32 of v and one for n."""
     return hd // 32 + 1
 
 
@@ -506,12 +562,13 @@ def mlstm_scan_bwd(q: Tensor, k: Tensor, v: Tensor, log_i: Tensor,
 def mlstm_bwd_scratch(B: int, T: int, H: int, hd: int,
                       route: str | None = None) -> dict:
     """The f32 scratch S2b's CUDA wrapper allocates on ``route`` (the
-    rule's by default), name -> shape: C, n and m every S2B_CKPT steps;
-    chunked: m_t and the per-tile dq, dk, d f and d i partials; sequential:
+    rule's by default), name -> shape: C, n and m before every chunk (of
+    S2_CHUNK steps on the chunked route, of S2B_CKPT on the sequential
+    one); chunked: m_t and the per-tile dq, dk, d f and d i partials; sequential:
     the slices' recompute scratch and the stabiliser's, and the per-slice
     partials."""
     route = route or mlstm_route(T, hd)
-    nC = _ceil(T, S2B_CKPT)
+    nC = _ceil(T, S2_CHUNK if route == "chunked" else S2B_CKPT)
     ckpt = {"C": (B, H, nC, hd, hd), "n": (B, H, nC, hd), "m": (B, H, nC)}
     if route == "chunked":
         NT = mlstm_tiles(hd)
@@ -539,13 +596,8 @@ def mlstm_bwd_plan(args, route: str | None = None):
     its launches in order as (kernel, fn, tensors, ints), the scratch (name
     -> tensor), the outputs' buffers before the wrapper's sums)."""
     B, T, H, hd = _check_mlstm_bwd(*args)
-    route = route or mlstm_route(T, hd)
-    if route not in MLSTM_ROUTES:
-        raise ValueError(f"no S2b route {route!r}")
-    if route == "chunked" and hd not in MLSTM_CHUNKED_WIDTHS:
-        _refuse("S2b (mlstm_scan_bwd)'s chunked kernel", f"hd {hd}")
-    if not mlstm_supported(hd):
-        _refuse("S2b (mlstm_scan_bwd)", f"hd {hd}")
+    route = _mlstm_pick("S2b", "mlstm_scan_bwd", mlstm_route(T, hd), route,
+                        hd)
     ins = _operands("mlstm_scan_bwd", args)
     if route == "chunked":
         ins = _aligned(ins)
@@ -557,22 +609,24 @@ def mlstm_bwd_plan(args, route: str | None = None):
                  for x in (v, li, lf, C0, n0, m0))
     dv, dli, dlf, dC0, dn0, dm0 = outs
     lib, dims = build.load(), (B, T, H, hd)
-    calls = [("mlstm_scan_kernel<SAVE>", lib.mlstm_scan_ckpt,
-              ins[:8] + ckpt, dims)]
     if route == "sequential":
-        calls.append(("mlstm_scan_bwd_kernel, mlstm_gates_bwd_kernel",
-                      lib.mlstm_scan_bwd,
-                      ins + ckpt + (sc["scrC"], sc["scrN"], sc["scrM"],
-                                    sc["dq"], sc["dk"], dv, sc["dfi"], dli,
-                                    dlf, dC0, dn0, dm0), dims))
+        calls = [("mlstm_scan_kernel<SAVE>", lib.mlstm_scan_ckpt,
+                  ins[:8] + ckpt, dims),
+                 ("mlstm_scan_bwd_kernel, mlstm_gates_bwd_kernel",
+                  lib.mlstm_scan_bwd,
+                  ins + ckpt + (sc["scrC"], sc["scrN"], sc["scrM"],
+                                sc["dq"], sc["dk"], dv, sc["dfi"], dli, dlf,
+                                dC0, dn0, dm0), dims)]
     else:
-        calls += [("mlstm_chunked_bwd_kernel", lib.mlstm_chunked_bwd,
-                   (q, k, v, li, lf, y, dy, dC, dn) + ckpt + (
-                       sc["mt"], sc["dq"], sc["dk"], dv, sc["dfi"], dC0,
-                       dn0), dims + (S2_CHUNK,)),
-                  ("mlstm_gates_chunked_bwd_kernel", lib.mlstm_gates_bwd,
-                   (li, lf, m0, dm, sc["mt"], sc["dfi"], dli, dlf, dm0),
-                   (B, T, H, mlstm_tiles(hd)))]
+        calls = [("mlstm_chunked_kernel<SAVE>", lib.mlstm_chunked_ckpt,
+                  ins[:8] + ckpt, dims + (S2_CHUNK,)),
+                 ("mlstm_chunked_bwd_kernel", lib.mlstm_chunked_bwd,
+                  (q, k, v, li, lf, y, dy, dC, dn) + ckpt + (
+                      sc["mt"], sc["dq"], sc["dk"], dv, sc["dfi"], dC0,
+                      dn0), dims + (S2_CHUNK,)),
+                 ("mlstm_gates_chunked_bwd_kernel", lib.mlstm_gates_bwd,
+                  (li, lf, m0, dm, sc["mt"], sc["dfi"], dli, dlf, dm0),
+                  (B, T, H, mlstm_tiles(hd)))]
     return route, calls, sc, outs
 
 
@@ -624,6 +678,14 @@ torch.library.register_autograd("repro_torch::mlstm_scan", _mlstm_backward,
 
 
 # ------------------------------------------------------------- S3 sLSTM
+# S3 and S3b have two kernels each: the short step (csrc/ssm_scan.cu's
+# slstm_short_kernel: an mbarrier handshake, the step's input terms staged
+# off the chain; csrc/ssm_scan_bwd.cu's slstm_bwd_short_kernel, then dR as
+# a product of its own), every call's; and the barrier kernels (a cluster
+# barrier a step; S3b's dR on the walk), only when forced.  S3b's saving
+# forward is its route's forward kernel: every step's c, n, m and the four
+# pre-activations.
+SLSTM_ROUTES = ("short", "barrier")
 @torch.library.custom_op("repro_torch::slstm_scan", mutates_args=(),
                          device_types="cpu")
 def slstm_scan(zx: Tensor, ix: Tensor, fx: Tensor, ox: Tensor, R: Tensor,
@@ -635,15 +697,39 @@ def slstm_scan(zx: Tensor, ix: Tensor, fx: Tensor, ox: Tensor, R: Tensor,
     return ref.slstm_recurrence_plain(zx, ix, fx, ox, R, c0, n0, m0, h0)
 
 
-@slstm_scan.register_kernel("cuda")
-def _slstm_cuda(zx, ix, fx, ox, R, c0, n0, m0, h0):
-    B, T, H, hd = check_slstm(zx, ix, fx, ox, R, c0, n0, m0, h0)
+def _slstm_pick(what: str, op: str, forced: str | None, hd: int) -> str:
+    """S3's or S3b's kernel: the short step, or ``forced`` (raises before
+    any launch on an unknown route or a width the layouts do not take)."""
+    route = forced or "short"
+    if route not in SLSTM_ROUTES:
+        raise ValueError(f"no {what} route {forced!r}")
     if not slstm_supported(hd):
-        _refuse("S3 (slstm_scan)", f"hd {hd}")
+        _refuse(f"{what} ({op})", f"hd {hd}")
+    return route
+
+
+def slstm_scan_cuda(zx, ix, fx, ox, R, c0, n0, m0, h0, *,
+                    _route: str | None = None):
+    """S3 on CUDA tensors -> (y, c, n, m, h) on the short step;
+    ``_route="barrier"`` forces the cluster-barrier kernel, for timing
+    both on the same tensors."""
+    B, T, H, hd = check_slstm(zx, ix, fx, ox, R, c0, n0, m0, h0)
+    route = _slstm_pick("S3", "slstm_scan", _route, hd)
     outs = tuple(torch.empty(x.shape, dtype=torch.float32, device=x.device)
                  for x in (zx, c0, n0, m0, h0))
-    return _launch("slstm_scan", build.load().slstm_scan, outs, zx, ix, fx,
-                   ox, R, c0, n0, m0, h0, dims=(B, T, H, hd))
+    lib = build.load()
+    if route == "barrier":
+        return _launch("slstm_scan", lib.slstm_scan, outs, zx, ix, fx, ox,
+                       R, c0, n0, m0, h0, dims=(B, T, H, hd))
+    _launch("slstm_scan", lib.slstm_scan_short, outs, zx, ix, fx, ox, R, c0,
+            n0, m0, h0, dims=(B, T, H, hd))
+    ops.LAUNCHES["slstm_scan_short"] += 1
+    return outs
+
+
+@slstm_scan.register_kernel("cuda")
+def _slstm_cuda(zx, ix, fx, ox, R, c0, n0, m0, h0):
+    return slstm_scan_cuda(zx, ix, fx, ox, R, c0, n0, m0, h0)
 
 
 @slstm_scan.register_fake
@@ -658,12 +744,6 @@ def _slstm_flops(zx, *args, **kwargs) -> int:
     return T * 2 * B * H * hd * 4 * hd                # h_{t-1} . R a step
 
 
-# S3b: the forward's saving variant keeps every step's c, n, m and the four
-# pre-activations.  Two kernels walk them in reverse: the short step
-# (csrc/ssm_scan_bwd.cu's slstm_bwd_short_kernel, then dR as a product of
-# its own), every call's; and the barrier kernel (a cluster barrier a step, dR
-# on the walk), only when forced.
-SLSTM_BWD_ROUTES = ("short", "barrier")
 
 
 @torch.library.custom_op("repro_torch::slstm_scan_bwd", mutates_args=(),
@@ -701,33 +781,31 @@ def slstm_bwd_scratch(B: int, T: int, H: int, hd: int) -> dict:
 
 def slstm_bwd_plan(args, route: str | None = None):
     """S3b's launches on CUDA tensors ``args`` (the op's operands) on
-    ``route`` ("short" by default, or "barrier", the cluster-barrier kernel): as
-    :func:`mlstm_bwd_plan`."""
+    ``route`` ("short" by default, or "barrier", the cluster-barrier
+    kernels): as :func:`mlstm_bwd_plan`."""
     B, T, H, hd = _check_slstm_bwd(*args)
-    route = route or "short"
-    if route not in SLSTM_BWD_ROUTES:
-        raise ValueError(f"no S3b route {route!r}")
-    if not slstm_supported(hd):
-        _refuse("S3b (slstm_scan_bwd)", f"hd {hd}")
+    route = _slstm_pick("S3b", "slstm_scan_bwd", route, hd)
     ins = _operands("slstm_scan_bwd", args)
     f32 = dict(dtype=torch.float32, device=ins[0].device)
     sc = _scratch(slstm_bwd_scratch(B, T, H, hd), ins[0])
     grads = tuple(torch.empty(ins[0].shape, **f32) for _ in range(4))
     states = tuple(torch.empty(ins[5].shape, **f32) for _ in range(4))
     lib, dims = build.load(), (B, T, H, hd)
-    calls = [("slstm_scan_kernel<SAVE>", lib.slstm_scan_save,
-              ins[:9] + (sc["saved"],), dims)]
     if route == "barrier":
-        calls.append(("slstm_scan_bwd_kernel", lib.slstm_scan_bwd,
-                      ins + (sc["saved"],) + grads + (sc["dRb"],) + states,
-                      dims))
+        calls = [("slstm_scan_kernel<SAVE>", lib.slstm_scan_save,
+                  ins[:9] + (sc["saved"],), dims),
+                 ("slstm_scan_bwd_kernel", lib.slstm_scan_bwd,
+                  ins + (sc["saved"],) + grads + (sc["dRb"],) + states,
+                  dims)]
     else:
         R, c0, n0, m0, h0, y, dy, dc, dn, dm, dh = ins[4:]
-        calls += [("slstm_bwd_short_kernel", lib.slstm_scan_bwd_short,
-                   (R, c0, n0, m0, dy, dc, dn, dm, dh, sc["saved"]) + grads
-                   + states, dims),
-                  ("slstm_dR_kernel", lib.slstm_dR,
-                   (y, h0) + grads + (sc["dRb"],), dims)]
+        calls = [("slstm_short_kernel<SAVE>", lib.slstm_scan_short_save,
+                  ins[:9] + (sc["saved"],), dims),
+                 ("slstm_bwd_short_kernel", lib.slstm_scan_bwd_short,
+                  (R, c0, n0, m0, dy, dc, dn, dm, dh, sc["saved"]) + grads
+                  + states, dims),
+                 ("slstm_dR_kernel", lib.slstm_dR,
+                  (y, h0) + grads + (sc["dRb"],), dims)]
     return route, calls, sc, grads + states
 
 

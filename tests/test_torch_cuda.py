@@ -1298,7 +1298,7 @@ def test_short_slstm_backward_matches_the_twin(cuda, T, hd):
     args = _scan_operands("slstm_scan", 2, T, 2, hd, 0, cuda, seed=T)
     bargs = _bwd_operands("slstm_scan", args, ssm_scan.slstm_scan(*args))
     want = ref.slstm_recurrence_bwd_plain(*bargs)
-    for route in ssm_scan.SLSTM_BWD_ROUTES:
+    for route in ssm_scan.SLSTM_ROUTES:
         n0 = dict(ops.LAUNCHES)
         got = ssm_scan.slstm_scan_bwd_cuda(*bargs, _route=route)
         torch.cuda.synchronize()
@@ -1343,6 +1343,105 @@ def test_mlstm_and_slstm_backward_routes_on_the_card(cuda):
     before = dict(ops.LAUNCHES)
     with pytest.raises(ValueError, match="chunked kernel"):
         ssm_scan.mlstm_scan_bwd_cuda(*bargs, _route="chunked")
+    assert ops.LAUNCHES == before
+
+
+# (T, hd) of the forward routes: one step, one and four steps short of a
+# chunk, a tail of one step, and xlstm-125m's prefill length; one and two
+# value tiles (hd 32, 64) and xlstm-125m's width.
+_FWD_ROUTES = [(T, hd) for hd in (32, 64, 192) for T in (1, 8, 31, 33, 1024)]
+# The counter a forced route adds to besides its op's.
+_ROUTE_COUNTER = {"chunked": "mlstm_scan_chunked",
+                  "short": "slstm_scan_short"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,hd", _FWD_ROUTES)
+def test_mlstm_and_slstm_forward_routes_match_the_twins(cuda, T, hd):
+    """Both kernels of S2 (chunked, sequential) and of S3 (short step,
+    barrier), forced on the same operands, a state carried in: y and every
+    state within 1e-4 of the twin's max |.|, the chunked S2 also within
+    1e-5 of its model (``ref.mlstm_chunked_plain``: the same chunks and
+    products, the 3xTF32 passes summed exactly); each call counts its op
+    and its kernel's counter once."""
+    from repro_torch.kernels import ssm_scan
+
+    for name, routes in (("mlstm_scan", ssm_scan.MLSTM_ROUTES),
+                         ("slstm_scan", ssm_scan.SLSTM_ROUTES)):
+        args = _scan_operands(name, 2, T, 2, hd, 0, cuda, seed=T + hd)
+        want = getattr(ref, name.replace("_scan", "_recurrence_plain"))(
+            *args)
+        model = (ref.mlstm_chunked_plain(*args) if name == "mlstm_scan"
+                 else None)
+        for route in routes:
+            n0 = dict(ops.LAUNCHES)
+            got = getattr(ssm_scan, name + "_cuda")(*args, _route=route)
+            torch.cuda.synchronize()
+            assert ops.LAUNCHES[name] == n0[name] + 1
+            for c in _ROUTE_COUNTER.values():
+                assert ops.LAUNCHES[c] == n0[c] + int(
+                    _ROUTE_COUNTER.get(route) == c)
+            assert len(got) == len(want)
+            for g, w in zip(got, want):
+                assert g.shape == w.shape and bool(torch.isfinite(g).all())
+                assert float((g - w).abs().max()) <= 1e-4 * float(
+                    w.abs().max())
+            if route == "chunked":
+                for g, m in zip(got, model):
+                    assert float((g - m).abs().max()) <= 1e-5 * float(
+                        m.abs().max())
+
+
+@pytest.mark.cuda
+def test_mlstm_and_slstm_forward_ops_take_their_rules_kernels(cuda):
+    """The ops take their rules' kernels: S2 the chunked one at T = 64 and
+    the sequential one at T = 1 (hd 32), S3 its short step at both; the
+    routed call equals the forced one bitwise."""
+    from repro_torch.kernels import ssm_scan
+
+    for T, route in ((64, "chunked"), (1, "sequential")):
+        assert ssm_scan.mlstm_fwd_route(T, 32) == route
+        for name, forced in (("mlstm_scan", route), ("slstm_scan", "short")):
+            args = _scan_operands(name, 2, T, 2, 32, 0, cuda)
+            n0 = dict(ops.LAUNCHES)
+            out = getattr(ssm_scan, name)(*args)
+            torch.cuda.synchronize()
+            for c in _ROUTE_COUNTER.values():
+                assert ops.LAUNCHES[c] == n0[c] + int(
+                    _ROUTE_COUNTER.get(forced) == c
+                    and c.startswith(name[:5]))
+            for a, b in zip(out, getattr(ssm_scan, name + "_cuda")(
+                    *args, _route=forced)):
+                assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_forward_routes_raise_and_never_fall_back(cuda):
+    """A forced S2 or S3 kernel that does not take the widths, or an
+    unknown route, raises before any launch; a launch error (the chunked
+    S2's entry refuses a chunk length other than its own) raises too;
+    neither counts a launch."""
+    from repro_torch.kernels import build, ssm_scan
+
+    before = dict(ops.LAUNCHES)
+    args = _scan_operands("mlstm_scan", 1, 32, 2, 16, 0, cuda)
+    with pytest.raises(ValueError, match="chunked kernel"):
+        ssm_scan.mlstm_scan_cuda(*args, _route="chunked")
+    with pytest.raises(ValueError, match="no S2 route"):
+        ssm_scan.mlstm_scan_cuda(*args, _route="blocked")
+    args = _scan_operands("slstm_scan", 1, 4, 2, 24, 0, cuda)
+    for route in ssm_scan.SLSTM_ROUTES:
+        with pytest.raises(ValueError, match="no kernel"):
+            ssm_scan.slstm_scan_cuda(*args, _route=route)
+    args = _scan_operands("slstm_scan", 1, 4, 2, 32, 0, cuda)
+    with pytest.raises(ValueError, match="no S3 route"):
+        ssm_scan.slstm_scan_cuda(*args, _route="cluster")
+    args = _scan_operands("mlstm_scan", 1, 32, 2, 32, 0, cuda)
+    outs = tuple(torch.empty_like(x) for x in (args[0], *args[5:]))
+    with pytest.raises(RuntimeError, match="mlstm_scan failed"):
+        ssm_scan._run("mlstm_scan", args[0], (
+            build.load().mlstm_chunked, args + outs,
+            (1, 32, 2, 32, ssm_scan.S2_CHUNK // 2)))
     assert ops.LAUNCHES == before
 
 

@@ -283,19 +283,20 @@ def test_forced_routes_refuse_before_any_launch():
 
 # ------------------------------------------------ scratch and the dry-run
 def test_backward_scratch_shapes():
-    """S2b's scratch on each route at xlstm-125m's (4, 1024, 4, 192): both
-    keep C, n and m every 16 steps (the saving forward's); the chunked
-    route adds m_t and 7 tiles (6 of v, 1 of n) of dq, dk, d f and d i
-    partials, the sequential one its recompute scratch and 6 slices of
-    partials."""
+    """S2b's scratch on each route at xlstm-125m's (4, 1024, 4, 192): the
+    chunked route keeps C, n and m before every chunk of 32 steps (its
+    saving forward's, one checkpoint a chunk), m_t and 7 tiles (6 of v, 1
+    of n) of dq, dk, d f and d i partials; the sequential one C, n and m
+    every 16 steps, its recompute scratch and 6 slices of partials."""
     sc = ssm_scan.mlstm_bwd_scratch(4, 1024, 4, 192)
-    assert sc == {"C": (4, 4, 64, 192, 192), "n": (4, 4, 64, 192),
-                  "m": (4, 4, 64), "mt": (4, 1024, 4),
+    assert sc == {"C": (4, 4, 32, 192, 192), "n": (4, 4, 32, 192),
+                  "m": (4, 4, 32), "mt": (4, 1024, 4),
                   "dq": (7, 4, 1024, 4, 192), "dk": (7, 4, 1024, 4, 192),
                   "dfi": (2, 7, 4, 1024, 4)}
-    assert ssm_scan.scratch_bytes(sc) == 328_929_280
+    assert ssm_scan.scratch_bytes(sc) == 253_036_544
     seq = ssm_scan.mlstm_bwd_scratch(4, 1024, 4, 192, "sequential")
     assert seq["dq"] == (6, 4, 1024, 4, 192) and "mt" not in seq
+    assert seq["C"] == (4, 4, 64, 192, 192)
     assert ssm_scan.scratch_bytes(seq) == 342_560_768
     assert ssm_scan.mlstm_bwd_scratch(4, 1, 4, 192) == \
         ssm_scan.mlstm_bwd_scratch(4, 1, 4, 192, "sequential")

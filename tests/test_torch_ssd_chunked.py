@@ -290,10 +290,11 @@ def test_backward_scratch_shapes():
     assert ssm_scan.mamba2_bwd_scratch(4, 1, 112, 64, 64) == \
         ssm_scan.mamba2_bwd_scratch(4, 1, 112, 64, 64, "sequential")
     # S2b at xlstm-125m's train_4k shard (16, 4096, 4, 192): the chunked
-    # route's 7 tiles of dq and dk partials against the sequential route's
+    # route's checkpoints a chunk of 32 steps and 7 tiles of dq and dk
+    # partials against the sequential route's checkpoints every 16 steps,
     # 6 slices and its recompute scratch.
     assert ssm_scan.scratch_bytes(ssm_scan.mlstm_bwd_scratch(
-        16, 4096, 4, 192)) == 5_262_868_480
+        16, 4096, 4, 192)) == 4_048_584_704
     assert ssm_scan.scratch_bytes(ssm_scan.mlstm_bwd_scratch(
         16, 4096, 4, 192, "sequential")) == 5_013_831_680
     assert ssm_scan.scratch_bytes(ssm_scan.slstm_bwd_scratch(

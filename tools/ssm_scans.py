@@ -1,28 +1,31 @@
 #!/usr/bin/env python3
-"""Hold the recurrence kernels S1-S3 (``csrc/ssm_scan.cu``, and S1's
-chunked kernel ``csrc/ssd_chunked.cu``) and their backward kernels
-S1b-S3b (``csrc/ssm_scan_bwd.cu``, S1b's chunked kernel in
-``ssd_chunked.cu``, S2b's in ``mlstm_chunked.cu``) to their plain twins
-on a card, and time them.
+"""Hold the recurrence kernels S1-S3 (``csrc/ssm_scan.cu``, and the
+chunked S1 and S2 in ``csrc/ssd_chunked.cu`` and ``csrc/mlstm_chunked.cu``)
+and their backward kernels S1b-S3b (``csrc/ssm_scan_bwd.cu``, S1b's chunked
+kernel in ``ssd_chunked.cu``, S2b's in ``mlstm_chunked.cu``) to their plain
+twins on a card, and time them.
 
-    python3 tools/ssm_scans.py [--no-time]
+    python3 tools/ssm_scans.py [--no-time] [--only OP ...]
 
 Builds the kernels with ``-Xptxas -v`` and prints the scan kernels'
 registers and spills, then, on seeded operands with a state carried in:
 S1 and S1b on both routes (``chip_smoke._mamba2_rows``: the chunked and
 the sequential kernels on the same tensors, against the sequential twins
 and the chunked model, with the T sweep), and S2, S3 and their backward
-(``chip_smoke._ssm_kernel_row``, ``_ssm_bwd_rows``: S2b's chunked and
-sequential kernels and S3b's short step and barrier kernel on the same
-tensors, seeded upstream gradients of every output, each launch timed
-alone, S2b's T sweep and S3b's latency floor, its walk's handshake alone
-under the cluster barrier and under the mbarrier): phase s's shapes
+(``chip_smoke._ssm_fwd_rows``, ``_ssm_bwd_rows``: S2's and S2b's chunked
+and sequential kernels and S3's and S3b's short step and barrier kernel
+on the same tensors, the chunked ones also against their models, seeded
+upstream gradients of every output, each backward launch timed alone,
+S2's and S2b's T sweeps and S3b's latency floor, its walk's handshake
+alone under the cluster barrier and under the mbarrier): phase s's shapes
 (zamba2-7b's Mamba2 at (B, T, H, ds, hd) = (4, 1024, 112, 64, 64),
 xlstm-125m's mLSTM and sLSTM at (4, 1024, 4, 192)) timed beside the
 plain version and the bound, and smaller widths untimed (the reduced
 configs' ds 16 and hd 16, which only the sequential kernels take; ds 32
-and hd 64 on both; hd 32). The card's name and power limit come first;
-one JSON line a case follows. Runs on a card only.
+and hd 64 on both; hd 32).  ``--only`` keeps the cases of the ops named
+after it (``mamba2_scan``, ``mlstm_scan``, ``slstm_scan``).  The card's
+name and power limit come first; one JSON line a case follows.  Runs on
+a card only.
 """
 from __future__ import annotations
 
@@ -85,12 +88,14 @@ def main(argv: list[str]) -> int:
     for line in cs._ptxas(build.build_log):
         if any(k in line for k in ("_scan_kernel", "_scan_bwd_kernel",
                                    "_gates_bwd_kernel", "_chunked_",
-                                   "_bwd_short_kernel", "slstm_dR_kernel",
+                                   "_short_kernel", "slstm_dR_kernel",
                                    "_handshake_kernel")):
             print("ptxas:", line, flush=True)
     gen = torch.Generator(device="cuda").manual_seed(25)
     with torch.inference_mode():
         for name, B, T, H, hd, ds, timed in CASES:
+            if "--only" in argv and name not in argv:
+                continue
             args = operands(name, B, T, H, hd, ds, gen)
             time_it = timed and "--no-time" not in argv
             if name == "mamba2_scan":
@@ -98,8 +103,10 @@ def main(argv: list[str]) -> int:
                 for row in rows.values():
                     print(json.dumps(row), flush=True)
                 continue
-            row = cs._ssm_kernel_row(name, args, "[ssm]", time_it=time_it)
-            print(json.dumps(row), flush=True)
+            rows = cs._ssm_fwd_rows(name, args, "[ssm]", time_it=time_it)
+            for key, row in rows.items():
+                print(json.dumps({key: row} if key == "sweep" else row),
+                      flush=True)
             rows = cs._ssm_bwd_rows(name + "_bwd", args, "[ssm]",
                                     time_it=time_it)
             for key, row in rows.items():
